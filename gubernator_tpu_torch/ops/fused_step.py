@@ -1,0 +1,123 @@
+"""Wrappers of the port's two CUDA kernels, with their launch counts.
+
+Port of `gubernator_tpu/ops/pallas_step.py` (`pallas_fused_step` :158)
+and of the eviction clear (`bucket_kernel.py:329 _clear_occupied_impl`):
+
+* `fused_step(state, pin)` — kernel K1 (csrc/fused_step.cu): one packed
+  round, state updated in place, returns the [5, W] int32 output.
+* `clear_occupied(meta, slots)` — kernel K2 (csrc/clear_occupied.cu):
+  clear the occupied bit at evicted slots, in place.
+
+A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
+PyTorch version in `ops.bucket_kernel`; any other device raises.  There
+is no fallback from a failed launch: the wrapper checks device, dtype,
+shape and contiguity, launches on the current stream, and raises if the
+launcher reports a CUDA error.  `launches[name]` counts kernel launches
+(and only those), so a run can show that its path went through them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gubernator_tpu_torch.ops import native_build
+from gubernator_tpu_torch.ops.bucket_kernel import (
+    PACKED_OUT_ROWS,
+    BucketState,
+    check_pin,
+    check_state,
+    clear_occupied_reference,
+    fused_step_reference,
+)
+
+# Kernel launches since the last reset_launches(), by kernel name.
+launches = {"fused_step": 0, "clear_occupied": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `cuda` unless the caller asks
+    for another (the tests pass "cpu").  Raises when CUDA is wanted but
+    absent — the port never carries on silently on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _check_cuda(t: torch.Tensor, what: str, dev: torch.device) -> None:
+    if t.device != dev:
+        raise ValueError(f"{what} is on {t.device}, expected {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def fused_step(state: BucketState, pin: torch.Tensor) -> torch.Tensor:
+    """One packed round: (state, pin int32 [16, W]) → pout int32 [5, W];
+    `state` is updated in place."""
+    dev = pin.device
+    if dev.type == "cpu":
+        return fused_step_reference(state, pin)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_step: unsupported device {dev}")
+    check_pin(pin)
+    cap = check_state(state)
+    _check_cuda(pin, "pin", dev)
+    for name, col in zip(BucketState._fields, state):
+        _check_cuda(col, f"state.{name}", dev)
+    width = pin.shape[1]
+    if width < 1:
+        raise ValueError("fused_step: empty pin")
+    lib = native_build.load("fused_step")
+    pout = torch.empty((PACKED_OUT_ROWS, width), dtype=torch.int32, device=dev)
+    cols = (ctypes.c_void_p * len(state))(*(c.data_ptr() for c in state))
+    with torch.cuda.device(dev):
+        rc = lib.guber_fused_step(
+            cols, cap, pin.data_ptr(), pout.data_ptr(), width, _stream(dev)
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_step kernel launch failed: cudaError {rc}")
+    launches["fused_step"] += 1
+    return pout
+
+
+def clear_occupied(meta: torch.Tensor, slots: torch.Tensor) -> None:
+    """Clear the occupied bit of `meta` (int32 [cap]) at each unique
+    slot of `slots` (int32 [n]) in [0, cap), in place."""
+    dev = meta.device
+    if dev.type == "cpu":
+        if slots.device != dev:
+            raise ValueError(f"slots is on {slots.device}, meta on {dev}")
+        clear_occupied_reference(meta, slots)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"clear_occupied: unsupported device {dev}")
+    if meta.dtype != torch.int32 or meta.dim() != 1:
+        raise ValueError("meta must be int32 [cap]")
+    if slots.dtype != torch.int32 or slots.dim() != 1 or slots.shape[0] < 1:
+        raise ValueError("slots must be int32 [n], n >= 1")
+    _check_cuda(meta, "meta", dev)
+    _check_cuda(slots, "slots", dev)
+    lib = native_build.load("clear_occupied")
+    with torch.cuda.device(dev):
+        rc = lib.guber_clear_occupied(
+            meta.data_ptr(), meta.shape[0], slots.data_ptr(), slots.shape[0], _stream(dev)
+        )
+    if rc != 0:
+        raise RuntimeError(f"clear_occupied kernel launch failed: cudaError {rc}")
+    launches["clear_occupied"] += 1

@@ -30,6 +30,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running soak, excluded from tier-1"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips elsewhere"
+    )
 
 
 @pytest.fixture
