@@ -137,12 +137,14 @@ def in_range_lanes(pin, cap: int) -> int:
 
 
 def k1_bound_ms(pin, cap: int) -> float:
-    """Least time for one K1 round: each input read once (pin 64 B/lane,
-    12 state words at each in-range slot), each output written once
-    (pout 20 B/lane, 12 state words per in-range slot), at peak HBM."""
+    """Least time for one K1 round: each input read once (rows 1-15 of
+    pin, 60 B/lane, plus the two `now` header words of row 0; 12 state
+    words at each in-range slot), each output written once (pout
+    20 B/lane, 12 state words per in-range slot), at peak HBM.  The rest
+    of row 0 is padding that neither the step nor the kernel reads."""
     width = pin.shape[1]
     n = in_range_lanes(pin, cap)
-    return (width * (64 + 20) + n * 48 * 2) / HBM_BYTES_PER_S * 1e3
+    return (width * (60 + 20) + 8 + n * 48 * 2) / HBM_BYTES_PER_S * 1e3
 
 
 def k2_bound_ms(slots, cap: int) -> float:

@@ -108,129 +108,51 @@ class DecisionEngine:
             return []
         responses: List[Optional[RateLimitResp]] = [None] * n
         now_dt = None
-        greg_dur = np.zeros(n, dtype=_I64)
-        greg_exp = np.zeros(n, dtype=_I64)
-        valid_idx: List[int] = []
+        greg_dur: List[int] = []
+        greg_exp: List[int] = []
+        valid: List[int] = []
         for i, r in enumerate(requests):
+            gd = ge = 0
             if int(r.behavior) & _GREG:
                 if now_dt is None:
                     # Civil time from the kernel's own `now` (a second
                     # clock read could land in another interval).
                     now_dt = dt_from_ms(now_ms)
                 try:
-                    greg_dur[i] = gregorian_duration(now_dt, r.duration)
-                    greg_exp[i] = gregorian_expiration(now_dt, r.duration)
+                    gd = gregorian_duration(now_dt, r.duration)
+                    ge = gregorian_expiration(now_dt, r.duration)
                 except GregorianError as e:
                     responses[i] = RateLimitResp(error=str(e))
                     continue
-            valid_idx.append(i)
+            valid.append(i)
+            greg_dur.append(gd)
+            greg_exp.append(ge)
 
+        if valid:
+            reqs = [requests[i] for i in valid]
+
+            def col(get, dtype):
+                return np.fromiter((get(r) for r in reqs), dtype=dtype, count=len(reqs))
+
+            limit = col(lambda r: r.limit, _I64)
+            status, rem, reset = self._apply(
+                [r.hash_key() for r in reqs],
+                (col(lambda r: int(r.algorithm), _I32), col(lambda r: int(r.behavior), _I32),
+                 col(lambda r: r.hits, _I64), limit, col(lambda r: r.duration, _I64),
+                 col(lambda r: r.burst, _I64), np.asarray(greg_dur, dtype=_I64),
+                 np.asarray(greg_exp, dtype=_I64)),
+                now_ms,
+            )
+            for i, st, lim, rm, rs in zip(
+                valid, status.tolist(), limit.tolist(), rem.tolist(), reset.tolist()
+            ):
+                responses[i] = RateLimitResp(
+                    status=_STATUS_OF[st], limit=lim, remaining=rm, reset_time=rs
+                )
         with self._lock:
-            self._apply_valid(requests, valid_idx, greg_dur, greg_exp, now_ms, responses)
             self.requests_total += n
             self.batches_total += 1
         return responses  # type: ignore[return-value]
-
-    def _apply_valid(self, requests, valid_idx, greg_dur, greg_exp, now_ms, responses):
-        if not valid_idx:
-            return
-        # Rounds: the k-th operation on a slot → round k.  An eviction
-        # clear is scheduled at its slot's current sequence number (after
-        # the evicted key's last request, before the reusing key's first).
-        rounds: dict[int, List[int]] = {}
-        clear_rounds: dict[int, List[int]] = {}
-        slots = np.empty(len(valid_idx), dtype=_I32)
-        seq: dict[int, int] = {}
-        for j, i in enumerate(valid_idx):
-            evicted: List[int] = []
-            slot = self.table.intern(requests[i].hash_key(), now_ms, evicted)
-            for es in evicted:
-                clear_rounds.setdefault(seq.get(es, 0), []).append(es)
-            k = seq.get(slot, 0)
-            seq[slot] = k + 1
-            rounds.setdefault(k, []).append(j)
-            slots[j] = slot
-
-        host_expire = np.zeros(len(valid_idx), dtype=_I64)
-        for k in sorted(rounds):
-            cleared = clear_rounds.get(k)
-            if cleared:
-                self._apply_clears(np.asarray(cleared, dtype=_I32))
-            members = rounds[k]
-            for lo in range(0, len(members), self.max_kernel_width):
-                self._run_round(
-                    requests, valid_idx, members[lo : lo + self.max_kernel_width],
-                    slots, greg_dur, greg_exp, now_ms, responses, host_expire,
-                )
-                self.rounds_total += 1
-        # Host TTL mirror for eviction accounting (device is authoritative).
-        self.table.set_expiry(slots, host_expire)
-
-    def _dispatch(self, buf: np.ndarray) -> torch.Tensor:
-        """One round on the device: the packed buffer up, one fused-step
-        launch; returns the [5, W] output still on the device."""
-        pin = torch.from_numpy(buf).to(self.device)
-        pout = fused_step(self._state, pin)
-        self.dispatches_total += 1
-        return pout
-
-    def _apply_clears(self, cleared: np.ndarray) -> None:
-        """Eviction clears: one K2 launch over the evicted slots, padded
-        to a pow2 width ≥ 16 with out-of-range `capacity + lane` lanes."""
-        csize = _pad_size(len(cleared), floor=16)
-        c = np.arange(self.capacity, self.capacity + csize, dtype=np.int64).astype(_I32)
-        c[: len(cleared)] = cleared
-        clear_occupied(self._state.meta, torch.from_numpy(c).to(self.device))
-        self.dispatches_total += 1
-
-    def _run_round(
-        self, requests, valid_idx, members, slots, greg_dur, greg_exp, now_ms,
-        responses, host_expire,
-    ) -> None:
-        m = len(members)
-        c_slot = np.empty(m, dtype=_I32)
-        c_algo = np.empty(m, dtype=_I32)
-        c_beh = np.empty(m, dtype=_I32)
-        c_hits = np.empty(m, dtype=_I64)
-        c_limit = np.empty(m, dtype=_I64)
-        c_dur = np.empty(m, dtype=_I64)
-        c_burst = np.empty(m, dtype=_I64)
-        c_gdur = np.empty(m, dtype=_I64)
-        c_gexp = np.empty(m, dtype=_I64)
-        for lane, j in enumerate(members):
-            i = valid_idx[j]
-            r = requests[i]
-            c_slot[lane] = slots[j]
-            c_algo[lane] = int(r.algorithm)
-            beh = int(r.behavior)
-            c_beh[lane] = beh
-            c_hits[lane] = r.hits
-            c_limit[lane] = r.limit
-            c_dur[lane] = r.duration
-            c_burst[lane] = r.burst
-            c_gdur[lane] = greg_dur[i]
-            c_gexp[lane] = greg_exp[i]
-            host_expire[j] = greg_exp[i] if beh & _GREG else now_ms + r.duration
-
-        sort_idx = np.argsort(c_slot, kind="stable")
-        buf = pack_batch_host(
-            _pad_size(m), now_ms, self.capacity,
-            np.ascontiguousarray(c_slot[sort_idx]),
-            c_algo[sort_idx], c_beh[sort_idx], c_hits[sort_idx], c_limit[sort_idx],
-            c_dur[sort_idx], c_burst[sort_idx], c_gdur[sort_idx], c_gexp[sort_idx],
-        )
-        o_status, o_rem, o_reset = unpack_out_host(self._dispatch(buf).cpu().numpy(), m)
-        over = 0
-        for pos, sj in enumerate(sort_idx.tolist()):
-            st = int(o_status[pos])
-            over += st == _OVER_I
-            responses[valid_idx[members[sj]]] = RateLimitResp(
-                status=_STATUS_OF[st],
-                limit=int(c_limit[sj]),
-                remaining=int(o_rem[pos]),
-                reset_time=int(o_reset[pos]),
-            )
-        self.over_limit_total += over
 
     # ------------------------------------------------------------------
     # Columnar path: keys + numpy columns in, numpy columns out.
@@ -253,15 +175,34 @@ class DecisionEngine:
         n = len(keys)
         if now_ms is None:
             now_ms = self.clock.now_ms()
-        greg_mask = (behavior & _GREG) != 0
         greg_dur = np.zeros(n, dtype=_I64)
         greg_exp = np.zeros(n, dtype=_I64)
-        if greg_mask.any():
+        greg_idx = np.nonzero((behavior & _GREG) != 0)[0]
+        if len(greg_idx):
             now_dt = dt_from_ms(now_ms)
-            for i in np.nonzero(greg_mask)[0]:
+            for i in greg_idx:
                 greg_dur[i] = gregorian_duration(now_dt, int(duration[i]))
                 greg_exp[i] = gregorian_expiration(now_dt, int(duration[i]))
+        o_status, o_rem, o_reset = self._apply(
+            [k.decode() for k in keys],
+            (algo, behavior, hits, limit, duration, burst, greg_dur, greg_exp),
+            now_ms,
+        )
+        with self._lock:
+            self.requests_total += n
+            self.batches_total += 1
+        return o_status, limit, o_rem, o_reset
 
+    def _apply(self, keys: List[str], cols, now_ms: int):
+        """The decision path of both entry points.  `cols` are the valid
+        items' request columns (algo, behavior, hits, limit, duration,
+        burst, greg_duration, greg_expire); returns (status int32,
+        remaining int64, reset_time int64) in request order.
+
+        Rounds: the k-th operation on a slot goes to round k.  An eviction
+        clear is scheduled at its slot's current sequence number (after
+        the evicted key's last request, before the reusing key's first)."""
+        n = len(keys)
         with self._lock:
             slots = np.empty(n, dtype=_I32)
             rounds_arr = np.empty(n, dtype=_I32)
@@ -269,21 +210,18 @@ class DecisionEngine:
             clear_by_round: dict[int, List[int]] = {}
             for j, key in enumerate(keys):
                 evicted: List[int] = []
-                slot = self.table.intern(key.decode(), now_ms, evicted)
+                slot = self.table.intern(key, now_ms, evicted)
                 for es in evicted:
                     clear_by_round.setdefault(seq.get(es, 0), []).append(es)
                 k = seq.get(slot, 0)
                 seq[slot] = k + 1
                 slots[j] = slot
                 rounds_arr[j] = k
-            pieces = self._dispatch_rounds(
-                slots, rounds_arr, (algo, behavior, hits, limit, duration, burst,
-                                    greg_dur, greg_exp), now_ms, clear_by_round,
-            )
-            expires = np.where(greg_mask, greg_exp, now_ms + duration)
+            pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms, clear_by_round)
+            # Host TTL mirror for eviction accounting (device is authoritative).
+            behavior, duration, greg_exp = cols[1], cols[4], cols[7]
+            expires = np.where((behavior & _GREG) != 0, greg_exp, now_ms + duration)
             self.table.set_expiry(slots, expires.astype(_I64))
-            self.requests_total += n
-            self.batches_total += 1
 
         o_status = np.empty(n, dtype=np.int32)
         o_rem = np.empty(n, dtype=_I64)
@@ -296,7 +234,24 @@ class DecisionEngine:
             o_reset[dst_idx] = rst
         with self._lock:
             self.over_limit_total += int(np.sum(o_status == _OVER_I))
-        return o_status, limit, o_rem, o_reset
+        return o_status, o_rem, o_reset
+
+    def _dispatch(self, buf: np.ndarray) -> torch.Tensor:
+        """One round on the device: the packed buffer up, one fused-step
+        launch; returns the [5, W] output still on the device."""
+        pin = torch.from_numpy(buf).to(self.device)
+        pout = fused_step(self._state, pin)
+        self.dispatches_total += 1
+        return pout
+
+    def _apply_clears(self, cleared: np.ndarray) -> None:
+        """Eviction clears: one K2 launch over the evicted slots, padded
+        to a pow2 width ≥ 16 with out-of-range `capacity + lane` lanes."""
+        csize = _pad_size(len(cleared), floor=16)
+        c = np.arange(self.capacity, self.capacity + csize, dtype=np.int64).astype(_I32)
+        c[: len(cleared)] = cleared
+        clear_occupied(self._state.meta, torch.from_numpy(c).to(self.device))
+        self.dispatches_total += 1
 
     def _dispatch_rounds(self, slots, rounds_arr, cols, now_ms, clear_by_round):
         """Launch every round of a columnar batch (clears first, wide

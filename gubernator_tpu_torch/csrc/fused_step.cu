@@ -29,9 +29,10 @@
 //    products) runs in uint64_t and is cast back: two's complement wrap,
 //    as in the reference.
 //
-// Bound.  Per lane the step must move 64 B of pin, 48 B of state read,
-// 48 B of state written and 20 B of pout: 180 B, 180 KB for a W = 1000
-// round, about 54 ns at 3.35 TB/s.  At serving widths the launch itself
+// Bound.  Per lane the step must move 60 B of pin (rows 1-15; row 0 is
+// only the 8 B `now` header), 48 B of state read, 48 B of state written
+// and 20 B of pout: 176 B, about 176 KB for a W = 1000 round, about 53 ns
+// at 3.35 TB/s.  At serving widths the launch itself
 // (a few microseconds) is the cost; the random 4 B state accesses also
 // touch a 32 B sector per column (768 B/lane of real traffic).
 
