@@ -3,15 +3,20 @@
 Port of `gubernator_tpu/core/engine.py:322 DecisionEngine`:
 
   host: key interning (key string → slot) + per-key rounds + packing
-  device: one fused-step kernel launch per round (ops/fused_step.py)
+  device: one multi-round fused-step launch per batch (ops/fused_step.py)
 
 Per-key serialization is kept by splitting a batch into rounds: request
 i goes to round k if it is the k-th occurrence of its key within the
-batch, so each launch sees a slot at most once and duplicate keys apply
-in arrival order.  Eviction clears run (kernel K2) just before the round
-whose slot sequence they belong to.  The host sorts each round by slot
-and packs it into one int32 [16, W] buffer; padding lanes hold
-`capacity + lane`; W rides the pow2 ladder 64 … `max_kernel_width`.
+batch, so each round sees a slot at most once and duplicate keys apply
+in arrival order.  Eviction clears belong to the round whose slot
+sequence they precede.  The host sorts each round by slot and packs all
+of the batch's rounds, their lane offsets and their clears into one
+int32 buffer (`ops.bucket_kernel.pack_rounds_host`; each round padded to
+a multiple of 32 lanes with `capacity + j`, a round wider than
+`max_kernel_width` split into sub-rounds).  One copy takes it to the
+device, one launch of kernel K1 runs every round in order with its
+clears as the round's prologue, and one readback brings the [5, L]
+output home.
 
 Not in this slice: the pump, the hot-key collapse, the uniform narrow
 format, paging, the write-through store, restore, sweep and the ledger.
@@ -39,10 +44,11 @@ from gubernator_tpu_torch.gregorian import (
 from gubernator_tpu_torch.ops.bucket_kernel import (
     BucketState,
     make_state,
-    pack_batch_host,
+    pack_rounds_host,
+    split_rounds,
     unpack_out_host,
 )
-from gubernator_tpu_torch.ops.fused_step import clear_occupied, fused_step, resolve_device
+from gubernator_tpu_torch.ops.fused_step import multi_fused_step, resolve_device
 from gubernator_tpu_torch.types import Behavior, RateLimitReq, RateLimitResp, Status
 
 _I32 = np.int32
@@ -50,14 +56,6 @@ _I64 = np.int64
 _GREG = int(Behavior.DURATION_IS_GREGORIAN)
 _OVER_I = int(Status.OVER_LIMIT)
 _STATUS_OF = {int(s): s for s in Status}
-
-
-def _pad_size(n: int, floor: int = 64) -> int:
-    """Next power of two ≥ n (reference engine.py:75)."""
-    size = floor
-    while size < n:
-        size *= 2
-    return size
 
 
 class DecisionEngine:
@@ -78,16 +76,18 @@ class DecisionEngine:
         self.table = InternTable(capacity)
         self._state: BucketState = make_state(capacity, self.device)
         self._lock = threading.RLock()
-        # "cuda": rounds run kernel K1 (clears K2); "torch-cpu": their
-        # plain PyTorch versions.
+        # "cuda": batches run kernel K1; "torch-cpu": its plain PyTorch
+        # version.
         self.fused_mode = "cuda" if self.device.type == "cuda" else "torch-cpu"
         self.requests_total = 0
         self.over_limit_total = 0
         self.batches_total = 0
+        # Rounds and sub-rounds run (all of a batch's in one launch).
         self.rounds_total = 0
-        # Every device program the serving path launches (fused steps
-        # and clears); one per round in steady state.
+        # Every device program the serving path launches: one per batch.
         self.dispatches_total = 0
+        # Eviction clears run as a round's prologue inside K1.
+        self.clears_total = 0
 
     @property
     def state(self) -> BucketState:
@@ -203,6 +203,8 @@ class DecisionEngine:
         clear is scheduled at its slot's current sequence number (after
         the evicted key's last request, before the reusing key's first)."""
         n = len(keys)
+        if n == 0:
+            return np.empty(0, np.int32), np.empty(0, _I64), np.empty(0, _I64)
         with self._lock:
             slots = np.empty(n, dtype=_I32)
             rounds_arr = np.empty(n, dtype=_I32)
@@ -217,69 +219,63 @@ class DecisionEngine:
                 seq[slot] = k + 1
                 slots[j] = slot
                 rounds_arr[j] = k
-            pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms, clear_by_round)
+            pout, lanes, order = self._dispatch_rounds(
+                slots, rounds_arr, cols, now_ms, clear_by_round
+            )
             # Host TTL mirror for eviction accounting (device is authoritative).
             behavior, duration, greg_exp = cols[1], cols[4], cols[7]
             expires = np.where((behavior & _GREG) != 0, greg_exp, now_ms + duration)
             self.table.set_expiry(slots, expires.astype(_I64))
 
+        # One readback of the whole batch; lane `lanes[j]` answers request
+        # `order[j]`.
+        out = pout.cpu().numpy()[:, lanes]
+        st, rem, rst = unpack_out_host(out, n)
         o_status = np.empty(n, dtype=np.int32)
         o_rem = np.empty(n, dtype=_I64)
         o_reset = np.empty(n, dtype=_I64)
-        # All rounds are queued on the device; read them back in order.
-        for pout, dst_idx, m in pieces:
-            st, rem, rst = unpack_out_host(pout.cpu().numpy(), m)
-            o_status[dst_idx] = st
-            o_rem[dst_idx] = rem
-            o_reset[dst_idx] = rst
+        o_status[order] = st
+        o_rem[order] = rem
+        o_reset[order] = rst
         with self._lock:
             self.over_limit_total += int(np.sum(o_status == _OVER_I))
         return o_status, o_rem, o_reset
 
-    def _dispatch(self, buf: np.ndarray) -> torch.Tensor:
-        """One round on the device: the packed buffer up, one fused-step
-        launch; returns the [5, W] output still on the device."""
-        pin = torch.from_numpy(buf).to(self.device)
-        pout = fused_step(self._state, pin)
-        self.dispatches_total += 1
-        return pout
-
-    def _apply_clears(self, cleared: np.ndarray) -> None:
-        """Eviction clears: one K2 launch over the evicted slots, padded
-        to a pow2 width ≥ 16 with out-of-range `capacity + lane` lanes."""
-        csize = _pad_size(len(cleared), floor=16)
-        c = np.arange(self.capacity, self.capacity + csize, dtype=np.int64).astype(_I32)
-        c[: len(cleared)] = cleared
-        clear_occupied(self._state.meta, torch.from_numpy(c).to(self.device))
-        self.dispatches_total += 1
-
     def _dispatch_rounds(self, slots, rounds_arr, cols, now_ms, clear_by_round):
-        """Launch every round of a columnar batch (clears first, wide
-        rounds chunked to max_kernel_width); returns [(pout on device,
-        request indices of the sorted lanes, lane count)]."""
-        n = len(slots)
+        """Pack every round of a batch (sorted by slot, wide rounds split
+        into sub-rounds of at most max_kernel_width lanes, each round's
+        clears before it) into one buffer, copy it to the device once and
+        launch K1 once.  Returns (pout [5, L] on the device, the lane of
+        each request in `order`, `order`: request indices round-major)."""
         order = np.argsort(rounds_arr, kind="stable")
         uniq, starts = np.unique(rounds_arr[order], return_index=True)
-        bounds = list(starts) + [n]
-        pieces = []
+        bounds = list(starts) + [len(slots)]
+        counts: List[int] = []
+        clears: List[List[int]] = []
+        parts: List[np.ndarray] = []
         for r, k in enumerate(uniq.tolist()):
-            cleared = clear_by_round.get(k)
-            if cleared:
-                self._apply_clears(np.asarray(cleared, dtype=_I32))
             members = order[bounds[r] : bounds[r + 1]]
+            cleared = clear_by_round.get(k, [])
             for lo in range(0, len(members), self.max_kernel_width):
                 chunk = members[lo : lo + self.max_kernel_width]
-                c_slot = slots[chunk]
-                sort_idx = np.argsort(c_slot, kind="stable")
-                lanes = chunk[sort_idx]
-                buf = pack_batch_host(
-                    _pad_size(len(chunk)), now_ms, self.capacity,
-                    np.ascontiguousarray(c_slot[sort_idx], dtype=_I32),
-                    *(a[lanes] for a in cols),
-                )
-                pieces.append((self._dispatch(buf), lanes, len(chunk)))
-                self.rounds_total += 1
-        return pieces
+                parts.append(chunk[np.argsort(slots[chunk], kind="stable")])
+                counts.append(len(chunk))
+                clears.append(cleared if lo == 0 else [])
+        order = np.concatenate(parts)
+        packed = pack_rounds_host(
+            now_ms, self.capacity, counts, slots[order], [a[order] for a in cols], clears
+        )
+        flat = torch.from_numpy(packed.buf).to(self.device)
+        pin, round_off, clear_off, clear_slots = split_rounds(
+            flat, packed.pin.shape[1], len(counts)
+        )
+        pout = multi_fused_step(
+            self._state, pin, round_off, clear_off, clear_slots, widest=packed.widest
+        )
+        self.dispatches_total += 1
+        self.rounds_total += len(counts)
+        self.clears_total += sum(len(c) for c in clears)
+        return pout, packed.lanes, order
 
     # ------------------------------------------------------------------
 

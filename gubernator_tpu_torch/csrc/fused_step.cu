@@ -1,23 +1,55 @@
-// K1: the fused bucket decision step for Hopper (sm_90a).
+// K1: the fused bucket decision step for Hopper (sm_90a), all of a
+// batch's rounds in one cooperative launch.
 //
 // Replaces gubernator_tpu/ops/pallas_step.py:67 `_fused_kernel` (the
 // Pallas kernel, reached through `pallas_fused_step` :158), whose XLA
-// twin is gubernator_tpu/ops/bucket_kernel.py:1044 `_fused_step_core`.
-// One launch runs a whole packed round: per lane, gather the slot's 12
-// state words (zero when the slot is outside [0, cap)), run the token /
-// leaky update (`update_lanes` :514), encode the new words
-// (`encode_slot_values` :781), store them in place where the slot is in
-// range, and emit the [5, W] status / remaining / reset words.  The
+// twin is gubernator_tpu/ops/bucket_kernel.py:1044 `_fused_step_core`,
+// together with its multi-round form `_multi_fused_core` (:1071) and the
+// engine's per-round eviction clear `_clear_occupied_impl` (:329; the
+// reference engine runs it just before the round, core/engine.py:1185).
+// Per round r: clear meta bit 0 at round r's in-range clear slots; then
+// per lane, gather the slot's 12 state words (zero when the slot is
+// outside [0, cap)), run the token / leaky update (`update_lanes` :514),
+// encode the new words (`encode_slot_values` :781), store them in place
+// where the slot is in range, and emit the lane's 5 pout words.  The
 // plain PyTorch version is gubernator_tpu_torch/ops/bucket_kernel.py
-// `fused_step_reference`; the two are bit-equal.
+// `multi_fused_step_reference`; the two are bit-equal.
 //
-// Design.  One thread per lane, ceil(W / 128) blocks.  The host's rounds
-// put each slot in a round at most once, so a lane's read-modify-write of
-// its 12 words races with no other lane and no sort is needed on the
-// device.  The lane math is the reference's branch-free select chain,
-// transcribed term for term: every path is computed and the lane's path
-// picks, so padding lanes (zero words, zero request) compute exactly
-// what the reference computes for them.
+// Input.  pin int32 [16, L] holds the R rounds one after another along
+// the lanes; round r owns lanes [round_off[r], round_off[r+1]), sorted by
+// slot, each slot at most once; the `now` header is row 0, lanes 0-1.
+// Clears come in CSR form: round r's are clear_slots[clear_off[r] ..
+// clear_off[r+1]).
+//
+// Design.  What costs at serving widths is the fixed cost of a launch and
+// of the host round trip around it, paid once per round when each round
+// was its own launch; the bytes are ~0.05 us of a 1000-lane round.  So:
+//  * One launch per batch.  A persistent cooperative grid
+//    (cudaLaunchCooperativeKernel), sized min(ceil(widest round / T),
+//    co-resident blocks), runs every round in order; its blocks
+//    grid-stride over each round's lanes.  grid.sync() orders round r's
+//    stores before round r+1's gathers (a slot may recur in every round),
+//    and a round's clears before its gathers; clear_off is known to every
+//    block, so the extra barrier of a round with clears is uniform.
+//  * Small blocks (T = 64 threads), so a 1000-lane round spreads over 16
+//    SMs, not 8.  T = 32 and 128 were measured too: 64 was fastest on
+//    the engine's typical batch of several rounds.
+//  * The next round's request words are on chip before the barrier
+//    ends.  While a block computes one chunk of lanes, each thread copies
+//    its lane of the next chunk (the block's next lanes, usually in the
+//    next round) -- the 15 request rows, slot first -- into a
+//    double-buffered shared-memory tile with `cp.async` (4 B a thread a
+//    row: a warp moves one aligned 128 B line a row, since rounds are
+//    padded to 32 lanes).  Each thread reads only its own column of the
+//    tile, so the copy needs a per-thread `cp.async.wait_group` and no
+//    block barrier.  After grid.sync() the lane's slot is in shared memory
+//    and its 12 state gathers issue at once.
+//  * State gathers go through L2 only (`__ldcg`): words written by other
+//    SMs in an earlier round are never read from a stale L1 line.
+// The lane math is the reference's branch-free select chain, transcribed
+// term for term: every path is computed and the lane's path picks, so
+// padding lanes (zero words, zero request) compute exactly what the
+// reference computes for them, write pout, and store nothing.
 //
 // Exactness against the reference (XLA:CPU):
 //  * f64 division is IEEE `/`; built with -fmad=false, so no multiply-add
@@ -29,20 +61,25 @@
 //    products) runs in uint64_t and is cast back: two's complement wrap,
 //    as in the reference.
 //
-// Bound.  Per lane the step must move 60 B of pin (rows 1-15; row 0 is
-// only the 8 B `now` header), 48 B of state read, 48 B of state written
-// and 20 B of pout: 176 B, about 176 KB for a W = 1000 round, about 53 ns
-// at 3.35 TB/s.  At serving widths the launch itself
-// (a few microseconds) is the cost; the random 4 B state accesses also
-// touch a 32 B sector per column (768 B/lane of real traffic).
+// Bound.  Per lane the step must move 60 B of pin (rows 1-15) and 20 B of
+// pout, and per in-range lane 48 B of state read and 48 B written; plus
+// the 8 B `now` header once and 12 B per in-range clear (slot, meta read,
+// meta written).  A 1000-lane round is about 176 KB, ~53 ns at 3.35 TB/s.
+// The random 4 B state accesses touch a 32 B sector per column (768 B a
+// lane of real traffic), and each round adds a grid barrier.
 
+#include <atomic>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kCols = 12;
-constexpr int kThreads = 128;
+constexpr int kReqRows = 15;  // pin rows 1-15: slot and the request fields
+constexpr int kThreads = 64;  // threads per block (T)
 constexpr int64_t kTsClampMax = (int64_t(1) << 43) - 1;
 constexpr int32_t kHi11 = 0x7FF;
 constexpr int32_t kOver = 1;
@@ -79,24 +116,37 @@ __device__ __forceinline__ int64_t clamp_ts(int64_t v) {
 }
 __device__ __forceinline__ int64_t f2i64(double x) { return __double2ll_rz(x); }
 
-__global__ void __launch_bounds__(kThreads)
-fused_step_kernel(Cols st, long long cap, const int32_t* __restrict__ pin,
-                  int32_t* __restrict__ pout, int width) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= width) return;
-  const size_t w = (size_t)width;
-  auto row = [&](int r) { return __ldg(pin + (size_t)r * w + lane); };
+__device__ __forceinline__ void cp_async4(int32_t* smem, const int32_t* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most one of this thread's copy groups is still in flight.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One lane of one round: `req` is the lane's column of the request tile
+// (pin rows 1-15, `stride` words apart); writes the lane's pout words and,
+// for an in-range slot, its 12 state words.
+__device__ __forceinline__ void step_lane(const Cols& st, long long cap, int64_t now,
+                                          const int32_t* req, int stride, int lane,
+                                          int32_t* __restrict__ pout, size_t w) {
+  auto row = [&](int r) { return req[(r - 1) * stride]; };
   auto row64 = [&](int hr, int lr) { return combine(row(hr), row(lr)); };
 
-  // `now` is header data: row 0, lanes 0-1.
-  const int64_t now = combine(__ldg(pin), __ldg(pin + 1));
   const int32_t slot = row(1);
   const bool valid = slot >= 0 && (long long)slot < cap;
 
-  // ---- gather (fill 0 outside [0, cap))
+  // ---- gather (fill 0 outside [0, cap)), through L2 only
   int32_t g[kCols];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) g[c] = valid ? st.p[c][slot] : 0;
+  for (int c = 0; c < kCols; ++c) g[c] = valid ? __ldcg(st.p[c] + slot) : 0;
 
   const int32_t r_algo = row(2) != 0 ? 1 : 0;
   const int32_t r_beh = row(3);
@@ -291,17 +341,143 @@ fused_step_kernel(Cols st, long long cap, const int32_t* __restrict__ pin,
   pout[4 * w + lane] = lo_word(resp_reset);
 }
 
+// The lanes [lo, hi) of round r that one block handles in one pass.
+struct Chunk {
+  int r, lo, hi;
+};
+
+__global__ void __launch_bounds__(kThreads)
+multi_fused_step_kernel(Cols st, long long cap, const int32_t* __restrict__ pin, int width,
+                        const int32_t* __restrict__ round_off, int n_rounds,
+                        const int32_t* __restrict__ clear_off,
+                        const int32_t* __restrict__ clear_slots, int n_clear,
+                        int32_t* __restrict__ pout) {
+  constexpr int T = kThreads;
+  __shared__ int32_t tile[2][kReqRows][T];
+  cg::grid_group grid = cg::this_grid();
+  const size_t w = (size_t)width;
+  const int tid = threadIdx.x;
+  const int stride = (int)gridDim.x * T;
+  // Offsets are clamped, so a malformed call cannot reach past pin/pout.
+  auto roff = [&](int r) {
+    const int v = __ldg(round_off + r);
+    return v < 0 ? 0 : (v > width ? width : v);
+  };
+  auto coff = [&](int r) {
+    const int v = __ldg(clear_off + r);
+    return v < 0 ? 0 : (v > n_clear ? n_clear : v);
+  };
+  // This block's first chunk in round r or later ({n_rounds, ...}: none).
+  auto first_from = [&](int r) -> Chunk {
+    for (; r < n_rounds; ++r) {
+      const int lo = roff(r) + (int)blockIdx.x * T;
+      const int hi = roff(r + 1);
+      if (lo < hi) return {r, lo, hi};
+    }
+    return {n_rounds, 0, 0};
+  };
+  auto next_of = [&](const Chunk& c) -> Chunk {
+    return c.lo + stride < c.hi ? Chunk{c.r, c.lo + stride, c.hi} : first_from(c.r + 1);
+  };
+  // Copy this thread's lane of chunk c (rows 1-15) into tile[buf].
+  auto prefetch = [&](const Chunk& c, int buf) {
+    const int lane = c.lo + tid;
+    if (c.r < n_rounds && lane < c.hi) {
+#pragma unroll
+      for (int k = 0; k < kReqRows; ++k)
+        cp_async4(&tile[buf][k][tid], pin + (size_t)(k + 1) * w + lane);
+    }
+    cp_async_commit();
+  };
+
+  // The header and the first offsets load together, ahead of the copies;
+  // each later round's clear bound loads before the barrier it follows.
+  const int64_t now = combine(__ldg(pin), __ldg(pin + 1));
+  int c_lo = coff(0), c_hi = coff(1);
+  Chunk cur = first_from(0);
+  prefetch(cur, 0);
+  int buf = 0;
+  for (int r = 0; r < n_rounds; ++r) {
+    if (c_hi > c_lo) {  // uniform across the grid
+      for (int i = c_lo + (int)blockIdx.x * T + tid; i < c_hi; i += stride) {
+        const int32_t s = __ldg(clear_slots + i);
+        if (s >= 0 && (long long)s < cap) st.p[kMeta][s] = __ldcg(st.p[kMeta] + s) & ~1;
+      }
+      grid.sync();
+    }
+    while (cur.r == r) {
+      const Chunk nxt = next_of(cur);
+      prefetch(nxt, buf ^ 1);
+      cp_async_wait_prior();  // this thread's copy of `cur` has landed
+      const int lane = cur.lo + tid;
+      if (lane < cur.hi) step_lane(st, cap, now, &tile[buf][0][tid], T, lane, pout, w);
+      cur = nxt;
+      buf ^= 1;
+    }
+    if (r + 1 < n_rounds) {
+      c_lo = c_hi;
+      c_hi = coff(r + 2);
+      grid.sync();
+    }
+  }
+  cp_async_wait_all();
+}
+
+// Blocks of K1 that fit on device `dev` at once, read once per device
+// (0: not read yet); cooperative launch support is checked with it.
+std::atomic<int> g_resident[64];
+
+cudaError_t resident_blocks(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  int n = g_resident[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e != cudaSuccess) return e;
+    if (!coop) return cudaErrorNotSupported;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, multi_fused_step_kernel,
+                                                        kThreads, 0);
+    if (e != cudaSuccess) return e;
+    n = per_sm * sms;
+    if (n < 1) return cudaErrorCooperativeLaunchTooLarge;
+    g_resident[dev].store(n, std::memory_order_relaxed);
+  }
+  *out = n;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // cols: 12 device pointers in BucketState field order; pin int32
-// [16, width]; pout int32 [5, width]; stream: a cudaStream_t.  Returns
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int guber_fused_step(void* const* cols, long long cap, const void* pin,
-                                void* pout, int width, void* stream) {
+// [16, width]; round_off / clear_off int32 [n_rounds + 1]; clear_slots int32
+// [n_clear]; pout int32 [5, width]; widest: the widest round's lanes;
+// stream: a cudaStream_t.  The grid is min(ceil(widest / T), co-resident
+// blocks), at least 1.
+// Returns 0 once the cooperative kernel is launched, else the cudaError
+// (a refused launch is not retried in another form).
+extern "C" int guber_multi_fused_step(void* const* cols, long long cap, const void* pin,
+                                      int width, const void* round_off, int n_rounds,
+                                      const void* clear_off, const void* clear_slots,
+                                      int n_clear, void* pout, int widest, void* stream) {
+  if (width < 1 || n_rounds < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int resident = 0;
+  cudaError_t e = resident_blocks(&resident);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int grid = (widest + kThreads - 1) / kThreads;
+  if (grid > resident) grid = resident;
+  if (grid < 1) grid = 1;
   Cols c;
   for (int i = 0; i < kCols; ++i) c.p[i] = static_cast<int32_t*>(cols[i]);
-  const int blocks = (width + kThreads - 1) / kThreads;
-  fused_step_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      c, cap, static_cast<const int32_t*>(pin), static_cast<int32_t*>(pout), width);
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&c, &cap, &pin, &width, &round_off, &n_rounds,
+                  &clear_off, &clear_slots, &n_clear, &pout};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&multi_fused_step_kernel),
+                                  dim3(grid), dim3(kThreads), args, 0,
+                                  static_cast<cudaStream_t>(stream));
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
 }

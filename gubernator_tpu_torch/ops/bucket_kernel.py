@@ -15,12 +15,16 @@ reference; this module imports none of it).  Three parts:
 * **Host helpers.**  numpy copies of the packed-buffer and state
   packing helpers (`pack_batch_host`, `unpack_out_host`,
   `pack_state_host`, `unpack_state_host`): the same bytes as the
-  reference's.
+  reference's; and `pack_rounds_host`, which lays a whole batch's
+  rounds, lane offsets and eviction clears into one flat buffer.
 * **The plain fused step.**  `fused_step_reference(state, pin)` is the
   gather → `update_lanes` → `encode_slot_values` → store → pack round
-  of the reference's `_fused_step_core`, written as tensor code.  It is
-  the CPU path of `ops.fused_step.fused_step` and the oracle the CUDA
-  kernel (csrc/fused_step.cu) is held against on the card.
+  of the reference's `_fused_step_core`, written as tensor code;
+  `multi_fused_step_reference` runs R such rounds in order, each after
+  its clears (`clear_occupied_reference`), as the reference's
+  `_multi_fused_core` and its engine's per-round clears do.  They are
+  the CPU paths of `ops.fused_step` and the oracles the CUDA kernel
+  (csrc/fused_step.cu) is held against on the card.
 
 Two semantics of the reference need care in PyTorch:
 
@@ -315,6 +319,92 @@ def pack_batch_host(
     return out
 
 
+# A multi-round call carries a batch's R rounds one after another along
+# the lanes of one pin.  Each round's lanes are sorted by slot and padded
+# to a multiple of ROUND_ALIGN lanes (one warp; 128 B of each pin row),
+# with the `cap + j` padding of pack_batch_host; the `now` header sits in
+# row 0, lanes 0-1, once for the batch.  R = 1 with a pow2 width is
+# exactly pack_batch_host's buffer.
+ROUND_ALIGN = 32
+
+
+class PackedRounds(NamedTuple):
+    """A batch's rounds in one flat int32 host buffer laid out as
+    [pin (16·L) | round_off (R+1) | clear_off (R+1) | clear_slots (C)],
+    so that one copy moves all of it; the array fields are views of
+    `buf`.  Round r owns lanes [round_off[r], round_off[r+1]) and clears
+    clear_slots[clear_off[r]:clear_off[r+1]] just before it runs."""
+
+    buf: np.ndarray
+    pin: np.ndarray  # int32 [16, L]
+    round_off: np.ndarray  # int32 [R+1]
+    clear_off: np.ndarray  # int32 [R+1]
+    clear_slots: np.ndarray  # int32 [C], C >= 1 (an out-of-range slot when none)
+    lanes: np.ndarray  # int64 [n]: the lane of each real request, in input order
+    widest: int  # lanes of the widest round
+
+
+def split_rounds(flat, width: int, n_rounds: int):
+    """(pin [16, L], round_off, clear_off, clear_slots) views of a flat
+    buffer laid out as `PackedRounds.buf` (numpy array or tensor)."""
+    a = PACKED_IN_ROWS * width
+    b = a + n_rounds + 1
+    c = b + n_rounds + 1
+    return flat[:a].reshape(PACKED_IN_ROWS, width), flat[a:b], flat[b:c], flat[c:]
+
+
+def pack_rounds_host(
+    now_ms: int,
+    capacity: int,
+    counts,  # int [R]: real lanes of each round
+    slot_sorted: np.ndarray,  # int32 [n], round-major, ascending within each round
+    cols,  # the 8 request columns (algo … greg_expire) in the same order
+    clears,  # R sequences: the slots to clear before each round
+    align: int = ROUND_ALIGN,
+) -> PackedRounds:
+    """Pack a batch's rounds for one multi-round step (the ragged
+    counterpart of `pack_batch_host`, vectorized over all rounds)."""
+    counts = np.asarray(counts, dtype=np.int64)
+    n_rounds = len(counts)
+    n = int(counts.sum())
+    widths = -(-counts // align) * align
+    round_off = np.zeros(n_rounds + 1, dtype=np.int64)
+    np.cumsum(widths, out=round_off[1:])
+    width = int(round_off[-1])
+    if capacity + int(widths.max(initial=0)) > np.iinfo(np.int32).max:
+        raise ValueError("capacity + round width must fit in int32 (padding slots)")
+    first = np.cumsum(counts) - counts  # index of each round's first request
+    lanes = np.arange(n, dtype=np.int64) + np.repeat(round_off[:-1] - first, counts)
+    clear_counts = [len(c) for c in clears]
+    if len(clear_counts) != n_rounds:
+        raise ValueError("one clear list per round")
+    n_clear = max(1, sum(clear_counts))
+    buf = np.zeros(PACKED_IN_ROWS * width + 2 * (n_rounds + 1) + n_clear, dtype=np.int32)
+    pin, v_round, v_clear, v_slots = split_rounds(buf, width, n_rounds)
+    pin[0, 0] = (np.int64(now_ms) >> 32).astype(np.int32)
+    pin[0, 1] = np.int64(now_ms).astype(np.int32)  # low-word bit pattern
+    # padding: capacity + j for the round's j-th padding lane
+    pad_start = np.repeat(round_off[:-1] + counts, widths)
+    pin[1] = capacity + (np.arange(width, dtype=np.int64) - pad_start)
+    pin[1, lanes] = slot_sorted
+    algo, behavior, *wide = cols
+    pin[2, lanes] = algo
+    pin[3, lanes] = behavior
+    for row, col in zip(range(4, PACKED_IN_ROWS, 2), wide):
+        c = np.asarray(col).astype(np.int64, copy=False)
+        pin[row, lanes] = (c >> 32).astype(np.int32)
+        pin[row + 1, lanes] = c.astype(np.int32)  # low-word bit pattern
+    v_round[:] = round_off
+    v_clear[0] = 0
+    np.cumsum(clear_counts, out=v_clear[1:])
+    if sum(clear_counts):
+        v_slots[:] = np.concatenate([np.asarray(c, dtype=np.int32) for c in clears])
+    else:
+        v_slots[:] = capacity  # out of range: clears nothing
+    return PackedRounds(buf, pin, v_round, v_clear, v_slots, lanes,
+                        int(widths.max(initial=0)))
+
+
 def unpack_out_host(arr: np.ndarray, m: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Packed output rows → (status int32[m], remaining i64[m], reset
     i64[m]) (reference bucket_kernel.py:1031)."""
@@ -582,14 +672,20 @@ def fused_step_reference(state: BucketState, pin: torch.Tensor) -> torch.Tensor:
     outside [0, cap)) read zero words, are computed like any lane, and
     store nothing — the reference's fill/drop gather/scatter."""
     check_pin(pin)
-    cap = check_state(state)
+    check_state(state)
+    return _step_lanes(state, pin, _combine(pin[0, 0], pin[0, 1]))
+
+
+def _step_lanes(state: BucketState, pin: torch.Tensor, now: torch.Tensor) -> torch.Tensor:
+    """The fused step over the lanes of `pin` (rows 1-15 read; row 0 is
+    not) at `now` (int64 scalar tensor)."""
+    cap = state.meta.shape[0]
     slot = pin[1].to(_I64)
     valid = (slot >= 0) & (slot < cap)
     idx = torch.where(valid, slot, torch.zeros_like(slot))
     g = BucketState(
         *(torch.where(valid, col[idx], torch.zeros_like(col[idx])) for col in state)
     )
-    now = _combine(pin[0, 0], pin[0, 1])
     words, status, rem, reset = _update_lanes(
         g,
         valid,
@@ -624,3 +720,48 @@ def clear_occupied_reference(meta: torch.Tensor, slots: torch.Tensor) -> None:
     s = slots.to(_I64)
     s = s[(s >= 0) & (s < meta.shape[0])]
     meta[s] = meta[s] & ~1
+
+
+def check_rounds(pin, round_off, clear_off, clear_slots) -> int:
+    """Shapes and dtypes of a multi-round call; returns R."""
+    check_pin(pin)
+    for name, t in (("round_off", round_off), ("clear_off", clear_off),
+                    ("clear_slots", clear_slots)):
+        if t.dtype != _I32 or t.dim() != 1:
+            raise ValueError(f"{name} must be a 1-D int32 tensor")
+    n_rounds = round_off.shape[0] - 1
+    if n_rounds < 1 or clear_off.shape[0] != n_rounds + 1:
+        raise ValueError("round_off and clear_off must both be int32 [R+1], R >= 1")
+    if clear_slots.shape[0] < 1:
+        raise ValueError("clear_slots must be int32 [C], C >= 1")
+    return n_rounds
+
+
+def multi_fused_step_reference(
+    state: BucketState,
+    pin: torch.Tensor,
+    round_off: torch.Tensor,
+    clear_off: torch.Tensor,
+    clear_slots: torch.Tensor,
+) -> torch.Tensor:
+    """The plain multi-round step (reference `_multi_fused_core`
+    :1071, with the engine's per-round clears): for r in 0..R-1, clear
+    the occupied bit at round r's in-range clear slots, then run the
+    fused step over round r's lanes at the header's `now`.  Returns
+    pout int32 [5, L]; `state` is updated IN PLACE."""
+    n_rounds = check_rounds(pin, round_off, clear_off, clear_slots)
+    check_state(state)
+    ro, co = round_off.tolist(), clear_off.tolist()
+    width = pin.shape[1]
+    if ro[0] != 0 or ro[-1] != width or any(b < a for a, b in zip(ro, ro[1:])):
+        raise ValueError("round_off must rise from 0 to the pin's width")
+    if co[0] != 0 or co[-1] > clear_slots.shape[0] or any(b < a for a, b in zip(co, co[1:])):
+        raise ValueError("clear_off must rise from 0 to at most len(clear_slots)")
+    now = _combine(pin[0, 0], pin[0, 1])
+    pout = torch.empty((PACKED_OUT_ROWS, width), dtype=_I32, device=pin.device)
+    for r in range(n_rounds):
+        if co[r + 1] > co[r]:
+            clear_occupied_reference(state.meta, clear_slots[co[r] : co[r + 1]])
+        if ro[r + 1] > ro[r]:
+            pout[:, ro[r] : ro[r + 1]] = _step_lanes(state, pin[:, ro[r] : ro[r + 1]], now)
+    return pout

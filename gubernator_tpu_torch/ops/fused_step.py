@@ -1,19 +1,26 @@
 """Wrappers of the port's two CUDA kernels, with their launch counts.
 
-Port of `gubernator_tpu/ops/pallas_step.py` (`pallas_fused_step` :158)
-and of the eviction clear (`bucket_kernel.py:329 _clear_occupied_impl`):
+Port of `gubernator_tpu/ops/pallas_step.py` (`pallas_fused_step` :158),
+of its multi-round form (`bucket_kernel.py:1088 multi_fused_step`) and of
+the eviction clear (`bucket_kernel.py:329 _clear_occupied_impl`):
 
-* `fused_step(state, pin)` — kernel K1 (csrc/fused_step.cu): one packed
-  round, state updated in place, returns the [5, W] int32 output.
+* `multi_fused_step(state, pin, round_off, clear_off, clear_slots)` —
+  kernel K1 (csrc/fused_step.cu): a batch's R packed rounds, each after
+  its eviction clears, in one cooperative launch; state updated in
+  place, returns the [5, L] int32 output.
+* `fused_step(state, pin)` — the same kernel over one round (R = 1, no
+  clears).
 * `clear_occupied(meta, slots)` — kernel K2 (csrc/clear_occupied.cu):
-  clear the occupied bit at evicted slots, in place.
+  clear the occupied bit at evicted slots, in place.  The engine runs
+  its clears inside K1; K2 stays for callers that clear on their own.
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
 PyTorch version in `ops.bucket_kernel`; any other device raises.  There
 is no fallback from a failed launch: the wrapper checks device, dtype,
 shape and contiguity, launches on the current stream, and raises if the
-launcher reports a CUDA error.  `launches[name]` counts kernel launches
-(and only those), so a run can show that its path went through them.
+launcher reports a CUDA error (a refused cooperative launch included).
+`launches[name]` counts kernel launches (and only those), so a run can
+show that its path went through them.
 """
 
 from __future__ import annotations
@@ -27,9 +34,11 @@ from gubernator_tpu_torch.ops.bucket_kernel import (
     PACKED_OUT_ROWS,
     BucketState,
     check_pin,
+    check_rounds,
     check_state,
     clear_occupied_reference,
     fused_step_reference,
+    multi_fused_step_reference,
 )
 
 # Kernel launches since the last reset_launches(), by kernel name.
@@ -69,13 +78,55 @@ def _check_cuda(t: torch.Tensor, what: str, dev: torch.device) -> None:
 
 def fused_step(state: BucketState, pin: torch.Tensor) -> torch.Tensor:
     """One packed round: (state, pin int32 [16, W]) → pout int32 [5, W];
-    `state` is updated in place."""
+    `state` is updated in place.  On CUDA it is K1's R = 1 call: one
+    round over all W lanes, no clears."""
     dev = pin.device
     if dev.type == "cpu":
         return fused_step_reference(state, pin)
     if dev.type != "cuda":
         raise ValueError(f"fused_step: unsupported device {dev}")
     check_pin(pin)
+    width = pin.shape[1]
+    # round_off [0, W], clear_off [0, 0], clear_slots [0] (never read),
+    # filled on the device: no host copy
+    offs = torch.zeros(5, dtype=torch.int32, device=dev)
+    offs[1] = width
+    return _launch_k1(state, pin, offs[:2], 1, offs[2:4], offs[4:], width)
+
+
+def multi_fused_step(
+    state: BucketState,
+    pin: torch.Tensor,
+    round_off: torch.Tensor,
+    clear_off: torch.Tensor,
+    clear_slots: torch.Tensor,
+    *,
+    widest: int | None = None,
+) -> torch.Tensor:
+    """R rounds in order, each after its clears: (state, pin int32
+    [16, L], round_off int32 [R+1], clear_off int32 [R+1], clear_slots
+    int32 [C ≥ 1]) → pout int32 [5, L]; `state` is updated in place.
+    Layout as `ops.bucket_kernel.PackedRounds`.  On CUDA, `widest` (the
+    widest round's lanes, `PackedRounds.widest`) sizes K1's grid and must
+    be given; the plain version does not need it."""
+    dev = pin.device
+    if dev.type == "cpu":
+        return multi_fused_step_reference(state, pin, round_off, clear_off, clear_slots)
+    if dev.type != "cuda":
+        raise ValueError(f"multi_fused_step: unsupported device {dev}")
+    n_rounds = check_rounds(pin, round_off, clear_off, clear_slots)
+    for name, t in (("round_off", round_off), ("clear_off", clear_off),
+                    ("clear_slots", clear_slots)):
+        _check_cuda(t, name, dev)
+    if widest is None:
+        raise ValueError("multi_fused_step on CUDA needs `widest` to size its grid")
+    return _launch_k1(state, pin, round_off, n_rounds, clear_off, clear_slots, widest)
+
+
+def _launch_k1(state, pin, round_off, n_rounds, clear_off, clear_slots, widest) -> torch.Tensor:
+    """Launch K1 over the R rounds of `pin` (offsets and clears on the
+    device)."""
+    dev = pin.device
     cap = check_state(state)
     _check_cuda(pin, "pin", dev)
     for name, col in zip(BucketState._fields, state):
@@ -87,11 +138,13 @@ def fused_step(state: BucketState, pin: torch.Tensor) -> torch.Tensor:
     pout = torch.empty((PACKED_OUT_ROWS, width), dtype=torch.int32, device=dev)
     cols = (ctypes.c_void_p * len(state))(*(c.data_ptr() for c in state))
     with torch.cuda.device(dev):
-        rc = lib.guber_fused_step(
-            cols, cap, pin.data_ptr(), pout.data_ptr(), width, _stream(dev)
+        rc = lib.guber_multi_fused_step(
+            cols, cap, pin.data_ptr(), width, round_off.data_ptr(), n_rounds,
+            clear_off.data_ptr(), clear_slots.data_ptr(), clear_slots.shape[0],
+            pout.data_ptr(), max(int(widest), 1), _stream(dev),
         )
     if rc != 0:
-        raise RuntimeError(f"fused_step kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"fused_step (K1) cooperative launch failed: cudaError {rc}")
     launches["fused_step"] += 1
     return pout
 

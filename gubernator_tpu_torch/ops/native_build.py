@@ -108,11 +108,12 @@ def load(name: str) -> ctypes.CDLL:
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
+    i = ctypes.c_int
     if name == "fused_step":
-        lib.guber_fused_step.argtypes = [
-            ctypes.POINTER(p), ctypes.c_longlong, p, p, ctypes.c_int, p
+        lib.guber_multi_fused_step.argtypes = [
+            ctypes.POINTER(p), ctypes.c_longlong, p, i, p, i, p, p, i, p, i, p
         ]
-        lib.guber_fused_step.restype = ctypes.c_int
+        lib.guber_multi_fused_step.restype = i
     elif name == "clear_occupied":
-        lib.guber_clear_occupied.argtypes = [p, ctypes.c_longlong, p, ctypes.c_int, p]
-        lib.guber_clear_occupied.restype = ctypes.c_int
+        lib.guber_clear_occupied.argtypes = [p, ctypes.c_longlong, p, i, p]
+        lib.guber_clear_occupied.restype = i

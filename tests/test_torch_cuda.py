@@ -86,12 +86,120 @@ def test_clear_occupied_kernel_bit_equal_to_plain(cuda):
     assert fs.launches["clear_occupied"] == 2
 
 
+def _rand_cols(rng, m, now):
+    return [rng.integers(0, 3, m), rng.choice([0, 4, 8, 12], m),
+            rng.choice([-3, 0, 1, 2, 5, 2**40], m), rng.choice([-1, 0, 5, 100, 2**62], m),
+            rng.choice([0, 1, 40, 30_000, -5], m), rng.choice([0, 0, 5, -7], m),
+            rng.choice([60_000, 86_400_000], m), now + rng.integers(0, 100_000, m)]
+
+
+def _to(packed, dev):
+    flat = torch.from_numpy(packed.buf).to(dev)
+    return tk.split_rounds(flat, packed.pin.shape[1], len(packed.round_off) - 1)
+
+
+@pytest.mark.parametrize("n_rounds", [1, 3, 16])
+def test_multi_fused_step_kernel_bit_equal_to_plain(cuda, n_rounds):
+    """Ragged rounds with clears (in range, recurring and out of range),
+    one slot in every round: the cooperative kernel equals the plain
+    multi-round step in pout and all 12 columns."""
+    rng = np.random.default_rng(30 + n_rounds)
+    cap, now = 1 << 16, 1_760_000_000_000
+    words = _state_words(rng, cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    calls = 9
+    for call in range(calls):
+        now += int(rng.integers(0, 300))
+        counts = [int(rng.integers(1, 1200)) for _ in range(n_rounds)]
+        slots = [np.sort(np.append(rng.choice(np.arange(1, cap), m - 1, replace=False), 0))
+                 for m in counts]
+        clears = [[] if r % 2 else [int(s) for s in slots[r][:: 7]][:40] + [cap + r]
+                  for r in range(n_rounds)]
+        packed = tk.pack_rounds_host(now, cap, counts, np.concatenate(slots).astype(np.int32),
+                                     _rand_cols(rng, sum(counts), now), clears)
+        got = fs.multi_fused_step(kern, *_to(packed, cuda), widest=packed.widest)
+        want = tk.multi_fused_step_reference(plain, *_to(packed, cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), call
+        for name, a, b in zip(tk.BucketState._fields, kern, plain):
+            assert torch.equal(a, b), (call, name)
+    assert fs.launches["fused_step"] == calls
+
+
+def test_multi_fused_step_grid_barrier_orders_rounds(cuda):
+    """One token bucket hit once in each of 16 rounds of 4096 lanes, its
+    lane moving by 256 each round, so a different block owns it every
+    round: without the grid barrier a round would read the bucket before
+    the previous round's store.  Remaining must fall by one each round."""
+    cap, now, width, n_rounds, hot = 1 << 20, 1_760_000_000_000, 4096, 16, 1 << 19
+    rng = np.random.default_rng(5)
+    kern = tk.make_state(cap, cuda)
+    plain = tk.make_state(cap, cuda)
+    counts, slots = [width] * n_rounds, []
+    for r in range(n_rounds):
+        below = rng.choice(hot, 256 * r, replace=False)
+        above = rng.choice(np.arange(hot + 1, cap), width - 1 - 256 * r, replace=False)
+        slots.append(np.sort(np.concatenate([below, [hot], above])).astype(np.int32))
+    n = width * n_rounds
+    cols = [np.zeros(n, np.int64), np.zeros(n, np.int64), np.ones(n, np.int64),
+            np.full(n, 10**6, np.int64), np.full(n, 3_600_000, np.int64),
+            np.zeros(n, np.int64), np.zeros(n, np.int64), np.zeros(n, np.int64)]
+    packed = tk.pack_rounds_host(now, cap, counts, np.concatenate(slots), cols,
+                                 [[] for _ in range(n_rounds)])
+    lanes = [r * width + 256 * r for r in range(n_rounds)]
+    for k in range(3):  # the bucket carries over
+        got = fs.multi_fused_step(kern, *_to(packed, cuda), widest=width)
+        want = tk.multi_fused_step_reference(plain, *_to(packed, cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), k
+        rem = got[2, lanes].cpu().tolist()
+        assert rem == [10**6 - 1 - r - n_rounds * k for r in range(n_rounds)], k
+        for name, a, b in zip(tk.BucketState._fields, kern, plain):
+            assert torch.equal(a, b), (k, name)
+
+
+def test_multi_fused_step_rejects_a_bad_launch(cuda):
+    """No grid size, or offsets on another device: the wrapper raises
+    before any launch."""
+    state = tk.make_state(64, cuda)
+    pin = torch.zeros((16, 64), dtype=torch.int32, device=cuda)
+    off = torch.tensor([0, 64], dtype=torch.int32, device=cuda)
+    fs.reset_launches()
+    with pytest.raises(ValueError, match="widest"):
+        fs.multi_fused_step(state, pin, off, torch.zeros_like(off), off[1:])
+    with pytest.raises(ValueError, match="round_off"):
+        fs.multi_fused_step(state, pin, off.cpu(), torch.zeros_like(off), off[1:], widest=64)
+    assert fs.launches["fused_step"] == 0
+
+
+def test_engine_hot_key_batch_on_the_card(cuda):
+    """A key repeated 200 times is 200 rounds of 32 lanes in one launch."""
+    ns = 1_760_000_000_000 * 1_000_000
+    gpu = DecisionEngine(256, clock=Clock().freeze_at(ns), device=cuda)
+    cpu = DecisionEngine(256, clock=Clock().freeze_at(ns), device="cpu")
+    fs.reset_launches()
+    for algo in (0, 1):
+        keys = [b"hot%d" % algo] * 200 + [b"k%d" % i for i in range(50)]
+        n = len(keys)
+        cols = (np.full(n, algo, np.int32), np.zeros(n, np.int32), np.ones(n, np.int64),
+                np.full(n, 150, np.int64), np.full(n, 60_000, np.int64), np.zeros(n, np.int64))
+        for g, w in zip(gpu.apply_columnar(keys, *cols), cpu.apply_columnar(keys, *cols)):
+            assert np.array_equal(g, w)
+    assert fs.launches["fused_step"] == gpu.dispatches_total == 2
+    assert gpu.rounds_total == 400
+    got, want = tk.state_to_numpy(gpu.state), tk.state_to_numpy(cpu.state)
+    for f in tk.BucketState._fields:
+        assert np.array_equal(got[f], want[f]), f
+
+
 def test_engine_on_the_card_matches_the_cpu(cuda):
     rng = np.random.default_rng(2)
     ns = 1_760_000_000_000 * 1_000_000
     gpu = DecisionEngine(512, clock=Clock().freeze_at(ns), device=cuda)
     cpu = DecisionEngine(512, clock=Clock().freeze_at(ns), device="cpu")
     assert gpu.fused_mode == "cuda"
+    fs.reset_launches()
     keys = [b"k%d" % i for i in range(1500)]
     for _ in range(10):
         n = 300
@@ -110,3 +218,6 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     for f in tk.BucketState._fields:
         assert np.array_equal(got[f], want[f]), f
     assert gpu.table.evictions > 0
+    # one K1 launch per batch, with the clears inside it; no K2 launch
+    assert fs.launches["fused_step"] == gpu.dispatches_total == 10 < gpu.rounds_total
+    assert fs.launches["clear_occupied"] == 0 and gpu.clears_total > 0

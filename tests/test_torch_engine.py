@@ -181,20 +181,31 @@ def test_engine_gregorian_and_reset_items():
 
 
 def test_engine_counters_and_chunking():
-    """A round wider than max_kernel_width is chunked into several
-    launches; the counters follow (one dispatch per round chunk)."""
+    """A round wider than max_kernel_width becomes sub-rounds of the same
+    buffer: the batch is still one dispatch (one K1 launch); the counters
+    follow (rounds count sub-rounds, clears count eviction clears)."""
     port = DecisionEngine(4096, clock=Clock().freeze_at(T0_NS), device="cpu",
                           max_kernel_width=64)
     keys = [b"c%d" % i for i in range(200)]
     n = len(keys)
-    out = port.apply_columnar(
-        keys, np.zeros(n, np.int32), np.zeros(n, np.int32), np.ones(n, np.int64),
-        np.full(n, 5, np.int64), np.full(n, 1000, np.int64), np.zeros(n, np.int64),
-    )
+
+    def cols(m):
+        return (np.zeros(m, np.int32), np.zeros(m, np.int32), np.ones(m, np.int64),
+                np.full(m, 5, np.int64), np.full(m, 1000, np.int64), np.zeros(m, np.int64))
+
+    out = port.apply_columnar(keys, *cols(n))
     assert np.array_equal(out[2], np.full(n, 4))
-    assert port.rounds_total == port.dispatches_total == 4
+    assert (port.rounds_total, port.dispatches_total, port.clears_total) == (4, 1, 0)
     assert (port.batches_total, port.requests_total, port.cache_size()) == (1, n, n)
     assert port.fused_mode == "torch-cpu"
+
+    # 200 new keys into 128 slots: 72 keys evict slots used in round 0, so
+    # their clears and requests form round 1 — still one dispatch.
+    small = DecisionEngine(128, clock=Clock().freeze_at(T0_NS), device="cpu")
+    out = small.apply_columnar(keys, *cols(n))
+    assert np.array_equal(out[2], np.full(n, 4))
+    assert (small.rounds_total, small.dispatches_total, small.clears_total) == (2, 1, 72)
+    assert small.table.evictions == 72
 
 
 def test_engine_refuses_to_run_without_cuda_unless_asked_for_cpu():
