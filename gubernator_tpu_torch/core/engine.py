@@ -2,27 +2,43 @@
 
 Port of `gubernator_tpu/core/engine.py:322 DecisionEngine`:
 
-  host: key interning (key string → slot) + per-key rounds + packing
-  device: one multi-round fused-step launch per batch (ops/fused_step.py)
+  host: one native `schedule` call per batch (core/native.py) interns
+        the keys, assigns rounds and eviction clears; the host packs
+  device: one kernel launch per batch, its output read back
+          asynchronously (core/readback.py)
 
 Per-key serialization is kept by splitting a batch into rounds: request
 i goes to round k if it is the k-th occurrence of its key within the
 batch, so each round sees a slot at most once and duplicate keys apply
 in arrival order.  Eviction clears belong to the round whose slot
-sequence they precede.  The host sorts each round by slot and packs all
-of the batch's rounds, their lane offsets and their clears into one
-int32 buffer (`ops.bucket_kernel.pack_rounds_host`; each round padded to
-a multiple of 32 lanes with `capacity + j`, a round wider than
-`max_kernel_width` split into sub-rounds).  One copy takes it to the
-device, one launch of kernel K1 runs every round in order with its
-clears as the round's prologue, and one readback brings the [5, L]
-output home.
+sequence they precede.  A batch then takes one of three device paths,
+as in the reference:
 
-Not in this slice: the pump, the hot-key collapse, the uniform narrow
-format, paging, the write-through store, restore, sweep and the ledger.
-Batches with duplicate keys therefore always run as rounds; the
-reference's collapse is exact sequential semantics, so the answers are
-the same.  `now_ms` flows in from the caller or the injected Clock.
+* **Collapse** (`_try_collapse`): a batch with duplicate keys whose
+  occurrences all carry the same fields runs as one collapsed segment
+  buffer per `max_kernel_width` chunk — kernel K3, one full application
+  per key and a closed form for its repeats, exact sequential semantics.
+  Non-uniform duplicates, RESET_REMAINING or leaky negative hits on a
+  duplicate, and a slot reused within the batch fall back to rounds.
+* **Uniform rounds**: a columnar batch with one limit config across it
+  (`_uniform_params`) packs only the slot per lane
+  (`pack_uniform_rounds_host`) and runs through kernel K4.
+* **Rounds**: every other batch packs all its rounds, their lane
+  offsets and their clears into one buffer (`pack_rounds_host`; each
+  round sorted by slot, padded to 32 lanes, a round wider than
+  `max_kernel_width` split into sub-rounds) and runs through kernel K1.
+
+The rounds and uniform paths submit their buffer to the step pump
+(core/pump.py).  With queueing on (the card's default, GUBER_PUMP) it
+joins queued batches into one launch; with it off it launches each
+batch as it is submitted.
+`apply_columnar(..., want_async=True)` returns a `PendingColumnar` whose
+`.get()` waits for the batch's output.  `get_rate_limits` runs the same
+decision path (`_apply`) without the uniform format, as the reference's
+dataclass path does.
+
+Not in this slice: paging, the write-through store, restore, sweep and
+the ledger.  `now_ms` flows in from the caller or the injected Clock.
 """
 
 from __future__ import annotations
@@ -34,7 +50,10 @@ import numpy as np
 import torch
 
 from gubernator_tpu_torch.clock import SYSTEM_CLOCK, Clock
-from gubernator_tpu_torch.core.interning import InternTable
+from gubernator_tpu_torch.config import env_pump
+from gubernator_tpu_torch.core.native import make_intern_table
+from gubernator_tpu_torch.core.pump import StepPump
+from gubernator_tpu_torch.core.readback import ReadbackCombiner
 from gubernator_tpu_torch.gregorian import (
     GregorianError,
     dt_from_ms,
@@ -42,20 +61,110 @@ from gubernator_tpu_torch.gregorian import (
     gregorian_expiration,
 )
 from gubernator_tpu_torch.ops.bucket_kernel import (
+    ROUND_ALIGN,
+    UNIFORM_IN_ROWS,
     BucketState,
     make_state,
+    pack_collapsed_host,
     pack_rounds_host,
-    split_rounds,
+    pack_uniform_rounds_host,
     unpack_out_host,
+    unpack_uniform_out_host,
 )
-from gubernator_tpu_torch.ops.fused_step import multi_fused_step, resolve_device
-from gubernator_tpu_torch.types import Behavior, RateLimitReq, RateLimitResp, Status
+from gubernator_tpu_torch.ops.collapsed_step import collapsed_step
+from gubernator_tpu_torch.ops.fused_step import (
+    multi_fused_step,
+    multi_uniform_step,
+    resolve_device,
+)
+from gubernator_tpu_torch.types import (
+    Algorithm,
+    Behavior,
+    RateLimitReq,
+    RateLimitResp,
+    Status,
+)
 
 _I32 = np.int32
 _I64 = np.int64
 _GREG = int(Behavior.DURATION_IS_GREGORIAN)
+_RESET = int(Behavior.RESET_REMAINING)
+_LEAKY = int(Algorithm.LEAKY_BUCKET)
 _OVER_I = int(Status.OVER_LIMIT)
 _STATUS_OF = {int(s): s for s in Status}
+
+
+def _aligned(n: int) -> int:
+    return -(-n // ROUND_ALIGN) * ROUND_ALIGN
+
+
+class PackedKeys:
+    """Keys as one concatenated byte buffer + offsets (reference
+    :119), consumed by the native table's `schedule_packed` without a
+    Python object per key."""
+
+    __slots__ = ("buf", "offsets", "count")
+
+    def __init__(self, buf: np.ndarray, offsets: np.ndarray, count: int):
+        self.buf = buf
+        self.offsets = offsets
+        self.count = count
+
+    def __len__(self) -> int:
+        return self.count
+
+    def to_list(self) -> List[bytes]:
+        raw = self.buf.tobytes()
+        off = self.offsets
+        return [raw[off[i] : off[i + 1]] for i in range(self.count)]
+
+    @classmethod
+    def from_list(cls, keys: List[bytes]) -> "PackedKeys":
+        """Concatenate a key list (an empty batch keeps a valid one-byte
+        buffer for the native callee)."""
+        n = len(keys)
+        buf = b"".join(keys)
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(k) for k in keys], out=offsets[1:])
+        buf_arr = np.frombuffer(buf, dtype=np.uint8) if buf else np.zeros(1, np.uint8)
+        return cls(buf_arr, offsets, n)
+
+
+class PendingColumnar:
+    """A batch whose launches are made or queued and whose outputs are on
+    their way home.  `.get()` returns (status int32, limit int64,
+    remaining int64, reset_time int64) in request order (reference
+    :154).  Each piece is (ticket, request indices, output lanes,
+    unpack); the over-limit counter moves when the result is made."""
+
+    __slots__ = ("_engine", "_pieces", "_limit", "_n", "_result")
+
+    def __init__(self, engine, pieces, limit, n):
+        self._engine = engine
+        self._pieces = pieces
+        self._limit = limit
+        self._n = n
+        self._result = None
+
+    def get(self):
+        if self._result is not None:
+            return self._result
+        n = self._n
+        o_status = np.empty(n, dtype=np.int32)
+        o_rem = np.empty(n, dtype=_I64)
+        o_reset = np.empty(n, dtype=_I64)
+        for ticket, dst_idx, lanes, unpack in self._pieces:
+            arr = ticket.fetch()
+            st, rem, rst = unpack(arr[:, lanes], len(lanes))
+            o_status[dst_idx] = st
+            o_rem[dst_idx] = rem
+            o_reset[dst_idx] = rst
+        with self._engine._lock:
+            self._engine.over_limit_total += int(np.sum(o_status == _OVER_I))
+        # limit is echoed from the request (the step's limit is the request's)
+        self._result = (o_status, self._limit, o_rem, o_reset)
+        self._pieces = ()
+        return self._result
 
 
 class DecisionEngine:
@@ -73,26 +182,33 @@ class DecisionEngine:
         self.capacity = capacity
         self.clock = clock
         self.max_kernel_width = max_kernel_width
-        self.table = InternTable(capacity)
+        self.table = make_intern_table(capacity)
         self._state: BucketState = make_state(capacity, self.device)
+        # RLock: a pump ticket's fetch may flush from a thread already
+        # inside the engine.
         self._lock = threading.RLock()
-        # "cuda": batches run kernel K1; "torch-cpu": its plain PyTorch
-        # version.
+        # "cuda": batches run kernels K1 / K3 / K4; "torch-cpu": their
+        # plain PyTorch versions.
         self.fused_mode = "cuda" if self.device.type == "cuda" else "torch-cpu"
+        self._pump = StepPump(self, queueing=env_pump(self.device.type))
+        self.readback = ReadbackCombiner()
         self.requests_total = 0
         self.over_limit_total = 0
         self.batches_total = 0
-        # Rounds and sub-rounds run (all of a batch's in one launch).
+        # Rounds and sub-rounds run, plus one per collapsed chunk.
         self.rounds_total = 0
-        # Every device program the serving path launches: one per batch.
+        # Every kernel launch the serving path makes (K1, K3, K4).
         self.dispatches_total = 0
-        # Eviction clears run as a round's prologue inside K1.
+        # Eviction clears run inside those launches.
         self.clears_total = 0
 
     @property
     def state(self) -> BucketState:
-        """The live device state (read-only use: export, comparison)."""
-        return self._state
+        """The live device state, after every queued batch has run
+        (read-only use: export, comparison)."""
+        with self._lock:
+            self._flush_pump()
+            return self._state
 
     # ------------------------------------------------------------------
 
@@ -135,14 +251,15 @@ class DecisionEngine:
                 return np.fromiter((get(r) for r in reqs), dtype=dtype, count=len(reqs))
 
             limit = col(lambda r: r.limit, _I64)
-            status, rem, reset = self._apply(
-                [r.hash_key() for r in reqs],
+            status, _lim, rem, reset = self._apply(
+                [r.hash_key().encode() for r in reqs],
                 (col(lambda r: int(r.algorithm), _I32), col(lambda r: int(r.behavior), _I32),
                  col(lambda r: r.hits, _I64), limit, col(lambda r: r.duration, _I64),
                  col(lambda r: r.burst, _I64), np.asarray(greg_dur, dtype=_I64),
                  np.asarray(greg_exp, dtype=_I64)),
                 now_ms,
-            )
+                uniform_ok=False,
+            ).get()
             for i, st, lim, rm, rs in zip(
                 valid, status.tolist(), limit.tolist(), rem.tolist(), reset.tolist()
             ):
@@ -159,7 +276,7 @@ class DecisionEngine:
 
     def apply_columnar(
         self,
-        keys: List[bytes],
+        keys,  # List[bytes] or PackedKeys
         algo: np.ndarray,  # int32 [n]
         behavior: np.ndarray,  # int32 [n]
         hits: np.ndarray,  # int64 [n]
@@ -167,11 +284,15 @@ class DecisionEngine:
         duration: np.ndarray,  # int64 [n]
         burst: np.ndarray,  # int64 [n]
         now_ms: Optional[int] = None,
+        want_async: bool = False,
     ):
         """Vectorized decision path; returns (status int32, limit int64,
-        remaining int64, reset_time int64) numpy arrays in request order.
-        Gregorian lanes are computed per item; an invalid interval raises
-        GregorianError (columnar callers pre-validate)."""
+        remaining int64, reset_time int64) numpy arrays in request order
+        — or, with want_async=True, a PendingColumnar whose .get() gives
+        them, so the caller can pack the next batch while this one's
+        output comes home.  Gregorian lanes are computed per item; an
+        invalid interval raises GregorianError (columnar callers
+        pre-validate)."""
         n = len(keys)
         if now_ms is None:
             now_ms = self.clock.now_ms()
@@ -183,70 +304,80 @@ class DecisionEngine:
             for i in greg_idx:
                 greg_dur[i] = gregorian_duration(now_dt, int(duration[i]))
                 greg_exp[i] = gregorian_expiration(now_dt, int(duration[i]))
-        o_status, o_rem, o_reset = self._apply(
-            [k.decode() for k in keys],
-            (algo, behavior, hits, limit, duration, burst, greg_dur, greg_exp),
-            now_ms,
+        pending = self._apply(
+            keys, (algo, behavior, hits, limit, duration, burst, greg_dur, greg_exp), now_ms,
+            uniform_ok=True,
         )
         with self._lock:
             self.requests_total += n
             self.batches_total += 1
-        return o_status, limit, o_rem, o_reset
+        return pending if want_async else pending.get()
 
-    def _apply(self, keys: List[str], cols, now_ms: int):
-        """The decision path of both entry points.  `cols` are the valid
-        items' request columns (algo, behavior, hits, limit, duration,
-        burst, greg_duration, greg_expire); returns (status int32,
-        remaining int64, reset_time int64) in request order.
-
-        Rounds: the k-th operation on a slot goes to round k.  An eviction
-        clear is scheduled at its slot's current sequence number (after
-        the evicted key's last request, before the reusing key's first)."""
+    def _apply(self, keys, cols, now_ms: int, *, uniform_ok: bool) -> PendingColumnar:
+        """The decision path of both entry points.  `keys` are bytes (a
+        list or PackedKeys); `cols` the valid items' request columns
+        (algo, behavior, hits, limit, duration, burst, greg_duration,
+        greg_expire).  Schedules the batch with one native call, then
+        collapses it or packs its rounds (uniform format only when
+        `uniform_ok`), and returns the pending result."""
         n = len(keys)
+        limit = cols[3]
         if n == 0:
-            return np.empty(0, np.int32), np.empty(0, _I64), np.empty(0, _I64)
+            return PendingColumnar(self, [], limit, 0)
         with self._lock:
-            slots = np.empty(n, dtype=_I32)
-            rounds_arr = np.empty(n, dtype=_I32)
-            seq: dict[int, int] = {}
-            clear_by_round: dict[int, List[int]] = {}
-            for j, key in enumerate(keys):
-                evicted: List[int] = []
-                slot = self.table.intern(key, now_ms, evicted)
-                for es in evicted:
-                    clear_by_round.setdefault(seq.get(es, 0), []).append(es)
-                k = seq.get(slot, 0)
-                seq[slot] = k + 1
-                slots[j] = slot
-                rounds_arr[j] = k
-            pout, lanes, order = self._dispatch_rounds(
-                slots, rounds_arr, cols, now_ms, clear_by_round
-            )
+            if isinstance(keys, PackedKeys):
+                slots, rounds_arr, evicted, evict_rounds = self.table.schedule_packed(
+                    keys.buf, keys.offsets, now_ms
+                )
+            else:
+                slots, rounds_arr, evicted, evict_rounds = self.table.schedule(keys, now_ms)
+            pieces = None
+            if int(rounds_arr.max()) > 0:
+                # Hot keys: one collapsed launch instead of a round per
+                # repeat, when the duplicates allow it.
+                pieces = self._try_collapse(slots, *cols, now_ms, evicted, evict_rounds)
+            if pieces is None:
+                pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms, evicted,
+                                               evict_rounds, uniform_ok)
             # Host TTL mirror for eviction accounting (device is authoritative).
             behavior, duration, greg_exp = cols[1], cols[4], cols[7]
             expires = np.where((behavior & _GREG) != 0, greg_exp, now_ms + duration)
             self.table.set_expiry(slots, expires.astype(_I64))
+        return PendingColumnar(self, pieces, limit, n)
 
-        # One readback of the whole batch; lane `lanes[j]` answers request
-        # `order[j]`.
-        out = pout.cpu().numpy()[:, lanes]
-        st, rem, rst = unpack_out_host(out, n)
-        o_status = np.empty(n, dtype=np.int32)
-        o_rem = np.empty(n, dtype=_I64)
-        o_reset = np.empty(n, dtype=_I64)
-        o_status[order] = st
-        o_rem[order] = rem
-        o_reset[order] = rst
-        with self._lock:
-            self.over_limit_total += int(np.sum(o_status == _OVER_I))
-        return o_status, o_rem, o_reset
+    def _uniform_params(self, algo, behavior, hits, limit, duration, burst) -> Optional[tuple]:
+        """Gate of the narrow uniform format (reference :1111): one
+        limit config across the batch, no Gregorian or
+        RESET_REMAINING (its reset_time 0 has no narrow form), and
+        32-bit-safe values.  Returns (algo, behavior, hits, limit,
+        duration, burst) or None."""
+        if len(algo) == 0:
+            return None
+        a0, b0, h0, l0, d0, u0 = (
+            int(c[0]) for c in (algo, behavior, hits, limit, duration, burst)
+        )
+        if b0 & (_GREG | _RESET):
+            return None
+        if not (0 <= l0 < 2**31 and 0 <= u0 < 2**31 and 0 < d0 < 2**31):
+            return None
+        if not -(2**31) < h0 < 2**31:
+            return None
+        if (
+            (algo != a0).any() or (behavior != b0).any() or (hits != h0).any()
+            or (limit != l0).any() or (duration != d0).any() or (burst != u0).any()
+        ):
+            return None
+        return (a0, b0, h0, l0, d0, u0)
 
-    def _dispatch_rounds(self, slots, rounds_arr, cols, now_ms, clear_by_round):
+    def _dispatch_rounds(self, slots, rounds_arr, cols, now_ms, evicted, evict_rounds,
+                         uniform_ok):
         """Pack every round of a batch (sorted by slot, wide rounds split
         into sub-rounds of at most max_kernel_width lanes, each round's
-        clears before it) into one buffer, copy it to the device once and
-        launch K1 once.  Returns (pout [5, L] on the device, the lane of
-        each request in `order`, `order`: request indices round-major)."""
+        clears before it) into one buffer and submit it to the pump.
+        Returns the batch's one piece."""
+        clear_by_round: dict[int, List[int]] = {}
+        for es, k in zip(evicted.tolist(), evict_rounds.tolist()):
+            clear_by_round.setdefault(k, []).append(es)
         order = np.argsort(rounds_arr, kind="stable")
         uniq, starts = np.unique(rounds_arr[order], return_index=True)
         bounds = list(starts) + [len(slots)]
@@ -262,20 +393,107 @@ class DecisionEngine:
                 counts.append(len(chunk))
                 clears.append(cleared if lo == 0 else [])
         order = np.concatenate(parts)
-        packed = pack_rounds_host(
-            now_ms, self.capacity, counts, slots[order], [a[order] for a in cols], clears
-        )
-        flat = torch.from_numpy(packed.buf).to(self.device)
-        pin, round_off, clear_off, clear_slots = split_rounds(
-            flat, packed.pin.shape[1], len(counts)
-        )
-        pout = multi_fused_step(
-            self._state, pin, round_off, clear_off, clear_slots, widest=packed.widest
-        )
-        self.dispatches_total += 1
+        uni = self._uniform_params(*cols[:6]) if uniform_ok else None
+        if uni is not None:
+            packed = pack_uniform_rounds_host(now_ms, self.capacity, counts, slots[order],
+                                              uni, clears)
+
+            def unpack(arr, m, _now=now_ms):
+                return unpack_uniform_out_host(arr, m, _now)
+        else:
+            packed = pack_rounds_host(now_ms, self.capacity, counts, slots[order],
+                                      [a[order] for a in cols], clears)
+            unpack = unpack_out_host
+        ticket = self._pump.submit(packed)
         self.rounds_total += len(counts)
         self.clears_total += sum(len(c) for c in clears)
-        return pout, packed.lanes, order
+        return [(ticket, order, packed.lanes, unpack)]
+
+    def _try_collapse(self, slots, algo, behavior, hits, limit, duration, burst,
+                      greg_dur, greg_exp, now_ms, evicted, evict_rounds):
+        """Collapse a hot-key batch into one K3 launch per chunk (reference
+        :1313); returns its pieces, or None when the batch needs rounds
+        (non-uniform duplicate fields, RESET_REMAINING on a duplicate,
+        leaky negative hits on a duplicate, or a slot reused within the
+        batch)."""
+        # Mid-batch eviction reuse (a slot freed after use and handed to
+        # another key in the same batch) breaks one key per segment.
+        if len(evict_rounds) and int(evict_rounds.max()) > 0:
+            return None
+        n = len(slots)
+        order = np.argsort(slots, kind="stable")  # stable = arrival order
+        sorted_slots = slots[order]
+        _uniq, seg_start, counts = np.unique(sorted_slots, return_index=True,
+                                             return_counts=True)
+        seg_of = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+        dup_lane = counts[seg_of] > 1
+        cols = (algo, behavior, hits, limit, duration, burst, greg_dur, greg_exp)
+        for col in cols:
+            cs = col[order]
+            if not np.array_equal(cs[dup_lane], cs[seg_start][seg_of][dup_lane]):
+                return None
+        if bool(((behavior[order] & _RESET) != 0)[dup_lane].any()):
+            return None
+        # Sequential leaky semantics re-clamp remaining to burst on every
+        # gather; with negative hits the closed form would skip those.
+        if bool(((algo[order] == _LEAKY) & (hits[order] < 0))[dup_lane].any()):
+            return None
+
+        # The collapsed step reads the state: queued batches run first.
+        self._flush_pump()
+        sorted_cols = tuple(col[order] for col in cols)
+        pieces = []
+        # All clears are round 0 here: the first chunk's launch runs them.
+        clear_slots = np.asarray(evicted, dtype=_I32)
+        for lo in range(0, n, self.max_kernel_width):
+            hi = min(lo + self.max_kernel_width, n)
+            m = hi - lo
+            # Per-chunk segments (a segment split across chunks is fine:
+            # the next chunk's first occurrence gathers the stored state).
+            c_uniq, c_start, c_counts = np.unique(sorted_slots[lo:hi], return_index=True,
+                                                  return_counts=True)
+            c_seg_of = np.repeat(np.arange(len(c_uniq), dtype=np.int64), c_counts)
+            c_pos = np.arange(m, dtype=np.int64) - c_start[c_seg_of]
+            buf = pack_collapsed_host(
+                _aligned(m), now_ms, self.capacity, np.ascontiguousarray(c_uniq, dtype=_I32),
+                c_counts.astype(np.int64), tuple(c[lo:hi][c_start] for c in sorted_cols),
+                c_seg_of.astype(_I32), c_pos.astype(_I32),
+            )
+            flat = self._stage(np.concatenate([buf.ravel(), clear_slots]))
+            pout = collapsed_step(self._state, flat[: buf.size].view(buf.shape),
+                                  flat[buf.size :])
+            self.dispatches_total += 1
+            self.rounds_total += 1
+            self.clears_total += len(clear_slots)
+            clear_slots = clear_slots[:0]
+            pieces.append((self.readback.register(pout), order[lo:hi], np.arange(m),
+                           unpack_out_host))
+        return pieces
+
+    # ------------------------------------------------------------------
+    # Device helpers (caller holds the lock).
+
+    def _stage(self, buf: np.ndarray) -> torch.Tensor:
+        """A host int32 buffer on the engine's device.  On the card: one
+        `non_blocking` copy from a pinned staging copy, queued on the
+        current stream."""
+        t = torch.from_numpy(buf)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _launch_rounds(self, pin, round_off, clear_off, clear_slots, widest: int) -> torch.Tensor:
+        """One K1 launch, or K4 for a uniform pin, over packed rounds
+        already on the device; returns the output tensor."""
+        step = multi_uniform_step if pin.shape[0] == UNIFORM_IN_ROWS else multi_fused_step
+        pout = step(self._state, pin, round_off, clear_off, clear_slots, widest=widest)
+        self.dispatches_total += 1
+        return pout
+
+    def _flush_pump(self) -> None:
+        """Run queued batches before any other state access (the pump's
+        ordering contract).  Caller holds the lock."""
+        self._pump.flush_locked()
 
     # ------------------------------------------------------------------
 
@@ -283,6 +501,8 @@ class DecisionEngine:
         return len(self.table)
 
     def close(self) -> None:
-        """Release the device state."""
+        """Run what is queued, then release the device state."""
         with self._lock:
+            if self._state is not None:
+                self._flush_pump()
             self._state = None  # type: ignore[assignment]

@@ -15,9 +15,10 @@ Reference parity notes:
 * Hit/miss accounting mirrors `accessMetric`
   (reference: lrucache.go:112-138).
 
-Port of `gubernator_tpu/core/interning.py` (the Python table).  The JAX
-package's compiled C++ table (`core/native.py`) is behaviourally the
-same; the port's own native table comes in a later slice.
+Port of `gubernator_tpu/core/interning.py` (the Python table).  The
+engine serves through the port's native table (`core/native.py`,
+csrc/intern_table.cpp); this one is its plain version, which the parity
+tests hold the native table against.
 """
 
 from __future__ import annotations
@@ -48,6 +49,9 @@ class InternTable:
     def __len__(self) -> int:
         return len(self._map)
 
+    def contains(self, key: str) -> bool:
+        return key in self._map
+
     def intern(self, key: str, now_ms: int, cleared: list[int]) -> int:
         """Return the slot for `key`, allocating (and possibly evicting)
         if unknown.  Evicted slots are appended to `cleared` so the
@@ -76,6 +80,28 @@ class InternTable:
     def set_expiry(self, slots: np.ndarray, expires: np.ndarray) -> None:
         """Update the host TTL mirror after a kernel step."""
         self._expire[slots] = expires
+
+    def remove(self, key: str) -> int | None:
+        """Drop a key, freeing its slot (reference: lrucache.go:141-145).
+        Returns the freed slot (the caller scrubs it on the device)."""
+        slot = self._map.pop(key, None)
+        if slot is None:
+            return None
+        self._slot_key[slot] = None
+        self._expire[slot] = 0
+        self._free.append(slot)
+        return slot
+
+    def release_slots(self, slots: np.ndarray) -> None:
+        """Free slots a sweep found expired."""
+        for slot in slots.tolist():
+            key = self._slot_key[slot]
+            if key is None:
+                continue
+            self._map.pop(key, None)
+            self._slot_key[slot] = None
+            self._expire[slot] = 0
+            self._free.append(slot)
 
     def key_for_slot(self, slot: int) -> str | None:
         return self._slot_key[slot]

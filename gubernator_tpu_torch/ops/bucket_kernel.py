@@ -319,24 +319,28 @@ def pack_batch_host(
     return out
 
 
-# A multi-round call carries a batch's R rounds one after another along
-# the lanes of one pin.  Each round's lanes are sorted by slot and padded
-# to a multiple of ROUND_ALIGN lanes (one warp; 128 B of each pin row),
-# with the `cap + j` padding of pack_batch_host; the `now` header sits in
-# row 0, lanes 0-1, once for the batch.  R = 1 with a pow2 width is
-# exactly pack_batch_host's buffer.
+# A multi-round call carries R rounds one after another along the lanes
+# of one pin.  Each round's lanes are sorted by slot and padded to a
+# multiple of ROUND_ALIGN lanes (one warp; 128 B of each pin row), with
+# the `cap + j` padding of pack_batch_host.  Row 0 of a round's first
+# lanes is the round's header, as each pin of the reference's stacked
+# [R, rows, W] scan input carries its own: `now` in the general format,
+# `now` and the config scalars in the uniform one.  So rounds of
+# different batches (the pump's queued submissions) can share a launch.
+# R = 1 with a pow2 width is exactly pack_batch_host's buffer.
 ROUND_ALIGN = 32
 
 
 class PackedRounds(NamedTuple):
-    """A batch's rounds in one flat int32 host buffer laid out as
-    [pin (16·L) | round_off (R+1) | clear_off (R+1) | clear_slots (C)],
+    """R rounds in one flat int32 host buffer laid out as
+    [pin (rows·L) | round_off (R+1) | clear_off (R+1) | clear_slots (C)],
     so that one copy moves all of it; the array fields are views of
     `buf`.  Round r owns lanes [round_off[r], round_off[r+1]) and clears
-    clear_slots[clear_off[r]:clear_off[r+1]] just before it runs."""
+    clear_slots[clear_off[r]:clear_off[r+1]] just before it runs.  `pin`
+    has PACKED_IN_ROWS rows (general format) or UNIFORM_IN_ROWS."""
 
     buf: np.ndarray
-    pin: np.ndarray  # int32 [16, L]
+    pin: np.ndarray  # int32 [rows, L]
     round_off: np.ndarray  # int32 [R+1]
     clear_off: np.ndarray  # int32 [R+1]
     clear_slots: np.ndarray  # int32 [C], C >= 1 (an out-of-range slot when none)
@@ -344,26 +348,25 @@ class PackedRounds(NamedTuple):
     widest: int  # lanes of the widest round
 
 
-def split_rounds(flat, width: int, n_rounds: int):
-    """(pin [16, L], round_off, clear_off, clear_slots) views of a flat
+def split_rounds(flat, width: int, n_rounds: int, rows: int = PACKED_IN_ROWS):
+    """(pin [rows, L], round_off, clear_off, clear_slots) views of a flat
     buffer laid out as `PackedRounds.buf` (numpy array or tensor)."""
-    a = PACKED_IN_ROWS * width
+    a = rows * width
     b = a + n_rounds + 1
     c = b + n_rounds + 1
-    return flat[:a].reshape(PACKED_IN_ROWS, width), flat[a:b], flat[b:c], flat[c:]
+    return flat[:a].reshape(rows, width), flat[a:b], flat[b:c], flat[c:]
 
 
-def pack_rounds_host(
-    now_ms: int,
-    capacity: int,
-    counts,  # int [R]: real lanes of each round
-    slot_sorted: np.ndarray,  # int32 [n], round-major, ascending within each round
-    cols,  # the 8 request columns (algo … greg_expire) in the same order
-    clears,  # R sequences: the slots to clear before each round
-    align: int = ROUND_ALIGN,
-) -> PackedRounds:
-    """Pack a batch's rounds for one multi-round step (the ragged
-    counterpart of `pack_batch_host`, vectorized over all rounds)."""
+def _now_words(now_ms: int):
+    return np.int32(np.int64(now_ms) >> 32), np.int64(now_ms).astype(np.int32)
+
+
+def _lay_out_rounds(now_ms, capacity, counts, slot_sorted, clears, align, rows, header):
+    """The shared layout of `pack_rounds_host` and
+    `pack_uniform_rounds_host`: lanes, padding slots, per-round headers
+    (`header`, int32 words for row 0 of each non-empty round) and the
+    clears' CSR arrays.  Returns the PackedRounds with the request rows
+    still zero."""
     counts = np.asarray(counts, dtype=np.int64)
     n_rounds = len(counts)
     n = int(counts.sum())
@@ -379,21 +382,15 @@ def pack_rounds_host(
     if len(clear_counts) != n_rounds:
         raise ValueError("one clear list per round")
     n_clear = max(1, sum(clear_counts))
-    buf = np.zeros(PACKED_IN_ROWS * width + 2 * (n_rounds + 1) + n_clear, dtype=np.int32)
-    pin, v_round, v_clear, v_slots = split_rounds(buf, width, n_rounds)
-    pin[0, 0] = (np.int64(now_ms) >> 32).astype(np.int32)
-    pin[0, 1] = np.int64(now_ms).astype(np.int32)  # low-word bit pattern
+    buf = np.zeros(rows * width + 2 * (n_rounds + 1) + n_clear, dtype=np.int32)
+    pin, v_round, v_clear, v_slots = split_rounds(buf, width, n_rounds, rows)
+    starts = round_off[:-1][widths > 0]
+    for k, word in enumerate(header):
+        pin[0, starts + k] = word
     # padding: capacity + j for the round's j-th padding lane
     pad_start = np.repeat(round_off[:-1] + counts, widths)
     pin[1] = capacity + (np.arange(width, dtype=np.int64) - pad_start)
     pin[1, lanes] = slot_sorted
-    algo, behavior, *wide = cols
-    pin[2, lanes] = algo
-    pin[3, lanes] = behavior
-    for row, col in zip(range(4, PACKED_IN_ROWS, 2), wide):
-        c = np.asarray(col).astype(np.int64, copy=False)
-        pin[row, lanes] = (c >> 32).astype(np.int32)
-        pin[row + 1, lanes] = c.astype(np.int32)  # low-word bit pattern
     v_round[:] = round_off
     v_clear[0] = 0
     np.cumsum(clear_counts, out=v_clear[1:])
@@ -405,6 +402,30 @@ def pack_rounds_host(
                         int(widths.max(initial=0)))
 
 
+def pack_rounds_host(
+    now_ms: int,
+    capacity: int,
+    counts,  # int [R]: real lanes of each round
+    slot_sorted: np.ndarray,  # int32 [n], round-major, ascending within each round
+    cols,  # the 8 request columns (algo … greg_expire) in the same order
+    clears,  # R sequences: the slots to clear before each round
+    align: int = ROUND_ALIGN,
+) -> PackedRounds:
+    """Pack a batch's rounds for one multi-round step (the ragged
+    counterpart of `pack_batch_host`, vectorized over all rounds)."""
+    packed = _lay_out_rounds(now_ms, capacity, counts, slot_sorted, clears, align,
+                             PACKED_IN_ROWS, _now_words(now_ms))
+    pin, lanes = packed.pin, packed.lanes
+    algo, behavior, *wide = cols
+    pin[2, lanes] = algo
+    pin[3, lanes] = behavior
+    for row, col in zip(range(4, PACKED_IN_ROWS, 2), wide):
+        c = np.asarray(col).astype(np.int64, copy=False)
+        pin[row, lanes] = (c >> 32).astype(np.int32)
+        pin[row + 1, lanes] = c.astype(np.int32)  # low-word bit pattern
+    return packed
+
+
 def unpack_out_host(arr: np.ndarray, m: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Packed output rows → (status int32[m], remaining i64[m], reset
     i64[m]) (reference bucket_kernel.py:1031)."""
@@ -412,6 +433,169 @@ def unpack_out_host(arr: np.ndarray, m: int) -> tuple[np.ndarray, np.ndarray, np
     rem = (arr[1, :m].astype(np.int64) << 32) | (arr[2, :m].astype(np.int64) & _LO)
     reset = (arr[3, :m].astype(np.int64) << 32) | (arr[4, :m].astype(np.int64) & _LO)
     return status, rem, reset
+
+
+# ---------------------------------------------------------------------------
+# The uniform narrow format (reference bucket_kernel.py:1098-1216).
+#
+# A batch with one limit config across it ships only the slot per lane:
+#
+#   pin  int32 [2, W]: row 0 header [now_hi, now_lo, algo, behavior,
+#        hits_hi, hits_lo, limit, duration_lo, burst, duration_hi],
+#        row 1 slot (sorted; padding = cap + lane)
+#   pout int32 [2, W]: row 0 (status << 31) | (remaining & 0x7FFFFFFF),
+#        row 1 reset_time - now
+#
+# The engine's gate (`_uniform_params`) keeps the format to configs it
+# represents: no Gregorian or RESET_REMAINING, limit / burst / duration
+# below 2^31.
+
+UNIFORM_IN_ROWS = 2
+UNIFORM_OUT_ROWS = 2
+UNIFORM_HEADER = 10
+
+
+def uniform_header(now_ms: int, algo: int, behavior: int, hits: int, limit: int,
+                   duration: int, burst: int) -> np.ndarray:
+    """Row 0's header words of a uniform round (int32)."""
+    return np.array([
+        np.int64(now_ms) >> 32, np.int64(now_ms).astype(np.int32), algo, behavior,
+        np.int64(hits) >> 32, np.int64(hits).astype(np.int32), limit,
+        np.int64(duration).astype(np.int32), burst, np.int64(duration) >> 32,
+    ], dtype=np.int64).astype(np.int32)
+
+
+def pack_uniform_host(
+    size: int,
+    now_ms: int,
+    capacity: int,
+    slot_sorted: np.ndarray,  # int32 [m] sorted ascending
+    algo: int,
+    behavior: int,
+    hits: int,
+    limit: int,
+    duration: int,
+    burst: int,
+) -> np.ndarray:
+    """The [2, size] uniform pin of one round (reference :1122)."""
+    m = len(slot_sorted)
+    out = np.zeros((UNIFORM_IN_ROWS, size), dtype=np.int32)
+    out[0, :UNIFORM_HEADER] = uniform_header(now_ms, algo, behavior, hits, limit,
+                                             duration, burst)
+    out[1, :m] = slot_sorted
+    if size > m:
+        out[1, m:] = np.arange(capacity, capacity + (size - m), dtype=np.int64).astype(
+            np.int32
+        )
+    return out
+
+
+def pack_uniform_rounds_host(
+    now_ms: int,
+    capacity: int,
+    counts,  # int [R]: real lanes of each round
+    slot_sorted: np.ndarray,  # int32 [n], round-major, ascending within each round
+    uniform: tuple,  # (algo, behavior, hits, limit, duration, burst)
+    clears,  # R sequences: the slots to clear before each round
+    align: int = ROUND_ALIGN,
+) -> PackedRounds:
+    """A batch's rounds in the uniform format: `pack_rounds_host`'s
+    layout with UNIFORM_IN_ROWS rows, each round's row 0 starting with
+    the uniform header."""
+    return _lay_out_rounds(now_ms, capacity, counts, slot_sorted, clears, align,
+                           UNIFORM_IN_ROWS, uniform_header(now_ms, *uniform))
+
+
+def unpack_uniform_out_host(
+    arr: np.ndarray, m: int, now_ms: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Narrow output rows → (status, remaining, reset) like
+    unpack_out_host (reference :1209)."""
+    u = arr[0, :m].view(np.uint32)
+    status = (u >> 31).astype(np.int32)
+    rem = (u & 0x7FFFFFFF).astype(np.int64)
+    reset = arr[1, :m].astype(np.int64) + now_ms
+    return status, rem, reset
+
+
+# ---------------------------------------------------------------------------
+# The collapsed duplicate-segment step (reference bucket_kernel.py:1277-1475).
+#
+# When every occurrence of a key in a batch carries the same request
+# fields, the m-1 occurrences after the first see an existing item with
+# unchanged config and no elapsed time, so each either consumes `h` or
+# is rejected: with R1 the remaining after the first application, the
+# extras admit a2 = clip(R1 // h, 0, m-1) (all of them for h <= 0);
+# extra p (0-based) answers R1-(p+1)h and the first application's status
+# when p < a2, else R1-a2·h and OVER; the bucket stores R1-a2·h, and the
+# token bucket's sticky status flips to OVER iff an extra saw exactly 0
+# (h > 0, R1-a2·h == 0, a2 < m-1).  Leaky buckets work the same over
+# floor(rem_f), with reset_time = now + (limit - rem)·rate.
+#
+# Packed layout (int32 [COLLAPSED_IN_ROWS, W]):
+#   row 0       header [now_hi, now_lo]
+#   rows 1-16   SEGMENT level (first S lanes real; padding = m 0 and
+#               ascending out-of-range slots): slot, m, algo, behavior,
+#               hits, limit, duration, burst, greg_dur, greg_exp
+#               (64-bit as hi/lo pairs)
+#   row 17      lane → segment index;  row 18  lane → position in segment
+# Output rows are PACKED_OUT_ROWS, in lane order.
+
+COLLAPSED_IN_ROWS = 19
+
+
+def token_extras_host(R1: int, h: int, extras: int) -> tuple[int, int, bool]:
+    """Host-scalar twin of the token branch of the collapsed step
+    (reference :1396): `extras` further occurrences each consuming `h`
+    after the first application left R1 admit a2 = clip(R1 // h, 0,
+    extras) (all, for h <= 0), leaving rem2 = R1 - a2*h; the sticky
+    status flips OVER iff an extra saw remaining == 0.  Returns (a2,
+    rem2, sticky_over)."""
+    if h > 0:
+        a2 = min(max(R1 // h, 0), extras)
+    else:
+        a2 = extras
+    rem2 = R1 - a2 * h
+    sticky = h > 0 and rem2 == 0 and a2 < extras
+    return a2, rem2, sticky
+
+
+def pack_collapsed_host(
+    size: int,
+    now_ms: int,
+    capacity: int,
+    uniq_slots: np.ndarray,  # int32 [S] sorted unique
+    counts: np.ndarray,  # int64 [S]
+    seg_fields: tuple,  # (algo, behavior, hits, limit, duration, burst,
+    #                      greg_dur, greg_exp) per segment, [S]
+    seg_idx: np.ndarray,  # int32 [m_lanes]
+    pos: np.ndarray,  # int32 [m_lanes]
+) -> np.ndarray:
+    """Host packer for the collapsed step (reference :1428; layout
+    above)."""
+    s_count = len(uniq_slots)
+    n_lanes = len(seg_idx)
+    out = np.zeros((COLLAPSED_IN_ROWS, size), dtype=np.int32)
+    out[0, :2] = _now_words(now_ms)
+    out[1, :s_count] = uniq_slots
+    if size > s_count:
+        out[1, s_count:] = np.arange(
+            capacity, capacity + (size - s_count), dtype=np.int64
+        ).astype(np.int32)
+    out[2, :s_count] = counts.astype(np.int32)
+    algo, behavior, *wide = seg_fields
+    out[3, :s_count] = algo
+    out[4, :s_count] = behavior
+    for row, col in zip(range(5, 17, 2), wide):
+        c = np.asarray(col).astype(np.int64, copy=False)
+        out[row, :s_count] = (c >> 32).astype(np.int32)
+        out[row + 1, :s_count] = c.astype(np.int32)  # low-word bit pattern
+    out[17, :n_lanes] = seg_idx
+    # Padding lanes point at the last padding segment (m = 0, harmless).
+    if size > n_lanes:
+        out[17, n_lanes:] = size - 1
+    out[18, :n_lanes] = pos
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -461,9 +645,8 @@ def _row64(pin: torch.Tensor, hi_row: int, lo_row: int) -> torch.Tensor:
 
 def _update_lanes(g, mask, r_algo, r_beh, r_hits, r_limit, r_dur, r_burst, r_gdur, r_gexp, now):
     """The branch-free bucket update over gathered lanes: a line-for-
-    line transcription of the reference's `update_lanes` (:514) and
-    `encode_slot_values` (:781).  Returns (stored words as int64 in
-    BucketState field order, status, remaining, reset)."""
+    line transcription of the reference's `update_lanes` (:514).
+    Returns (SlotValues to store, status, remaining, reset)."""
     meta = g.meta.to(_I64)
     s_occ = meta_occupied(meta) & mask
     s_algo = meta_algo(meta)
@@ -621,38 +804,62 @@ def _update_lanes(g, mask, r_algo, r_beh, r_hits, r_limit, r_dur, r_burst, r_gdu
     n_burst = pick(zero, zero, zero, burst_eff, burst_eff)
     n_status = pick(under, te_status_store, under, under, under)
 
-    # ---------------- encode_slot_values (update always clears invalid_at)
-    t0c = n_t0.clamp(0, TS_CLAMP_MAX)
-    expc = n_exp.clamp(0, TS_CLAMP_MAX)
-    durc = n_dur.clamp(0, TS_CLAMP_MAX)
-    w_meta = pack_meta(n_occ, r_algo, n_status, t0c, zero)
+    vals = SlotValues(
+        occ=n_occ, algo=r_algo, status=n_status, limit=r_limit, remaining=n_rem,
+        rem_f=n_rem_f, duration=n_dur, t0=n_t0, expire=n_exp, burst=n_burst,
+    )
+    return vals, resp_status, resp_rem, resp_reset
+
+
+class SlotValues(NamedTuple):
+    """Per-lane values to store after an update (reference `SlotValues`
+    :744): int64 tensors, `rem_f` float64 (the leaky 32.32 source)."""
+
+    occ: torch.Tensor
+    algo: torch.Tensor
+    status: torch.Tensor
+    limit: torch.Tensor
+    remaining: torch.Tensor
+    rem_f: torch.Tensor
+    duration: torch.Tensor
+    t0: torch.Tensor
+    expire: torch.Tensor
+    burst: torch.Tensor
+
+
+def _encode_values(v: SlotValues):
+    """The stored words (int64, BucketState field order) of updated
+    slots: reference `encode_slot_values` (:781).  An update always
+    clears invalid_at."""
+    zero = torch.zeros_like(v.limit)
+    t0c = v.t0.clamp(0, TS_CLAMP_MAX)
+    expc = v.expire.clamp(0, TS_CLAMP_MAX)
+    durc = v.duration.clamp(0, TS_CLAMP_MAX)
+    w_meta = pack_meta(v.occ, v.algo, v.status, t0c, zero)
     w_hi2 = pack_hi2(expc, durc)
-    w_floor = torch.floor(n_rem_f)
+    w_floor = torch.floor(v.rem_f)
     remf_hi = f64_to_i32(w_floor.clamp(-(2.0**31), 2.0**31 - 1))
-    remf_lo = f64_to_u32((n_rem_f - w_floor) * (2.0**32))
-    leaky = r_algo == 1
-    words = (
+    remf_lo = f64_to_u32((v.rem_f - w_floor) * (2.0**32))
+    leaky = v.algo == 1
+    return (
         w_meta,
         w_hi2,
         t0c,
         expc,
         zero,
         durc,
-        r_limit >> 32,
-        r_limit,
-        torch.where(leaky, remf_hi, n_rem >> 32),
-        torch.where(leaky, remf_lo, n_rem),
-        n_burst >> 32,
-        n_burst,
+        v.limit >> 32,
+        v.limit,
+        torch.where(leaky, remf_hi, v.remaining >> 32),
+        torch.where(leaky, remf_lo, v.remaining),
+        v.burst >> 32,
+        v.burst,
     )
-    return words, resp_status, resp_rem, resp_reset
 
 
-def check_pin(pin: torch.Tensor) -> None:
-    if pin.dtype != _I32 or pin.dim() != 2 or pin.shape[0] != PACKED_IN_ROWS:
-        raise ValueError(
-            f"pin must be int32 [{PACKED_IN_ROWS}, W]; got {pin.dtype} {list(pin.shape)}"
-        )
+def check_pin(pin: torch.Tensor, rows: int = PACKED_IN_ROWS) -> None:
+    if pin.dtype != _I32 or pin.dim() != 2 or pin.shape[0] != rows:
+        raise ValueError(f"pin must be int32 [{rows}, W]; got {pin.dtype} {list(pin.shape)}")
 
 
 def check_state(state: BucketState) -> int:
@@ -676,41 +883,39 @@ def fused_step_reference(state: BucketState, pin: torch.Tensor) -> torch.Tensor:
     return _step_lanes(state, pin, _combine(pin[0, 0], pin[0, 1]))
 
 
-def _step_lanes(state: BucketState, pin: torch.Tensor, now: torch.Tensor) -> torch.Tensor:
-    """The fused step over the lanes of `pin` (rows 1-15 read; row 0 is
-    not) at `now` (int64 scalar tensor)."""
+def _step_fields(state: BucketState, slot: torch.Tensor, fields, now: torch.Tensor):
+    """Gather → update → store over lanes with request `fields` (algo,
+    behavior, hits, limit, duration, burst, greg_dur, greg_exp; int64)
+    at `now`: the reference's `_apply_core`.  Returns (status,
+    remaining, reset) per lane."""
     cap = state.meta.shape[0]
-    slot = pin[1].to(_I64)
+    slot = slot.to(_I64)
     valid = (slot >= 0) & (slot < cap)
     idx = torch.where(valid, slot, torch.zeros_like(slot))
     g = BucketState(
         *(torch.where(valid, col[idx], torch.zeros_like(col[idx])) for col in state)
     )
-    words, status, rem, reset = _update_lanes(
-        g,
-        valid,
-        pin[2].to(_I64),
-        pin[3].to(_I64),
-        _row64(pin, 4, 5),
-        _row64(pin, 6, 7),
-        _row64(pin, 8, 9),
-        _row64(pin, 10, 11),
-        _row64(pin, 12, 13),
-        _row64(pin, 14, 15),
-        now,
-    )
+    vals, status, rem, reset = _update_lanes(g, valid, *fields, now)
     dst = slot[valid]
-    for col, w in zip(state, words):
+    for col, w in zip(state, _encode_values(vals)):
         col[dst] = _low_word(w[valid])
+    return status, rem, reset
+
+
+def _pack_out(status, rem, reset) -> torch.Tensor:
     return torch.stack(
-        [
-            status.to(_I32),
-            (rem >> 32).to(_I32),
-            _low_word(rem),
-            (reset >> 32).to(_I32),
-            _low_word(reset),
-        ]
+        [status.to(_I32), (rem >> 32).to(_I32), _low_word(rem), (reset >> 32).to(_I32),
+         _low_word(reset)]
     )
+
+
+def _step_lanes(state: BucketState, pin: torch.Tensor, now: torch.Tensor) -> torch.Tensor:
+    """The fused step over the lanes of `pin` (rows 1-15 read; row 0 is
+    not) at `now` (int64 scalar tensor)."""
+    fields = (pin[2].to(_I64), pin[3].to(_I64)) + tuple(
+        _row64(pin, r, r + 1) for r in range(4, PACKED_IN_ROWS, 2)
+    )
+    return _pack_out(*_step_fields(state, pin[1], fields, now))
 
 
 def clear_occupied_reference(meta: torch.Tensor, slots: torch.Tensor) -> None:
@@ -722,9 +927,9 @@ def clear_occupied_reference(meta: torch.Tensor, slots: torch.Tensor) -> None:
     meta[s] = meta[s] & ~1
 
 
-def check_rounds(pin, round_off, clear_off, clear_slots) -> int:
+def check_rounds(pin, round_off, clear_off, clear_slots, rows: int = PACKED_IN_ROWS) -> int:
     """Shapes and dtypes of a multi-round call; returns R."""
-    check_pin(pin)
+    check_pin(pin, rows)
     for name, t in (("round_off", round_off), ("clear_off", clear_off),
                     ("clear_slots", clear_slots)):
         if t.dtype != _I32 or t.dim() != 1:
@@ -737,6 +942,27 @@ def check_rounds(pin, round_off, clear_off, clear_slots) -> int:
     return n_rounds
 
 
+def _run_rounds(state, pin, round_off, clear_off, clear_slots, rows, out_rows, step):
+    """The round loop shared by the plain multi-round steps: for r in
+    0..R-1, clear round r's in-range clear slots, then `step(state, pin
+    columns of round r)` writes the round's output columns."""
+    check_rounds(pin, round_off, clear_off, clear_slots, rows)
+    check_state(state)
+    ro, co = round_off.tolist(), clear_off.tolist()
+    width = pin.shape[1]
+    if ro[0] != 0 or ro[-1] != width or any(b < a for a, b in zip(ro, ro[1:])):
+        raise ValueError("round_off must rise from 0 to the pin's width")
+    if co[0] != 0 or co[-1] > clear_slots.shape[0] or any(b < a for a, b in zip(co, co[1:])):
+        raise ValueError("clear_off must rise from 0 to at most len(clear_slots)")
+    pout = torch.empty((out_rows, width), dtype=_I32, device=pin.device)
+    for r in range(len(ro) - 1):
+        if co[r + 1] > co[r]:
+            clear_occupied_reference(state.meta, clear_slots[co[r] : co[r + 1]])
+        if ro[r + 1] > ro[r]:
+            pout[:, ro[r] : ro[r + 1]] = step(state, pin[:, ro[r] : ro[r + 1]])
+    return pout
+
+
 def multi_fused_step_reference(
     state: BucketState,
     pin: torch.Tensor,
@@ -747,21 +973,141 @@ def multi_fused_step_reference(
     """The plain multi-round step (reference `_multi_fused_core`
     :1071, with the engine's per-round clears): for r in 0..R-1, clear
     the occupied bit at round r's in-range clear slots, then run the
-    fused step over round r's lanes at the header's `now`.  Returns
-    pout int32 [5, L]; `state` is updated IN PLACE."""
-    n_rounds = check_rounds(pin, round_off, clear_off, clear_slots)
-    check_state(state)
-    ro, co = round_off.tolist(), clear_off.tolist()
-    width = pin.shape[1]
-    if ro[0] != 0 or ro[-1] != width or any(b < a for a, b in zip(ro, ro[1:])):
-        raise ValueError("round_off must rise from 0 to the pin's width")
-    if co[0] != 0 or co[-1] > clear_slots.shape[0] or any(b < a for a, b in zip(co, co[1:])):
-        raise ValueError("clear_off must rise from 0 to at most len(clear_slots)")
+    fused step over round r's lanes at the `now` of the round's header.
+    Returns pout int32 [5, L]; `state` is updated IN PLACE."""
+
+    def step(st, seg):
+        return _step_lanes(st, seg, _combine(seg[0, 0], seg[0, 1]))
+
+    return _run_rounds(state, pin, round_off, clear_off, clear_slots, PACKED_IN_ROWS,
+                       PACKED_OUT_ROWS, step)
+
+
+def _uniform_lanes(state: BucketState, pin: torch.Tensor) -> torch.Tensor:
+    """One uniform round (reference `_uniform_step_core` :1161): the
+    header's scalars broadcast over the lanes, greg fields zero; pout
+    [(status << 31) | (rem & 0x7FFFFFFF), reset - now]."""
+    hdr = pin[0, :UNIFORM_HEADER].to(_I64)
     now = _combine(pin[0, 0], pin[0, 1])
-    pout = torch.empty((PACKED_OUT_ROWS, width), dtype=_I32, device=pin.device)
-    for r in range(n_rounds):
-        if co[r + 1] > co[r]:
-            clear_occupied_reference(state.meta, clear_slots[co[r] : co[r + 1]])
-        if ro[r + 1] > ro[r]:
-            pout[:, ro[r] : ro[r + 1]] = _step_lanes(state, pin[:, ro[r] : ro[r + 1]], now)
-    return pout
+    w = pin.shape[1]
+
+    def bc(x):
+        return x.expand(w).contiguous()
+
+    zeros = torch.zeros(w, dtype=_I64, device=pin.device)
+    fields = (
+        bc(hdr[2]), bc(hdr[3]), bc(_combine(pin[0, 4], pin[0, 5])), bc(hdr[6]),
+        bc(_combine(pin[0, 9], pin[0, 7])), bc(hdr[8]), zeros, zeros,
+    )
+    status, rem, reset = _step_fields(state, pin[1], fields, now)
+    return torch.stack([_low_word((status << 31) | (rem & 0x7FFFFFFF)), _low_word(reset - now)])
+
+
+def multi_uniform_step_reference(
+    state: BucketState,
+    pin: torch.Tensor,
+    round_off: torch.Tensor,
+    clear_off: torch.Tensor,
+    clear_slots: torch.Tensor,
+) -> torch.Tensor:
+    """The plain uniform multi-round step (reference `_multi_uniform_core`
+    :1198, with the engine's per-round clears): pin int32 [2, L] laid out
+    as `pack_uniform_rounds_host`, each round's header in row 0 of its
+    first lanes.  Returns pout int32 [2, L]; `state` is updated IN
+    PLACE."""
+    return _run_rounds(state, pin, round_off, clear_off, clear_slots, UNIFORM_IN_ROWS,
+                       UNIFORM_OUT_ROWS, _uniform_lanes)
+
+
+def collapsed_step_reference(state: BucketState, pin: torch.Tensor) -> torch.Tensor:
+    """The plain collapsed step (reference `_collapsed_values` :1314 +
+    `_scatter_values`): pin int32 [19, W] as `pack_collapsed_host` lays it
+    out → pout int32 [5, W] in lane order; `state` is updated IN PLACE
+    with each segment's final words.  One full application per segment
+    lane, the closed form for its m-1 extras, lane answers gathered by
+    segment index (clamped into [0, W))."""
+    check_pin(pin, COLLAPSED_IN_ROWS)
+    cap = check_state(state)
+    now = _combine(pin[0, 0], pin[0, 1])
+    slot = pin[1].to(_I64)
+    m = pin[2].to(_I64)
+    s_algo = pin[3].to(_I64)
+    s_beh = pin[4].to(_I64)
+    s_hits, s_limit, s_dur, s_burst, s_gdur, s_gexp = (
+        _row64(pin, r, r + 1) for r in range(5, 17, 2)
+    )
+    seg = pin[17].to(_I64).clamp(0, pin.shape[1] - 1)
+    pos = pin[18].to(_I64)
+
+    # First application per segment: the full bucket update.
+    valid = (slot >= 0) & (slot < cap)
+    idx = torch.where(valid, slot, torch.zeros_like(slot))
+    g = BucketState(
+        *(torch.where(valid, col[idx], torch.zeros_like(col[idx])) for col in state)
+    )
+    vals, st1, rem1, rst1 = _update_lanes(g, valid, s_algo, s_beh, s_hits, s_limit,
+                                          s_dur, s_burst, s_gdur, s_gexp, now)
+
+    extras = torch.clamp(m - 1, min=0)
+    h = s_hits
+    h_safe = torch.clamp(h, min=1)
+    is_tok = s_algo == _TOKEN
+
+    def clip_extras(x):
+        return torch.minimum(torch.clamp(x, min=0), extras)
+
+    # Token extras.
+    R1 = vals.remaining
+    a2_tok = torch.where(h > 0, clip_extras(torch.div(R1, h_safe, rounding_mode="floor")),
+                         extras)
+    rem2_tok = R1 - a2_tok * h
+    sticky_over = (h > 0) & (rem2_tok == 0) & (a2_tok < extras)
+    status2 = torch.where(sticky_over & is_tok, torch.full_like(vals.status, _OVER),
+                          vals.status)
+
+    # Leaky extras (over the floor of the fixed-point remaining).
+    W1f = vals.rem_f
+    W1 = f64_to_i64(W1f)
+    a2_lk = torch.where(h > 0, clip_extras(torch.div(W1, h_safe, rounding_mode="floor")),
+                        extras)
+    rem2_lkf = W1f - (a2_lk * h).to(_F64)
+    vals2 = vals._replace(
+        remaining=torch.where(is_tok, rem2_tok, vals.remaining),
+        status=status2,
+        rem_f=torch.where(is_tok, vals.rem_f, rem2_lkf),
+    )
+
+    # Leaky reset slope (the update's lk_rate_i).
+    lk_d = torch.where((s_beh & _GREG) != 0, s_gdur, s_dur)
+    limit_pos = s_limit > 0
+    lk_rate = lk_d.to(_F64) / torch.where(limit_pos, s_limit, torch.ones_like(s_limit)).to(_F64)
+    lk_rate_i = f64_to_i64(torch.where(limit_pos, lk_rate, torch.zeros_like(lk_rate)))
+
+    # Lane-level responses.
+    def gs(x):
+        return x[seg]
+
+    p = torch.clamp(pos - 1, min=0)
+    first = pos == 0
+    l_tok = gs(is_tok)
+    l_h = gs(h)
+    over = torch.full_like(p, _OVER)
+
+    acc_tok = p < gs(a2_tok)
+    rem_tok = torch.where(acc_tok, gs(R1) - (p + 1) * l_h, gs(rem2_tok))
+    st_tok = torch.where(acc_tok, gs(vals.status), over)
+    rst_tok = gs(vals.expire)
+
+    acc_lk = p < gs(a2_lk)
+    rem_lk = torch.where(acc_lk, gs(W1) - (p + 1) * l_h, gs(W1 - a2_lk * h))
+    st_lk = torch.where(acc_lk, torch.full_like(p, _UNDER), over)
+    rst_lk = now + (gs(s_limit) - rem_lk) * gs(lk_rate_i)
+
+    o_status = torch.where(first, gs(st1), torch.where(l_tok, st_tok, st_lk))
+    o_rem = torch.where(first, gs(rem1), torch.where(l_tok, rem_tok, rem_lk))
+    o_reset = torch.where(first, gs(rst1), torch.where(l_tok, rst_tok, rst_lk))
+
+    dst = slot[valid]
+    for col, w in zip(state, _encode_values(vals2)):
+        col[dst] = _low_word(w[valid])
+    return _pack_out(o_status, o_rem, o_reset)

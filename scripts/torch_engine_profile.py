@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Where a batch's wall time goes in the port's engine on one GPU.
+
+    python3 scripts/torch_engine_profile.py [--batches N]
+
+Drives three of chip_smoke.py's streams (mixed: 2^20 slots, batches of
+1000; zipf: the reference's zipf deployment, 2^24 slots, batches of
+8192; uniform: one config per batch of 1000) synchronously through
+`DecisionEngine.apply_columnar` on the card, and splits each batch's
+wall time by host-tier step:
+
+* schedule — the native intern table's `schedule` call;
+* collapse — `_try_collapse`: the duplicate checks, packing, the copy to
+  the card and the K3 launch;
+* rounds — `_dispatch_rounds`: round split, packing, the pump submit;
+* flush — the pump's flush: the copy to the card, the launch of K1 or
+  K4 and the readback copy;
+* readback — waiting for the output and turning it into numpy;
+* rest — the remainder (Gregorian columns, the TTL mirror, unpacking).
+
+The first 4 batches of a stream are warm-up; the next half are timed
+as above (medians per batch).  The rest run under `torch.profiler` (CUDA
+activity) as one window, timed on the host clock from a synchronised
+start to a synchronised end: the device's busy time is the sum of the
+device time of every CUDA kernel and copy recorded in that window, and
+its idle share is 1 - busy / wall over the same window.  Prints one line
+per stream, then one JSON object.  Needs one card; imports nothing of
+JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+STEPS = ("schedule", "collapse", "rounds", "flush", "readback")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batches", type=int, default=40, help="batches per stream (default 40)")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_engine_profile: CUDA is not available", file=sys.stderr)
+        return 2
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core import engine as engine_mod
+    from gubernator_tpu_torch.core.readback import Ticket
+
+    card = cs.phase_device(torch)
+    step_s = defaultdict(float)
+
+    def timed(obj, name, key):
+        fn = getattr(obj, name)
+
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                step_s[key] += time.perf_counter() - t
+
+        setattr(obj, name, wrapper)
+
+    timed(Ticket, "fetch", "readback")
+    rng = np.random.default_rng(cs.SEED)
+    report = {"card": card}
+    for tag, cap, batches, _opts in cs.streams(np, rng, args.batches):
+        if tag not in ("mixed", "zipf", "uniform"):
+            continue
+        eng = engine_mod.DecisionEngine(cap, clock=Clock().freeze_at(cs.NOW0 * 1_000_000),
+                                        device="cuda", max_kernel_width=8192)
+        timed(eng.table, "schedule", "schedule")
+        timed(eng, "_try_collapse", "collapse")
+        timed(eng, "_dispatch_rounds", "rounds")
+        timed(eng._pump, "flush_locked", "flush")
+
+        def run(keys, cols):
+            eng.apply_columnar(keys, *cols)
+            eng.clock.advance(ms=int(rng.integers(0, 2_000)))
+
+        split = 4 + (len(batches) - 4) // 2
+        rows = []
+        for b, (keys, cols) in enumerate(batches[:split]):
+            step_s.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(keys, cols)
+            wall = time.perf_counter() - t
+            if b < 4:
+                continue
+            row = {k: step_s[k] * 1e6 for k in STEPS}
+            row["rest"] = wall * 1e6 - sum(row.values())
+            row["wall"] = wall * 1e6
+            rows.append(row)
+        n_prof = len(batches) - split
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for keys, cols in batches[split:]:
+                run(keys, cols)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t) * 1e6
+        busy = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy_us = sum(t for _, t in busy) if busy else float("nan")
+        med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+        med["decisions_per_s"] = len(batches[0][0]) / (med["wall"] * 1e-6)
+        med["window"] = {"batches": n_prof, "wall_us": window_us, "busy_us": busy_us,
+                         "idle_share": 1 - busy_us / window_us,
+                         "busy_by_name_us": dict(busy)}
+        report[tag] = med
+        print(f"[{tag}] {len(rows)} batches of {len(batches[0][0])}: median per batch "
+              + ", ".join(f"{k} {med[k]:.1f} us" for k in (*STEPS, "rest", "wall"))
+              + f"; profiled window of {n_prof} batches: wall {window_us:.1f} us, device busy "
+              f"{busy_us:.1f} us, idle share {1 - busy_us / window_us:.4f} | {card}",
+              flush=True)
+        eng.close()
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,6 +22,7 @@ from gubernator_tpu.ops import bucket_kernel as bk
 from gubernator_tpu.ops.pallas_step import pallas_fused_step
 from gubernator_tpu_torch.ops import bucket_kernel as tk
 from gubernator_tpu_torch.ops import fused_step as fs
+from gubernator_tpu_torch.ops.collapsed_step import collapsed_step
 from gubernator_tpu_torch.types import Behavior
 
 GREG = int(Behavior.DURATION_IS_GREGORIAN)
@@ -366,9 +367,26 @@ def test_wrappers_route_cpu_tensors_to_the_plain_version():
     assert tk.unpack_state_host(state)["occupied"][3]
     fs.clear_occupied(state.meta, torch.tensor([3] + list(range(128, 143)), dtype=torch.int32))
     assert not tk.unpack_state_host(state)["occupied"][3]
-    assert fs.launches == {"fused_step": 0, "clear_occupied": 0}
+    uni = tk.pack_uniform_rounds_host(1000, 128, [1], np.array([5], np.int32),
+                                      (0, 0, 1, 5, 1000, 0), [[]])
+    views = [torch.from_numpy(a) for a in (uni.pin, uni.round_off, uni.clear_off,
+                                           uni.clear_slots)]
+    assert fs.multi_uniform_step(state, *views).shape == (tk.UNIFORM_OUT_ROWS, 32)
+    assert tk.unpack_state_host(state)["remaining"][5] == 4
+    col = tk.pack_collapsed_host(32, 1000, 128, np.array([7], np.int32), np.array([3]),
+                                 tuple(np.array([v]) for v in (0, 0, 1, 5, 1000, 0, 0, 0)),
+                                 np.zeros(3, np.int32), np.arange(3, dtype=np.int32))
+    pout = collapsed_step(state, torch.from_numpy(col), torch.tensor([], dtype=torch.int32))
+    assert tk.unpack_out_host(pout.numpy(), 3)[1].tolist() == [4, 3, 2]
+    assert fs.launches == {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0,
+                           "uniform_step": 0}
     meta_state = tk.BucketState(*(torch.empty(8, dtype=torch.int32, device="meta") for _ in range(12)))
     with pytest.raises(ValueError):
         fs.fused_step(meta_state, torch.empty((16, 64), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        collapsed_step(meta_state, torch.empty((19, 64), dtype=torch.int32, device="meta"),
+                       torch.empty(0, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        fs.multi_uniform_step(meta_state, *(v.to("meta") for v in views))
     with pytest.raises(ValueError):
         fs.fused_step(state, torch.zeros((5, 64), dtype=torch.int32))

@@ -19,6 +19,7 @@ from gubernator_tpu_torch.clock import Clock
 from gubernator_tpu_torch.core.engine import DecisionEngine
 from gubernator_tpu_torch.ops import bucket_kernel as tk
 from gubernator_tpu_torch.ops import fused_step as fs
+from gubernator_tpu_torch.ops.collapsed_step import collapsed_step
 
 pytestmark = pytest.mark.cuda
 
@@ -174,23 +175,34 @@ def test_multi_fused_step_rejects_a_bad_launch(cuda):
 
 
 def test_engine_hot_key_batch_on_the_card(cuda):
-    """A key repeated 200 times is 200 rounds of 32 lanes in one launch."""
+    """A key repeated 200 times with 50 others, each key with a limit of
+    its own (so not the uniform format): one K3 launch (the collapse);
+    forced onto the rounds path, 200 rounds of 32 lanes in one K1
+    launch.  Both answer as the CPU engine does."""
     ns = 1_760_000_000_000 * 1_000_000
+    rounds = DecisionEngine(256, clock=Clock().freeze_at(ns), device=cuda)
+    rounds._try_collapse = lambda *a, **k: None
     gpu = DecisionEngine(256, clock=Clock().freeze_at(ns), device=cuda)
     cpu = DecisionEngine(256, clock=Clock().freeze_at(ns), device="cpu")
     fs.reset_launches()
     for algo in (0, 1):
         keys = [b"hot%d" % algo] * 200 + [b"k%d" % i for i in range(50)]
         n = len(keys)
+        limit = np.concatenate([np.full(200, 150), 151 + np.arange(50)]).astype(np.int64)
         cols = (np.full(n, algo, np.int32), np.zeros(n, np.int32), np.ones(n, np.int64),
-                np.full(n, 150, np.int64), np.full(n, 60_000, np.int64), np.zeros(n, np.int64))
-        for g, w in zip(gpu.apply_columnar(keys, *cols), cpu.apply_columnar(keys, *cols)):
-            assert np.array_equal(g, w)
-    assert fs.launches["fused_step"] == gpu.dispatches_total == 2
-    assert gpu.rounds_total == 400
-    got, want = tk.state_to_numpy(gpu.state), tk.state_to_numpy(cpu.state)
-    for f in tk.BucketState._fields:
-        assert np.array_equal(got[f], want[f]), f
+                limit, np.full(n, 60_000, np.int64), np.zeros(n, np.int64))
+        want = cpu.apply_columnar(keys, *cols)
+        for eng in (gpu, rounds):
+            for g, w in zip(eng.apply_columnar(keys, *cols), want):
+                assert np.array_equal(g, w)
+    assert fs.launches["collapsed_step"] == gpu.dispatches_total == 2
+    assert fs.launches["fused_step"] == rounds.dispatches_total == 2
+    assert rounds.rounds_total == 400
+    want = tk.state_to_numpy(cpu.state)
+    for eng in (gpu, rounds):
+        got = tk.state_to_numpy(eng.state)
+        for f in tk.BucketState._fields:
+            assert np.array_equal(got[f], want[f]), f
 
 
 def test_engine_on_the_card_matches_the_cpu(cuda):
@@ -218,6 +230,120 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     for f in tk.BucketState._fields:
         assert np.array_equal(got[f], want[f]), f
     assert gpu.table.evictions > 0
-    # one K1 launch per batch, with the clears inside it; no K2 launch
-    assert fs.launches["fused_step"] == gpu.dispatches_total == 10 < gpu.rounds_total
+    # one launch per batch (K1, or K3 for a batch that collapses), with
+    # the clears inside it; no K2 launch
+    assert fs.launches["fused_step"] + fs.launches["collapsed_step"] == gpu.dispatches_total
+    assert gpu.dispatches_total == 10 < gpu.rounds_total
     assert fs.launches["clear_occupied"] == 0 and gpu.clears_total > 0
+
+
+def _segments(rng, cap, n_seg, now, max_m=6):
+    uniq = np.sort(rng.choice(cap, n_seg, replace=False)).astype(np.int32)
+    counts = rng.integers(1, max_m + 1, n_seg).astype(np.int64)
+    fields = (rng.integers(0, 3, n_seg), rng.choice([0, 0, 4], n_seg),
+              rng.choice([-3, 0, 1, 2, 3, 5, 2**40], n_seg),
+              rng.choice([-1, 0, 1, 4, 10, 100, 2**62], n_seg),
+              rng.choice([0, 1, 40, 60_000, -5], n_seg), rng.choice([0, 0, 3, 20, -7], n_seg),
+              rng.choice([60_000, 86_400_000], n_seg), now + rng.integers(0, 100_000, n_seg))
+    seg = np.repeat(np.arange(n_seg), counts).astype(np.int32)
+    pos = (np.arange(len(seg)) - np.repeat(np.cumsum(counts) - counts, counts)).astype(np.int32)
+    return uniq, counts, fields, seg, pos
+
+
+@pytest.mark.parametrize("n_seg", [1, 40, 1500])
+def test_collapsed_step_kernel_bit_equal_to_plain(cuda, n_seg):
+    """K3 against clear + `collapsed_step_reference`: random segments
+    (every closed-form branch), clears among the segments' slots, in
+    pout and all 12 columns."""
+    rng = np.random.default_rng(60 + n_seg)
+    cap, now = 1 << 16, 1_760_000_000_000
+    words = _state_words(rng, cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    for call in range(6):
+        now += int(rng.integers(0, 3_000))
+        uniq, counts, fields, seg, pos = _segments(rng, cap, n_seg, now)
+        size = 32 * -(-len(seg) // 32)
+        pin = torch.from_numpy(tk.pack_collapsed_host(size, now, cap, uniq, counts, fields,
+                                                      seg, pos)).to(cuda)
+        clears = torch.from_numpy(np.append(uniq[::5], cap + 1).astype(np.int32)).to(cuda)
+        if call % 2:
+            clears = clears[:0]
+        got = collapsed_step(kern, pin, clears)
+        tk.clear_occupied_reference(plain.meta, clears)
+        want = tk.collapsed_step_reference(plain, pin)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), call
+        for name, a, b in zip(tk.BucketState._fields, kern, plain):
+            assert torch.equal(a, b), (call, name)
+    assert fs.launches["collapsed_step"] == 6
+
+
+@pytest.mark.parametrize("n_rounds", [1, 3])
+def test_multi_uniform_step_kernel_bit_equal_to_plain(cuda, n_rounds):
+    """K4 against `multi_uniform_step_reference`: ragged uniform rounds,
+    each with its own config, clears in even rounds."""
+    rng = np.random.default_rng(80 + n_rounds)
+    cap, now = 1 << 16, 1_760_000_000_000
+    words = _state_words(rng, cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    for call in range(6):
+        now += int(rng.integers(0, 3_000))
+        parts = []
+        for r in range(n_rounds):
+            m = int(rng.integers(1, 1200))
+            slots = np.sort(np.append(rng.choice(np.arange(1, cap), m - 1, replace=False), 0))
+            cfg = (int(rng.integers(0, 2)), 0, int(rng.integers(-2, 6)),
+                   int(rng.integers(0, 60)), int(rng.integers(1, 90_000)),
+                   int(rng.integers(0, 70)))
+            clears = [] if r % 2 else [int(x) for x in slots[::7]][:40] + [cap + r]
+            parts.append(tk.pack_uniform_rounds_host(now + r, cap, [m], slots.astype(np.int32),
+                                                     cfg, [clears]))
+        pin = np.concatenate([p.pin for p in parts], axis=1)
+        widths = [p.pin.shape[1] for p in parts]
+        round_off = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
+        n_clear = [int(p.clear_off[-1]) for p in parts]
+        clear_off = np.concatenate([[0], np.cumsum(n_clear)]).astype(np.int32)
+        cs = np.concatenate([p.clear_slots[:k] for p, k in zip(parts, n_clear)] + [[cap]])
+        args = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(cuda)
+                for a in (pin, round_off, clear_off, cs)]
+        got = fs.multi_uniform_step(kern, *args, widest=max(widths))
+        want = tk.multi_uniform_step_reference(plain, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), call
+        for name, a, b in zip(tk.BucketState._fields, kern, plain):
+            assert torch.equal(a, b), (call, name)
+    assert fs.launches["uniform_step"] == 6
+
+
+def test_engine_async_pipeline_on_the_card(cuda):
+    """`want_async` batches through the pump on the card (two uniform,
+    two general, ...: each queued run of one format joins one launch)
+    answer as synchronous batches on the CPU."""
+    rng = np.random.default_rng(12)
+    ns = 1_760_000_000_000 * 1_000_000
+    gpu = DecisionEngine(4096, clock=Clock().freeze_at(ns), device=cuda)
+    cpu = DecisionEngine(4096, clock=Clock().freeze_at(ns), device="cpu")
+    fs.reset_launches()
+    pend, want = [], []
+    for b in range(12):
+        n = 400
+        general = b // 2 % 2
+        if general:  # repeats with different configs: rounds (K1)
+            keys = [b"a%d" % i for i in rng.integers(0, 3000, n)]
+        else:  # distinct keys, one config: the uniform format (K4)
+            keys = [b"a%d" % i for i in rng.choice(3000, n, replace=False)]
+        cols = [np.zeros(n, np.int32), np.zeros(n, np.int32), np.ones(n, np.int64),
+                np.full(n, 50, np.int64), np.full(n, 60_000, np.int64), np.zeros(n, np.int64)]
+        if general:
+            cols[3] = rng.integers(1, 50, n)
+        pend.append(gpu.apply_columnar(keys, *cols, want_async=True))
+        want.append(cpu.apply_columnar(keys, *cols))
+    for p, w in zip(pend, want):
+        for g, x in zip(p.get(), w):
+            assert np.array_equal(g, x)
+    got, exp = tk.state_to_numpy(gpu.state), tk.state_to_numpy(cpu.state)
+    for f in tk.BucketState._fields:
+        assert np.array_equal(got[f], exp[f]), f
+    assert fs.launches["uniform_step"] > 0 and gpu._pump.flushes < gpu._pump.submitted

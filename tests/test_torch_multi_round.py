@@ -200,8 +200,9 @@ def test_plain_multi_round_bit_equal_to_per_round_clear_and_step(case):
 
 def test_pack_rounds_host_layout():
     """R = 1 at a pow2 width is pack_batch_host's buffer; ragged rounds
-    are 32-lane aligned, padded with capacity + j, and carry their clears
-    in CSR form; the views share one flat buffer."""
+    are 32-lane aligned, padded with capacity + j, carry their `now`
+    header in row 0 of each round's first two lanes, and carry their
+    clears in CSR form; the views share one flat buffer."""
     rng = np.random.default_rng(11)
     cap, now = 1000, 1_760_000_000_123
     slots = np.sort(rng.choice(cap, 40, replace=False)).astype(np.int32)
@@ -221,8 +222,9 @@ def test_pack_rounds_host_layout():
     assert packed.lanes.tolist() == list(range(33)) + list(range(64, 69))
     assert packed.pin[1, 33:64].tolist() == [cap + j for j in range(31)]
     assert packed.pin[1, 69:96].tolist() == [cap + j for j in range(27)]
-    assert packed.pin[0, :2].tolist() == [now >> 32, np.int64(now).astype(np.int32)]
-    assert not packed.pin[0, 2:].any()
+    header = [now >> 32, np.int64(now).astype(np.int32)]
+    assert packed.pin[0, :2].tolist() == packed.pin[0, 64:66].tolist() == header
+    assert not np.delete(packed.pin[0], [0, 1, 64, 65]).any()
     views = tk.split_rounds(packed.buf, 96, 3)
     for v, f in zip(views, (packed.pin, packed.round_off, packed.clear_off, packed.clear_slots)):
         assert np.shares_memory(v, packed.buf) and np.array_equal(v, f)

@@ -51,8 +51,12 @@ def test_port_modules_import_without_jax_or_the_reference():
         "gubernator_tpu_torch.ops.bucket_kernel",
         "gubernator_tpu_torch.ops.fused_step",
         "gubernator_tpu_torch.ops.native_build",
+        "gubernator_tpu_torch.ops.collapsed_step",
         "gubernator_tpu_torch.core.engine",
         "gubernator_tpu_torch.core.interning",
+        "gubernator_tpu_torch.core.native",
+        "gubernator_tpu_torch.core.pump",
+        "gubernator_tpu_torch.core.readback",
         "gubernator_tpu_torch.service",
         "gubernator_tpu_torch.net.gateway",
         "gubernator_tpu_torch.daemon",
