@@ -8,8 +8,10 @@ kernels K1-K4 and the host intern table, one compiler each, in
 parallel), holds each kernel against its plain PyTorch version on the
 card at 2^20 and 10^8 slots (K1 over one round and over R ragged rounds
 with eviction clears; K3, the collapsed hot-key step, on a zipf batch, a
-one-key batch, the extreme-value batch and a chunk with clears; K4, the
-uniform format, over 1 and R ragged rounds with clears; K2), then drives
+one-key batch, the extreme-value batch, chunks with clears of segment
+slots and of other slots, and a mostly-padding chunk; K4, the uniform
+format, over 1, R and 16 ragged rounds with clears and a round that one
+block's slot range holds whole; K2), then drives
 the port's main path — the decision engine and the HTTP daemon answering
 GetRateLimits — over five streams, each against the same engine on the
 CPU, answers and state word for word:
@@ -24,18 +26,30 @@ CPU, answers and state word for word:
 * HTTP: hot keys with a config each, so the dataclass path collapses.
 
 It checks the launch counts of that run (K1, K3 and K4 all launched; K1
-at most once per synchronous batch; the pump flushed) and times every
-kernel on the shapes the main path gave it, beside its bytes bound and
-its plain version, and apply_columnar's decisions/s on each stream.  Any
+at most once per synchronous batch; the pump flushed), holds the zipf
+stream's collapsed pins to K3's layout (`check_collapsed`), and times
+every kernel on the shapes the main path gave it, beside its bytes bound
+and its plain version (K3 also on one-key and spread zipf chunks without
+and with clears, K4 also on joined launches of 2 and 16 rounds), and
+apply_columnar's decisions/s on each stream.  Any
 failed phase exits non-zero before the result lines.  The last three
 lines of standard output are the kernels JSON line, the card's
 `name, power.limit` from nvidia-smi, and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --tree DIR
+
+runs the same phases on the same seeded inputs against the port of
+another checkout (DIR, its root: for instance the parent commit unpacked
+with `git archive`), so that two trees are compared in one session on
+one card.  A tree from before `check_collapsed` existed runs without
+that layout check.
 
 The port imports nothing of JAX; neither does this script.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -44,6 +58,7 @@ import subprocess
 import sys
 import time
 import urllib.request
+from pathlib import Path
 
 SEED = 20261017
 CAP_SERVE = 1 << 20  # BASELINE.json configs[1]: 1M keys, batch=1000, single node
@@ -58,6 +73,18 @@ NOW0 = 1_760_000_000_000  # ms; frozen-clock start of every phase
 
 
 T_START = time.perf_counter()
+TREE: Path | None = None  # --tree: the checkout whose port is driven
+
+
+def check_layout(tk, pin) -> bool:
+    """Hold a K3 pin to `check_collapsed`; False where a `--tree` port
+    predates it (this script's own port must have it)."""
+    layout = getattr(tk, "check_collapsed", None)
+    if layout is None:
+        check(TREE is not None, "the port has no check_collapsed")
+        return False
+    layout(pin)
+    return True
 
 
 def log(msg: str) -> None:
@@ -272,7 +299,9 @@ def collapsed_case(np, rng, cap: int, kind: str, now: int, width: int = ZIPF_BAT
     per-segment fields drawn over every branch of the closed form),
     "one" (every lane one key), "extreme" (48 segments with the
     saturation fields), "clears" (a zipf chunk that first clears every
-    fifth segment's slot and one out-of-range slot)."""
+    fifth segment's slot and one out-of-range slot), "foreign" (those
+    clears plus 400 in-range slots of no segment, sorted), "padding"
+    (40 segments of 1-8 lanes padded to `width` lanes)."""
     from gubernator_tpu_torch.ops.bucket_kernel import pack_collapsed_host
 
     if kind == "one":
@@ -280,6 +309,8 @@ def collapsed_case(np, rng, cap: int, kind: str, now: int, width: int = ZIPF_BAT
     elif kind == "extreme":
         base, _ = extreme_cols(np, cap, 48, now)
         lane_slots = np.repeat(base.astype(np.int64), rng.integers(1, 6, 48))
+    elif kind == "padding":
+        lane_slots = np.repeat(rng.choice(cap, 40, replace=False), rng.integers(1, 9, 40))
     else:
         lane_slots = (rng.zipf(ZIPF_S, width) - 1) % cap
     uniq, counts = np.unique(lane_slots, return_counts=True)
@@ -299,30 +330,66 @@ def collapsed_case(np, rng, cap: int, kind: str, now: int, width: int = ZIPF_BAT
         ]
     seg = np.repeat(np.arange(n_seg), counts).astype(np.int32)
     pos = (np.arange(len(seg)) - np.repeat(np.cumsum(counts) - counts, counts)).astype(np.int32)
-    size = -(-len(seg) // 32) * 32
+    size = width if kind == "padding" else -(-len(seg) // 32) * 32
     pin = pack_collapsed_host(size, now, cap, uniq.astype(np.int32), counts.astype(np.int64),
                               tuple(fields), seg, pos)
-    clears = (np.append(uniq[::5], cap + 1) if kind in ("clears", "extreme")
-              else np.empty(0, np.int64)).astype(np.int32)
-    return pin, clears
+    clears = np.empty(0, np.int64)
+    if kind in ("clears", "extreme", "foreign"):
+        clears = np.append(uniq[::5], cap + 1)
+    if kind == "foreign":  # sorted, as the engine sends them
+        other = rng.integers(0, cap, 400 + len(uniq))
+        clears = np.sort(np.concatenate([clears, other[~np.isin(other, uniq)][:400]]))
+    return pin, clears.astype(np.int32)
 
 
-def uniform_rounds(np, rng, cap: int, n_rounds: int, now: int, max_lanes: int = 1100):
-    """R ragged uniform rounds, each with its own `now` and config, slot 0
-    in every round; even rounds first clear every 7th of their slots and
-    one out-of-range slot.  Returns (pin, round_off, clear_off,
+def uniform_rounds(np, rng, cap: int, n_rounds: int, now: int, max_lanes: int = 1100, *,
+                   lanes: int | None = None, every_round: bool = False):
+    """R ragged uniform rounds (`lanes` real lanes each, or 1..max_lanes),
+    each with its own `now` and config, slot 0 in every round; even rounds
+    first clear every 7th of their slots and one out-of-range slot --
+    with `every_round`, every round does, and also clears 8 in-range slots
+    that none of its lanes holds.  Returns (pin, round_off, clear_off,
     clear_slots, widest) as numpy arrays."""
+    rounds = []
+    for r in range(n_rounds):
+        m = lanes or int(rng.integers(1, max_lanes + 1))
+        slots = np.sort(np.append(rng.choice(cap - 1, m - 1, replace=False) + 1, 0))
+        clears = []
+        if every_round or r % 2 == 0:
+            clears = [int(x) for x in slots[::7]] + [cap + r]
+        if every_round:
+            other = rng.integers(1, cap, 16)
+            clears += [int(x) for x in other[~np.isin(other, slots)][:8]]
+        rounds.append((slots, clears))
+    return join_uniform(np, rng, cap, now, rounds)
+
+
+def skewed_uniform_rounds(np, rng, cap: int, now: int):
+    """Three uniform rounds where one block's slot range holds a whole
+    round: 1024 slots that leave a gap of 1500, the 1500 slots of the gap,
+    the first round's slots again; each round clears every 9th of its
+    slots and a slot of the gap's edge."""
+    gap = int(rng.integers(1, cap - 3000))
+    outside = np.concatenate([np.arange(0, gap), np.arange(gap + 1500, cap)])
+    wide = np.sort(rng.choice(outside, 1024, replace=False))
+    rounds = [wide, np.arange(gap, gap + 1500), wide]
+    return join_uniform(np, rng, cap, now,
+                        [(s, [int(x) for x in s[::9]] + [gap + 1499 * (r % 2)])
+                         for r, s in enumerate(rounds)])
+
+
+def join_uniform(np, rng, cap: int, now: int, rounds):
+    """One launch's uniform rounds from (sorted slots, clears) pairs, each
+    round with a random config and `now + r`: (pin, round_off, clear_off,
+    clear_slots, widest) as numpy arrays, the layout the pump joins."""
     from gubernator_tpu_torch.ops.bucket_kernel import pack_uniform_rounds_host
 
     parts = []
-    for r in range(n_rounds):
-        m = int(rng.integers(1, max_lanes + 1))
-        slots = np.sort(np.append(rng.choice(cap - 1, m - 1, replace=False) + 1, 0))
+    for r, (slots, clears) in enumerate(rounds):
         cfg = (int(rng.integers(0, 2)), 0, int(rng.integers(-2, 6)), int(rng.integers(0, 10**6)),
                int(rng.integers(1, 90_000)), int(rng.integers(0, 70)))
-        clears = [] if r % 2 else [int(x) for x in slots[::7]] + [cap + r]
-        parts.append(pack_uniform_rounds_host(now + r, cap, [m], slots.astype(np.int32), cfg,
-                                              [clears]))
+        parts.append(pack_uniform_rounds_host(now + r, cap, [len(slots)],
+                                              np.asarray(slots, np.int32), cfg, [clears]))
     widths = [p.pin.shape[1] for p in parts]
     n_clear = [int(p.clear_off[-1]) for p in parts]
     return (np.concatenate([p.pin for p in parts], axis=1),
@@ -411,9 +478,13 @@ def phase_kernels(torch, np, rng, errs):
     random state per cap, shared by the three): K1 over one round at
     W in {64, 1024, 8192} and R in {1, 3, 16} ragged rounds with clears;
     K3 on a zipf batch (s = 1.2, 8192 lanes), a one-key batch, the
-    extreme-value batch and a chunk with clears; K4 over 1 and 5 ragged
-    uniform rounds with clears.  Then the extreme-value batch for K1 (one
-    round and three rounds) and K3 on a state of saturating buckets."""
+    extreme-value batch, a chunk with clears, a chunk whose clears are
+    mostly of no segment's slot and a chunk that is mostly padding (each
+    pin held to K3's layout, `check_collapsed`); K4 over 1 and 5 ragged
+    uniform rounds with clears, 16 rounds with clears in every round
+    (slot 0 in each) and a round that one block's slot range holds
+    whole.  Then the extreme-value batch for K1 (one round and three
+    rounds) and K3 on a state of saturating buckets."""
     from gubernator_tpu_torch.ops import bucket_kernel as tk
     from gubernator_tpu_torch.ops import fused_step as fs
     from gubernator_tpu_torch.ops.collapsed_step import collapsed_step
@@ -449,24 +520,31 @@ def phase_kernels(torch, np, rng, errs):
                 rounds += n_rounds
         log(f"[k1] cap {cap}: {rounds} rounds (one-round calls and multi-round launches at R "
             "in {1, 3, 16} with clears) bit-equal to the plain step (tolerance: exact)")
-        for kind in ("zipf", "one", "extreme", "clears", "zipf"):
+        for kind in ("zipf", "one", "extreme", "clears", "zipf", "foreign", "padding"):
             now += int(rng.integers(0, 3_000))
             pin, clears = collapsed_case(np, rng, cap, kind, now)
+            check_layout(tk, pin)
             dpin, dcl = cuda(pin), cuda(clears)
             got = collapsed_step(kern, dpin, dcl)
             tk.clear_occupied_reference(plain.meta, dcl)
             hold("collapsed_step", got, tk.collapsed_step_reference(plain, dpin), kern, plain,
                  f"cap {cap} {kind} batch")
-        log(f"[k3] cap {cap}: zipf (s = {ZIPF_S}, {ZIPF_BATCH} lanes), one-key, extreme-value "
-            "and with-clears chunks bit-equal to clear + collapsed_step_reference (exact)")
-        for n_rounds in (1, 5, 1, 5):
+        log(f"[k3] cap {cap}: zipf (s = {ZIPF_S}, {ZIPF_BATCH} lanes), one-key, extreme-value, "
+            "with-clears, foreign-clears and mostly-padding chunks bit-equal to clear + "
+            "collapsed_step_reference (exact)")
+        for case in (1, 5, 1, 5, 16, "skewed"):
             now += int(rng.integers(0, 3_000))
-            pin, ro, co, cs, widest = uniform_rounds(np, rng, cap, n_rounds, now)
+            if case == "skewed":
+                pin, ro, co, cs, widest = skewed_uniform_rounds(np, rng, cap, now)
+            else:
+                pin, ro, co, cs, widest = uniform_rounds(np, rng, cap, case, now,
+                                                         every_round=case == 16)
             args = [cuda(a) for a in (pin, ro, co, cs)]
             hold("uniform_step", fs.multi_uniform_step(kern, *args, widest=widest),
                  tk.multi_uniform_step_reference(plain, *args), kern, plain,
-                 f"cap {cap} uniform R {n_rounds}")
-        log(f"[k4] cap {cap}: 1 and 5 ragged uniform rounds with clears bit-equal to "
+                 f"cap {cap} uniform {case}")
+        log(f"[k4] cap {cap}: 1, 5 and 16 ragged uniform rounds with clears (16: in every "
+            "round, slots of no lane among them) and a skewed launch bit-equal to "
             "multi_uniform_step_reference (exact)")
         del kern, plain
         torch.cuda.empty_cache()
@@ -833,8 +911,12 @@ def phase_daemon_binary():
     import signal
 
     env = dict(os.environ, GUBER_HTTP_ADDRESS="127.0.0.1:0", GUBER_CACHE_SIZE=str(CAP_SERVE))
+    import gubernator_tpu_torch
+
+    root = Path(gubernator_tpu_torch.__file__).resolve().parent.parent  # the port driven
     proc = subprocess.Popen([sys.executable, "-m", "gubernator_tpu_torch.cmd.daemon"],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=root)
     try:
         line = proc.stdout.readline().strip()
         check(line.startswith("listening http="), f"[daemon] no readiness line: {line!r}")
@@ -925,9 +1007,10 @@ def phase_timing(torch, np, rng, card, k3_calls, k4_calls):
     """Device time per launch (CUDA events) against the bytes bound: K1
     at R = 1 (W = 1024 and 8192), K1 on 16 real 5-round batches (per
     launch and per round), K1 on a hot-key batch, K3 on the zipf
-    stream's chunks (8192 lanes, cap 2^24), K4 on the uniform stream's
-    batches, K2 over 1000 clears, and K2 over 16 padding lanes as the
-    launch floor."""
+    stream's chunks (8192 lanes, cap 2^24), on one-key chunks and on
+    spread zipf chunks without and with clears, K4 on the uniform stream's batches and on
+    joined launches of 2 and 16 rounds, K2 over 1000 clears, and K2 over
+    16 padding lanes as the launch floor."""
     from gubernator_tpu_torch.ops import bucket_kernel as tk
     from gubernator_tpu_torch.ops import fused_step as fs
     from gubernator_tpu_torch.ops.collapsed_step import collapsed_step
@@ -1012,6 +1095,11 @@ def phase_timing(torch, np, rng, card, k3_calls, k4_calls):
     # K3 on the zipf stream's chunks, over a state of the stream's size.
     zstate, zplain = tk.make_state(ZIPF_CAP, "cuda"), tk.make_state(ZIPF_CAP, "cuda")
     k3 = [args for args, _ in k3_calls]
+    if all([check_layout(tk, pin) for pin, _ in k3]):
+        log(f"[k3] the zipf stream's {len(k3)} collapsed pins meet K3's layout "
+            "(check_collapsed)")
+    else:
+        log(f"[k3] {TREE} has no check_collapsed: the zipf stream's pins were not checked")
     for a in k3[:2]:
         collapsed_step(zstate, *a)
     k3_ms = device_ms(torch, lambda i: collapsed_step(zstate, *k3[i % len(k3)]), 40)
@@ -1029,6 +1117,22 @@ def phase_timing(torch, np, rng, card, k3_calls, k4_calls):
     log(f"[time] K3 on {len(k3)} zipf chunks ({k3[0][0].shape[1]} lanes, median {segs} "
         f"segments, cap 2^24): {k3_ms * 1e3:.2f} us/launch, bound {k3_bound * 1e3:.3f} us "
         f"(bytes), plain {k3_plain_ms * 1e3:.1f} us | {card}")
+    # K3 on one-key chunks (all 8192 lanes one key), on zipf chunks whose
+    # slots spread over all 2^24 (the engine's are dense), and on such
+    # chunks with clears (of segment slots and of 400 other slots).
+    for kind, what in (("one", "one-key chunks"), ("zipf", "spread zipf chunks"),
+                       ("foreign", "spread zipf chunks with clears")):
+        cases = [collapsed_case(np, rng, ZIPF_CAP, kind, NOW0 + i) for i in range(8)]
+        dev = [(torch.from_numpy(p).cuda(), torch.from_numpy(c).cuda()) for p, c in cases]
+        collapsed_step(zstate, *dev[0])
+        k_ms = device_ms(torch, lambda i: collapsed_step(zstate, *dev[i % 8]), 40)
+        bound = statistics.median(k3_bound_ms(p, c, ZIPF_CAP) for p, c in cases)
+        out[f"k3_{kind}"] = (k_ms, bound)
+        n_clear = statistics.median(n_in_range(c, ZIPF_CAP) for _, c in cases)
+        log(f"[time] K3 on {what} ({cases[0][0].shape[1]} lanes, median "
+            f"{statistics.median(in_range_lanes(p, ZIPF_CAP) for p, _ in cases)} segments, "
+            f"{n_clear} in-range clears, cap 2^24): {k_ms * 1e3:.2f} us/launch, bound "
+            f"{bound * 1e3:.3f} us (bytes) | {card}")
     del zstate, zplain
     torch.cuda.empty_cache()
 
@@ -1045,10 +1149,33 @@ def phase_timing(torch, np, rng, card, k3_calls, k4_calls):
     log(f"[time] K4 on {len(k4)} uniform batches ({k4[0][0][0].shape[1]} lanes, "
         f"{k4[0][0][1].shape[0] - 1} round(s), cap 2^20): {k4_ms * 1e3:.2f} us/launch, bound "
         f"{k4_bound * 1e3:.3f} us (bytes), plain {k4_plain_ms * 1e3:.1f} us | {card}")
+    # K4 on joined launches: R rounds of 1000 requests, slot 0 in every
+    # round, clears in every round (lane slots and slots of no lane).
+    for n_rounds in (2, 16):
+        cases = [uniform_rounds(np, rng, CAP_SERVE, n_rounds, NOW0 + i, lanes=BATCH,
+                                every_round=True) for i in range(8)]
+        dev = [([torch.from_numpy(a).cuda() for a in c[:4]], c[4]) for c in cases]
+        fs.multi_uniform_step(ustate, *dev[0][0], widest=dev[0][1])
+        k_ms = device_ms(torch, lambda i: fs.multi_uniform_step(
+            ustate, *dev[i % 8][0], widest=dev[i % 8][1]), 40)
+        bound = statistics.median(k4_bound_ms(*c[:4], CAP_SERVE) for c in cases)
+        out[f"k4_r{n_rounds}"] = (k_ms, bound)
+        log(f"[time] K4 on joined launches of {n_rounds} uniform rounds of {BATCH} requests "
+            f"(slot 0 in every round, clears in every round, cap 2^20): {k_ms * 1e3:.2f} "
+            f"us/launch, {k_ms / n_rounds * 1e3:.2f} us/round, bound {bound * 1e3:.3f} us "
+            f"(bytes) | {card}")
     return out
 
 
 def main() -> int:
+    global TREE
+    ap = argparse.ArgumentParser(description="Smoke run of gubernator_tpu_torch on one GPU.")
+    ap.add_argument("--tree", help="root of another checkout whose port to drive "
+                    "(default: this script's own)")
+    args = ap.parse_args()
+    if args.tree:
+        TREE = Path(args.tree).resolve()
+        sys.path.insert(0, str(TREE))
     try:
         import torch
     except ImportError:
@@ -1060,12 +1187,17 @@ def main() -> int:
     try:
         import numpy as np
 
-        import gubernator_tpu_torch  # noqa: F401
+        import gubernator_tpu_torch
         from gubernator_tpu_torch.ops import fused_step as fs
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run from the repo root",
               file=sys.stderr)
         return 2
+    pkg = Path(gubernator_tpu_torch.__file__).resolve().parent.parent
+    if TREE is not None and pkg != TREE:
+        print(f"chip_smoke: imported the port from {pkg}, not from {TREE}", file=sys.stderr)
+        return 2
+    log(f"[tree] driving the port in {pkg}")
     t_start = time.perf_counter()
     rng = np.random.default_rng(SEED)
     card = phase_device(torch)
@@ -1125,6 +1257,9 @@ def main() -> int:
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(K1 R=1 W=1024: {times[1024][0] * 1e3:.2f} us, W=8192: {times[8192][0] * 1e3:.2f} us; "
         f"K1 per 5-round batch {times['r5'][0] * 1e3:.2f} us (the kernels line's ms); "
+        f"K3 one-key {times['k3_one'][0] * 1e3:.2f} us, spread {times['k3_zipf'][0] * 1e3:.2f} "
+        f"us, with clears {times['k3_foreign'][0] * 1e3:.2f} us; K4 joined R=2 {times['k4_r2'][0] * 1e3:.2f} "
+        f"us, R=16 {times['k4_r16'][0] * 1e3:.2f} us; "
         f"launch floor {times['floor'] * 1e3:.2f} us)")
     print(json.dumps(kernels))
     print(card)

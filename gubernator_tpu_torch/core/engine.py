@@ -443,8 +443,9 @@ class DecisionEngine:
         self._flush_pump()
         sorted_cols = tuple(col[order] for col in cols)
         pieces = []
-        # All clears are round 0 here: the first chunk's launch runs them.
-        clear_slots = np.asarray(evicted, dtype=_I32)
+        # All clears are round 0 here: the first chunk's launch runs them,
+        # sorted (K3's blocks then find theirs side by side).
+        clear_slots = np.sort(np.asarray(evicted, dtype=_I32))
         for lo in range(0, n, self.max_kernel_width):
             hi = min(lo + self.max_kernel_width, n)
             m = hi - lo

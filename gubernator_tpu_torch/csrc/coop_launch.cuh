@@ -1,6 +1,7 @@
-// Cooperative launch of the port's persistent-grid kernels (K1 and K4 in
-// fused_step.cu, K3 in collapsed_step.cu): a grid of at most as many
-// blocks as fit on the device at once, so that `grid.sync()` is legal.
+// Cooperative launch of the port's one persistent-grid kernel, K1
+// (`rounds_kernel` in fused_step.cu): a grid of at most as many blocks as
+// fit on the device at once, so that `grid.sync()` is legal.  K3 and K4
+// have no grid barrier and make plain launches.
 
 #pragma once
 

@@ -942,6 +942,43 @@ def check_rounds(pin, round_off, clear_off, clear_slots, rows: int = PACKED_IN_R
     return n_rounds
 
 
+def check_collapsed(pin) -> None:
+    """The layout kernel K3 relies on (csrc/collapsed_step.cu), which
+    `pack_collapsed_host` gives: row 17 (a lane's segment) never
+    decreases; segment s's lanes are contiguous, row 18 (position)
+    running 0 .. m_s - 1, row 2 holding m_s, and segments 0 .. S-1 all
+    have lanes; segment slots (row 1) ascend; the padding lanes come last
+    and point at column W - 1 (m = 0) at position 0.  `pin` is int32
+    [19, W], a tensor or numpy array; raises ValueError at the first
+    breach."""
+    p = pin.cpu().numpy() if isinstance(pin, torch.Tensor) else np.asarray(pin)
+    if p.dtype != np.int32 or p.ndim != 2 or p.shape[0] != COLLAPSED_IN_ROWS:
+        raise ValueError(f"pin must be int32 [{COLLAPSED_IN_ROWS}, W]")
+    width = p.shape[1]
+    if width == 0:
+        return
+    seg, pos, m = (p[r].astype(np.int64) for r in (17, 18, 2))
+    if seg.min() < 0 or seg.max() >= width:
+        raise ValueError("row 17 points outside the pin")
+    if (np.diff(seg) < 0).any():
+        raise ValueError("row 17 decreases: segments interleave")
+    pad = (seg == width - 1) & (m[width - 1] == 0)
+    if (pos[pad] != 0).any():
+        raise ValueError("a padding lane is not at position 0")
+    real = seg[~pad]
+    n_seg = int(real[-1]) + 1 if len(real) else 0
+    counts = np.bincount(real, minlength=n_seg)
+    if (counts == 0).any():
+        raise ValueError("a segment before the last has no lanes")
+    if not np.array_equal(counts, m[:n_seg]):
+        raise ValueError("row 2 does not hold each segment's lane count")
+    first = np.cumsum(counts) - counts
+    if not np.array_equal(pos[~pad], np.arange(len(real)) - np.repeat(first, counts)):
+        raise ValueError("row 18 does not run 0 .. m-1 within each segment")
+    if (np.diff(p[1, :n_seg].astype(np.int64)) <= 0).any():
+        raise ValueError("segment slots do not ascend")
+
+
 def _run_rounds(state, pin, round_off, clear_off, clear_slots, rows, out_rows, step):
     """The round loop shared by the plain multi-round steps: for r in
     0..R-1, clear round r's in-range clear slots, then `step(state, pin

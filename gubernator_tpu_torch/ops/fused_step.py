@@ -9,13 +9,15 @@ _clear_occupied_impl`):
 
 * `multi_fused_step(state, pin, round_off, clear_off, clear_slots)` —
   kernel K1 (csrc/fused_step.cu): R packed rounds, each after its
-  eviction clears, in one cooperative launch; state updated in place,
-  returns the [5, L] int32 output.
+  eviction clears, in one cooperative launch with a grid barrier between
+  rounds; state updated in place, returns the [5, L] int32 output.
 * `fused_step(state, pin)` — the same kernel over one round (R = 1, no
   clears).
 * `multi_uniform_step(state, pin, round_off, clear_off, clear_slots)` —
-  kernel K4, the uniform instantiation of K1's round loop: pin [2, L],
-  returns the narrow [2, L] output.
+  kernel K4 (csrc/fused_step.cu `slot_range_kernel`): the uniform format,
+  pin [2, L], returns the narrow [2, L] output; one plain launch in which
+  each block owns a fixed slot range in every round, so rounds need no
+  grid barrier.
 * `clear_occupied(meta, slots)` — kernel K2 (csrc/clear_occupied.cu):
   clear the occupied bit at evicted slots, in place.  The engine runs
   its clears inside K1, K3 and K4; K2 stays for callers that clear on
@@ -28,7 +30,7 @@ A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
 PyTorch version in `ops.bucket_kernel`; any other device raises.  There
 is no fallback from a failed launch: the wrapper checks device, dtype,
 shape and contiguity, launches on the current stream, and raises if the
-launcher reports a CUDA error (a refused cooperative launch included).
+launcher reports a CUDA error (a refused launch included).
 `launches[name]` counts kernel launches (and only those), so a run can
 show that its path went through them.
 """
@@ -200,7 +202,7 @@ def _launch_rounds(kernel, state, pin, round_off, n_rounds, clear_off, clear_slo
             pout.data_ptr(), max(int(widest), 1), stream_of(dev),
         )
     if rc != 0:
-        raise RuntimeError(f"{kernel} ({label}) cooperative launch failed: cudaError {rc}")
+        raise RuntimeError(f"{kernel} ({label}) launch failed: cudaError {rc}")
     launches[kernel] += 1
     return pout
 

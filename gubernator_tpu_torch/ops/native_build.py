@@ -148,9 +148,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.guber_clear_occupied.restype = i
     elif name == "collapsed_step":
         lib.guber_collapsed_step.argtypes = [
-            ctypes.POINTER(p), ctypes.c_longlong, p, i, p, i, p, p, p
+            ctypes.POINTER(p), ctypes.c_longlong, p, i, p, i, p, ctypes.c_longlong,
+            ctypes.c_longlong, p, p
         ]
         lib.guber_collapsed_step.restype = i
+        lib.guber_collapsed_threads.argtypes = []
+        lib.guber_collapsed_threads.restype = i
     elif name == "intern_table":
         i64 = ctypes.c_int64
         lib.git_new.restype = p

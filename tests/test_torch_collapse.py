@@ -11,6 +11,9 @@
 * The fall-backs to rounds (tests/test_collapse.py:149, :205): duplicates
   with different fields, leaky negative hits, RESET_REMAINING on a
   duplicate, and a slot reused within the batch.
+* K3's input contract (`check_collapsed`): the packer's layouts pass,
+  broken ones (interleaved segments, positions, counts, padding, slot
+  order) are refused, and every collapsed pin the engine builds passes.
 
 Inputs are seeded numpy; the tolerance is exact.
 """
@@ -156,15 +159,17 @@ def _hot_rows(rng, n, n_keys, *, uniform=True, hits=(0, 4), greg=False):
 
 class _CountK3:
     """Counts the engine's collapsed_step calls (the CPU runs the plain
-    version, which the kernel launch counts do not see)."""
+    version, which the kernel launch counts do not see), and holds each
+    call's pin to the layout kernel K3 relies on."""
 
     def __init__(self, monkeypatch):
         self.calls = 0
         real = engine_mod.collapsed_step
 
-        def counted(*a, **k):
+        def counted(state, pin, *a, **k):
             self.calls += 1
-            return real(*a, **k)
+            tk.check_collapsed(pin)
+            return real(state, pin, *a, **k)
 
         monkeypatch.setattr(engine_mod, "collapsed_step", counted)
 
@@ -257,3 +262,83 @@ def test_forced_rounds_engine_equals_collapsing_engine():
         _columnar_step(fast, slow, _hot_rows(rng, int(rng.integers(2, 100)), 5, hits=(-1, 4)))
         _advance(fast, slow, int(rng.integers(0, 20_000)))
     assert fast.rounds_total < slow.rounds_total
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_check_collapsed_accepts_the_packers_layout(seed):
+    """Fuzzed segment buffers, packed at 32-aligned and power-of-two
+    widths, mostly padding, and with no padding at all, meet the
+    contract."""
+    rng = np.random.default_rng(40 + seed)
+    cap, now = 4096, 1_700_000_000_000
+    for it in range(10):
+        uniq, counts, fields, seg, pos = _segments(rng, cap, int(rng.integers(1, 200)), now)
+        for size in (len(seg), tk.ROUND_ALIGN * -(-len(seg) // tk.ROUND_ALIGN),
+                     1 << (len(seg) + 600).bit_length()):
+            tk.check_collapsed(tk.pack_collapsed_host(size, now, cap, uniq, counts, fields,
+                                                      seg, pos))
+    one = tuple(f[:1] for f in fields)  # one segment of one lane, as a tensor
+    tk.check_collapsed(torch.from_numpy(
+        tk.pack_collapsed_host(64, now, cap, uniq[:1], np.ones(1, np.int64), one,
+                               np.zeros(1, np.int32), np.zeros(1, np.int32))))
+
+
+@pytest.mark.parametrize("breach", ["interleaved", "position", "count", "padding", "slots"])
+def test_check_collapsed_rejects_a_broken_layout(breach):
+    """Each breach of K3's layout is refused: interleaved segments (row 17
+    falls back), a position that skips, a lane count that row 2 does not
+    hold, a padding lane off position 0, segment slots out of order."""
+    rng = np.random.default_rng(7)
+    cap, now = 4096, 1_700_000_000_000
+    uniq, counts, fields, seg, pos = _segments(rng, cap, 30, now, max_m=4)
+    counts[:2] = 3
+    seg = np.repeat(np.arange(30), counts).astype(np.int32)
+    pos = (np.arange(len(seg)) - np.repeat(np.cumsum(counts) - counts, counts)).astype(np.int32)
+    pin = tk.pack_collapsed_host(tk.ROUND_ALIGN * -(-len(seg) // tk.ROUND_ALIGN) + 32, now,
+                                 cap, uniq, counts, fields, seg, pos)
+    tk.check_collapsed(pin)
+    bad = pin.copy()
+    if breach == "interleaved":  # lanes of segments 0 and 1 alternate
+        bad[17, :6] = [0, 1, 0, 1, 0, 1]
+        bad[18, :6] = [0, 0, 1, 1, 2, 2]
+        match = "interleave"
+    elif breach == "position":
+        bad[18, 2] = 1
+        match = "row 18"
+    elif breach == "count":
+        bad[2, 0] += 1
+        match = "row 2"
+    elif breach == "padding":
+        bad[18, -1] = 1
+        match = "padding"
+    else:
+        bad[1, [0, 1]] = bad[1, [1, 0]]
+        match = "ascend"
+    with pytest.raises(ValueError, match=match):
+        tk.check_collapsed(bad)
+
+
+@pytest.mark.parametrize("stream", ["hot", "chunked", "evicting"])
+def test_engine_collapsed_pins_meet_the_kernel_contract(monkeypatch, stream):
+    """Every collapsed pin the engine builds passes `check_collapsed`: on
+    hot-key streams, on chunks cut at a small max_kernel_width (segments
+    split across chunks) and under eviction pressure (clears in the first
+    chunk)."""
+    from gubernator_tpu_torch.clock import Clock
+
+    k3 = _CountK3(monkeypatch)
+    rng = np.random.default_rng({"hot": 1, "chunked": 2, "evicting": 3}[stream])
+    cap = 16 if stream == "evicting" else 256
+    port = engine_mod.DecisionEngine(cap, clock=Clock().freeze_at(1_700_000_000_000_000_000),
+                                     device="cpu",
+                                     max_kernel_width=64 if stream == "chunked" else 8192)
+    for b in range(8):
+        rows = _hot_rows(rng, int(rng.integers(40, 300)), 7)
+        # evicting: each batch's 7 keys are new, 16 slots hold two batches
+        keys = [(r[0] + ("_%d" % b if stream == "evicting" else "")).encode() for r in rows]
+        cols = [np.asarray([r[i] for r in rows], np.int64) for i in range(1, 7)]
+        port.apply_columnar(keys, cols[0].astype(np.int32), cols[1].astype(np.int32), *cols[2:])
+        port.clock.advance(ms=1_000)
+    assert k3.calls >= 8
+    if stream == "evicting":
+        assert port.clears_total > 0

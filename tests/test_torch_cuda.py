@@ -11,6 +11,11 @@ imports only the port, so it runs there.
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -279,6 +284,131 @@ def test_collapsed_step_kernel_bit_equal_to_plain(cuda, n_seg):
     assert fs.launches["collapsed_step"] == 6
 
 
+def _collapsed_pin(rng, cap, now, lane_slots, size=None):
+    """A collapsed chunk over the given lanes' slots (sorted), with
+    random per-segment fields; returns (pin, segment slots)."""
+    uniq, counts = np.unique(lane_slots, return_counts=True)
+    n_seg = len(uniq)
+    fields = (rng.integers(0, 3, n_seg), rng.choice([0, 0, 4], n_seg),
+              rng.choice([-3, 0, 1, 2, 3, 5, 2**40], n_seg),
+              rng.choice([-1, 0, 1, 4, 10, 100, 10**4, 2**62], n_seg),
+              rng.choice([0, 1, 40, 60_000, -5], n_seg), rng.choice([0, 0, 3, 20, -7], n_seg),
+              rng.choice([60_000, 86_400_000], n_seg), now + rng.integers(0, 100_000, n_seg))
+    seg = np.repeat(np.arange(n_seg), counts).astype(np.int32)
+    pos = (np.arange(len(seg)) - np.repeat(np.cumsum(counts) - counts, counts)).astype(np.int32)
+    size = size or 32 * -(-len(seg) // 32)
+    pin = tk.pack_collapsed_host(size, now, cap, uniq.astype(np.int32), counts.astype(np.int64),
+                                 fields, seg, pos)
+    tk.check_collapsed(pin)
+    return pin, uniq
+
+
+@pytest.mark.parametrize(
+    "case", ["one_key", "hot_keys", "foreign_clears", "mostly_padding", "wide_hot_keys"])
+def test_collapsed_step_kernel_layouts(cuda, case):
+    """K3, with hot segments published to the blocks that hold their
+    lanes, against clear + `collapsed_step_reference`, in pout and all 12
+    columns: one key over all 8192 lanes; six hot keys of 300-2000 lanes
+    among 500 others; clears of in-range slots that are no segment's,
+    below, between and above the segments (written by the blocks whose
+    slot range holds them) beside segment slots; a chunk of 8192 lanes of
+    which 40 segments are real and the rest padding; a chunk of 2^18
+    lanes (4096 blocks, more than the card holds at once) with twelve hot
+    keys of 2000-18000 lanes among 20000 others, so that blocks wait on
+    owners that may have finished long before, or started just before."""
+    rng = np.random.default_rng({"one_key": 1, "hot_keys": 6, "foreign_clears": 2,
+                                 "mostly_padding": 3, "wide_hot_keys": 8}[case])
+    cap, now = 1 << 16, 1_760_000_000_000
+    words = _state_words(rng, cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    calls = 6
+    for call in range(calls):
+        now += int(rng.integers(0, 3_000))
+        size = None
+        if case == "one_key":
+            lanes = np.full(8192, int(rng.integers(0, cap)))
+        elif case == "hot_keys":
+            keys = rng.choice(cap, 506, replace=False)
+            lanes = np.sort(np.concatenate([np.repeat(keys[:6], rng.integers(300, 2000, 6)),
+                                            keys[6:]]))
+        elif case == "wide_hot_keys":
+            keys = rng.choice(cap, 20_012, replace=False)
+            lanes = np.sort(np.concatenate(
+                [np.repeat(keys[:12], rng.integers(2000, 18_000, 12)), keys[12:]]))
+            size = 1 << 18
+        elif case == "foreign_clears":
+            lanes = np.sort(rng.integers(cap // 4, 3 * cap // 4, 3000))
+        else:
+            lanes = np.repeat(np.sort(rng.choice(cap, 40, replace=False)), rng.integers(1, 9, 40))
+            size = 8192
+        pin, uniq = _collapsed_pin(rng, cap, now, lanes, size)
+        others = np.setdiff1d(np.arange(cap), uniq)
+        clears = np.concatenate([uniq[call % 3::3], rng.choice(others, 400, replace=False),
+                                 [cap + 1, others[0], others[-1]]])
+        rng.shuffle(clears)
+        if call == calls - 1:
+            clears = clears[:0]
+        dclears = torch.from_numpy(clears.astype(np.int32)).to(cuda)
+        dpin = torch.from_numpy(pin).to(cuda)
+        got = collapsed_step(kern, dpin, dclears)
+        tk.clear_occupied_reference(plain.meta, dclears)
+        want = tk.collapsed_step_reference(plain, dpin)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), call
+        for name, a, b in zip(tk.BucketState._fields, kern, plain):
+            assert torch.equal(a, b), (call, name)
+    assert fs.launches["collapsed_step"] == calls
+
+
+_UNPUBLISHED_WAIT = """
+import sys
+import numpy as np
+import torch
+from gubernator_tpu_torch.ops import bucket_kernel as tk
+from gubernator_tpu_torch.ops.collapsed_step import collapsed_step
+
+cap, now = 1 << 10, 1_760_000_000_000
+state = tk.make_state(cap, "cuda")
+slots = np.arange(128, dtype=np.int32)
+fields = [np.zeros(128, np.int64)] * 2 + [np.ones(128, np.int64), np.full(128, 10, np.int64),
+          np.full(128, 60_000, np.int64), np.zeros(128, np.int64),
+          np.full(128, 60_000, np.int64), np.full(128, now, np.int64)]
+pin = tk.pack_collapsed_host(128, now, cap, slots, np.ones(128, np.int64), fields,
+                             np.arange(128, dtype=np.int32), np.zeros(128, np.int32))
+ok = collapsed_step(state, torch.from_numpy(pin).cuda(), torch.zeros(0, dtype=torch.int32,
+                                                                      device="cuda"))
+torch.cuda.synchronize()
+# Lane 64 claims to be the 6th lane of lane 59's segment, which has one
+# lane, so block 0 publishes nothing for the second block to wait on.
+pin[17, 64], pin[18, 64] = 59, 5
+try:
+    bad = collapsed_step(state, torch.from_numpy(pin).cuda(),
+                         torch.zeros(0, dtype=torch.int32, device="cuda"))
+    bad.cpu()
+except RuntimeError as e:  # torch's CUDA errors are RuntimeErrors
+    print("raised:", type(e).__name__, e)
+    sys.exit(0)
+print("answered:", bad[:, 64:70].tolist())
+sys.exit(1)
+"""
+
+
+def test_collapsed_step_unpublished_wait_fails_loudly(cuda):
+    """A pin that breaks K3's layout so that a block waits for terms no
+    block publishes: the wait gives up and traps, so the caller gets an
+    error at the next synchronisation and never an answer from an earlier
+    launch's terms.  In a child process, since the trap ends its CUDA
+    context."""
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", _UNPUBLISHED_WAIT], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=root)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("raised:"), proc.stdout
+
+
 @pytest.mark.parametrize("n_rounds", [1, 3])
 def test_multi_uniform_step_kernel_bit_equal_to_plain(cuda, n_rounds):
     """K4 against `multi_uniform_step_reference`: ragged uniform rounds,
@@ -315,6 +445,82 @@ def test_multi_uniform_step_kernel_bit_equal_to_plain(cuda, n_rounds):
         for name, a, b in zip(tk.BucketState._fields, kern, plain):
             assert torch.equal(a, b), (call, name)
     assert fs.launches["uniform_step"] == 6
+
+
+def _uniform_launch(rng, cap, now, round_slots, round_clears, dev):
+    """One K4 launch of the given rounds (each its own sorted slots, config
+    and clears) as device tensors, and the widest round's lanes."""
+    parts = []
+    for r, (slots, clears) in enumerate(zip(round_slots, round_clears)):
+        cfg = (int(rng.integers(0, 2)), 0, int(rng.integers(-2, 6)), int(rng.integers(0, 60)),
+               int(rng.integers(1, 90_000)), int(rng.integers(0, 70)))
+        parts.append(tk.pack_uniform_rounds_host(now + r, cap, [len(slots)],
+                                                 np.asarray(slots, np.int32), cfg,
+                                                 [[int(c) for c in clears]]))
+    pin = np.concatenate([p.pin for p in parts], axis=1)
+    widths = [p.pin.shape[1] for p in parts]
+    round_off = np.concatenate([[0], np.cumsum(widths)])
+    n_clear = [int(p.clear_off[-1]) for p in parts]
+    clear_off = np.concatenate([[0], np.cumsum(n_clear)])
+    cs = np.concatenate([p.clear_slots[:k] for p, k in zip(parts, n_clear)] + [[cap]])
+    args = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+            for a in (pin, round_off, clear_off, cs)]
+    return args, max(widths)
+
+
+@pytest.mark.parametrize("case", ["sixteen_rounds", "skewed_round", "moving_slot"])
+def test_multi_uniform_step_kernel_slot_ranges(cuda, case):
+    """K4 against `multi_uniform_step_reference`, in
+    pout and all 12 columns.  sixteen_rounds: MAX_GROUP (16) rounds of up
+    to 1200 lanes, slot 0 and slot cap - 1 in every round, clears in every
+    round (lane slots, in-range slots of no lane, out of range).
+    skewed_round: a 1024-lane round whose slots leave a gap of 1500, then
+    a 1500-lane round inside the gap -- all of it in one block's slot
+    range -- then the first round's slots again, clears in each.
+    moving_slot: one slot in 16 rounds at lane 0-60 of its block's range,
+    so a different thread (and warp) updates it each round: without the
+    barrier between rounds a round would gather before the last one's
+    store."""
+    rng = np.random.default_rng({"sixteen_rounds": 4, "skewed_round": 5, "moving_slot": 7}[case])
+    cap, now = 1 << 16, 1_760_000_000_000
+    words = _state_words(rng, cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    calls = 4
+    for call in range(calls):
+        now += int(rng.integers(0, 3_000))
+        if case == "sixteen_rounds":
+            rounds = []
+            for _ in range(16):
+                m = int(rng.integers(2, 1200))
+                inner = rng.choice(np.arange(1, cap - 1), m - 2, replace=False)
+                rounds.append(np.sort(np.concatenate([[0, cap - 1], inner])))
+        elif case == "skewed_round":
+            gap = int(rng.integers(1, cap - 3000))
+            outside = np.concatenate([np.arange(0, gap), np.arange(gap + 1500, cap)])
+            wide = np.sort(rng.choice(outside, 1024, replace=False))
+            rounds = [wide, np.arange(gap, gap + 1500), wide]
+        else:  # hot slot 1000: 5 slots below it in the widest round, 37r % 61 after
+            far = np.arange(20_000, cap)
+            rounds = [np.sort(np.concatenate([rng.choice(1000, 5, replace=False), [1000],
+                                              rng.choice(far, 1094, replace=False)]))]
+            for r in range(1, 16):
+                below = rng.choice(1000, 37 * r % 61, replace=False)
+                rounds.append(np.sort(np.concatenate(
+                    [below, [1000], rng.choice(far, 999 - len(below), replace=False)])))
+        clears = []
+        for slots in rounds:
+            none = rng.integers(0, cap, 20)
+            none = none[~np.isin(none, slots)]
+            clears.append(np.concatenate([slots[::9], none, [cap + 3]]))
+        args, widest = _uniform_launch(rng, cap, now, rounds, clears, cuda)
+        got = fs.multi_uniform_step(kern, *args, widest=widest)
+        want = tk.multi_uniform_step_reference(plain, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), call
+        for name, a, b in zip(tk.BucketState._fields, kern, plain):
+            assert torch.equal(a, b), (call, name)
+    assert fs.launches["uniform_step"] == calls
 
 
 def test_engine_async_pipeline_on_the_card(cuda):
