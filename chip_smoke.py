@@ -4,14 +4,18 @@
     python3 chip_smoke.py
 
 Builds the port's native code from gubernator_tpu_torch/csrc (the CUDA
-kernels K1-K4 and the host intern table, one compiler each, in
+kernels K1-K6 and the host intern table, one compiler each, in
 parallel), holds each kernel against its plain PyTorch version on the
 card at 2^20 and 10^8 slots (K1 over one round and over R ragged rounds
 with eviction clears; K3, the collapsed hot-key step, on a zipf batch, a
 one-key batch, the extreme-value batch, chunks with clears of segment
 slots and of other slots, and a mostly-padding chunk; K4, the uniform
 format, over 1, R and 16 ragged rounds with clears and a round that one
-block's slot range holds whole; K2), then drives
+block's slot range holds whole; K2; K5, the restore, on 16..4096-lane
+records with padding and extreme values; K6, the expiry sweep, on one
+16-window tick and, at 10^8, a full pass ending in a clamped window,
+with expiries at now - 1, now and now + 1 whose low words have bit 31
+set), then drives
 the port's main path — the decision engine and the HTTP daemon answering
 GetRateLimits — over five streams, each against the same engine on the
 CPU, answers and state word for word:
@@ -25,12 +29,25 @@ CPU, answers and state word for word:
 * async: `want_async=True`, two batches in flight — joined launches;
 * HTTP: hot keys with a config each, so the dataclass path collapses.
 
-It checks the launch counts of that run (K1, K3 and K4 all launched; K1
+A second path, the persistence and expiry path, is driven the same way,
+card against CPU: `get_rate_limits` with a write-through MemoryStore on
+the mixed stream at 2^20 slots and on a 4096-slot variant whose evicted
+keys come back from the store at rounds k > 0 (clear, restore, apply:
+K2, K5, K1); a checkpoint saved through NpzFileLoader and loaded into a
+fresh card engine that continues as the engine that never stopped; a
+sweep (K6) with new keys onto the freed slots; and the daemon with a
+loader, a store and a 0.2 s sweep interval over HTTP, closed and
+respawned from its checkpoint.  Its launches count from 0 apart from
+the main path's (K1, K2, K5 and K6 launched, K3 and K4 not).
+
+It checks the launch counts of the main path (K1, K3 and K4 all launched; K1
 at most once per synchronous batch; the pump flushed), holds the zipf
 stream's collapsed pins to K3's layout (`check_collapsed`), and times
 every kernel on the shapes the main path gave it, beside its bytes bound
 and its plain version (K3 also on one-key and spread zipf chunks without
-and with clears, K4 also on joined launches of 2 and 16 rounds), and
+and with clears, K4 also on joined launches of 2 and 16 rounds; K5 per 4096-record restore and
+K6 per 2^17-slot window at 10^8 slots, the wall time of a 16-window
+sweep tick, a save / load round trip at 2^20), and
 apply_columnar's decisions/s on each stream.  Any
 failed phase exits non-zero before the result lines.  The last three
 lines of standard output are the kernels JSON line, the card's
@@ -56,6 +73,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from pathlib import Path
@@ -1167,6 +1185,449 @@ def phase_timing(torch, np, rng, card, k3_calls, k4_calls):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The persistence and expiry path: K5 (restore) and K6 (sweep), with K1 and K2
+
+
+class SweepHolder:
+    """What `ops.expiry.windowed_sweep` reads of an engine: a state, a
+    cursor and the window (the engine's `SWEEP_WINDOW`)."""
+
+    SWEEP_WINDOW = 1 << 17
+
+    def __init__(self, state):
+        self._state = state
+        self._sweep_cursor = 0
+
+
+def restore_record(np, rng, cap: int, width: int, now: int, n=None):
+    """A restore buffer (`pack_restore_host`) of n sorted unique slots
+    (default: 1..width at random) padded to `width` with cap + lane, with
+    extreme values: negative and > 2^43 timestamps and durations, leaky
+    fraction words >= 2^31, limit and burst >= 2^32, odd algo / status."""
+    from gubernator_tpu_torch.ops.bucket_kernel import RESTORE_FIELDS, pack_restore_host
+
+    n = int(rng.integers(1, width + 1)) if n is None else n
+    rec = {k: np.zeros(width, np.int64) for k in RESTORE_FIELDS}
+    rec["slot"] = np.arange(cap, cap + width, dtype=np.int64)
+    rec["slot"][:n] = np.sort(rng.choice(cap, n, replace=False))
+    big = np.array([2**32, 2**40 + 5, 2**62, -(2**35), -7, 0, 10, 10**6])
+    ts = np.array([-5, 0, 2**43 - 1, 2**43, 2**50, now, now + 60_000, now - 1])
+    rec["algo"][:n] = rng.choice(np.array([0, 1, 2, -1]), n)
+    rec["status"][:n] = rng.choice(np.array([0, 1, 3, -2]), n)
+    for k in ("limit", "burst", "remaining"):
+        rec[k][:n] = rng.choice(big, n)
+    rec["remf_hi"][:n] = rng.integers(-(2**31), 2**31, n)
+    rec["remf_lo"][:n] = rng.integers(0, 2**32, n)
+    for k in ("t0", "expire_at", "invalid_at", "duration"):
+        rec[k][:n] = rng.choice(ts, n) + rng.integers(0, 3, n)
+    for k in ("slot", "algo", "status", "remf_hi"):
+        rec[k] = rec[k].astype(np.int32)
+    rec["remf_lo"] = rec["remf_lo"].astype(np.uint32)
+    return pack_restore_host(rec)
+
+
+def arm_expiries(torch, state, now: int, seed: int) -> None:
+    """A quarter of the slots expire at now - 1, now or now + 1; `now`'s
+    low word has bit 31 set, so theirs do too (the unsigned compare)."""
+    check((now & 0xFFFFFFFF) >> 31 == 1, "the sweep's instant must have bit 31 set in its low word")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    cap = state.meta.shape[0]
+    pick = torch.rand(cap, generator=gen, device="cuda") < 0.25
+    exp = now + torch.randint(-1, 2, (cap,), generator=gen, device="cuda", dtype=torch.int64)
+    hi2 = state.hi2.to(torch.int64)
+    state.hi2.copy_(torch.where(pick, (hi2 & ~0x7FF) | (exp >> 32), hi2).to(torch.int32))
+    lo = (((exp & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+    state.expire_lo.copy_(torch.where(pick, lo, state.expire_lo))
+
+
+def k5_bound_ms(rec, cap: int) -> float:
+    """Least time for one K5 launch: an in-range lane reads its 19 record
+    words (76 B) and writes 12 state words (48 B); a padding lane reads
+    its slot (4 B)."""
+    s = rec[0].astype("int64")
+    n = int(((s >= 0) & (s < cap)).sum())
+    return (n * (76 + 48) + (len(s) - n) * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def k6_bound_ms(window: int, freed: int) -> float:
+    """Least time for one K6 window: meta, hi2 and expire_lo read once per
+    slot (12 B), each freed slot's index and meta word written (8 B), and
+    the 4 B count."""
+    return (12 * window + 8 * freed + 4) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_persist_kernels(torch, np, rng, errs):
+    """K5 and K6 against their plain versions on the card at 2^20 and 10^8
+    slots: restores of 16..4096 lanes with padding and extreme values
+    (every state word bit-equal), then one 16-window sweep tick, and at
+    10^8 a full pass from the cursor at 0 that ends in a clamped window
+    (counts, freed slots in release order and meta bit-equal)."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import expiry
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    for cap in (CAP_SERVE, CAP_NORTH_STAR):
+        kern = random_state(torch, cap, NOW0, int(rng.integers(2**31)))
+        arm_expiries(torch, kern, NOW0, int(rng.integers(2**31)))
+        plain = copy_state(kern)
+        for width in (16, 64, 256, 1024, 4096):
+            for _ in range(2):
+                rec = torch.from_numpy(restore_record(np, rng, cap, width, NOW0)).cuda()
+                fs.load_slots(kern, rec)
+                tk.load_slots_reference(plain, rec)
+        torch.cuda.synchronize()
+        err = compare_states(torch, kern, plain)
+        errs["load_slots"] = max(errs["load_slots"], err)
+        check(err == 0, f"K5 differs from its plain version at cap {cap}: err {err}")
+        log(f"[k5] cap {cap}: 10 restores of 16..4096 lanes (padding, extreme values) "
+            "bit-equal to the plain restore (tolerance: exact)")
+        hk, hp = SweepHolder(kern), SweepHolder(plain)
+        passes = [("one tick of 16 windows", 16)]
+        if cap == CAP_NORTH_STAR:
+            passes.append(("a full pass from window 0", None))
+        for what, max_w in passes:
+            hk._sweep_cursor = hp._sweep_cursor = 0
+            fk, fp = [], []
+            nk = expiry.windowed_sweep(hk, cap, NOW0, max_w,
+                                       lambda f, st: fk.append(f + st) or len(f))
+            npl = expiry.windowed_sweep(hp, cap, NOW0, max_w,
+                                        lambda f, st: fp.append(f + st) or len(f),
+                                        window_fn=expiry.sweep_window_reference)
+            ak, ap = np.concatenate(fk), np.concatenate(fp)
+            err = max(abs(nk - npl), compare_states(torch, (kern.meta,), (plain.meta,)),
+                      0 if np.array_equal(ak, ap) else max(1, abs(len(ak) - len(ap))))
+            errs["sweep_window"] = max(errs["sweep_window"], err)
+            check(err == 0 and (nk > 0 or max_w is None), f"K6 differs from its plain version at cap {cap} "
+                  f"({what}): freed {nk} vs {npl}, err {err}")
+            n_win = len(fk)
+            last = min((n_win - 1) * SweepHolder.SWEEP_WINDOW, cap - SweepHolder.SWEEP_WINDOW)
+            log(f"[k6] cap {cap}, {what} ({n_win} windows of 2^17, the last at {last}"
+                f"{', clamped' if last % SweepHolder.SWEEP_WINDOW else ''}): {nk} freed; count, "
+                "freed slots in order and meta bit-equal to the plain sweep (tolerance: exact)")
+        del kern, plain, hk, hp
+        torch.cuda.empty_cache()
+
+
+class StoreTrace:
+    """Counts, on a card engine, the restores of a slot that was cleared
+    just before them in a batch whose earlier rounds were already
+    submitted: the clear → restore → apply order at a round k > 0."""
+
+    def __init__(self, eng):
+        self.events, self.hits = [], 0
+        submit, clears, restores = eng._pump.submit, eng._apply_clears, eng._apply_restores
+
+        def on_submit(packed):
+            self.events.append(("submit", set()))
+            return submit(packed)
+
+        def on_clears(c):
+            self.events.append(("clear", {int(x) for x in c}))
+            clears(c)
+
+        def on_restores(r):
+            ev = self.events[-2:]
+            if [e[0] for e in ev] == ["submit", "clear"] and ev[1][1] & {s for s, _ in r}:
+                self.hits += 1
+            self.events.append(("restore", set()))
+            restores(r)
+
+        eng._pump.submit, eng._apply_clears, eng._apply_restores = on_submit, on_clears, on_restores
+
+
+def words_by_key(np, eng):
+    """(live keys sorted, their 12 state columns in that order)."""
+    from gubernator_tpu_torch.ops.bucket_kernel import state_to_numpy
+
+    w = state_to_numpy(eng.state)
+    live = np.nonzero(w["meta"] & 1)[0]
+    keys = [eng.table.key_for_slot(int(x)) for x in live]
+    order = np.argsort(np.array(keys, dtype=object))
+    return [keys[i] for i in order], {f: a[live[order]] for f, a in w.items()}
+
+
+def same_engines(np, a, b, what: str, *, slots: bool) -> None:
+    """Live keys' words equal; with `slots`, every slot's words and key."""
+    from gubernator_tpu_torch.ops.bucket_kernel import state_to_numpy
+
+    if slots:
+        wa, wb = state_to_numpy(a.state), state_to_numpy(b.state)
+        for f in wa:
+            check(np.array_equal(wa[f], wb[f]), f"[persist] {what}: state column {f} differs")
+        live = np.nonzero(wa["meta"] & 1)[0]
+        check(all(a.table.key_for_slot(int(x)) == b.table.key_for_slot(int(x)) for x in live),
+              f"[persist] {what}: keys differ by slot")
+    ka, wa = words_by_key(np, a)
+    kb, wb = words_by_key(np, b)
+    check(ka == kb, f"[persist] {what}: live keys differ")
+    for f in wa:
+        check(np.array_equal(wa[f], wb[f]), f"[persist] {what}: words of column {f} differ")
+
+
+def store_stream(torch, np, rng, cap, batches, tag):
+    """get_rate_limits batches through a card engine and a CPU engine, each
+    with a MemoryStore: answers, state words and stores equal."""
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.store import MemoryStore
+
+    ns = NOW0 * 1_000_000
+    gpu = DecisionEngine(cap, clock=Clock().freeze_at(ns), device="cuda", store=MemoryStore())
+    cpu = DecisionEngine(cap, clock=Clock().freeze_at(ns), device="cpu", store=MemoryStore())
+    trace = StoreTrace(gpu)
+    for b, (keys, cols) in enumerate(batches):
+        reqs = as_requests(keys, cols)
+        check(gpu.get_rate_limits(reqs) == cpu.get_rate_limits(reqs),
+              f"[{tag}] batch {b}: answers differ card vs CPU")
+        dt = int(rng.integers(0, 2_000))
+        gpu.clock.advance(ms=dt)
+        cpu.clock.advance(ms=dt)
+    same_engines(np, gpu, cpu, tag, slots=True)
+    check(gpu.store.data == cpu.store.data, f"[{tag}] the stores differ card vs CPU")
+    check(gpu.table.evictions == cpu.table.evictions, f"[{tag}] eviction counts differ")
+    log(f"[{tag}] {len(batches)} get_rate_limits batches of {len(batches[0][0])} with a store "
+        f"(cap {cap}, {gpu.table.evictions} evictions, {gpu.store.get_calls} store reads, "
+        f"{trace.hits} restores onto a slot cleared in the same later round): answers, "
+        f"state words and stores ({len(gpu.store.data)} items) bit-equal card vs CPU")
+    return gpu, cpu, trace
+
+
+def phase_persist(torch, np, rng, tmp: Path):
+    """The persistence path on the card against the CPU: a store on the
+    mixed stream at 2^20 slots and on a 4096-slot variant with evictions;
+    a checkpoint saved through NpzFileLoader and loaded into a fresh card
+    engine that then continues; a sweep with new keys after it; and the
+    daemon with a loader, a store and a 0.2 s sweep interval over HTTP,
+    closed and respawned.  Returns (card engines, timings)."""
+    from gubernator_tpu_torch.checkpoint import NpzFileLoader
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.net.gateway import get_rate_limits_resp_json
+    from gubernator_tpu_torch.service import V1Instance
+    from gubernator_tpu_torch.store import MemoryStore
+
+    pool = [b"api_k%d" % i for i in range(200_000)]
+    hot = [b"api_hot%d" % i for i in range(50)]
+    small = [b"api_e%d" % i for i in range(3 * 4096)]
+    g1, c1, _ = store_stream(torch, np, rng, CAP_SERVE,
+                             [stream_columns(np, rng, pool, hot, BATCH) for _ in range(12)],
+                             "persist-mixed")
+    g2, c2, trace = store_stream(torch, np, rng, 4096,
+                                 [stream_columns(np, rng, small, hot, BATCH) for _ in range(12)],
+                                 "persist-evict")
+    check(trace.hits > 0, "[persist-evict] no restore ran after its round's clear at k > 0")
+    out = {}
+
+    # A checkpoint of the 2^20 engine, loaded into a fresh card engine.
+    path = str(tmp / "ckpt.npz")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    g1.save(NpzFileLoader(path))
+    t_save = time.perf_counter() - t
+    fresh = DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(g1.clock.now_ns()), device="cuda",
+                           store=MemoryStore())
+    t = time.perf_counter()
+    n_loaded = fresh.load(NpzFileLoader(path))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t
+    out["save_load"] = (t_save, t_load, n_loaded, os.path.getsize(path))
+    n_saved = sum(1 for _ in NpzFileLoader(path).load())  # occupied slots only
+    check(n_loaded == n_saved > 0, f"[persist] loaded {n_loaded} of {n_saved} buckets")
+    same_engines(np, fresh, g1, "after load", slots=False)
+    for b in range(4):
+        keys, cols = stream_columns(np, rng, pool, hot, BATCH)
+        reqs = as_requests(keys, cols)
+        want = c1.get_rate_limits(reqs)
+        check(g1.get_rate_limits(reqs) == want and fresh.get_rate_limits(reqs) == want,
+              f"[persist] continued batch {b}: answers differ")
+        for e in (g1, c1, fresh):
+            e.clock.advance(ms=500)
+    same_engines(np, fresh, g1, "continued after load", slots=False)
+    log(f"[persist] save {t_save * 1e3:.1f} ms + load {t_load * 1e3:.1f} ms of {n_loaded} "
+        f"buckets at cap 2^20 (npz {os.path.getsize(path)} B); the loaded card engine "
+        "answered 4 more batches as the engine that never stopped, words equal by key")
+
+    # The sweep, then new keys onto the freed slots.
+    for e in (g1, c1, fresh, g2, c2):
+        e.clock.advance(ms=4 * 3_600_000)
+    freed = [e.sweep() for e in (g1, c1, fresh, g2, c2)]
+    check(freed[0] == freed[1] == freed[2] > 0 and freed[3] == freed[4] > 0,
+          f"[persist] freed counts differ: {freed}")
+    for gpu, cpu in ((g1, c1), (g2, c2)):  # the same slots freed
+        same_engines(np, gpu, cpu, f"after the sweep (cap {gpu.capacity})", slots=True)
+        check(len(gpu.table) == len(cpu.table), "[persist] the tables differ after the sweep")
+    for gpu, cpu, src in ((g1, c1, pool), (g2, c2, small)):
+        for b in range(2):
+            keys, cols = stream_columns(np, rng, [k + b"_n" for k in src[:20_000]], hot, BATCH)
+            reqs = as_requests(keys, cols)
+            check(gpu.get_rate_limits(reqs) == cpu.get_rate_limits(reqs),
+                  f"[persist] after the sweep, batch {b}: answers differ")
+        same_engines(np, gpu, cpu, f"new keys after the sweep (cap {gpu.capacity})", slots=True)
+    log(f"[persist] sweep at +4 h freed {freed[0]} (cap 2^20, the loaded engine too) and "
+        f"{freed[3]} (cap 4096) slots as the CPU; new keys then took the same slots with the "
+        "same words")
+
+    # The daemon: loader + store + sweep thread, over HTTP, closed and respawned.
+    ns = g1.clock.now_ns()
+    dpath, dstore = str(tmp / "daemon.npz"), MemoryStore()
+    conf = DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=CAP_SERVE,
+                        sweep_interval=0.2)
+    cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu",
+                                    store=MemoryStore()))
+    ticks: list = []
+    same_stream: list = []
+    serving_stream = torch.cuda.current_stream()  # the gateway threads' too
+    daemon_engines = []
+
+    def serve(d, n_batches, tag):
+        for b in range(n_batches):
+            keys, cols = keyed_columns(np, rng, 5_000, 20, BATCH, prefix="pd")
+            reqs = as_requests(keys, cols)
+            body = json.dumps({"requests": [vars(r) for r in reqs]}).encode()
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"http://{d.http_address}/v1/GetRateLimits", data=body, method="POST"),
+                    timeout=60) as r:
+                got = r.read()
+            check(got == get_rate_limits_resp_json(cpu.get_rate_limits(reqs)),
+                  f"[persist-daemon] {tag} batch {b}: HTTP body differs from the CPU's")
+
+    def timed(eng):
+        real = eng.sweep
+
+        def sweep(*a, **k):
+            # The sweep thread queues on the stream the serving path uses.
+            same_stream.append(torch.cuda.current_stream(eng.device) == serving_stream)
+            t0 = time.perf_counter()
+            with eng._lock:  # re-entered by the tick: hold and wait apart
+                t1 = time.perf_counter()
+                n = real(*a, **k)
+                t2 = time.perf_counter()
+            ticks.append((t2 - t1, n, t1 - t0))
+            return n
+
+        eng.sweep = sweep
+
+    d = spawn_daemon(conf, clock=Clock().freeze_at(ns), device="cuda", store=dstore,
+                     loader=NpzFileLoader(dpath))
+    try:
+        eng = d.instance.engine
+        daemon_engines.append(eng)
+        timed(eng)
+        serve(d, 4, "first")
+        d.clock.advance(ms=2 * 3_600_000)
+        cpu.engine.clock.advance(ms=2 * 3_600_000)
+        want = cpu.engine.sweep()
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and eng.cache_size() != cpu.engine.cache_size():
+            time.sleep(0.05)
+        check(want > 0 and eng.cache_size() == cpu.engine.cache_size(),
+              f"[persist-daemon] the sweep thread left {eng.cache_size()} buckets, the CPU "
+              f"{cpu.engine.cache_size()}")
+        serve(d, 2, "after the tick")
+    finally:
+        d.close()
+    check(not d._sweeper.is_alive(), "[persist-daemon] the sweep thread outlived close()")
+    d2 = spawn_daemon(conf, clock=Clock().freeze_at(cpu.engine.clock.now_ns()), device="cuda",
+                      store=dstore, loader=NpzFileLoader(dpath))
+    try:
+        daemon_engines.append(d2.instance.engine)
+        n_saved = sum(1 for _ in NpzFileLoader(dpath).load())
+        check(d2.instance.engine.cache_size() == n_saved > 0,
+              "[persist-daemon] the respawned daemon did not restore every bucket")
+        serve(d2, 2, "respawned")
+    finally:
+        d2.close()
+    check(dstore.data == cpu.engine.store.data, "[persist-daemon] the stores differ")
+    check(any(n > 0 for _, n, _ in ticks), "[persist-daemon] no sweep tick freed a slot")
+    check(all(same_stream), "[persist-daemon] the sweep thread ran on another stream")
+    hold = [t for t, _, _ in ticks]
+    out["tick"] = (statistics.median(hold), max(hold), len(ticks),
+                   max(w for _, _, w in ticks), min(hold))
+    log(f"[persist-daemon] HTTP bodies byte-equal to the CPU instance's before and after a "
+        f"sweep tick ({want} freed) and after close + respawn from the npz; {len(ticks)} "
+        f"ticks of {conf.sweep_interval} s on the serving stream, the lock held "
+        f"{out['tick'][4] * 1e3:.2f} / {out['tick'][0] * 1e3:.2f} / {out['tick'][1] * 1e3:.2f} ms "
+        f"(min / median / max) a tick at cap 2^20 (8 windows; "
+        f"a tick waited up to {out['tick'][3] * 1e3:.2f} ms for the lock behind a batch)")
+    cpu.close()
+    for e in (c1, c2):
+        e.close()
+    return [g1, g2, fresh, *daemon_engines], out
+
+
+def phase_persist_timing(torch, np, rng, card):
+    """K5 per 4096-record launch and K6 per 2^17 window at 10^8 slots
+    (CUDA events), beside their plain versions and bytes bounds; and the
+    wall time of a 16-window sweep tick at 10^8 (windows and readback,
+    without the intern table's release)."""
+    import itertools
+
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import expiry
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    cap, win = CAP_NORTH_STAR, SweepHolder.SWEEP_WINDOW
+    state = random_state(torch, cap, NOW0, int(rng.integers(2**31)))
+    arm_expiries(torch, state, NOW0, int(rng.integers(2**31)))
+    meta0 = state.meta.clone()
+    plain = copy_state(state)
+    out = {}
+    host = [restore_record(np, rng, cap, 4096, NOW0, n=4096) for _ in range(16)]
+    recs = [torch.from_numpy(r).cuda() for r in host]
+    fs.load_slots(state, recs[0])
+    k5_ms = device_ms(torch, lambda i: fs.load_slots(state, recs[i % 16]), 200)
+    k5_plain = host_ms(torch, lambda i: tk.load_slots_reference(plain, recs[i % 16]), 16,
+                       windows=3)
+    k5_bound = statistics.median(k5_bound_ms(r, cap) for r in host)
+    out["k5"] = (k5_ms, k5_plain, k5_bound)
+    log(f"[time] K5, 4096-record restores at cap 10^8: {k5_ms * 1e3:.2f} us/launch, bound "
+        f"{k5_bound * 1e3:.3f} us (bytes), plain {k5_plain * 1e3:.1f} us | {card}")
+
+    state.meta.copy_(meta0)
+    plain.meta.copy_(meta0)
+    n_win = (cap + win - 1) // win
+    starts = [min(i * win, cap - win) for i in range(n_win)]
+    outs = []
+    nxt = itertools.count()
+
+    def k6(_):  # each launch sweeps a window no launch swept before
+        st = starts[next(nxt) % n_win]
+        outs.append(expiry.sweep_window(state.meta, state.hi2, state.expire_lo, NOW0, st, win))
+
+    k6(0)
+    k6_ms = device_ms(torch, k6, 100)
+    freed = [int(o[0]) for o in outs]
+    check(len(outs) <= n_win and min(freed) > 0, "[time] K6 windows must be fresh and free slots")
+    k6_bound = statistics.median(k6_bound_ms(win, f) for f in freed)
+    pnxt = itertools.count()
+    k6_plain = host_ms(torch, lambda i: expiry.sweep_window_reference(
+        plain.meta, plain.hi2, plain.expire_lo, NOW0, starts[next(pnxt) % n_win], win), 10,
+        windows=3)
+    out["k6"] = (k6_ms, k6_plain, k6_bound)
+    log(f"[time] K6, 2^17-slot windows at cap 10^8 (median {statistics.median(freed)} freed a "
+        f"window): {k6_ms * 1e3:.2f} us/window, bound {k6_bound * 1e3:.3f} us (bytes), plain "
+        f"{k6_plain * 1e3:.1f} us | {card}")
+    del outs
+    state.meta.copy_(meta0)
+    holder = SweepHolder(state)
+    tick = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        expiry.windowed_sweep(holder, cap, NOW0, 16, lambda f, st: len(f))
+        tick.append(time.perf_counter() - t)
+    out["tick"] = statistics.median(tick)
+    log(f"[time] one 16-window sweep tick at cap 10^8 (K6 + count and freed-index readback, "
+        f"without the table's release): {out['tick'] * 1e3:.2f} ms (median of 5) | {card}")
+    del state, plain, meta0
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     global TREE
     ap = argparse.ArgumentParser(description="Smoke run of gubernator_tpu_torch on one GPU.")
@@ -1205,6 +1666,13 @@ def main() -> int:
     errs = {k: 0 for k in fs.launches}
     phase_kernels(torch, np, rng, errs)
     phase_k2(torch, np, rng, errs)
+    # A --tree checkout from before the persistence slice has no K5 / K6.
+    has_persist = "load_slots" in fs.launches
+    if has_persist:
+        phase_persist_kernels(torch, np, rng, errs)
+    else:
+        check(TREE is not None, "the port has no persistence path")
+        log(f"[persist] {TREE} has no K5 / K6: the persistence phases are skipped")
 
     # ---- the main path: counts from 0 just before, read just after.
     fs.reset_launches()
@@ -1231,8 +1699,34 @@ def main() -> int:
     del engines
     torch.cuda.empty_cache()
 
+    # ---- the persistence path (store, checkpoint, sweep, the daemon's
+    # loader and sweep thread): counts from 0 just before, read just after.
+    persist_launches = {k: 0 for k in fs.launches}
+    if has_persist:
+        fs.reset_launches()
+        with tempfile.TemporaryDirectory() as tmp:
+            p_engines, p_times = phase_persist(torch, np, rng, Path(tmp))
+        persist_launches = dict(fs.launches)
+        p_disp = sum(e.dispatches_total for e in p_engines)
+        p_win = sum(e.sweep_windows_total for e in p_engines)
+        log(f"[persist] launches {persist_launches}; engine launches {p_disp} + sweep windows "
+            f"{p_win}")
+        check(sum(persist_launches.values()) == p_disp + p_win,
+              "every engine launch of the persistence path must be a K1, K2, K5 or K6 launch")
+        for name in ("fused_step", "clear_occupied", "load_slots", "sweep_window"):
+            check(persist_launches[name] > 0, f"the persistence path must launch {name}")
+        check(persist_launches["collapsed_step"] == persist_launches["uniform_step"] == 0,
+              "the persistence path (a store attached) neither collapses nor takes the "
+              "uniform format")
+        for e in p_engines:
+            e.close()
+        del p_engines
+        torch.cuda.empty_cache()
+
     phase_daemon_binary()
     times = phase_timing(torch, np, rng, card, k3_calls, k4_calls)
+    if has_persist:
+        times.update({f"p_{k}": v for k, v in phase_persist_timing(torch, np, rng, card).items()})
     log(f"[time] HTTP GetRateLimits on the card: {http_rate:.0f} decisions/s | {card}")
     phase_rates(torch, np, rng, card)
 
@@ -1247,9 +1741,20 @@ def main() -> int:
         ("uniform_step", "fused_step.cu", "gubernator_tpu/ops/bucket_kernel.py:1161",
          times["k4"]),
     ]
+    if has_persist:
+        # K5's row: one 4096-record restore at 10^8 slots; K6's: one 2^17
+        # window at 10^8 slots.
+        rows += [
+            ("load_slots", "load_slots.cu", "gubernator_tpu/ops/bucket_kernel.py:1526",
+             times["p_k5"]),
+            ("sweep_window", "sweep.cu", "gubernator_tpu/ops/expiry.py:40", times["p_k6"]),
+        ]
+    # launches: the main path's run plus the persistence path's, each
+    # counted from 0 (K2, K5 and K6 launch on the second only).
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": f"gubernator_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": main_launches[name], "max_abs_err": errs[name],
+         "replaces": replaces, "launches": main_launches[name] + persist_launches[name],
+         "max_abs_err": errs[name],
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
          "library_ms": None}
         for name, src, replaces, (ms, plain_ms, bound_ms) in rows
@@ -1260,7 +1765,10 @@ def main() -> int:
         f"K3 one-key {times['k3_one'][0] * 1e3:.2f} us, spread {times['k3_zipf'][0] * 1e3:.2f} "
         f"us, with clears {times['k3_foreign'][0] * 1e3:.2f} us; K4 joined R=2 {times['k4_r2'][0] * 1e3:.2f} "
         f"us, R=16 {times['k4_r16'][0] * 1e3:.2f} us; "
-        f"launch floor {times['floor'] * 1e3:.2f} us)")
+        f"launch floor {times['floor'] * 1e3:.2f} us"
+        + (f"; K5 {times['p_k5'][0] * 1e3:.2f} us per 4096 records, K6 "
+           f"{times['p_k6'][0] * 1e3:.2f} us per 2^17 window, a 16-window tick at 10^8 "
+           f"{times['p_tick'] * 1e3:.2f} ms" if has_persist else "") + ")")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

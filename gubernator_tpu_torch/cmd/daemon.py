@@ -1,7 +1,8 @@
 """The gubernator_tpu_torch daemon binary.
 
 Run:  python -m gubernator_tpu_torch.cmd.daemon [--device cuda|cpu] [--debug]
-Env:  GUBER_HTTP_ADDRESS (default localhost:80), GUBER_CACHE_SIZE.
+Env:  GUBER_HTTP_ADDRESS (default localhost:80), GUBER_CACHE_SIZE,
+      GUBER_SWEEP_INTERVAL (default 30s).
 
 Serves GetRateLimits over HTTP/JSON until SIGINT or SIGTERM, then
 closes the listener and the engine and exits 0.

@@ -2,9 +2,11 @@
 
 The port's copy of the reads of `gubernator_tpu/config.py` it needs:
 GUBER_HTTP_ADDRESS (the gateway's listen address, default
-"localhost:80"), GUBER_CACHE_SIZE (bucket slots, default 50000), and
-the engine's GUBER_PUMP (the step pump's queueing: "1" on, "0" off,
-unset = on the card only).
+"localhost:80"), GUBER_CACHE_SIZE (bucket slots, default 50000),
+GUBER_SWEEP_INTERVAL (the period of the daemon's expiry sweep, a Go
+duration such as "30s" or "500ms" or float seconds, default 30 s; 0
+turns the sweep off), and the engine's GUBER_PUMP (the step pump's
+queueing: "1" on, "0" off, unset = on the card only).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Mapping, Optional
 class DaemonConfig:
     http_listen_address: str = "localhost:80"
     cache_size: int = 50_000
+    # Seconds between the daemon's incremental expiry sweeps (0 = none).
+    sweep_interval: float = 30.0
 
 
 def _env(d: Mapping[str, str], key: str, default: str = "") -> str:
@@ -29,12 +33,64 @@ def _env_int(d: Mapping[str, str], key: str, default: int) -> int:
     return int(v) if v else default
 
 
+_DURATION_UNITS = [
+    ("ms", 1e-3),
+    ("us", 1e-6),
+    ("µs", 1e-6),
+    ("ns", 1e-9),
+    ("s", 1.0),
+    ("m", 60.0),
+    ("h", 3600.0),
+]
+
+
+def parse_duration(v: str) -> float:
+    """A Go duration string ("500us", "30s", "1m30s") or float seconds,
+    in seconds (reference gubernator_tpu/config.py:340)."""
+    v = v.strip()
+    try:
+        return float(v)
+    except ValueError:
+        pass
+    # Compound forms like "1m30s" parse unit by unit.
+    total = 0.0
+    num = ""
+    i = 0
+    while i < len(v):
+        c = v[i]
+        if c.isdigit() or c in ".+-":
+            num += c
+            i += 1
+            continue
+        for unit, mult in _DURATION_UNITS:
+            if v.startswith(unit, i) and (
+                i + len(unit) == len(v) or v[i + len(unit)].isdigit() or v[i + len(unit)] in ".+-"
+            ):
+                if not num:
+                    raise ValueError(f"bad duration {v!r}")
+                total += float(num) * mult
+                num = ""
+                i += len(unit)
+                break
+        else:
+            raise ValueError(f"bad duration {v!r}")
+    if num:
+        raise ValueError(f"bad duration {v!r}")
+    return total
+
+
+def _env_seconds(d: Mapping[str, str], key: str, default: float) -> float:
+    v = _env(d, key)
+    return parse_duration(v) if v else default
+
+
 def setup_daemon_config(env: Optional[Mapping[str, str]] = None) -> DaemonConfig:
     """Read the config; `env` entries win over os.environ."""
     d = env or {}
     return DaemonConfig(
         http_listen_address=_env(d, "GUBER_HTTP_ADDRESS", "localhost:80"),
         cache_size=_env_int(d, "GUBER_CACHE_SIZE", 50_000),
+        sweep_interval=_env_seconds(d, "GUBER_SWEEP_INTERVAL", 30.0),
     )
 
 

@@ -37,8 +37,36 @@ batch as it is submitted.
 decision path (`_apply`) without the uniform format, as the reference's
 dataclass path does.
 
-Not in this slice: paging, the write-through store, restore, sweep and
-the ledger.  `now_ms` flows in from the caller or the injected Clock.
+Persistence and expiry (reference :212, :266, :770-:803, :914,
+:1401-:1500):
+
+* **Store** (`store=`): `get_rate_limits` takes the reference's per-key
+  path: `contains` / `intern` per key, a per-slot sequence for rounds
+  and eviction clears, and `store.get` for every new key.  A round with
+  restores runs as its clears (kernel K2), its restores (kernel K5,
+  `_apply_restores`), then its apply (K1, with no clears), the order the
+  reference keeps; the rounds between such rounds still go through the
+  pump.  No collapse, and `apply_columnar` raises.  After the answers,
+  `write_through_store` calls `on_change` for every touched key
+  (`remove` first on RESET_REMAINING).
+* **Loader**: `load` interns and restores items in batches of at most
+  4096 (K2 for evictions, K5 for the items), `export_items` decodes the
+  whole state on the host, `save` streams it to a loader
+  (`checkpoint.NpzFileLoader` is the file form).
+* **Sweep**: `sweep` frees expired slots a `SWEEP_WINDOW` at a time from
+  a cursor (kernel K6, `ops/expiry.py`) and hands them back to the
+  intern table in ascending order, window after window.
+
+Each of them runs what the pump holds first.  Not in this slice: paging
+and the ledger.  `now_ms` flows in from the caller or the injected
+Clock.
+
+Threads: the kernels launch on the calling thread's current stream, and
+PyTorch's current stream is the device's default stream in every thread
+unless a caller sets another, so the serving threads (the gateway's) and
+the daemon's sweep thread queue on one stream, in the order the engine
+lock gives them (`chip_smoke.py` checks that the sweep thread's stream is
+the serving one).
 """
 
 from __future__ import annotations
@@ -64,18 +92,31 @@ from gubernator_tpu_torch.ops.bucket_kernel import (
     ROUND_ALIGN,
     UNIFORM_IN_ROWS,
     BucketState,
+    build_restore_record,
     make_state,
     pack_collapsed_host,
+    pack_restore_host,
     pack_rounds_host,
     pack_uniform_rounds_host,
+    pad_size,
     unpack_out_host,
+    unpack_state_host,
     unpack_uniform_out_host,
 )
 from gubernator_tpu_torch.ops.collapsed_step import collapsed_step
+from gubernator_tpu_torch.ops.expiry import windowed_sweep
 from gubernator_tpu_torch.ops.fused_step import (
+    clear_occupied,
+    load_slots,
     multi_fused_step,
     multi_uniform_step,
     resolve_device,
+)
+from gubernator_tpu_torch.store import (
+    CacheItem,
+    LeakyBucketItem,
+    TokenBucketItem,
+    item_from_record,
 )
 from gubernator_tpu_torch.types import (
     Algorithm,
@@ -90,6 +131,7 @@ _I64 = np.int64
 _GREG = int(Behavior.DURATION_IS_GREGORIAN)
 _RESET = int(Behavior.RESET_REMAINING)
 _LEAKY = int(Algorithm.LEAKY_BUCKET)
+_TOKEN = int(Algorithm.TOKEN_BUCKET)
 _OVER_I = int(Status.OVER_LIMIT)
 _STATUS_OF = {int(s): s for s in Status}
 
@@ -167,8 +209,58 @@ class PendingColumnar:
         return self._result
 
 
+def write_through_store(
+    store,
+    requests: Sequence[RateLimitReq],
+    valid_idx: List[int],
+    greg_dur,
+    now_ms: int,
+    responses: List[Optional[RateLimitResp]],
+    expire_of: dict,
+) -> None:
+    """Store.OnChange per touched key, its values derived from the
+    response (reference core/engine.py:212; the leaky remaining is the
+    response's integer, see store.py).  `greg_dur` and `expire_of` are
+    indexed by request index.  reference: algorithms.go:164-169,266-269."""
+    for i in valid_idx:
+        r = requests[i]
+        resp = responses[i]
+        if resp is None or resp.error:
+            continue
+        key = r.hash_key()
+        greg = bool(int(r.behavior) & _GREG)
+        dur = int(greg_dur[i]) if greg else r.duration
+        if int(r.algorithm) == _TOKEN:
+            if int(r.behavior) & _RESET:
+                # reference: algorithms.go:83-97 (remove, then recreate).
+                store.remove(key)
+            value = TokenBucketItem(
+                status=int(resp.status),
+                limit=resp.limit,
+                duration=dur,
+                remaining=resp.remaining,
+                created_at=now_ms if greg else resp.reset_time - dur,
+            )
+        else:
+            value = LeakyBucketItem(
+                limit=resp.limit,
+                duration=dur,
+                remaining=float(resp.remaining),
+                updated_at=now_ms,
+                burst=r.burst,
+            )
+        store.on_change(
+            r, CacheItem(key=key, value=value, expire_at=int(expire_of[i]),
+                         algorithm=int(r.algorithm)),
+        )
+
+
 class DecisionEngine:
     """Single-device decision engine over `capacity` bucket slots."""
+
+    # Slots per sweep window: bounds one window's readback (its count and
+    # freed indices) whatever the capacity (reference :914).
+    SWEEP_WINDOW = 1 << 17
 
     def __init__(
         self,
@@ -177,6 +269,7 @@ class DecisionEngine:
         clock: Clock = SYSTEM_CLOCK,
         device=None,
         max_kernel_width: int = 8192,
+        store=None,  # store.Store: write-through hooks
     ):
         self.device = resolve_device(device)
         self.capacity = capacity
@@ -184,6 +277,9 @@ class DecisionEngine:
         self.max_kernel_width = max_kernel_width
         self.table = make_intern_table(capacity)
         self._state: BucketState = make_state(capacity, self.device)
+        self.store = store
+        # Next window start of the incremental sweep.
+        self._sweep_cursor = 0
         # RLock: a pump ticket's fetch may flush from a thread already
         # inside the engine.
         self._lock = threading.RLock()
@@ -197,10 +293,13 @@ class DecisionEngine:
         self.batches_total = 0
         # Rounds and sub-rounds run, plus one per collapsed chunk.
         self.rounds_total = 0
-        # Every kernel launch the serving path makes (K1, K3, K4).
+        # Every kernel launch the serving, store and load paths make (K1,
+        # K3, K4; K2 and K5 where a round restores or a load runs).
         self.dispatches_total = 0
-        # Eviction clears run inside those launches.
+        # Eviction clears run, inside those launches or as K2's.
         self.clears_total = 0
+        # Sweep windows run (K6 launches).
+        self.sweep_windows_total = 0
 
     @property
     def state(self) -> BucketState:
@@ -251,25 +350,46 @@ class DecisionEngine:
                 return np.fromiter((get(r) for r in reqs), dtype=dtype, count=len(reqs))
 
             limit = col(lambda r: r.limit, _I64)
-            status, _lim, rem, reset = self._apply(
-                [r.hash_key().encode() for r in reqs],
-                (col(lambda r: int(r.algorithm), _I32), col(lambda r: int(r.behavior), _I32),
-                 col(lambda r: r.hits, _I64), limit, col(lambda r: r.duration, _I64),
-                 col(lambda r: r.burst, _I64), np.asarray(greg_dur, dtype=_I64),
-                 np.asarray(greg_exp, dtype=_I64)),
-                now_ms,
-                uniform_ok=False,
-            ).get()
-            for i, st, lim, rm, rs in zip(
-                valid, status.tolist(), limit.tolist(), rem.tolist(), reset.tolist()
-            ):
-                responses[i] = RateLimitResp(
-                    status=_STATUS_OF[st], limit=lim, remaining=rm, reset_time=rs
-                )
+            cols = (col(lambda r: int(r.algorithm), _I32), col(lambda r: int(r.behavior), _I32),
+                    col(lambda r: r.hits, _I64), limit, col(lambda r: r.duration, _I64),
+                    col(lambda r: r.burst, _I64), np.asarray(greg_dur, dtype=_I64),
+                    np.asarray(greg_exp, dtype=_I64))
+            if self.store is None:
+                self._answer(responses, valid, self._apply(
+                    [r.hash_key().encode() for r in reqs], cols, now_ms, uniform_ok=False))
+            else:
+                # The reference holds the engine lock from scheduling to
+                # the last write-through (core/engine.py:562-570).
+                with self._lock:
+                    self._answer(responses, valid, self._apply_store(reqs, cols, now_ms))
+                    expires = self._expiry(cols, now_ms)
+                    write_through_store(
+                        self.store, requests, valid,
+                        dict(zip(valid, greg_dur)), now_ms, responses,
+                        dict(zip(valid, expires.tolist())),
+                    )
         with self._lock:
             self.requests_total += n
             self.batches_total += 1
         return responses  # type: ignore[return-value]
+
+    @staticmethod
+    def _answer(responses, valid: List[int], pending: "PendingColumnar") -> None:
+        """Fill the valid items' responses from a batch's result."""
+        status, limit, rem, reset = pending.get()
+        for i, st, lim, rm, rs in zip(
+            valid, status.tolist(), limit.tolist(), rem.tolist(), reset.tolist()
+        ):
+            responses[i] = RateLimitResp(
+                status=_STATUS_OF[st], limit=lim, remaining=rm, reset_time=rs
+            )
+
+    @staticmethod
+    def _expiry(cols, now_ms: int) -> np.ndarray:
+        """The host TTL mirror's expiry per item (device is authoritative):
+        the Gregorian expiry, or now + duration."""
+        behavior, duration, greg_exp = cols[1], cols[4], cols[7]
+        return np.where((behavior & _GREG) != 0, greg_exp, now_ms + duration).astype(_I64)
 
     # ------------------------------------------------------------------
     # Columnar path: keys + numpy columns in, numpy columns out.
@@ -292,7 +412,12 @@ class DecisionEngine:
         them, so the caller can pack the next batch while this one's
         output comes home.  Gregorian lanes are computed per item; an
         invalid interval raises GregorianError (columnar callers
-        pre-validate)."""
+        pre-validate).  Raises with a store attached: the write-through
+        path needs the request dataclasses (use get_rate_limits)."""
+        if self.store is not None:
+            raise RuntimeError(
+                "apply_columnar does not support a write-through Store; use get_rate_limits"
+            )
         n = len(keys)
         if now_ms is None:
             now_ms = self.clock.now_ms()
@@ -337,13 +462,47 @@ class DecisionEngine:
                 # repeat, when the duplicates allow it.
                 pieces = self._try_collapse(slots, *cols, now_ms, evicted, evict_rounds)
             if pieces is None:
-                pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms, evicted,
-                                               evict_rounds, uniform_ok)
+                clear_by_round: dict[int, List[int]] = {}
+                for es, k in zip(evicted.tolist(), evict_rounds.tolist()):
+                    clear_by_round.setdefault(k, []).append(es)
+                pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms, clear_by_round,
+                                               uniform_ok)
             # Host TTL mirror for eviction accounting (device is authoritative).
-            behavior, duration, greg_exp = cols[1], cols[4], cols[7]
-            expires = np.where((behavior & _GREG) != 0, greg_exp, now_ms + duration)
-            self.table.set_expiry(slots, expires.astype(_I64))
+            self.table.set_expiry(slots, self._expiry(cols, now_ms))
         return PendingColumnar(self, pieces, limit, n)
+
+    def _apply_store(self, reqs, cols, now_ms: int) -> PendingColumnar:
+        """The decision path with a write-through store (reference
+        :587-646): intern key by key, a per-slot sequence giving each
+        request its round and each eviction clear the round of the slot's
+        next use, and `store.get` for every new key, whose item restores
+        its slot in that round.  No collapse.  Caller holds the lock."""
+        n = len(reqs)
+        slots = np.empty(n, dtype=_I32)
+        rounds_arr = np.empty(n, dtype=_I32)
+        seq: dict[int, int] = {}
+        clear_by_round: dict[int, List[int]] = {}
+        restore_by_round: dict[int, List[tuple]] = {}
+        for j, r in enumerate(reqs):
+            key = r.hash_key()
+            evicted: List[int] = []
+            is_new = not self.table.contains(key)
+            slot = self.table.intern(key, now_ms, evicted)
+            for es in evicted:
+                clear_by_round.setdefault(seq.get(es, 0), []).append(es)
+            k = seq.get(slot, 0)
+            seq[slot] = k + 1
+            slots[j] = slot
+            rounds_arr[j] = k
+            if is_new:
+                # Read-through (reference: algorithms.go:46-54).
+                item = self.store.get(r)
+                if item is not None and item.value is not None:
+                    restore_by_round.setdefault(k, []).append((slot, item))
+        pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms, clear_by_round, False,
+                                       restore_by_round)
+        self.table.set_expiry(slots, self._expiry(cols, now_ms))
+        return PendingColumnar(self, pieces, cols[3], n)
 
     def _uniform_params(self, algo, behavior, hits, limit, duration, burst) -> Optional[tuple]:
         """Gate of the narrow uniform format (reference :1111): one
@@ -369,31 +528,49 @@ class DecisionEngine:
             return None
         return (a0, b0, h0, l0, d0, u0)
 
-    def _dispatch_rounds(self, slots, rounds_arr, cols, now_ms, evicted, evict_rounds,
-                         uniform_ok):
-        """Pack every round of a batch (sorted by slot, wide rounds split
+    def _dispatch_rounds(self, slots, rounds_arr, cols, now_ms, clear_by_round, uniform_ok,
+                         restore_by_round=None):
+        """Pack the rounds of a batch (sorted by slot, wide rounds split
         into sub-rounds of at most max_kernel_width lanes, each round's
-        clears before it) into one buffer and submit it to the pump.
-        Returns the batch's one piece."""
-        clear_by_round: dict[int, List[int]] = {}
-        for es, k in zip(evicted.tolist(), evict_rounds.tolist()):
-            clear_by_round.setdefault(k, []).append(es)
+        clears before it) into one buffer and submit it to the pump.  A
+        round with store restores (`restore_by_round`) closes the buffer
+        before it: its clears (K2) and restores (K5) run on their own, then
+        it opens the next buffer with no clears.  Returns one piece per
+        buffer."""
         order = np.argsort(rounds_arr, kind="stable")
         uniq, starts = np.unique(rounds_arr[order], return_index=True)
         bounds = list(starts) + [len(slots)]
+        uni = self._uniform_params(*cols[:6]) if uniform_ok else None
+        pieces = []
         counts: List[int] = []
         clears: List[List[int]] = []
         parts: List[np.ndarray] = []
         for r, k in enumerate(uniq.tolist()):
-            members = order[bounds[r] : bounds[r + 1]]
             cleared = clear_by_round.get(k, [])
+            restores = restore_by_round.get(k) if restore_by_round else None
+            if restores:
+                # Clear, then restore, then apply (reference :632-646).
+                if parts:
+                    pieces.append(self._submit_rounds(slots, cols, now_ms, counts, clears,
+                                                      parts, uni))
+                    counts, clears, parts = [], [], []
+                if cleared:
+                    self._apply_clears(np.asarray(cleared, dtype=_I32))
+                self._apply_restores(restores)
+                cleared = []
+            members = order[bounds[r] : bounds[r + 1]]
             for lo in range(0, len(members), self.max_kernel_width):
                 chunk = members[lo : lo + self.max_kernel_width]
                 parts.append(chunk[np.argsort(slots[chunk], kind="stable")])
                 counts.append(len(chunk))
                 clears.append(cleared if lo == 0 else [])
+        pieces.append(self._submit_rounds(slots, cols, now_ms, counts, clears, parts, uni))
+        return pieces
+
+    def _submit_rounds(self, slots, cols, now_ms, counts, clears, parts, uni):
+        """One buffer of rounds to the pump (the uniform format when `uni`
+        holds the batch's one config); returns its piece."""
         order = np.concatenate(parts)
-        uni = self._uniform_params(*cols[:6]) if uniform_ok else None
         if uni is not None:
             packed = pack_uniform_rounds_host(now_ms, self.capacity, counts, slots[order],
                                               uni, clears)
@@ -407,7 +584,7 @@ class DecisionEngine:
         ticket = self._pump.submit(packed)
         self.rounds_total += len(counts)
         self.clears_total += sum(len(c) for c in clears)
-        return [(ticket, order, packed.lanes, unpack)]
+        return (ticket, order, packed.lanes, unpack)
 
     def _try_collapse(self, slots, algo, behavior, hits, limit, duration, burst,
                       greg_dur, greg_exp, now_ms, evicted, evict_rounds):
@@ -495,6 +672,122 @@ class DecisionEngine:
         """Run queued batches before any other state access (the pump's
         ordering contract).  Caller holds the lock."""
         self._pump.flush_locked()
+
+    def _apply_clears(self, cleared: np.ndarray) -> None:
+        """Eviction clears as one K2 launch of their own (reference :730),
+        padded to the pow2 ladder from 16 with `capacity + lane`."""
+        self._flush_pump()
+        c = np.arange(self.capacity, self.capacity + pad_size(len(cleared), floor=16),
+                      dtype=np.int64).astype(_I32)
+        c[: len(cleared)] = cleared
+        clear_occupied(self._state.meta, self._stage(c))
+        self.dispatches_total += 1
+        self.clears_total += len(cleared)
+
+    def _apply_restores(self, restores: List[tuple]) -> None:
+        """Hydrate items into fresh slots, `restores` = [(slot, CacheItem)]
+        with unique slots: one record buffer, one copy, one K5 launch
+        (reference :770)."""
+        self._flush_pump()
+        rec = pack_restore_host(build_restore_record(restores, self.capacity))
+        load_slots(self._state, self._stage(rec))
+        self.dispatches_total += 1
+
+    # ------------------------------------------------------------------
+    # Expiry sweep (reference :914).
+
+    def sweep(self, now_ms: Optional[int] = None, max_windows: Optional[int] = None) -> int:
+        """Reclaim the slots of expired buckets; returns how many were
+        freed.  `max_windows` bounds this call to that many SWEEP_WINDOW
+        ranges, resuming from the cursor next call (the daemon's
+        incremental mode); None sweeps the whole capacity."""
+        if now_ms is None:
+            now_ms = self.clock.now_ms()
+
+        def release(freed: np.ndarray, start: int) -> int:
+            self.sweep_windows_total += 1
+            if len(freed):
+                self.table.release_slots(freed + start)
+            return len(freed)
+
+        with self._lock:
+            self._flush_pump()
+            return windowed_sweep(self, self.capacity, now_ms, max_windows, release)
+
+    # ------------------------------------------------------------------
+    # Bulk persistence (reference :1401-:1500; store.go:69-78 Loader).
+
+    def load(self, loader) -> int:
+        """Stream CacheItems in before serving; returns how many were
+        restored (reference: gubernator.go:146-152)."""
+        count = 0
+        batch: List[tuple] = []
+        pending_slots: set = set()
+        now_ms = self.clock.now_ms()
+
+        def flush():
+            nonlocal batch
+            if batch:
+                self._apply_restores(batch)
+                self.table.set_expiry(
+                    np.asarray([s for s, _ in batch], dtype=_I32),
+                    np.asarray([it.expire_at for _, it in batch], dtype=_I64),
+                )
+                batch = []
+                pending_slots.clear()
+
+        with self._lock:
+            self._flush_pump()
+            for item in loader.load():
+                if item.value is None or not item.key:
+                    continue
+                evicted: List[int] = []
+                slot = self.table.intern(item.key, now_ms, evicted)
+                # A reused slot (an eviction, or a loader giving one key
+                # twice) must not appear twice in one restore, and its
+                # clear must not run after a pending restore of that slot.
+                if slot in pending_slots or any(e in pending_slots for e in evicted):
+                    flush()
+                if evicted:
+                    self._apply_clears(np.asarray(evicted, dtype=_I32))
+                batch.append((slot, item))
+                pending_slots.add(slot)
+                count += 1
+                if len(batch) >= 4096:
+                    flush()
+            flush()
+        return count
+
+    def export_items(self):
+        """Full-fidelity snapshot of every live bucket as CacheItems: the
+        whole state is copied to the host once, then decoded
+        (reference: gubernator_pool.go:468-531)."""
+        with self._lock:
+            self._flush_pump()
+            u = unpack_state_host(self._state)
+            rows = [(int(sl), self.table.key_for_slot(int(sl)))
+                    for sl in np.nonzero(u["occupied"])[0]]
+        for sl, key in rows:
+            if key is None:
+                continue
+            yield item_from_record(
+                key=key,
+                algorithm=int(u["algo"][sl]),
+                status=int(u["status"][sl]),
+                limit=int(u["limit"][sl]),
+                remaining=int(u["remaining"][sl]),
+                remf_hi=int(u["remf_hi"][sl]),
+                remf_lo=int(u["remf_lo"][sl]),
+                duration=int(u["duration"][sl]),
+                t0=int(u["t0"][sl]),
+                expire_at=int(u["expire"][sl]),
+                burst=int(u["burst"][sl]),
+                invalid_at=int(u["invalid"][sl]),
+            )
+
+    def save(self, loader) -> None:
+        """Stream the cache out at shutdown (reference: Loader.Save)."""
+        loader.save(self.export_items())
 
     # ------------------------------------------------------------------
 

@@ -1,15 +1,21 @@
 """Daemon — process bootstrap: engine + service + HTTP gateway.
 
 Port of `gubernator_tpu/daemon.py` for one node: `spawn_daemon(conf)`
-builds the decision engine on the card (or on `device` when given),
-wires the V1 service, and starts the HTTP gateway.  The gRPC front,
-peer discovery, the sweep loop and the cluster planes are not in this
+builds the decision engine on the card (or on `device` when given), with
+an optional write-through `store`, restores the cache from an optional
+`loader` before it serves, wires the V1 service, starts the HTTP
+gateway, and runs the periodic expiry sweep on a thread of its own
+(`conf.sweep_interval`, GUBER_SWEEP_INTERVAL; SWEEP_WINDOWS_PER_TICK
+windows a tick).  `close` stops the sweeper, then the gateway, saves the
+cache to the loader, and closes the engine (reference daemon.py:631-674).
+The gRPC front, peer discovery and the cluster planes are not in this
 slice.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 
 from gubernator_tpu_torch.clock import SYSTEM_CLOCK, Clock
 from gubernator_tpu_torch.config import DaemonConfig
@@ -23,40 +29,81 @@ log = logging.getLogger("gubernator_tpu_torch.daemon")
 class Daemon:
     """One gubernator_tpu_torch process."""
 
-    def __init__(self, conf: DaemonConfig, *, clock: Clock = SYSTEM_CLOCK, device=None):
+    # Windows swept per tick: bounds how long a tick holds the engine lock
+    # (a full pass at 10^8 slots is 763 windows); the cursor resumes next
+    # tick, so the whole capacity is still covered, over several ticks
+    # (reference daemon.py:407).
+    SWEEP_WINDOWS_PER_TICK = 16
+
+    def __init__(self, conf: DaemonConfig, *, clock: Clock = SYSTEM_CLOCK, device=None,
+                 store=None, loader=None):
         self.conf = conf
         self.clock = clock
         self.device = device
+        self._store = store
+        self._loader = loader
         self.instance: V1Instance | None = None
         self.gateway: Gateway | None = None
         self.http_address = conf.http_listen_address
+        self._sweep_stop: threading.Event | None = None
+        self._sweeper: threading.Thread | None = None
+        self._serving = False  # start() ran to its end
         self._closed = False
 
     def start(self) -> None:
-        engine = DecisionEngine(self.conf.cache_size, clock=self.clock, device=self.device)
+        engine = DecisionEngine(self.conf.cache_size, clock=self.clock, device=self.device,
+                                store=self._store)
         self.instance = V1Instance(engine)
+        if self._loader is not None:
+            # Restore persisted buckets before serving (reference:
+            # gubernator.go:146-152).
+            n = engine.load(self._loader)
+            log.info("restored %d buckets from the loader", n)
         self.gateway = Gateway(self.instance, self.conf.http_listen_address)
         self.http_address = self.gateway.address
         self.gateway.start()
+        if self.conf.sweep_interval > 0:
+            self._sweep_stop = threading.Event()
+            self._sweeper = threading.Thread(target=self._sweep_loop, name="guber-sweep",
+                                             daemon=True)
+            self._sweeper.start()
+        self._serving = True
         log.info(
             "gubernator_tpu_torch listening: http=%s device=%s slots=%d",
             self.http_address, engine.device, engine.capacity,
         )
 
+    def _sweep_loop(self) -> None:
+        while not self._sweep_stop.wait(self.conf.sweep_interval):
+            try:
+                self.instance.engine.sweep(max_windows=self.SWEEP_WINDOWS_PER_TICK)
+            except Exception:  # noqa: BLE001 — a failed tick must not end the sweeper
+                log.exception("expiry sweep failed")
+
     def close(self) -> None:
-        """Graceful stop: the listener first, then the engine."""
+        """Graceful stop: the sweeper (joined, since a tick may be inside
+        the engine), the listener, the final save, then the engine."""
         if self._closed:
             return
         self._closed = True
+        if self._sweep_stop is not None:
+            self._sweep_stop.set()
+            self._sweeper.join(timeout=5.0)
         if self.gateway is not None:
             self.gateway.close()
         if self.instance is not None:
+            if self._loader is not None and self._serving:
+                # Persist the cache on shutdown (reference:
+                # gubernator.go:159-192 → Loader.Save); a start that failed
+                # (a load that raised) must not overwrite the checkpoint.
+                self.instance.engine.save(self._loader)
             self.instance.close()
 
 
-def spawn_daemon(conf: DaemonConfig, *, clock: Clock = SYSTEM_CLOCK, device=None) -> Daemon:
+def spawn_daemon(conf: DaemonConfig, *, clock: Clock = SYSTEM_CLOCK, device=None, store=None,
+                 loader=None) -> Daemon:
     """Start a daemon; it is serving when this returns."""
-    d = Daemon(conf, clock=clock, device=device)
+    d = Daemon(conf, clock=clock, device=device, store=store, loader=loader)
     try:
         d.start()
     except BaseException:

@@ -1148,3 +1148,148 @@ def collapsed_step_reference(state: BucketState, pin: torch.Tensor) -> torch.Ten
     for col, w in zip(state, _encode_values(vals2)):
         col[dst] = _low_word(w[valid])
     return _pack_out(o_status, o_rem, o_reset)
+
+
+# ---------------------------------------------------------------------------
+# Restore: store and loader items hydrated into slots (reference
+# bucket_kernel.py:1504 `SlotRecord`, :1526 `_load_slots_impl`).
+#
+# The record's 12 fields travel as one int32 buffer [RESTORE_ROWS, size],
+# the int64 fields as (hi, lo) rows, so that a restore is one copy to the
+# device as a step's pin is:
+#
+#   row 0      slot  (sorted unique; padding = cap + lane)
+#   row 1      algo      row 2      status
+#   rows 3-4   limit     rows 5-6   remaining (token)
+#   row 7      remf_hi   row 8      remf_lo (leaky 32.32 words)
+#   rows 9-10  duration  rows 11-12 t0   rows 13-14 expire_at
+#   rows 15-16 burst     rows 17-18 invalid_at
+
+RESTORE_FIELDS = ("slot", "algo", "status", "limit", "remaining", "remf_hi", "remf_lo",
+                  "duration", "t0", "expire_at", "burst", "invalid_at")
+_RESTORE_WIDE = ("limit", "remaining", "duration", "t0", "expire_at", "burst", "invalid_at")
+RESTORE_ROWS = len(RESTORE_FIELDS) + len(_RESTORE_WIDE)  # 19
+(R_SLOT, R_ALGO, R_STATUS, R_LIMIT, R_REM, R_REMF_HI, R_REMF_LO, R_DUR, R_T0, R_EXP,
+ R_BURST, R_INV) = (0, 1, 2, 3, 5, 7, 8, 9, 11, 13, 15, 17)
+
+
+def pad_size(n: int, floor: int = 64) -> int:
+    """Next power of two >= n, at least `floor` (reference engine.py:74)."""
+    size = floor
+    while size < n:
+        size *= 2
+    return size
+
+
+def build_restore_record(restores, capacity: int, size: int | None = None) -> dict:
+    """The SlotRecord columns that hydrate store or loader items into
+    fresh slots (reference core/engine.py:266): `restores` is
+    [(slot, CacheItem)] with unique slots; returns a dict of [size] numpy
+    columns typed as the reference's, lanes sorted by slot, padding
+    lanes at `capacity + lane` (size defaults to the pow2 ladder from 16)."""
+    from gubernator_tpu_torch.store import LeakyBucketItem, TokenBucketItem, words_from_float
+
+    restores = sorted(restores, key=lambda r: r[0])
+    n = len(restores)
+    if size is None:
+        size = pad_size(n, floor=16)
+    i32, i64 = np.int32, np.int64
+    rec = {
+        "slot": np.arange(capacity, capacity + size, dtype=i64).astype(i32),
+        "algo": np.zeros(size, dtype=i32),
+        "status": np.zeros(size, dtype=i32),
+        "limit": np.zeros(size, dtype=i64),
+        "remaining": np.zeros(size, dtype=i64),
+        "remf_hi": np.zeros(size, dtype=i32),
+        "remf_lo": np.zeros(size, dtype=np.uint32),
+        "duration": np.zeros(size, dtype=i64),
+        "t0": np.zeros(size, dtype=i64),
+        "expire_at": np.zeros(size, dtype=i64),
+        "burst": np.zeros(size, dtype=i64),
+        "invalid_at": np.zeros(size, dtype=i64),
+    }
+    for lane, (slot, item) in enumerate(restores):
+        v = item.value
+        rec["slot"][lane] = slot
+        rec["expire_at"][lane] = item.expire_at
+        rec["invalid_at"][lane] = item.invalid_at
+        if isinstance(v, TokenBucketItem):
+            rec["algo"][lane] = _TOKEN
+            rec["status"][lane] = v.status
+            rec["limit"][lane] = v.limit
+            rec["remaining"][lane] = v.remaining
+            rec["duration"][lane] = v.duration
+            rec["t0"][lane] = v.created_at
+        elif isinstance(v, LeakyBucketItem):
+            rec["algo"][lane] = int(Algorithm.LEAKY_BUCKET)
+            rec["limit"][lane] = v.limit
+            w = v.remaining_words if v.remaining_words is not None else words_from_float(
+                v.remaining)
+            rec["remf_hi"][lane] = w[0]
+            rec["remf_lo"][lane] = np.uint32(w[1])
+            rec["duration"][lane] = v.duration
+            rec["t0"][lane] = v.updated_at
+            rec["burst"][lane] = v.burst
+    return rec
+
+
+def pack_restore_host(rec: dict) -> np.ndarray:
+    """SlotRecord columns (as `build_restore_record` returns them) → the
+    int32 [RESTORE_ROWS, size] buffer the restore step takes."""
+    size = len(rec["slot"])
+    buf = np.empty((RESTORE_ROWS, size), dtype=np.int32)
+    row = 0
+    for name in RESTORE_FIELDS:
+        a = np.asarray(rec[name])
+        if name in _RESTORE_WIDE:
+            a = a.astype(np.int64, copy=False)
+            buf[row] = (a >> 32).astype(np.int32)
+            buf[row + 1] = a.astype(np.int32)  # low-word bit pattern
+            row += 2
+        else:
+            buf[row] = a.view(np.int32) if a.dtype == np.uint32 else a.astype(np.int32)
+            row += 1
+    return buf
+
+
+def check_restore(rec: torch.Tensor) -> None:
+    if rec.dtype != _I32 or rec.dim() != 2 or rec.shape[0] != RESTORE_ROWS or rec.shape[1] < 1:
+        raise ValueError(f"rec must be int32 [{RESTORE_ROWS}, n], n >= 1; got {rec.dtype} "
+                         f"{list(rec.shape)}")
+
+
+def load_slots_reference(state: BucketState, rec: torch.Tensor) -> None:
+    """Restore, plain version (reference `_load_slots_impl` :1526): write
+    the 12 state words of each record lane whose slot lies in [0, cap),
+    in place; other lanes (the `cap + lane` padding) are dropped.
+    Timestamps and the duration clamp to [0, 2^43); a nonzero algo is
+    leaky; the leaky remaining is the record's 32.32 words verbatim, the
+    token remaining, limit and burst their int64 words."""
+    check_restore(rec)
+    cap = check_state(state)
+    slot = rec[R_SLOT].to(_I64)
+    r = rec[:, (slot >= 0) & (slot < cap)]
+    dst = r[R_SLOT].to(_I64)
+
+    def clamped(row):
+        return _row64(r, row, row + 1).clamp(0, TS_CLAMP_MAX)
+
+    algo = (r[R_ALGO] != 0).to(_I64)
+    t0c, expc, durc, invc = (clamped(x) for x in (R_T0, R_EXP, R_DUR, R_INV))
+    leaky = algo == 1
+    words = (
+        pack_meta(torch.ones_like(algo), algo, r[R_STATUS].to(_I64), t0c, invc),
+        pack_hi2(expc, durc),
+        _low_word(t0c),
+        _low_word(expc),
+        _low_word(invc),
+        _low_word(durc),
+        r[R_LIMIT],
+        r[R_LIMIT + 1],
+        torch.where(leaky, r[R_REMF_HI], r[R_REM]),
+        torch.where(leaky, r[R_REMF_LO], r[R_REM + 1]),
+        r[R_BURST],
+        r[R_BURST + 1],
+    )
+    for col, w in zip(state, words):
+        col[dst] = w.to(_I32)

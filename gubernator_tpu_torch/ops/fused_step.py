@@ -19,12 +19,17 @@ _clear_occupied_impl`):
   each block owns a fixed slot range in every round, so rounds need no
   grid barrier.
 * `clear_occupied(meta, slots)` — kernel K2 (csrc/clear_occupied.cu):
-  clear the occupied bit at evicted slots, in place.  The engine runs
-  its clears inside K1, K3 and K4; K2 stays for callers that clear on
-  their own.
+  clear the occupied bit at evicted slots, in place.  The serving path
+  runs its clears inside K1, K3 and K4; the engine launches K2 where a
+  clear must run on its own: before a store restore in the same round,
+  and for the evictions of `load`.
+* `load_slots(state, rec)` — kernel K5 (csrc/load_slots.cu), the port
+  of `bucket_kernel.py:1526 _load_slots_impl`: write the state words of
+  restored items (record layout `ops.bucket_kernel.RESTORE_FIELDS`) at
+  their slots, in place.
 
-K3, the collapsed step, has its wrapper in `ops.collapsed_step`; its
-launches count here too.
+K3, the collapsed step, has its wrapper in `ops.collapsed_step`, and K6,
+the expiry sweep, in `ops.expiry`; their launches count here too.
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
 PyTorch version in `ops.bucket_kernel`; any other device raises.  There
@@ -49,16 +54,19 @@ from gubernator_tpu_torch.ops.bucket_kernel import (
     UNIFORM_OUT_ROWS,
     BucketState,
     check_pin,
+    check_restore,
     check_rounds,
     check_state,
     clear_occupied_reference,
     fused_step_reference,
+    load_slots_reference,
     multi_fused_step_reference,
     multi_uniform_step_reference,
 )
 
 # Kernel launches since the last reset_launches(), by kernel name.
-launches = {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0, "uniform_step": 0}
+launches = {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0, "uniform_step": 0,
+            "load_slots": 0, "sweep_window": 0}
 
 
 def reset_launches() -> None:
@@ -232,3 +240,24 @@ def clear_occupied(meta: torch.Tensor, slots: torch.Tensor) -> None:
     if rc != 0:
         raise RuntimeError(f"clear_occupied kernel launch failed: cudaError {rc}")
     launches["clear_occupied"] += 1
+
+
+def load_slots(state: BucketState, rec: torch.Tensor) -> None:
+    """Restore: write the 12 state words of each lane of `rec` (int32
+    [RESTORE_ROWS, n], `ops.bucket_kernel.pack_restore_host`) at its slot,
+    in place; slots sorted and unique, lanes outside [0, cap) dropped."""
+    dev = rec.device
+    if dev.type == "cpu":
+        load_slots_reference(state, rec)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"load_slots: unsupported device {dev}")
+    check_restore(rec)
+    check_cuda(rec, "rec", dev)
+    cols, cap = state_pointers(state, dev)
+    lib = native_build.load("load_slots")
+    with torch.cuda.device(dev):
+        rc = lib.guber_load_slots(cols, cap, rec.data_ptr(), rec.shape[1], stream_of(dev))
+    if rc != 0:
+        raise RuntimeError(f"load_slots (K5) launch failed: cudaError {rc}")
+    launches["load_slots"] += 1

@@ -1,5 +1,7 @@
-"""Build and load the port's native code: the CUDA kernels (csrc/*.cu)
-and the host intern table (csrc/intern_table.cpp).
+"""Build and load the port's native code: the CUDA kernels (csrc/*.cu:
+K1 and K4 in fused_step.cu, K2 clear_occupied.cu, K3 collapsed_step.cu,
+K5 load_slots.cu, K6 sweep.cu) and the host intern table
+(csrc/intern_table.cpp).
 
 Each source compiles into its own shared library with a plain C
 interface, loaded through `ctypes` (no PyTorch headers, so a build takes
@@ -33,6 +35,8 @@ SOURCES = {
     "fused_step": "fused_step.cu",
     "clear_occupied": "clear_occupied.cu",
     "collapsed_step": "collapsed_step.cu",
+    "load_slots": "load_slots.cu",
+    "sweep": "sweep.cu",
     "intern_table": "intern_table.cpp",
 }
 # Sources a .cu includes: an edit to one rebuilds every kernel.
@@ -154,6 +158,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.guber_collapsed_step.restype = i
         lib.guber_collapsed_threads.argtypes = []
         lib.guber_collapsed_threads.restype = i
+    elif name == "load_slots":
+        lib.guber_load_slots.argtypes = [ctypes.POINTER(p), ctypes.c_longlong, p, i, p]
+        lib.guber_load_slots.restype = i
+    elif name == "sweep":
+        ll = ctypes.c_longlong
+        lib.guber_sweep_scratch_words.argtypes = [ll]
+        lib.guber_sweep_scratch_words.restype = ll
+        lib.guber_sweep_window.argtypes = [p, p, p, ll, ll, ll, p, p, p]
+        lib.guber_sweep_window.restype = i
     elif name == "intern_table":
         i64 = ctypes.c_int64
         lib.git_new.restype = p

@@ -378,8 +378,13 @@ def test_wrappers_route_cpu_tensors_to_the_plain_version():
                                  np.zeros(3, np.int32), np.arange(3, dtype=np.int32))
     pout = collapsed_step(state, torch.from_numpy(col), torch.tensor([], dtype=torch.int32))
     assert tk.unpack_out_host(pout.numpy(), 3)[1].tolist() == [4, 3, 2]
+    rec = tk.pack_restore_host(tk.build_restore_record([], 128))
+    fs.load_slots(state, torch.from_numpy(rec))
+    from gubernator_tpu_torch.ops.expiry import sweep_window
+
+    assert int(sweep_window(state.meta, state.hi2, state.expire_lo, 0, 0, 128)[0]) == 0
     assert fs.launches == {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0,
-                           "uniform_step": 0}
+                           "uniform_step": 0, "load_slots": 0, "sweep_window": 0}
     meta_state = tk.BucketState(*(torch.empty(8, dtype=torch.int32, device="meta") for _ in range(12)))
     with pytest.raises(ValueError):
         fs.fused_step(meta_state, torch.empty((16, 64), dtype=torch.int32, device="meta"))

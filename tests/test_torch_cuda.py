@@ -553,3 +553,127 @@ def test_engine_async_pipeline_on_the_card(cuda):
     for f in tk.BucketState._fields:
         assert np.array_equal(got[f], exp[f]), f
     assert fs.launches["uniform_step"] > 0 and gpu._pump.flushes < gpu._pump.submitted
+
+
+def _restore_record(rng, cap, n, size, now):
+    """A restore buffer of n sorted unique slots and size - n padding
+    lanes, with extreme values: negative and > 2^43 timestamps, leaky
+    fraction words >= 2^31, limit and burst >= 2^32, odd algo / status."""
+    rec = {k: np.zeros(size, np.int64) for k in tk.RESTORE_FIELDS}
+    rec["slot"] = np.arange(cap, cap + size, dtype=np.int64)
+    rec["slot"][:n] = np.sort(rng.choice(cap, n, replace=False))
+    big = [2**32, 2**40 + 5, 2**62, -(2**35), -7, 0, 10]
+    ts = [-5, 0, 2**43 - 1, 2**43, 2**50, now, now + 60_000]
+    rec["algo"][:n] = rng.choice([0, 1, 2, -1], n)
+    rec["status"][:n] = rng.choice([0, 1, 3, -2], n)
+    for k in ("limit", "burst", "remaining"):
+        rec[k][:n] = rng.choice(big, n)
+    rec["remf_hi"][:n] = rng.integers(-(2**31), 2**31, n)
+    rec["remf_lo"][:n] = rng.integers(0, 2**32, n)
+    for k in ("t0", "expire_at", "invalid_at", "duration"):
+        rec[k][:n] = rng.choice(ts, n) + rng.integers(0, 3, n)
+    rec = {k: v.astype(np.int32) if k in ("slot", "algo", "status", "remf_hi") else v
+           for k, v in rec.items()}
+    rec["remf_lo"] = rec["remf_lo"].astype(np.uint32)
+    return tk.pack_restore_host(rec)
+
+
+@pytest.mark.parametrize("n,size", [(0, 16), (16, 16), (100, 128), (4000, 4096), (4096, 4096)])
+def test_load_slots_kernel_bit_equal_to_plain(cuda, n, size):
+    """K5 against `load_slots_reference`: every state word bit-equal."""
+    rng = np.random.default_rng(n + size)
+    cap, now = 1 << 16, 1_760_000_000_000
+    words = _state_words(rng, cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    rec = torch.from_numpy(_restore_record(rng, cap, n, size, now)).to(cuda)
+    fs.reset_launches()
+    fs.load_slots(kern, rec)
+    tk.load_slots_reference(plain, rec)
+    torch.cuda.synchronize()
+    for name, a, b in zip(tk.BucketState._fields, kern, plain):
+        assert torch.equal(a, b), name
+    assert fs.launches["load_slots"] == 1
+
+
+def _sweep_state(rng, cap, now):
+    exp = now + rng.choice([-1, 0, 1, -(2**31), 2**31 - 3, -5_000, 5_000], cap)
+    words = _state_words(rng, cap, now)
+    words["hi2"] = ((exp >> 32) | (words["hi2"] & ~0x7FF)).astype(np.int32)
+    words["expire_lo"] = (exp & 0xFFFFFFFF).astype(np.uint32)
+    return words
+
+
+@pytest.mark.parametrize("cap,start,window", [(1 << 17, 0, 1 << 17), (300_000, 300_000 - 131_072,
+                                               131_072), (5000, 1234, 777), (1 << 12, 0, 1 << 12)])
+def test_sweep_window_kernel_bit_equal_to_plain(cuda, cap, start, window):
+    """K6 against `sweep_window_reference`: count, freed indices (ascending)
+    and meta bit-equal, with expiries at now - 1, now and now + 1 whose
+    low words have bit 31 set."""
+    from gubernator_tpu_torch.ops import expiry
+
+    rng = np.random.default_rng(cap + window)
+    now = 1_760_000_000_123 | (1 << 31)
+    words = _sweep_state(rng, cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    got = expiry.sweep_window(kern.meta, kern.hi2, kern.expire_lo, now, start, window)
+    want = expiry.sweep_window_reference(plain.meta, plain.hi2, plain.expire_lo, now, start,
+                                         window)
+    torch.cuda.synchronize()
+    c = int(want[0])
+    assert c > 0 and int(got[0]) == c
+    assert torch.equal(got[1 : 1 + c], want[1 : 1 + c])
+    assert torch.equal(kern.meta, plain.meta)
+    assert fs.launches["sweep_window"] == 1
+    # a second pass frees nothing
+    again = expiry.sweep_window(kern.meta, kern.hi2, kern.expire_lo, now, start, window)
+    assert int(again[0]) == 0
+
+
+def test_store_load_and_sweep_on_the_card_match_the_cpu(cuda, tmp_path):
+    """The persistence path on the card against the CPU engine: a store
+    with evictions (clears and restores in later rounds: K2, K5, K1), a
+    checkpoint saved and loaded, and a sweep (K6) followed by new keys."""
+    from gubernator_tpu_torch.checkpoint import NpzFileLoader
+    from gubernator_tpu_torch.store import MemoryStore
+    from gubernator_tpu_torch.types import RateLimitReq
+
+    rng = np.random.default_rng(9)
+    ns = 1_760_000_000_000 * 1_000_000
+    gpu = DecisionEngine(64, clock=Clock().freeze_at(ns), device=cuda, store=MemoryStore())
+    cpu = DecisionEngine(64, clock=Clock().freeze_at(ns), device="cpu", store=MemoryStore())
+    fs.reset_launches()
+
+    def batch(n, pool):
+        return [RateLimitReq(name="p", unique_key=f"u{int(rng.integers(pool))}",
+                             hits=int(rng.choice([0, 1, 2])), limit=int(rng.choice([5, 50])),
+                             duration=int(rng.choice([500, 60_000])),
+                             algorithm=int(rng.integers(0, 2)), burst=int(rng.choice([0, 9])))
+                for _ in range(n)]
+
+    def same(a, b):
+        assert [(r.status, r.remaining, r.reset_time, r.error) for r in a] == [
+            (r.status, r.remaining, r.reset_time, r.error) for r in b]
+
+    for _ in range(30):
+        reqs = batch(int(rng.integers(10, 90)), 200)
+        same(gpu.get_rate_limits(reqs), cpu.get_rate_limits(reqs))
+        dt = int(rng.integers(0, 400))
+        for e in (gpu, cpu):
+            e.clock.advance(ms=dt)
+    assert {k: vars(v) for k, v in gpu.store.data.items()} == {
+        k: vars(v) for k, v in cpu.store.data.items()}
+    path = str(tmp_path / "c.npz")
+    gpu.save(NpzFileLoader(path))
+    fresh = DecisionEngine(64, clock=Clock().freeze_at(ns), device=cuda)
+    fresh.clock.advance(ms=gpu.clock.now_ms() - fresh.clock.now_ms())
+    assert fresh.load(NpzFileLoader(path)) == len(gpu.table)
+    assert gpu.sweep() == cpu.sweep() > 0
+    reqs = batch(40, 400)
+    same(gpu.get_rate_limits(reqs), cpu.get_rate_limits(reqs))
+    got, want = tk.state_to_numpy(gpu.state), tk.state_to_numpy(cpu.state)
+    for f in tk.BucketState._fields:
+        assert np.array_equal(got[f], want[f]), f
+    for name in ("fused_step", "clear_occupied", "load_slots", "sweep_window"):
+        assert fs.launches[name] > 0, name
+    assert fs.launches["collapsed_step"] == fs.launches["uniform_step"] == 0

@@ -52,6 +52,7 @@ def test_port_modules_import_without_jax_or_the_reference():
         "gubernator_tpu_torch.ops.fused_step",
         "gubernator_tpu_torch.ops.native_build",
         "gubernator_tpu_torch.ops.collapsed_step",
+        "gubernator_tpu_torch.ops.expiry",
         "gubernator_tpu_torch.core.engine",
         "gubernator_tpu_torch.core.interning",
         "gubernator_tpu_torch.core.native",
@@ -62,6 +63,8 @@ def test_port_modules_import_without_jax_or_the_reference():
         "gubernator_tpu_torch.daemon",
         "gubernator_tpu_torch.cmd.daemon",
         "gubernator_tpu_torch.config",
+        "gubernator_tpu_torch.store",
+        "gubernator_tpu_torch.checkpoint",
         "gubernator_tpu_torch.gregorian",
         "gubernator_tpu_torch.clock",
         "gubernator_tpu_torch.types",
