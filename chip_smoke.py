@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's native code from gubernator_tpu_torch/csrc (the CUDA
-kernels K1-K6 and the host intern table, one compiler each, in
+kernels K1-K8 and the host intern table, one compiler each, in
 parallel), holds each kernel against its plain PyTorch version on the
 card at 2^20 and 10^8 slots (K1 over one round and over R ragged rounds
 with eviction clears; K3, the collapsed hot-key step, on a zipf batch, a
@@ -15,7 +15,10 @@ block's slot range holds whole; K2; K5, the restore, on 16..4096-lane
 records with padding and extreme values; K6, the expiry sweep, on one
 16-window tick and, at 10^8, a full pass ending in a clamped window,
 with expiries at now - 1, now and now + 1 whose low words have bit 31
-set), then drives
+set; K7, the count-min sketch's step, and K8, its window rotation, at
+depth 4 and widths 2^20 and 2^24 on zipf batches of 1000 and 8192 keys
+with a saturating hot key, negative counts read at frac != 0 and an
+all-padding tail, K8 on one plane and on both), then drives
 the port's main path — the decision engine and the HTTP daemon answering
 GetRateLimits — over five streams, each against the same engine on the
 CPU, answers and state word for word:
@@ -40,6 +43,15 @@ loader, a store and a 0.2 s sweep interval over HTTP, closed and
 respawned from its checkpoint.  Its launches count from 0 apart from
 the main path's (K1, K2, K5 and K6 launched, K3 and K4 not).
 
+A third path, the sketch path, counts its launches from 0 too: one
+V1Instance on the card and one on the CPU answer 40 batches of 1000
+items (about 60 % SKETCH, some of them GLOBAL or MULTI_REGION too, 20 %
+GLOBAL, 20 % plain) with the clock stepping inside a window, by exactly
+one window and by gaps of two or more (answers, both planes, epoch and
+plane index compared), and the daemon, configured by GUBER_SKETCH_*,
+answers the same kind of batches over HTTP (bodies compared).  K7 must
+launch once per apply with sketch items, K8 at least once.
+
 It checks the launch counts of the main path (K1, K3 and K4 all launched; K1
 at most once per synchronous batch; the pump flushed), holds the zipf
 stream's collapsed pins to K3's layout (`check_collapsed`), and times
@@ -47,8 +59,10 @@ every kernel on the shapes the main path gave it, beside its bytes bound
 and its plain version (K3 also on one-key and spread zipf chunks without
 and with clears, K4 also on joined launches of 2 and 16 rounds; K5 per 4096-record restore and
 K6 per 2^17-slot window at 10^8 slots, the wall time of a 16-window
-sweep tick, a save / load round trip at 2^20), and
-apply_columnar's decisions/s on each stream.  Any
+sweep tick, a save / load round trip at 2^20; K7 per 1000- and
+8192-key batch and K8 per plane at widths 2^20 and 2^24, K8 beside
+`zero_()` on the same plane), and apply_columnar's decisions/s on each
+stream.  Any
 failed phase exits non-zero before the result lines.  The last three
 lines of standard output are the kernels JSON line, the card's
 `name, power.limit` from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -59,7 +73,8 @@ runs the same phases on the same seeded inputs against the port of
 another checkout (DIR, its root: for instance the parent commit unpacked
 with `git archive`), so that two trees are compared in one session on
 one card.  A tree from before `check_collapsed` existed runs without
-that layout check.
+that layout check; one without K5 / K6 or K7 / K8 skips the persistence
+or the sketch phases.
 
 The port imports nothing of JAX; neither does this script.
 """
@@ -897,7 +912,6 @@ def phase_server(torch, np, rng, card_engines):
         for b in range(12):
             keys, cols = keyed_columns(np, rng, 5_000, 20, BATCH)
             reqs = as_requests(keys, cols)
-            reqs[0].behavior |= 2  # GLOBAL: not in this slice → per-item error
             reqs[1].unique_key = ""
             body = json.dumps({"requests": [vars(r) for r in reqs]}).encode()
             t = time.perf_counter()
@@ -925,10 +939,14 @@ def phase_server(torch, np, rng, card_engines):
 
 def phase_daemon_binary():
     """`python -m gubernator_tpu_torch.cmd.daemon` on the card: it binds,
-    answers, and exits 0 on SIGTERM."""
+    answers (a sketch item too, with GUBER_SKETCH_* set), and exits 0 on
+    SIGTERM."""
     import signal
 
-    env = dict(os.environ, GUBER_HTTP_ADDRESS="127.0.0.1:0", GUBER_CACHE_SIZE=str(CAP_SERVE))
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    env = dict(os.environ, GUBER_HTTP_ADDRESS="127.0.0.1:0", GUBER_CACHE_SIZE=str(CAP_SERVE),
+               GUBER_SKETCH_WINDOW="1m", GUBER_SKETCH_WIDTH=str(1 << 16))
     import gubernator_tpu_torch
 
     root = Path(gubernator_tpu_torch.__file__).resolve().parent.parent  # the port driven
@@ -939,12 +957,18 @@ def phase_daemon_binary():
         line = proc.stdout.readline().strip()
         check(line.startswith("listening http="), f"[daemon] no readiness line: {line!r}")
         addr = line.split("=", 1)[1]
-        body = json.dumps({"requests": [{"name": "a", "unique_key": "b", "hits": 1,
-                                         "limit": 3, "duration": 1000}]}).encode()
+        items = [{"name": "a", "unique_key": "b", "hits": 1, "limit": 3, "duration": 1000}]
+        if "sketch_step" in fs.launches:
+            items.append({"name": "a", "unique_key": "s", "hits": 2, "limit": 3,
+                          "duration": 1000, "behavior": 32})
+        body = json.dumps({"requests": items}).encode()
         with urllib.request.urlopen(urllib.request.Request(
                 f"http://{addr}/v1/GetRateLimits", data=body, method="POST"), timeout=60) as r:
-            resp = json.loads(r.read())["responses"][0]
-        check(resp["remaining"] == "2", f"[daemon] answer: {resp}")
+            resps = json.loads(r.read())["responses"]
+        check(resps[0]["remaining"] == "2", f"[daemon] answer: {resps}")
+        if len(resps) > 1:  # the sketch item: window 1m from GUBER_SKETCH_WINDOW
+            check(resps[1]["remaining"] == "1" and int(resps[1]["reset_time"]) % 60_000 == 0,
+                  f"[daemon] sketch answer: {resps}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
         check(rc == 0, f"[daemon] exit code {rc} after SIGTERM: {proc.stderr.read()}")
@@ -1628,6 +1652,294 @@ def phase_persist_timing(torch, np, rng, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The sketch path: K7 (the count-min step) and K8 (the window rotation)
+
+SKETCH_DEPTH = 4  # GUBER_SKETCH_DEPTH default (gubernator_tpu/config.py:700)
+SKETCH_WIDTH = 1 << 20  # GUBER_SKETCH_WIDTH default: 32 MiB of planes, inside the 50 MB L2
+SKETCH_WIDE = 1 << 24  # 512 MiB of planes: past the L2
+
+
+def sketch_keys(np, rng, n: int):
+    """n key names drawn as the zipf stream draws them: zipf(1.2) over
+    10^8 names."""
+    ids = (rng.zipf(ZIPF_S, n) - 1) % ZIPF_KEYS
+    return [b"sk_%d" % i for i in ids.tolist()]
+
+
+def sketch_pin(np, rng, width: int, keys, hits, now: int, size=None):
+    """The sketch limiter's packed pin for `keys` at `now` (window 1 s),
+    widened with padding lanes to `size` when given."""
+    from gubernator_tpu_torch import hashing
+    from gubernator_tpu_torch.ops import sketch as ps
+
+    rows = ps.row_indexes(hashing.fnv1a_64_batch(*hashing.pack_keys(keys)), SKETCH_DEPTH, width)
+    pin = ps.pack_pin(rows, np.asarray(hits, dtype=np.int64), now, 1000, width)
+    if size is not None and size > pin.shape[1]:
+        wide = np.zeros((pin.shape[0], size), np.int32)
+        wide[:, : pin.shape[1]] = pin
+        wide[2::3, pin.shape[1]:] = np.arange(width + pin.shape[1], width + size)
+        pin = wide
+    return pin
+
+
+def random_planes(torch, width: int, seed: int):
+    """Sketch planes made on the card: counts in [-1000, 1000) (negative
+    ones read through the floor division), every fifth cell 2^31 - 9."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    c = torch.randint(-1000, 1000, (2, SKETCH_DEPTH, width), dtype=torch.int32, device="cuda",
+                      generator=g)
+    c[:, :, ::5] = 2**31 - 9
+    return c
+
+
+def k7_bound_ms(pin, width: int) -> float:
+    """Least time for one K7 call: the pin's rows that K7 reads (the
+    3 * depth rows of indexes, hits and positions, and the one word of
+    row 0 that holds frac; row 1 is the host's) read once, 12 B per
+    valid cell (the current cell read and written, the previous one
+    read) and the 8 B estimate of each lane written."""
+    rows, size = pin.shape
+    idx = pin[2::3][: (rows - 2) // 3].astype("int64")
+    valid = int(((idx >= 0) & (idx < width)).sum())
+    return ((rows - 2) * size * 4 + 4 + 12 * valid + 8 * size) / HBM_BYTES_PER_S * 1e3
+
+
+def k8_bound_ms(words: int) -> float:
+    """Least time for one K8 call: the zeroed words written once."""
+    return words * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def phase_sketch_kernels(torch, np, rng, errs):
+    """K7 and K8 against their plain versions on the card, word for word
+    in the planes and the output, at depth 4 and widths 2^20 (the
+    daemon's default, 32 MiB) and 2^24 (512 MiB): per batch size (1000
+    and 8192 keys from zipf(1.2) over 10^8 names) a zipf step, a hot key
+    of 4 x 2^30 hits (saturation), a step of negative hits, a one-window
+    rotation (K8 on one plane), the same keys read at frac 0.3 (the
+    negative counts now in the previous plane: the floor division), an
+    all-padding tail (5 keys in 8192 lanes), a gap rotation (K8 on both
+    planes) and a step after it."""
+    from gubernator_tpu_torch.ops import sketch as ps
+
+    def hold(name, got, want, kern, plain, what):
+        torch.cuda.synchronize()
+        err = max(int((got.long() - want.long()).abs().max().item()) if got is not None else 0,
+                  int((kern.long() - plain.long()).abs().max().item()))
+        errs[name] = max(errs[name], err)
+        check(err == 0, f"{name} differs from its plain version: {what} err {err}")
+
+    for width in (SKETCH_WIDTH, SKETCH_WIDE):
+        kern = random_planes(torch, width, int(rng.integers(2**31)))
+        plain = kern.clone()
+        cur, epoch = 0, NOW0 // 1000
+        for n in (BATCH, ZIPF_BATCH):
+            keys = sketch_keys(np, rng, n)
+            neg_keys = sketch_keys(np, rng, n)
+            steps = [
+                ("zipf", keys, rng.choice([-7, -1, 0, 1, 1, 2, 5], n), 250, None),
+                ("hot", [b"sk_hot"] * 4 + keys[4:], [2**30] * 4 + [1] * (n - 4), 250, None),
+                ("negative hits", neg_keys, -rng.integers(1, 8, n), 400, None),
+                ("rotate one", None, None, None, 1),
+                ("negative counts read at frac 0.3", neg_keys, np.zeros(n, np.int64), 300, None),
+                ("padding tail", keys[:5], [3] * 5, 999, ZIPF_BATCH),
+                ("rotate gap", None, None, None, 3),
+                ("after the gap", keys, np.ones(n, np.int64), 10, None),
+            ]
+            for what, k, hits, ms, extra in steps:
+                if k is None:  # a rotation by `extra` windows
+                    c_k = ps.sketch_rotate(kern, cur, extra)
+                    c_p = ps.rotate_reference(plain, cur, extra)
+                    check(c_k == c_p, f"K8 plane index {c_k} vs {c_p}")
+                    cur, epoch = c_k, epoch + extra
+                    hold("sketch_rotate", None, None, kern, plain, f"width {width}, {what}")
+                    continue
+                pin = torch.from_numpy(sketch_pin(np, rng, width, k, hits, epoch * 1000 + ms,
+                                                  size=extra)).cuda()
+                got = ps.sketch_step(kern, pin, cur)
+                want = ps.sketch_step_reference(plain, pin, cur)
+                hold("sketch_step", got, want, kern, plain, f"width {width}, n {n}, {what}")
+        log(f"[k7/k8] width {width}: K7 on batches of {BATCH} and {ZIPF_BATCH} zipf keys "
+            "(saturating hot key, negative counts at frac 0.3, all-padding tail) and K8 on one "
+            "plane and on both planes, planes and output bit-equal to the plain versions "
+            "(tolerance: exact)")
+        del kern, plain
+        torch.cuda.empty_cache()
+
+
+def sketch_stream_batch(np, rng, pool, n: int = BATCH):
+    """One GetRateLimits batch of the sketch stream: about 60 % SKETCH
+    (some with GLOBAL or MULTI_REGION), 20 % GLOBAL (some with
+    RESET_REMAINING), 20 % plain; sketch keys from zipf(1.2) over 10^8
+    names, the others from a pool of 20,000."""
+    from gubernator_tpu_torch.types import RateLimitReq
+
+    beh = rng.choice([32, 32, 32, 32, 34, 48, 2, 2, 2 | 8, 0, 0], n,
+                     p=[0.11, 0.11, 0.11, 0.12, 0.08, 0.07, 0.08, 0.08, 0.04, 0.1, 0.1])
+    sk = sketch_keys(np, rng, n)
+    other = rng.integers(0, len(pool), n)
+    hits = rng.choice([-2, 0, 1, 1, 1, 3, 10], n)
+    limit = rng.choice([5, 20, 100, 1000], n)
+    dur = rng.choice([1000, 60_000], n)
+    algo = rng.integers(0, 2, n)
+    return [RateLimitReq(name="sk" if b & 32 else "api",
+                         unique_key=(sk[j] if b & 32 else pool[other[j]]).decode().partition("_")[2],
+                         hits=int(hits[j]), limit=int(limit[j]), duration=int(dur[j]),
+                         algorithm=int(algo[j]), behavior=int(b))
+            for j, b in enumerate(beh.tolist())]
+
+
+# Clock steps of the sketch stream (ms): inside a window, exactly one
+# window, and gaps of two windows or more.
+SKETCH_STEPS = (0, 250, 1000, 333, 2_000, 50, 1000, 5_000, 400)
+
+
+def phase_sketch_stream(torch, np, rng):
+    """One V1Instance on the card and one on the CPU, frozen clocks, the
+    sketch at the daemon's defaults (window 1 s, depth 4, width 2^20): 40
+    batches of 1000 (`sketch_stream_batch`), the clock stepping through
+    SKETCH_STEPS.  Answers, both planes, epoch and plane index, and the
+    engines' state words must be equal, and each batch with engine items
+    must make one engine call (the GLOBAL read-back rides in it).
+    Returns the number of sketch applies of the card instance."""
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import sketch as ps
+    from gubernator_tpu_torch.service import V1Instance
+
+    ns = NOW0 * 1_000_000
+    gpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cuda"))
+    cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"))
+    pool = [b"api_g%d" % i for i in range(20_000)]
+    applies, engine_batches, kinds = 0, 0, {"one": 0, "gap": 0, "inside": 0}
+    try:
+        last_epoch = None
+        for b in range(40):
+            step = SKETCH_STEPS[b % len(SKETCH_STEPS)]
+            gpu.engine.clock.advance(ms=step)
+            cpu.engine.clock.advance(ms=step)
+            epoch = gpu.engine.clock.now_ms() // 1000
+            if last_epoch is not None:
+                d = epoch - last_epoch
+                kinds["inside" if d == 0 else "one" if d == 1 else "gap"] += 1
+            last_epoch = epoch
+            reqs = sketch_stream_batch(np, rng, pool)
+            got, want = gpu.get_rate_limits(reqs), cpu.get_rate_limits(reqs)
+            check([vars(r) for r in got] == [vars(r) for r in want],
+                  f"[sketch] batch {b}: answers differ card vs CPU")
+            applies += any(r.behavior & 32 for r in reqs)
+            engine_batches += any(r.name and r.unique_key and not r.behavior & 32 for r in reqs)
+        check(gpu.engine.batches_total == engine_batches,
+              f"[sketch] {gpu.engine.batches_total} engine calls for {engine_batches} batches "
+              "with engine items: one call per batch")
+        a = ps.sketch_state_to_numpy(gpu.sketch().state)
+        c = ps.sketch_state_to_numpy(cpu.sketch().state)
+        check(np.array_equal(a[0], c[0]) and a[1:] == c[1:],
+              "[sketch] planes, epoch or plane index differ card vs CPU")
+        gw, cw = tk.state_to_numpy(gpu.engine.state), tk.state_to_numpy(cpu.engine.state)
+        for f in tk.BucketState._fields:
+            check(np.array_equal(gw[f], cw[f]), f"[sketch] engine state column {f} differs")
+        check(min(kinds.values()) > 0, f"[sketch] the clock must step every way: {kinds}")
+        log(f"[sketch] 40 batches of {BATCH} through V1Instance on the card and on the CPU "
+            f"({gpu.counters['sketch']} sketch items, window steps {kinds}, "
+            f"{engine_batches} engine calls): answers, both planes (epoch {a[1]}, cur {a[2]}) "
+            f"and the engines' {CAP_SERVE}x12 state words bit-equal card vs CPU")
+        return applies
+    finally:
+        gpu.close()
+        cpu.close()
+
+
+def phase_sketch_http(torch, np, rng):
+    """The daemon on the card, configured by GUBER_SKETCH_* (window 500ms,
+    depth 4, width 2^20), answers 12 GetRateLimits of the sketch stream
+    over HTTP; each body must equal the JSON of the same batch through a
+    CPU instance.  Returns the daemon's sketch applies."""
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.config import setup_daemon_config
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.net.gateway import get_rate_limits_resp_json
+    from gubernator_tpu_torch.service import V1Instance
+
+    ns = NOW0 * 1_000_000
+    conf = setup_daemon_config({
+        "GUBER_HTTP_ADDRESS": "127.0.0.1:0", "GUBER_CACHE_SIZE": str(CAP_SERVE),
+        "GUBER_SWEEP_INTERVAL": "0", "GUBER_SKETCH_WINDOW": "500ms",
+        "GUBER_SKETCH_DEPTH": str(SKETCH_DEPTH), "GUBER_SKETCH_WIDTH": str(SKETCH_WIDTH)})
+    check((conf.sketch_window_ms, conf.sketch_depth, conf.sketch_width)
+          == (500, SKETCH_DEPTH, SKETCH_WIDTH), f"[sketch http] GUBER_SKETCH_* read as {conf}")
+    d = spawn_daemon(conf, clock=Clock().freeze_at(ns), device="cuda")
+    cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"),
+                     sketch_window_ms=500, sketch_depth=SKETCH_DEPTH, sketch_width=SKETCH_WIDTH)
+    pool = [b"api_h%d" % i for i in range(5_000)]
+    applies = 0
+    try:
+        url = f"http://{d.http_address}/v1/GetRateLimits"
+        for b in range(12):
+            reqs = sketch_stream_batch(np, rng, pool)
+            reqs[1].unique_key = ""
+            body = json.dumps({"requests": [vars(r) for r in reqs]}).encode()
+            with urllib.request.urlopen(urllib.request.Request(url, data=body, method="POST"),
+                                        timeout=60) as r:
+                got = r.read()
+            check(got == get_rate_limits_resp_json(cpu.get_rate_limits(reqs)),
+                  f"[sketch http] batch {b}: HTTP body differs from the CPU instance's")
+            applies += 1
+            d.clock.advance(ms=250)
+            cpu.engine.clock.advance(ms=250)
+        check(d.instance.sketch().state.counts.is_cuda, "[sketch http] the sketch is not on the card")
+        check(d.instance.counters["sketch"] == cpu.counters["sketch"] > 0,
+              "[sketch http] sketch counts differ")
+        log(f"[sketch http] 12 POST /v1/GetRateLimits x {BATCH} (sketch, GLOBAL, "
+            f"MULTI_REGION|SKETCH and plain items; {d.instance.counters['sketch']} sketch "
+            "answers) on the card: bodies byte-equal to the CPU instance's")
+        return applies
+    finally:
+        d.close()
+        cpu.close()
+
+
+def phase_sketch_timing(torch, np, rng, card):
+    """K7 per batch of 1000 and 8192 zipf keys and K8 per plane, at
+    widths 2^20 and 2^24 (CUDA events), beside their bytes bounds, their
+    plain versions and, for K8, `zero_()` on the same plane (the one
+    PyTorch call that computes it; the port never calls it)."""
+    from gubernator_tpu_torch.ops import sketch as ps
+
+    out = {}
+    for width in (SKETCH_WIDTH, SKETCH_WIDE):
+        counts = random_planes(torch, width, int(rng.integers(2**31)))
+        plain = counts.clone()
+        for n in (BATCH, ZIPF_BATCH):
+            host = [sketch_pin(np, rng, width, sketch_keys(np, rng, n),
+                               rng.choice([-1, 1, 1, 2], n), NOW0 + 250 + i) for i in range(8)]
+            pins = [torch.from_numpy(p).cuda() for p in host]
+            ps.sketch_step(counts, pins[0], 0)
+            k_ms = device_ms(torch, lambda i: ps.sketch_step(counts, pins[i % 8], i & 1), 200)
+            p_ms = host_ms(torch, lambda i: ps.sketch_step_reference(plain, pins[i % 8], i & 1),
+                           20, windows=3)
+            bound = statistics.median(k7_bound_ms(p, width) for p in host)
+            out[f"k7_{width}_{n}"] = (k_ms, p_ms, bound)
+            log(f"[time] K7, {n} zipf keys (pin {host[0].shape[1]} lanes) at width {width}: "
+                f"{k_ms * 1e3:.2f} us/call (two launches), bound {bound * 1e3:.3f} us (bytes), "
+                f"plain {p_ms * 1e3:.1f} us | {card}")
+        words = SKETCH_DEPTH * width
+        k_ms = device_ms(torch, lambda i: ps.sketch_rotate(counts, i & 1, 1), 50)
+        both = device_ms(torch, lambda i: ps.sketch_rotate(counts, 0, 2), 20)
+        lib_ms = device_ms(torch, lambda i: counts[i & 1].zero_(), 50)
+        p_ms = host_ms(torch, lambda i: ps.rotate_reference(plain, i & 1, 1), 20, windows=3)
+        out[f"k8_{width}"] = (k_ms, p_ms, k8_bound_ms(words), lib_ms)
+        log(f"[time] K8 at width {width}: one plane ({words * 4 >> 20} MiB) {k_ms * 1e3:.2f} us, "
+            f"both planes {both * 1e3:.2f} us, bound {k8_bound_ms(words) * 1e3:.2f} us per plane "
+            f"(bytes), zero_() {lib_ms * 1e3:.2f} us, plain {p_ms * 1e3:.1f} us | {card}")
+        del counts, plain
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     global TREE
     ap = argparse.ArgumentParser(description="Smoke run of gubernator_tpu_torch on one GPU.")
@@ -1673,6 +1985,13 @@ def main() -> int:
     else:
         check(TREE is not None, "the port has no persistence path")
         log(f"[persist] {TREE} has no K5 / K6: the persistence phases are skipped")
+    # ... and one from before the sketch slice has no K7 / K8.
+    has_sketch = "sketch_step" in fs.launches
+    if has_sketch:
+        phase_sketch_kernels(torch, np, rng, errs)
+    else:
+        check(TREE is not None, "the port has no sketch path")
+        log(f"[sketch] {TREE} has no K7 / K8: the sketch phases are skipped")
 
     # ---- the main path: counts from 0 just before, read just after.
     fs.reset_launches()
@@ -1723,10 +2042,25 @@ def main() -> int:
         del p_engines
         torch.cuda.empty_cache()
 
+    # ---- the sketch path (V1Instance and the daemon with SKETCH, GLOBAL and
+    # MULTI_REGION items): counts from 0 just before, read just after.
+    sketch_launches = {k: 0 for k in fs.launches}
+    if has_sketch:
+        fs.reset_launches()
+        applies = phase_sketch_stream(torch, np, rng) + phase_sketch_http(torch, np, rng)
+        sketch_launches = dict(fs.launches)
+        log(f"[sketch] launches {sketch_launches}; {applies} sketch applies on the card")
+        check(sketch_launches["sketch_step"] == applies,
+              "the sketch path must launch K7 exactly once per apply with sketch items")
+        check(sketch_launches["sketch_rotate"] > 0, "the sketch path must launch K8")
+        torch.cuda.empty_cache()
+
     phase_daemon_binary()
     times = phase_timing(torch, np, rng, card, k3_calls, k4_calls)
     if has_persist:
         times.update({f"p_{k}": v for k, v in phase_persist_timing(torch, np, rng, card).items()})
+    if has_sketch:
+        times.update({f"s_{k}": v for k, v in phase_sketch_timing(torch, np, rng, card).items()})
     log(f"[time] HTTP GetRateLimits on the card: {http_rate:.0f} decisions/s | {card}")
     phase_rates(torch, np, rng, card)
 
@@ -1749,15 +2083,26 @@ def main() -> int:
              times["p_k5"]),
             ("sweep_window", "sweep.cu", "gubernator_tpu/ops/expiry.py:40", times["p_k6"]),
         ]
-    # launches: the main path's run plus the persistence path's, each
-    # counted from 0 (K2, K5 and K6 launch on the second only).
+    if has_sketch:
+        # K7's row: one call on a 1000-key batch at the daemon's default
+        # width 2^20; K8's: one plane at 2^20, beside zero_() on it.
+        rows += [
+            ("sketch_step", "sketch.cu", "gubernator_tpu/ops/sketch.py:99",
+             times[f"s_k7_{SKETCH_WIDTH}_{BATCH}"]),
+            ("sketch_rotate", "sketch.cu", "gubernator_tpu/ops/sketch.py:63",
+             times[f"s_k8_{SKETCH_WIDTH}"]),
+        ]
+    # launches: the main path's run plus the persistence path's and the
+    # sketch path's, each counted from 0 (K2, K5 and K6 launch on the
+    # second only, K7 and K8 on the third only).
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": f"gubernator_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": main_launches[name] + persist_launches[name],
+         "replaces": replaces,
+         "launches": main_launches[name] + persist_launches[name] + sketch_launches[name],
          "max_abs_err": errs[name],
-         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-         "library_ms": None}
-        for name, src, replaces, (ms, plain_ms, bound_ms) in rows
+         "ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": "bytes",
+         "library_ms": t[3] if len(t) > 3 else None}
+        for name, src, replaces, t in rows
     ]}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(K1 R=1 W=1024: {times[1024][0] * 1e3:.2f} us, W=8192: {times[8192][0] * 1e3:.2f} us; "
@@ -1768,7 +2113,10 @@ def main() -> int:
         f"launch floor {times['floor'] * 1e3:.2f} us"
         + (f"; K5 {times['p_k5'][0] * 1e3:.2f} us per 4096 records, K6 "
            f"{times['p_k6'][0] * 1e3:.2f} us per 2^17 window, a 16-window tick at 10^8 "
-           f"{times['p_tick'] * 1e3:.2f} ms" if has_persist else "") + ")")
+           f"{times['p_tick'] * 1e3:.2f} ms" if has_persist else "")
+        + (f"; K7 {times[f's_k7_{SKETCH_WIDTH}_{BATCH}'][0] * 1e3:.2f} us per 1000-key batch, "
+           f"K8 {times[f's_k8_{SKETCH_WIDTH}'][0] * 1e3:.2f} us per 2^20-wide plane"
+           if has_sketch else "") + ")")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 Run:  python -m gubernator_tpu_torch.cmd.daemon [--device cuda|cpu] [--debug]
 Env:  GUBER_HTTP_ADDRESS (default localhost:80), GUBER_CACHE_SIZE,
-      GUBER_SWEEP_INTERVAL (default 30s).
+      GUBER_SWEEP_INTERVAL (default 30s), GUBER_SKETCH_WINDOW (default 1s),
+      GUBER_SKETCH_DEPTH (default 4), GUBER_SKETCH_WIDTH (default 2^20).
 
 Serves GetRateLimits over HTTP/JSON until SIGINT or SIGTERM, then
 closes the listener and the engine and exits 0.

@@ -5,8 +5,11 @@ GUBER_HTTP_ADDRESS (the gateway's listen address, default
 "localhost:80"), GUBER_CACHE_SIZE (bucket slots, default 50000),
 GUBER_SWEEP_INTERVAL (the period of the daemon's expiry sweep, a Go
 duration such as "30s" or "500ms" or float seconds, default 30 s; 0
-turns the sweep off), and the engine's GUBER_PUMP (the step pump's
-queueing: "1" on, "0" off, unset = on the card only).
+turns the sweep off), the count-min sketch of Behavior.SKETCH items
+(GUBER_SKETCH_WINDOW, a Go duration or float seconds, default 1 s;
+GUBER_SKETCH_DEPTH, default 4; GUBER_SKETCH_WIDTH, default 2^20;
+reference config.py:697-701), and the engine's GUBER_PUMP (the step
+pump's queueing: "1" on, "0" off, unset = on the card only).
 """
 
 from __future__ import annotations
@@ -22,6 +25,11 @@ class DaemonConfig:
     cache_size: int = 50_000
     # Seconds between the daemon's incremental expiry sweeps (0 = none).
     sweep_interval: float = 30.0
+    # The approximate limiter of Behavior.SKETCH (ops/sketch.py): window,
+    # rows and columns of its two-epoch count-min sketch.
+    sketch_window_ms: int = 1_000
+    sketch_depth: int = 4
+    sketch_width: int = 1 << 20
 
 
 def _env(d: Mapping[str, str], key: str, default: str = "") -> str:
@@ -91,6 +99,9 @@ def setup_daemon_config(env: Optional[Mapping[str, str]] = None) -> DaemonConfig
         http_listen_address=_env(d, "GUBER_HTTP_ADDRESS", "localhost:80"),
         cache_size=_env_int(d, "GUBER_CACHE_SIZE", 50_000),
         sweep_interval=_env_seconds(d, "GUBER_SWEEP_INTERVAL", 30.0),
+        sketch_window_ms=int(_env_seconds(d, "GUBER_SKETCH_WINDOW", 1.0) * 1000),
+        sketch_depth=_env_int(d, "GUBER_SKETCH_DEPTH", 4),
+        sketch_width=_env_int(d, "GUBER_SKETCH_WIDTH", 1 << 20),
     )
 
 

@@ -53,7 +53,9 @@ class Daemon:
     def start(self) -> None:
         engine = DecisionEngine(self.conf.cache_size, clock=self.clock, device=self.device,
                                 store=self._store)
-        self.instance = V1Instance(engine)
+        self.instance = V1Instance(engine, sketch_window_ms=self.conf.sketch_window_ms,
+                                   sketch_depth=self.conf.sketch_depth,
+                                   sketch_width=self.conf.sketch_width)
         if self._loader is not None:
             # Restore persisted buckets before serving (reference:
             # gubernator.go:146-152).

@@ -1,7 +1,7 @@
 """Build and load the port's native code: the CUDA kernels (csrc/*.cu:
 K1 and K4 in fused_step.cu, K2 clear_occupied.cu, K3 collapsed_step.cu,
-K5 load_slots.cu, K6 sweep.cu) and the host intern table
-(csrc/intern_table.cpp).
+K5 load_slots.cu, K6 sweep.cu, K7 and K8 sketch.cu) and the host intern
+table (csrc/intern_table.cpp).
 
 Each source compiles into its own shared library with a plain C
 interface, loaded through `ctypes` (no PyTorch headers, so a build takes
@@ -37,6 +37,7 @@ SOURCES = {
     "collapsed_step": "collapsed_step.cu",
     "load_slots": "load_slots.cu",
     "sweep": "sweep.cu",
+    "sketch": "sketch.cu",
     "intern_table": "intern_table.cpp",
 }
 # Sources a .cu includes: an edit to one rebuilds every kernel.
@@ -167,6 +168,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.guber_sweep_scratch_words.restype = ll
         lib.guber_sweep_window.argtypes = [p, p, p, ll, ll, ll, p, p, p]
         lib.guber_sweep_window.restype = i
+    elif name == "sketch":
+        ll = ctypes.c_longlong
+        # counts, depth, width, pin, size, cur, out, row_est scratch, stream
+        lib.guber_sketch_step.argtypes = [p, i, ll, p, i, i, p, p, p]
+        lib.guber_sketch_step.restype = i
+        lib.guber_sketch_rotate.argtypes = [p, ll, p]
+        lib.guber_sketch_rotate.restype = i
     elif name == "intern_table":
         i64 = ctypes.c_int64
         lib.git_new.restype = p

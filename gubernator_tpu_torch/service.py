@@ -1,18 +1,28 @@
 """V1Instance — the service core of one node, on the port's engine.
 
-Port of `gubernator_tpu/service.py:284 V1Instance`, single node with no
-peers: the batch-size check and per-item validation of GetRateLimits,
-then one engine call for every item this node answers.
-
-Not in this slice: peers, GLOBAL, MULTI_REGION and the SKETCH limiter.
-An item with one of those behaviors is answered with a per-item error
-instead of a local answer that would silently drop the behavior's
-guarantee.
+Port of `gubernator_tpu/service.py:284 V1Instance` on a node with no
+peers and no regions: the batch-size check and per-item validation of
+GetRateLimits, then the reference's partition (:587-600, :695-730).  An
+item with the SKETCH bit goes to the node-local count-min sketch
+(`ops/sketch.py SketchLimiter`, built on first use on the engine's
+device), whatever its other bits; every other valid item, GLOBAL and
+MULTI_REGION included, goes to the engine in one call with its behavior
+bits as sent.  With no peers the reference's GLOBAL and MULTI_REGION
+managers have no one to send to, so the engine's answer is the answer;
+but the GLOBAL manager still reads its keys back through the engine
+before its (empty) broadcast, and that read can change a bucket, so the
+port runs it too, as extra items at the tail of the same engine call
+(`_global_reads`).  Peers, forwarding and the cluster planes are not in
+the port yet.
 """
 
 from __future__ import annotations
 
+import threading
+from dataclasses import replace
 from typing import List, Optional, Sequence
+
+import numpy as np
 
 from gubernator_tpu_torch.types import (
     MAX_BATCH_SIZE,
@@ -20,16 +30,12 @@ from gubernator_tpu_torch.types import (
     HealthCheckResp,
     RateLimitReq,
     RateLimitResp,
+    Status,
 )
 
 HEALTHY = "healthy"
-
-# Behaviors whose planes this slice does not carry yet.
-_UNPORTED = {
-    int(Behavior.GLOBAL): "GLOBAL",
-    int(Behavior.MULTI_REGION): "MULTI_REGION",
-    int(Behavior.SKETCH): "SKETCH",
-}
+_GLOBAL = int(Behavior.GLOBAL)
+_SKETCH = int(Behavior.SKETCH)
 
 
 class ServiceError(RuntimeError):
@@ -40,11 +46,64 @@ class ServiceError(RuntimeError):
     RateLimitResp.error."""
 
 
-class V1Instance:
-    """GetRateLimits and HealthCheck over one DecisionEngine."""
+def _global_reads(reqs: Sequence[RateLimitReq]) -> List[RateLimitReq]:
+    """The GLOBAL owner's read-back before its broadcast (reference
+    cluster/global_manager.py:1042 `_reread_encoded`, :1099
+    `_reread_own_state`): each key's latest GLOBAL request of the batch,
+    with hits 0 and GLOBAL cleared.  The caller appends them to the
+    batch's engine call and drops their answers; the engine applies a
+    key's items in request order, so they read each bucket after the
+    batch, as a second call would.  The read is not always a no-op:
+    RESET_REMAINING refills the bucket, and a config or algorithm that a
+    later item of the batch changed comes back.  The reference reads on
+    its flush thread, once per sync window; here it reads once per batch,
+    at the batch's `now_ms`."""
+    latest = {r.hash_key(): r for r in reqs if int(r.behavior) & _GLOBAL}
+    return [replace(r, hits=0, behavior=int(r.behavior) & ~_GLOBAL) for r in latest.values()]
 
-    def __init__(self, engine):
+
+class V1Instance:
+    """GetRateLimits and HealthCheck over one DecisionEngine and one
+    sketch limiter (`sketch_*`: GUBER_SKETCH_*, config.py)."""
+
+    def __init__(self, engine, *, sketch_window_ms: int = 1_000, sketch_depth: int = 4,
+                 sketch_width: int = 1 << 20):
         self.engine = engine
+        self.sketch_window_ms = sketch_window_ms
+        self.sketch_depth = sketch_depth
+        self.sketch_width = sketch_width
+        self._sketch = None
+        self._sketch_lock = threading.Lock()
+        self.counters = {"sketch": 0}  # items decided by the approximate limiter
+
+    def sketch(self):
+        """The sketch limiter, built on first use (reference :528)."""
+        if self._sketch is None:
+            with self._sketch_lock:
+                if self._sketch is None:
+                    from gubernator_tpu_torch.ops.sketch import SketchLimiter
+
+                    self._sketch = SketchLimiter(self.sketch_window_ms, self.sketch_depth,
+                                                 self.sketch_width, device=self.engine.device)
+        return self._sketch
+
+    def _apply_sketch(self, reqs: Sequence[RateLimitReq], now_ms: int) -> List[RateLimitResp]:
+        """One sketch batch (reference :541): OVER when the estimate
+        exceeds the limit, remaining = max(limit - estimate, 0), reset at
+        the end of the current sketch window, no metadata."""
+        sk = self.sketch()
+        limit = np.fromiter((r.limit for r in reqs), dtype=np.int64, count=len(reqs))
+        over, est = sk.apply([r.hash_key().encode() for r in reqs],
+                             np.fromiter((r.hits for r in reqs), dtype=np.int64, count=len(reqs)),
+                             limit, now_ms)
+        remaining = np.maximum(limit - est, 0).tolist()
+        reset = (now_ms // sk.window_ms + 1) * sk.window_ms
+        self.counters["sketch"] += len(reqs)
+        return [
+            RateLimitResp(status=Status.OVER_LIMIT if o else Status.UNDER_LIMIT, limit=lim,
+                          remaining=rem, reset_time=reset)
+            for o, lim, rem in zip(over.tolist(), limit.tolist(), remaining)
+        ]
 
     def get_rate_limits(self, requests: Sequence[RateLimitReq]) -> List[RateLimitResp]:
         """reference: gubernator.go:197-317 (GetRateLimits)."""
@@ -55,23 +114,23 @@ class V1Instance:
         responses: List[Optional[RateLimitResp]] = [None] * len(requests)
         now_ms = self.engine.clock.now_ms()
         local: List[int] = []
+        sketch: List[int] = []
         for i, r in enumerate(requests):
             if not r.unique_key:
                 responses[i] = RateLimitResp(error="field 'unique_key' cannot be empty")
             elif not r.name:
                 responses[i] = RateLimitResp(error="field 'namespace' cannot be empty")
+            elif int(r.behavior) & _SKETCH:
+                sketch.append(i)
             else:
-                unported = [n for bit, n in _UNPORTED.items() if int(r.behavior) & bit]
-                if unported:
-                    responses[i] = RateLimitResp(
-                        error=f"behavior {'|'.join(unported)} is not supported by "
-                        "this node (gubernator_tpu_torch serves local buckets only)"
-                    )
-                else:
-                    local.append(i)
+                local.append(i)
+        if sketch:
+            for i, resp in zip(sketch, self._apply_sketch([requests[i] for i in sketch], now_ms)):
+                responses[i] = resp
         if local:
-            resps = self.engine.get_rate_limits([requests[i] for i in local], now_ms=now_ms)
-            for i, resp in zip(local, resps):
+            reqs = [requests[i] for i in local]
+            answers = self.engine.get_rate_limits(reqs + _global_reads(reqs), now_ms=now_ms)
+            for i, resp in zip(local, answers):
                 responses[i] = resp
         return responses  # type: ignore[return-value]
 

@@ -18,6 +18,19 @@ wall time by host-tier step:
 * readback — waiting for the output and turning it into numpy;
 * rest — the remainder (Gregorian columns, the TTL mirror, unpacking).
 
+A fourth stream, sketch, is chip_smoke.py's sketch stream: batches of
+1000 GetRateLimits items (about 60 % SKETCH, 20 % GLOBAL, 20 % plain)
+through `V1Instance.get_rate_limits` with the sketch at the daemon's
+defaults (window 1 s, depth 4, width 2^20), split as:
+
+* sketch_hash — the keys' fnv1a-64 and row indexes (`_indexes`);
+* sketch_pack — the per-row duplicate combine into the pin (`pack_pin`);
+* sketch_device — the rest of `SketchLimiter.apply`: the pin's copy to
+  the card, K8 when the window moved, K7 and the output's readback;
+* engine — the one engine call for the GLOBAL and plain items, the
+  GLOBAL owner's read-back items at its tail;
+* rest — validation, the request lists and the responses.
+
 The first 4 batches of a stream are warm-up; the next half are timed
 as above (medians per batch).  The rest run under `torch.profiler` (CUDA
 activity) as one window, timed on the host clock from a synchronised
@@ -43,6 +56,25 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 STEPS = ("schedule", "collapse", "rounds", "flush", "readback")
 
 
+def timer(step_s):
+    """`timed(obj, name, key)` replaces `obj.name` with a wrapper that adds
+    each call's wall time to `step_s[key]`."""
+
+    def timed(obj, name, key):
+        fn = getattr(obj, name)
+
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                step_s[key] += time.perf_counter() - t
+
+        setattr(obj, name, wrapper)
+
+    return timed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=40, help="batches per stream (default 40)")
@@ -64,19 +96,7 @@ def main() -> int:
 
     card = cs.phase_device(torch)
     step_s = defaultdict(float)
-
-    def timed(obj, name, key):
-        fn = getattr(obj, name)
-
-        def wrapper(*a, **k):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                step_s[key] += time.perf_counter() - t
-
-        setattr(obj, name, wrapper)
-
+    timed = timer(step_s)
     timed(Ticket, "fetch", "readback")
     rng = np.random.default_rng(cs.SEED)
     report = {"card": card}
@@ -131,8 +151,79 @@ def main() -> int:
               f"{busy_us:.1f} us, idle share {1 - busy_us / window_us:.4f} | {card}",
               flush=True)
         eng.close()
+    report["sketch"] = profile_sketch(torch, np, rng, card, args.batches, profile,
+                                      ProfilerActivity, DeviceType)
     print(json.dumps(report))
     return 0
+
+
+SKETCH_STEPS = ("sketch_hash", "sketch_pack", "sketch_device", "engine")
+
+
+def profile_sketch(torch, np, rng, card, n_batches, profile, ProfilerActivity, DeviceType):
+    """The sketch stream's split per batch and its profiled window (see
+    the module docstring)."""
+    import chip_smoke as cs
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.ops import sketch as ps
+    from gubernator_tpu_torch.service import V1Instance
+
+    inst = V1Instance(DecisionEngine(cs.CAP_SERVE, clock=Clock().freeze_at(cs.NOW0 * 1_000_000),
+                                     device="cuda"))
+    lim = inst.sketch()
+    step_s = defaultdict(float)
+    timed = timer(step_s)
+    timed(lim, "_indexes", "sketch_hash")
+    timed(ps, "pack_pin", "sketch_pack")
+    timed(lim, "apply", "apply")
+    timed(inst.engine, "get_rate_limits", "engine")
+    pool = [b"api_g%d" % i for i in range(20_000)]
+    batches = [cs.sketch_stream_batch(np, rng, pool) for _ in range(n_batches)]
+
+    def run(b, reqs):
+        inst.get_rate_limits(reqs)
+        step = cs.SKETCH_STEPS[b % len(cs.SKETCH_STEPS)]
+        inst.engine.clock.advance(ms=step)
+
+    split = 4 + (n_batches - 4) // 2
+    rows = []
+    for b, reqs in enumerate(batches[:split]):
+        step_s.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(b, reqs)
+        wall = time.perf_counter() - t
+        if b < 4:
+            continue
+        row = {"sketch_hash": step_s["sketch_hash"], "sketch_pack": step_s["sketch_pack"],
+               "sketch_device": step_s["apply"] - step_s["sketch_hash"] - step_s["sketch_pack"],
+               "engine": step_s["engine"]}
+        row = {k: v * 1e6 for k, v in row.items()}
+        row["rest"] = wall * 1e6 - sum(row.values())
+        row["wall"] = wall * 1e6
+        rows.append(row)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b, reqs in enumerate(batches[split:], start=split):
+            run(b, reqs)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t) * 1e6
+    busy = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(t for _, t in busy) if busy else float("nan")
+    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    med["decisions_per_s"] = len(batches[0]) / (med["wall"] * 1e-6)
+    n_prof = n_batches - split
+    med["window"] = {"batches": n_prof, "wall_us": window_us, "busy_us": busy_us,
+                     "idle_share": 1 - busy_us / window_us, "busy_by_name_us": dict(busy)}
+    print(f"[sketch] {len(rows)} batches of {len(batches[0])}: median per batch "
+          + ", ".join(f"{k} {med[k]:.1f} us" for k in (*SKETCH_STEPS, "rest", "wall"))
+          + f"; profiled window of {n_prof} batches: wall {window_us:.1f} us, device busy "
+          f"{busy_us:.1f} us, idle share {1 - busy_us / window_us:.4f} | {card}", flush=True)
+    inst.close()
+    return med
 
 
 if __name__ == "__main__":

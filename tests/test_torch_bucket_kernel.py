@@ -383,8 +383,17 @@ def test_wrappers_route_cpu_tensors_to_the_plain_version():
     from gubernator_tpu_torch.ops.expiry import sweep_window
 
     assert int(sweep_window(state.meta, state.hi2, state.expire_lo, 0, 0, 128)[0]) == 0
+    from gubernator_tpu_torch.ops import sketch as ps
+
+    counts = torch.zeros((2, 1, 64), dtype=torch.int32)
+    pin = torch.zeros((ps.pin_rows(1), 64), dtype=torch.int32)
+    pin[1, 0] = pin[3, 0] = 2
+    pin[2] = torch.arange(64)
+    assert ps.sketch_step(counts, pin, 0)[1, 0] == 2 and counts[0, 0, 0] == 2
+    assert ps.sketch_rotate(counts, 0, 1) == 1 and counts[1].abs().sum() == 0
     assert fs.launches == {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0,
-                           "uniform_step": 0, "load_slots": 0, "sweep_window": 0}
+                           "uniform_step": 0, "load_slots": 0, "sweep_window": 0,
+                           "sketch_step": 0, "sketch_rotate": 0}
     meta_state = tk.BucketState(*(torch.empty(8, dtype=torch.int32, device="meta") for _ in range(12)))
     with pytest.raises(ValueError):
         fs.fused_step(meta_state, torch.empty((16, 64), dtype=torch.int32, device="meta"))

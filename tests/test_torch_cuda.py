@@ -677,3 +677,107 @@ def test_store_load_and_sweep_on_the_card_match_the_cpu(cuda, tmp_path):
     for name in ("fused_step", "clear_occupied", "load_slots", "sweep_window"):
         assert fs.launches[name] > 0, name
     assert fs.launches["collapsed_step"] == fs.launches["uniform_step"] == 0
+
+
+def _sketch_batch(rng, depth, width, n, now, layout):
+    """A packed sketch pin of n keys drawn from zipf(1.2) over 10^8 names
+    (hits from -7 to 5), edited per layout: "hot" puts a key with 4 x 2^30
+    hits first (saturation), "padding" spreads 5 keys over 8192 lanes."""
+    from gubernator_tpu_torch import hashing
+    from gubernator_tpu_torch.ops import sketch as ps
+
+    if layout == "padding":
+        n = 5
+    ids = (rng.zipf(1.2, n) - 1) % 100_000_000
+    keys = [b"api_%d" % i for i in ids.tolist()]
+    hits = rng.choice([-7, -1, 0, 1, 1, 2, 5], n).astype(np.int64)
+    if layout == "hot":
+        keys[:4] = [b"api_hot"] * 4
+        hits[:4] = 2**30
+    rows = ps.row_indexes(hashing.fnv1a_64_batch(*hashing.pack_keys(keys)), depth, width)
+    pin = ps.pack_pin(rows, hits, now, 1000, width)
+    if layout == "padding":
+        pad = np.zeros((pin.shape[0], 8192), np.int32)
+        pad[:, : pin.shape[1]] = pin
+        pad[2::3, pin.shape[1]:] = np.arange(width + pin.shape[1], width + 8192)
+        pin = pad
+    return pin
+
+
+@pytest.mark.parametrize("width,n", [(1 << 12, 1000), (1 << 20, 1000), (1 << 20, 8192)])
+def test_sketch_step_kernel_bit_equal_to_plain(cuda, width, n):
+    """K7 against `sketch_step_reference` on the card, planes and output
+    word for word: zipf batches over planes of random counts (negative
+    ones included, read at frac != 0: the floor division), a hot key of
+    4 x 2^30 hits on cells near 2^31 - 1, and an all-padding tail."""
+    from gubernator_tpu_torch.ops import sketch as ps
+
+    rng = np.random.default_rng(width + n)
+    depth = 4
+    planes = rng.integers(-(2**31), 2**31, (2, depth, width)).astype(np.int32)
+    planes[:, :, ::5] = 2**31 - 9
+    kern = torch.from_numpy(planes).to(cuda)
+    plain = kern.clone()
+    fs.reset_launches()
+    steps = 0
+    for layout in ("zipf", "hot", "padding", "zipf"):
+        for now in (41_250, 7_300, 9_999):
+            cur = int(rng.integers(0, 2))
+            pin = torch.from_numpy(_sketch_batch(rng, depth, width, n, now, layout)).to(cuda)
+            got = ps.sketch_step(kern, pin, cur)
+            want = ps.sketch_step_reference(plain, pin, cur)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (layout, now)
+            assert torch.equal(kern, plain), (layout, now)
+            steps += 1
+    assert fs.launches["sketch_step"] == steps
+
+
+@pytest.mark.parametrize("depth,width", [(4, 1 << 20), (3, 1001)])
+@pytest.mark.parametrize("cur,delta", [(0, 1), (1, 1), (0, 2), (1, 9), (0, 0)])
+def test_sketch_rotate_kernel_bit_equal_to_plain(cuda, depth, width, cur, delta):
+    """K8 against `rotate_reference`: one plane (a step) or both (a gap);
+    width 1001 puts plane 1 off a 16-byte boundary."""
+    from gubernator_tpu_torch.ops import sketch as ps
+
+    rng = np.random.default_rng(depth * width + delta)
+    kern = torch.from_numpy(rng.integers(-50, 50, (2, depth, width)).astype(np.int32)).to(cuda)
+    plain = kern.clone()
+    fs.reset_launches()
+    got = ps.sketch_rotate(kern, cur, delta)
+    want = ps.rotate_reference(plain, cur, delta)
+    torch.cuda.synchronize()
+    assert got == want
+    assert torch.equal(kern, plain)
+    assert fs.launches["sketch_rotate"] == (1 if delta > 0 else 0)
+
+
+def test_sketch_items_on_the_card_match_the_cpu(cuda):
+    """V1Instance on the card against the same on the CPU: SKETCH items
+    (some with GLOBAL or MULTI_REGION), GLOBAL and plain items, with the
+    clock inside a window, one window on and two or more on."""
+    from gubernator_tpu_torch.ops import sketch as ps
+    from gubernator_tpu_torch.service import V1Instance
+    from gubernator_tpu_torch.types import RateLimitReq
+
+    rng = np.random.default_rng(12)
+    ns = 1_760_000_000_000 * 1_000_000
+    conf = dict(sketch_window_ms=1_000, sketch_depth=4, sketch_width=1 << 16)
+    gpu = V1Instance(DecisionEngine(4096, clock=Clock().freeze_at(ns), device=cuda), **conf)
+    cpu = V1Instance(DecisionEngine(4096, clock=Clock().freeze_at(ns), device="cpu"), **conf)
+    fs.reset_launches()
+    for step in (0, 300, 1_000, 200, 2_500, 10, 999):
+        for inst in (gpu, cpu):
+            inst.engine.clock.advance(ms=step)
+        reqs = [RateLimitReq(name="api", unique_key=f"u{int(rng.integers(300))}",
+                             hits=int(rng.choice([-2, 0, 1, 3])), limit=int(rng.choice([5, 50])),
+                             duration=60_000,
+                             behavior=int(rng.choice([0, 2, 32, 32, 34, 48, 2 | 8])))
+                for _ in range(200)]
+        got, want = gpu.get_rate_limits(reqs), cpu.get_rate_limits(reqs)
+        assert [vars(r) for r in got] == [vars(r) for r in want]
+    a, b = ps.sketch_state_to_numpy(gpu.sketch().state), ps.sketch_state_to_numpy(cpu.sketch().state)
+    assert np.array_equal(a[0], b[0]) and a[1:] == b[1:]
+    assert fs.launches["sketch_step"] == 7 and fs.launches["sketch_rotate"] > 0
+    gpu.close()
+    cpu.close()

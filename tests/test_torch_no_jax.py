@@ -53,6 +53,8 @@ def test_port_modules_import_without_jax_or_the_reference():
         "gubernator_tpu_torch.ops.native_build",
         "gubernator_tpu_torch.ops.collapsed_step",
         "gubernator_tpu_torch.ops.expiry",
+        "gubernator_tpu_torch.ops.sketch",
+        "gubernator_tpu_torch.hashing",
         "gubernator_tpu_torch.core.engine",
         "gubernator_tpu_torch.core.interning",
         "gubernator_tpu_torch.core.native",
