@@ -52,6 +52,24 @@ plane index compared), and the daemon, configured by GUBER_SKETCH_*,
 answers the same kind of batches over HTTP (bodies compared).  K7 must
 launch once per apply with sketch items, K8 at least once.
 
+A fourth path, the h2 path (the native h2 front, net/h2_fast.py, into
+apply_columnar), counts its launches from 0 as well: the port's daemon on
+the card (2^20 slots, frozen clock, its front from GUBER_H2_FAST_ADDRESS's
+config) and a CPU instance behind its own front answer the same 30
+sequential RPCs of 1000 items over HTTP/2 (a short stdlib client here,
+`H2Unary`; the card's machine has no grpcio): grpc-status and response
+bytes equal RPC by RPC, a GLOBAL, a Gregorian, a SKETCH and an empty-key
+RPC UNIMPLEMENTED, a zero-item RPC empty OK, state words equal, every
+window on the C dispatch thread on the default stream; 8 plain RPCs and a
+GLOBAL one sharing one 50 ms window (the plain ones served as a CPU front
+serves them, the GLOBAL one UNIMPLEMENTED); the reference's "herdfast"
+shape through the port's native client (32 connections of single-item
+RPCs on one key for 2 s: no errors, the key's remaining within its
+bound); and a 1-connection closed loop of one 1000-item leaky-bucket RPC
+for 3 s, at the 2 ms window and with none.  Its engine launches are all
+K1, K3 or K4, and each of them runs.  The daemon binary is also started
+with GUBER_H2_FAST_ADDRESS and answers one RPC there.
+
 It checks the launch counts of the main path (K1, K3 and K4 all launched; K1
 at most once per synchronous batch; the pump flushed), holds the zipf
 stream's collapsed pins to K3's layout (`check_collapsed`), and times
@@ -61,8 +79,9 @@ and with clears, K4 also on joined launches of 2 and 16 rounds; K5 per 4096-reco
 K6 per 2^17-slot window at 10^8 slots, the wall time of a 16-window
 sweep tick, a save / load round trip at 2^20; K7 per 1000- and
 8192-key batch and K8 per plane at widths 2^20 and 2^24, K8 beside
-`zero_()` on the same plane), and apply_columnar's decisions/s on each
-stream.  Any
+`zero_()` on the same plane), apply_columnar's decisions/s on each
+stream, and the h2 path's RPCs/s, p50 and p99 (herd and 1000-item
+loop) and windows per RPC.  Any
 failed phase exits non-zero before the result lines.  The last three
 lines of standard output are the kernels JSON line, the card's
 `name, power.limit` from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -73,8 +92,8 @@ runs the same phases on the same seeded inputs against the port of
 another checkout (DIR, its root: for instance the parent commit unpacked
 with `git archive`), so that two trees are compared in one session on
 one card.  A tree from before `check_collapsed` existed runs without
-that layout check; one without K5 / K6 or K7 / K8 skips the persistence
-or the sketch phases.
+that layout check; one without K5 / K6, K7 / K8 or the h2 front skips the
+persistence, the sketch or the h2 phases.
 
 The port imports nothing of JAX; neither does this script.
 """
@@ -83,6 +102,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import json
 import os
 import statistics
@@ -937,16 +957,18 @@ def phase_server(torch, np, rng, card_engines):
         cpu.close()
 
 
-def phase_daemon_binary():
+def phase_daemon_binary(has_h2: bool):
     """`python -m gubernator_tpu_torch.cmd.daemon` on the card: it binds,
-    answers (a sketch item too, with GUBER_SKETCH_* set), and exits 0 on
-    SIGTERM."""
+    answers (a sketch item too, with GUBER_SKETCH_* set; one RPC on its h2
+    front too, with GUBER_H2_FAST_ADDRESS set), and exits 0 on SIGTERM."""
     import signal
 
     from gubernator_tpu_torch.ops import fused_step as fs
 
     env = dict(os.environ, GUBER_HTTP_ADDRESS="127.0.0.1:0", GUBER_CACHE_SIZE=str(CAP_SERVE),
                GUBER_SKETCH_WINDOW="1m", GUBER_SKETCH_WIDTH=str(1 << 16))
+    if has_h2:
+        env["GUBER_H2_FAST_ADDRESS"] = "127.0.0.1:0"
     import gubernator_tpu_torch
 
     root = Path(gubernator_tpu_torch.__file__).resolve().parent.parent  # the port driven
@@ -956,7 +978,16 @@ def phase_daemon_binary():
     try:
         line = proc.stdout.readline().strip()
         check(line.startswith("listening http="), f"[daemon] no readiness line: {line!r}")
-        addr = line.split("=", 1)[1]
+        fields = dict(f.split("=", 1) for f in line.split()[1:])
+        addr = fields["http"]
+        if has_h2:
+            c = H2Unary(fields["h2"])
+            try:
+                status, msg = c.call(encode_get_rate_limits([("h2", "b", 1, 3, 1000, 0, 0, 0)]))
+            finally:
+                c.close()
+            check(status == 0 and decode_responses(msg)[0][2] == 2,
+                  f"[daemon] h2 answer: {status} {msg!r}")
         items = [{"name": "a", "unique_key": "b", "hits": 1, "limit": 3, "duration": 1000}]
         if "sketch_step" in fs.launches:
             items.append({"name": "a", "unique_key": "s", "hits": 2, "limit": 3,
@@ -972,8 +1003,8 @@ def phase_daemon_binary():
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
         check(rc == 0, f"[daemon] exit code {rc} after SIGTERM: {proc.stderr.read()}")
-        log("[daemon] python -m gubernator_tpu_torch.cmd.daemon answered on the card, "
-            "exited 0 on SIGTERM")
+        log("[daemon] python -m gubernator_tpu_torch.cmd.daemon answered on the card"
+            + (" over HTTP and its h2 front" if has_h2 else "") + ", exited 0 on SIGTERM")
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -1372,22 +1403,23 @@ def words_by_key(np, eng):
     return [keys[i] for i in order], {f: a[live[order]] for f, a in w.items()}
 
 
-def same_engines(np, a, b, what: str, *, slots: bool) -> None:
-    """Live keys' words equal; with `slots`, every slot's words and key."""
+def same_engines(np, a, b, what: str, *, slots: bool, path: str = "persist") -> None:
+    """Live keys' words equal; with `slots`, every slot's words and key.
+    `path` and `what` name the case in the failure messages."""
     from gubernator_tpu_torch.ops.bucket_kernel import state_to_numpy
 
     if slots:
         wa, wb = state_to_numpy(a.state), state_to_numpy(b.state)
         for f in wa:
-            check(np.array_equal(wa[f], wb[f]), f"[persist] {what}: state column {f} differs")
+            check(np.array_equal(wa[f], wb[f]), f"[{path}] {what}: state column {f} differs")
         live = np.nonzero(wa["meta"] & 1)[0]
         check(all(a.table.key_for_slot(int(x)) == b.table.key_for_slot(int(x)) for x in live),
-              f"[persist] {what}: keys differ by slot")
+              f"[{path}] {what}: keys differ by slot")
     ka, wa = words_by_key(np, a)
     kb, wb = words_by_key(np, b)
-    check(ka == kb, f"[persist] {what}: live keys differ")
+    check(ka == kb, f"[{path}] {what}: live keys differ")
     for f in wa:
-        check(np.array_equal(wa[f], wb[f]), f"[persist] {what}: words of column {f} differ")
+        check(np.array_equal(wa[f], wb[f]), f"[{path}] {what}: words of column {f} differ")
 
 
 def store_stream(torch, np, rng, cap, batches, tag):
@@ -1940,6 +1972,470 @@ def phase_sketch_timing(torch, np, rng, card):
     return out
 
 
+# ---- the h2 path: the native h2 front (net/h2_fast.py) into apply_columnar
+
+H2_PATH = "/pb.gubernator.V1/GetRateLimits"
+H2_PREFACE = b"PRI * HTTP/2.0\r\n\r\nSM\r\n\r\n"
+H2_POOL = 1 << 20  # keys of the parity stream: BASELINE.json configs[1]'s 1M keys
+UNIMPLEMENTED = 12
+
+
+def pb_varint(v: int) -> bytes:
+    """A protobuf varint (an int64 below 0 as its 10-byte two's complement)."""
+    v &= (1 << 64) - 1
+    out = bytearray()
+    while v >= 0x80:
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def encode_get_rate_limits(items) -> bytes:
+    """GetRateLimitsReq bytes (proto3, zero fields omitted) from (name,
+    unique_key, hits, limit, duration, algorithm, behavior, burst)
+    tuples; the card's machine has no protobuf."""
+    out = bytearray()
+    for name, key, *nums in items:
+        m = bytearray()
+        for field, s in ((1, name), (2, key)):
+            if s:
+                b = s.encode()
+                m += bytes([field << 3 | 2]) + pb_varint(len(b)) + b
+        for field, v in zip((3, 4, 5, 6, 7, 8), nums):
+            if v:
+                m += bytes([field << 3]) + pb_varint(int(v))
+        out += b"\x0a" + pb_varint(len(m)) + m
+    return bytes(out)
+
+
+def decode_responses(msg: bytes) -> list:
+    """GetRateLimitsResp bytes → [(status, limit, remaining, reset_time)]
+    (fields 1-4; the h2 front writes no others)."""
+    def varint(pos):
+        v = shift = 0
+        while True:
+            b = msg[pos]
+            pos += 1
+            v |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return (v - (1 << 64) if v >= 1 << 63 else v), pos
+
+    out, pos = [], 0
+    while pos < len(msg):
+        check(msg[pos] == 0x0A, f"[h2] unexpected tag {msg[pos]} in a response")
+        ln, pos = varint(pos + 1)
+        end, item = pos + ln, [0, 0, 0, 0]
+        while pos < end:
+            tag = msg[pos]
+            check(tag & 7 == 0 and 1 <= tag >> 3 <= 4, f"[h2] unexpected field tag {tag}")
+            item[(tag >> 3) - 1], pos = varint(pos + 1)
+        out.append(tuple(item))
+    check(pos == len(msg), "[h2] truncated response")
+    return out
+
+
+def h2_frame(ftype: int, flags: int, stream: int, payload: bytes = b"") -> bytes:
+    return (len(payload).to_bytes(3, "big") + bytes([ftype, flags]) + stream.to_bytes(4, "big")
+            + payload)
+
+
+class H2Unary:
+    """A short stdlib unary h2 client for distinct sequential RPCs (the
+    card's machine has no grpcio): prior-knowledge preface, SETTINGS,
+    HEADERS in the static-table HPACK form csrc/h2_client.cpp writes, the
+    grpc-framed body in DATA frames of at most 16 KiB inside the
+    connection's send window, then frames read to END_STREAM, with a
+    WINDOW_UPDATE back for every DATA frame."""
+
+    def __init__(self, address: str, timeout: float = 120.0):
+        import socket
+
+        host, port = address.rsplit(":", 1)
+        self.sock = socket.create_connection((host, int(port)), timeout=timeout)
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.next_stream = 1
+        self.send_window = 65535  # connection level, the server's to grant
+        self.buf = bytearray()
+
+        def lit(s: bytes) -> bytes:  # HPACK string literal, no huffman, < 127 bytes
+            return bytes([len(s)]) + s
+
+        self.headers = (b"\x83\x86\x04" + lit(H2_PATH.encode()) + b"\x01" + lit(host.encode())
+                        + b"\x0f\x10" + lit(b"application/grpc") + b"\x00" + lit(b"te")
+                        + lit(b"trailers"))
+        # INITIAL_WINDOW_SIZE 2^30: response DATA never waits on a stream window.
+        self.sock.sendall(H2_PREFACE + h2_frame(4, 0, 0, (4).to_bytes(2, "big")
+                                                + (1 << 30).to_bytes(4, "big")))
+
+    def close(self) -> None:
+        self.sock.close()
+
+    def _frame(self):
+        while True:
+            if len(self.buf) >= 9:
+                n = int.from_bytes(self.buf[:3], "big")
+                if len(self.buf) >= 9 + n:
+                    f = bytes(self.buf[: 9 + n])
+                    del self.buf[: 9 + n]
+                    return f[3], f[4], int.from_bytes(f[5:9], "big") & 0x7FFFFFFF, f[9:]
+            chunk = self.sock.recv(1 << 16)
+            if not chunk:
+                raise PhaseError("[h2] the server closed the connection")
+            self.buf += chunk
+
+    def _step(self, sid: int, got: dict) -> bool:
+        """Handle one frame; True once stream `sid` has ended."""
+        ftype, flags, stream, payload = self._frame()
+        if ftype == 8 and stream == 0:
+            self.send_window += int.from_bytes(payload, "big") & 0x7FFFFFFF
+        elif ftype == 4 and not flags & 1:
+            self.sock.sendall(h2_frame(4, 1, 0))  # SETTINGS ACK
+        elif ftype == 7 or (ftype == 3 and stream == sid):
+            raise PhaseError(f"[h2] the server sent {'GOAWAY' if ftype == 7 else 'RST_STREAM'}")
+        elif stream == sid and ftype == 0:
+            got["data"] += payload
+            if payload:
+                self.sock.sendall(h2_frame(8, 0, 0, len(payload).to_bytes(4, "big")))
+        elif stream == sid and ftype == 1 and flags & 1:
+            got["trailers"] = payload
+            return True
+        return False
+
+    def call(self, body: bytes):
+        """(grpc-status, response message bytes) of one unary RPC."""
+        sid = self.next_stream
+        self.next_stream += 2
+        data = b"\x00" + len(body).to_bytes(4, "big") + body
+        self.sock.sendall(h2_frame(1, 4, sid, self.headers))
+        got = {"data": b"", "trailers": b""}
+        chunks = [data[i : i + 16384] for i in range(0, len(data), 16384)]
+        for j, c in enumerate(chunks):
+            while self.send_window < len(c):
+                self._step(sid, got)
+            self.send_window -= len(c)
+            self.sock.sendall(h2_frame(0, 1 if j == len(chunks) - 1 else 0, sid, c))
+        while not self._step(sid, got):
+            pass
+        tr = got["trailers"]
+        i = tr.index(b"grpc-status") + len(b"grpc-status")
+        status = int(tr[i + 1 : i + 1 + tr[i]])
+        d = got["data"]
+        if status != 0:
+            return status, b""
+        check(len(d) >= 5 and d[0] == 0 and int.from_bytes(d[1:5], "big") == len(d) - 5,
+              "[h2] malformed grpc message frame")
+        return 0, d[5:]
+
+
+def h2_plain_items(np, rng, n: int, hot_cfg):
+    """n plain items: keys drawn from a 2^20-key pool, 8 % on the 50 hot
+    keys (each with its own config, so their repeats can collapse), token
+    and leaky mixed, RESET_REMAINING on 3 %."""
+    hot = rng.random(n) < 0.08
+    ids = rng.integers(0, H2_POOL, n)
+    hid = rng.integers(0, len(hot_cfg), n)
+    algo = rng.integers(0, 2, n)
+    beh = np.where(rng.random(n) < 0.03, 8, 0)
+    hits = rng.choice(np.array([0, 1, 1, 1, 2, 5, -1]), n)
+    limit = rng.choice(np.array([10, 100, 1000, 10**6]), n)
+    dur = rng.choice(np.array([1000, 60_000, 3_600_000]), n)
+    burst = rng.choice(np.array([0, 0, 0, 20]), n)
+    out = []
+    for j in range(n):
+        if hot[j]:
+            h = int(hid[j])
+            out.append(("api", f"hot{h}", 1, *hot_cfg[h]))
+        else:
+            out.append(("api", f"k{int(ids[j])}", int(hits[j]), int(limit[j]), int(dur[j]),
+                        int(algo[j]), int(beh[j]), int(burst[j])))
+    return out
+
+
+def h2_stream(np, rng, n_rpcs: int = 30):
+    """The parity stream: `n_rpcs` RPCs of 1000 plain items, the clock
+    stepped before each, with a GLOBAL, a Gregorian, a SKETCH, an
+    empty-unique_key and a zero-item RPC among them.  Returns [(body,
+    step ms, expected grpc-status)]."""
+    hot_cfg = [(int(rng.choice([10, 100])), 60_000, h % 2, 0, 0) for h in range(50)]
+    special = {3: ("global", 2), 8: ("gregorian", 4), 13: ("sketch", 32), 18: ("empty key", 0),
+               23: ("zero items", 0)}
+    out = []
+    for r in range(n_rpcs):
+        step = int(rng.choice([0, 0, 250, 1000, 61_000]))
+        items = h2_plain_items(np, rng, BATCH, hot_cfg)
+        status = 0
+        if r in special:
+            kind, bit = special[r]
+            j = int(rng.integers(BATCH))
+            name, key, hits, limit, dur, algo, beh, burst = items[j]
+            if kind == "zero items":
+                items = []
+            elif kind == "empty key":
+                items[j] = (name, "", hits, limit, dur, algo, beh, burst)
+                status = UNIMPLEMENTED
+            else:
+                items[j] = (name, key, hits, limit, 1 if bit == 4 else dur, algo, beh | bit, burst)
+                status = UNIMPLEMENTED
+        out.append((encode_get_rate_limits(items), step, status, len(items)))
+    return out
+
+
+def serving_threads(torch, instance, seen: list):
+    """Wrap `instance.serve_decoded_local` to note, per window, the
+    calling thread, its current device and whether its current stream is
+    the device's default stream (the one every other serving thread
+    launches on)."""
+    import threading
+
+    real = instance.serve_decoded_local
+    dev = instance.engine.device
+
+    def spy(dec):
+        seen.append((threading.get_ident(), torch.cuda.current_device(),
+                     torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)))
+        return real(dec)
+
+    instance.serve_decoded_local = spy
+
+
+def phase_h2_parity(torch, np, rng):
+    """The port's daemon on the card (2^20 slots, frozen clock, its h2
+    front from DaemonConfig) and a port instance on the CPU (2^20 slots,
+    frozen clock, an H2FastFront) answer the same 30 sequential RPCs of
+    1000 items: grpc-status and response bytes equal RPC by RPC, the
+    out-of-scope RPCs UNIMPLEMENTED, the zero-item RPC an empty OK, and
+    the state words equal at the end.  Every window runs on the C
+    server's dispatch thread, on device 0's default stream.  Returns the
+    card daemon (still serving)."""
+    import threading
+
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.net.h2_fast import H2FastFront
+    from gubernator_tpu_torch.service import V1Instance
+
+    ns = NOW0 * 1_000_000
+    d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=CAP_SERVE,
+                                  sweep_interval=0.0, h2_fast_address="127.0.0.1:0"),
+                     clock=Clock().freeze_at(ns), device="cuda")
+    cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"))
+    cpu_front = H2FastFront(cpu)
+    card_c = cpu_c = None
+    try:
+        check(d.instance.engine.state.meta.is_cuda, "[h2 parity] the daemon's engine is not on the card")
+        seen = []
+        serving_threads(torch, d.instance, seen)
+        card_c, cpu_c = H2Unary(d.h2_fast_address), H2Unary(cpu_front.address)
+        stream = h2_stream(np, rng)
+        for r, (body, step, status, n_items) in enumerate(stream):
+            d.clock.advance(ms=step)
+            cpu.engine.clock.advance(ms=step)
+            got, want = card_c.call(body), cpu_c.call(body)
+            check(got == want, f"[h2 parity] RPC {r}: card {got[0]} / {len(got[1])} bytes, "
+                  f"CPU {want[0]} / {len(want[1])} bytes: responses differ")
+            check(got[0] == status, f"[h2 parity] RPC {r}: grpc-status {got[0]}, want {status}")
+            if status == 0:
+                check(len(decode_responses(got[1])) == n_items, f"[h2 parity] RPC {r}: item count")
+        same_engines(np, d.instance.engine, cpu.engine, "parity", slots=True, path="h2")
+        main = threading.get_ident()
+        check(len(seen) == sum(1 for s in stream if s[2] == 0 and s[3]) and all(
+            t != main and dev == 0 and default for t, dev, default in seen),
+              f"[h2 parity] windows must run on the dispatch thread, device 0, default stream: "
+              f"{set(seen)}")
+        st = d.h2_fast.stats()
+        check(st["errors"] == 4 and st["rpcs"] == len(stream) - 4,
+              f"[h2 parity] front stats {st}")
+        log(f"[h2 parity] {len(stream)} RPCs of {BATCH} items (keys from a 2^20 pool, 8 % on 50 "
+            "hot keys, token and leaky, RESET_REMAINING 3 %, clock steps) over HTTP/2 to the "
+            "daemon on the card and to a CPU instance's front: grpc-status and response bytes "
+            "equal RPC by RPC (GLOBAL, Gregorian, SKETCH and empty-key RPCs UNIMPLEMENTED, the "
+            f"zero-item RPC empty OK), state words of {CAP_SERVE} slots equal; {len(seen)} "
+            "windows, each on the C dispatch thread on device 0's default stream")
+        return d
+    except BaseException:
+        d.close()
+        raise
+    finally:
+        for c in (card_c, cpu_c):
+            if c is not None:
+                c.close()
+        cpu_front.close()
+        cpu.close()
+
+
+def phase_h2_isolation(torch, np, rng):
+    """A front with a 50 ms window on a card engine: 8 plain RPCs and one
+    GLOBAL RPC sent at once share one window; the plain ones are answered
+    as a CPU engine answers the same items, the GLOBAL one UNIMPLEMENTED,
+    and the state words equal the CPU engine's.  Returns the card engine
+    and its front's stats."""
+    import threading
+
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.net.h2_fast import H2FastFront
+    from gubernator_tpu_torch.service import V1Instance
+
+    ns = NOW0 * 1_000_000
+    gpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cuda"))
+    cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"))
+    front = H2FastFront(gpu, window_s=0.05)
+    cpu_front = H2FastFront(cpu, window_s=0.05)
+    hot_cfg = [(10, 60_000, 0, 0, 0)]
+    bodies = []
+    for r in range(9):  # 100 items each: 900 queued items stay under the early flush
+        items = [(f"iso{r}", key, *rest) for _, key, *rest in h2_plain_items(np, rng, 100, hot_cfg)]
+        if r == 4:
+            name, key, hits, limit, dur, algo, beh, burst = items[7]
+            items[7] = (name, key, hits, limit, dur, algo, beh | 2, burst)  # GLOBAL
+        bodies.append(encode_get_rate_limits(items))
+    clients = [H2Unary(front.address) for _ in bodies]
+    try:
+        got = [None] * len(bodies)
+        gate = threading.Barrier(len(bodies))
+
+        def send(i):
+            gate.wait()
+            got[i] = clients[i].call(bodies[i])
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        check(not any(t.is_alive() for t in threads), "[h2 isolation] a client hung")
+        stats = front.stats()
+        check(stats["windows"] == 1, f"[h2 isolation] the 9 RPCs took {stats['windows']} windows")
+        c = H2Unary(cpu_front.address)
+        try:
+            want = [c.call(b) for b in bodies]  # one at a time: the CPU's own windows
+        finally:
+            c.close()
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(g == w, f"[h2 isolation] RPC {i}: card {g[0]}, CPU {w[0]}: responses differ")
+        check([g[0] for g in got] == [0] * 4 + [UNIMPLEMENTED] + [0] * 4,
+              f"[h2 isolation] statuses {[g[0] for g in got]}")
+        same_engines(np, gpu.engine, cpu.engine, "isolation", slots=False, path="h2")
+        log("[h2 isolation] 8 plain RPCs and 1 GLOBAL RPC in one 50 ms window on the card: the "
+            "plain ones answered byte-equal to a CPU front's, the GLOBAL one UNIMPLEMENTED, live "
+            "keys' state words equal")
+        return gpu.engine, stats
+    finally:
+        for cl in clients:
+            cl.close()
+        front.close()
+        cpu_front.close()
+        cpu.close()
+
+
+def latency_stats(np, lats) -> tuple:
+    lat_ms = np.asarray(lats) * 1e3
+    return float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 99))
+
+
+def phase_h2_load(torch, np, rng, card):
+    """Readings, not claims, on a daemon on the card with a live clock
+    (2^20 slots, the default 2 ms window), through the port's native
+    client (core/h2_client.py bench_unary): the reference's "herdfast"
+    shape (single-item RPCs on one hot key, token bucket, limit 10^9,
+    from 32 connections for 2 s: no errors, and the key's remaining
+    within [limit - rpcs - 32, limit - rpcs], since each connection has
+    at most one RPC in flight the client never counted), then a
+    1-connection closed loop of one 1000-item leaky-bucket RPC
+    (BASELINE.json configs[1]) for 3 s, at the daemon's 2 ms window and
+    through a second front on the same instance with no window (a lone
+    RPC otherwise waits the whole group-commit window).  Returns (the
+    card daemon, readings)."""
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.core import h2_client
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.net.h2_fast import H2FastFront
+
+    limit = 10**9
+    d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=CAP_SERVE,
+                                  sweep_interval=0.0, h2_fast_address="127.0.0.1:0"),
+                     device="cuda")
+    try:
+        herd = encode_get_rate_limits([("herd", "hot", 1, limit, 3_600_000, 0, 0, 0)])
+        w0 = d.h2_fast.stats()
+        res = h2_client.bench_unary(d.h2_fast_address, H2_PATH, herd, 2.0, 32)
+        check(res is not None, "[h2 herd] the native client could not connect")
+        rpcs, errors, lats, _frame, connected = res
+        check(errors == 0 and connected == 32 and rpcs > 0,
+              f"[h2 herd] rpcs {rpcs}, errors {errors}, connected {connected}")
+        w1 = d.h2_fast.stats()
+        c = H2Unary(d.h2_fast_address)
+        try:
+            status, msg = c.call(encode_get_rate_limits(
+                [("herd", "hot", 0, limit, 3_600_000, 0, 0, 0)]))
+        finally:
+            c.close()
+        check(status == 0, f"[h2 herd] read-back status {status}")
+        rem = decode_responses(msg)[0][2]
+        check(limit - rpcs - 32 <= rem <= limit - rpcs,
+              f"[h2 herd] remaining {rem} outside [{limit - rpcs - 32}, {limit - rpcs}]")
+        p50, p99 = latency_stats(np, lats)
+        herd_read = dict(rpcs=rpcs, rps=rpcs / 2.0, p50=p50, p99=p99,
+                         windows_per_rpc=(w1["windows"] - w0["windows"]) / max(1, w1["rpcs"] - w0["rpcs"]))
+        log(f"[h2 herd] 32 connections x single-item RPCs on one key, 2 s: {rpcs} RPCs "
+            f"({rpcs / 2.0:.0f} RPCs/s), 0 errors, p50 {p50:.3f} ms, p99 {p99:.3f} ms, "
+            f"{herd_read['windows_per_rpc']:.4f} windows per RPC; remaining {rem} in "
+            f"[limit - rpcs - 32, limit - rpcs] | {card}")
+        pool = rng.choice(H2_POOL, BATCH, replace=False)
+        leaky = encode_get_rate_limits([("api", f"k{int(k)}", 1, 1000, 60_000, 1, 0, 0)
+                                        for k in pool])
+        reads = {}
+        no_window = H2FastFront(d.instance, window_s=0.0)
+        try:
+            for tag, front in (("2 ms window", d.h2_fast), ("no window", no_window)):
+                w0 = front.stats()
+                res = h2_client.bench_unary(front.address, H2_PATH, leaky, 3.0, 1)
+                check(res is not None and res[1] == 0 and res[0] > 0,
+                      f"[h2 1000] closed loop failed: {res and res[:2]}")
+                rpcs, _, lats, frame, _ = res
+                check(len(decode_responses(frame[5:])) == BATCH, "[h2 1000] response item count")
+                w1 = front.stats()
+                p50, p99 = latency_stats(np, lats)
+                reads[tag] = dict(rpcs=rpcs, rps=rpcs / 3.0, p50=p50, p99=p99,
+                                  windows_per_rpc=(w1["windows"] - w0["windows"])
+                                  / max(1, w1["rpcs"] - w0["rpcs"]))
+                log(f"[h2 1000] {tag}: 1 connection, closed loop of one {BATCH}-item "
+                    f"leaky-bucket RPC (2^20 slots), 3 s: {rpcs} RPCs ({rpcs / 3.0:.1f} RPCs/s, "
+                    f"{rpcs * BATCH / 3.0:.0f} decisions/s), p50 {p50:.3f} ms, p99 {p99:.3f} ms "
+                    f"({'under' if p99 < 2.0 else 'over'} the 2 ms limit), "
+                    f"{reads[tag]['windows_per_rpc']:.4f} windows per RPC | {card}")
+        finally:
+            no_window.close()
+        return d, dict(herd=herd_read, **reads)
+    except BaseException:
+        d.close()
+        raise
+
+
+def phase_h2(torch, np, rng, card):
+    """The h2 path: parity stream, window isolation, herd and the
+    1000-item loop.  Returns (the path's card engines, readings, windows
+    and RPCs of its fronts), every front and daemon closed."""
+    parity = phase_h2_parity(torch, np, rng)
+    daemons = [parity]
+    try:
+        iso, iso_stats = phase_h2_isolation(torch, np, rng)
+        load_daemon, readings = phase_h2_load(torch, np, rng, card)
+        daemons.append(load_daemon)
+        stats = [x.h2_fast.stats() for x in daemons] + [iso_stats]
+    finally:
+        for x in daemons:
+            x.close()
+    iso.close()
+    engines = [x.instance.engine for x in daemons] + [iso]
+    return engines, readings, (sum(st["windows"] for st in stats),
+                               sum(st["rpcs"] + st["errors"] for st in stats))
+
+
 def main() -> int:
     global TREE
     ap = argparse.ArgumentParser(description="Smoke run of gubernator_tpu_torch on one GPU.")
@@ -1987,6 +2483,8 @@ def main() -> int:
         log(f"[persist] {TREE} has no K5 / K6: the persistence phases are skipped")
     # ... and one from before the sketch slice has no K7 / K8.
     has_sketch = "sketch_step" in fs.launches
+    # ... and one from before the h2 slice has no h2 front.
+    has_h2 = importlib.util.find_spec("gubernator_tpu_torch.net.h2_fast") is not None
     if has_sketch:
         phase_sketch_kernels(torch, np, rng, errs)
     else:
@@ -2055,7 +2553,29 @@ def main() -> int:
         check(sketch_launches["sketch_rotate"] > 0, "the sketch path must launch K8")
         torch.cuda.empty_cache()
 
-    phase_daemon_binary()
+    # ---- the h2 path (the native h2 front into apply_columnar): counts
+    # from 0 just before, read just after.
+    h2_launches = {k: 0 for k in fs.launches}
+    h2_read = None
+    if has_h2:
+        fs.reset_launches()
+        h2_engines, h2_read, (h2_windows, h2_rpcs) = phase_h2(torch, np, rng, card)
+        h2_launches = dict(fs.launches)
+        h2_disp = sum(e.dispatches_total for e in h2_engines)
+        log(f"[h2] launches {h2_launches}; engine launches {h2_disp}; {h2_windows} windows for "
+            f"{h2_rpcs} RPCs ({h2_windows / h2_rpcs:.4f} windows per RPC) | {card}")
+        check(h2_launches["fused_step"] + h2_launches["collapsed_step"]
+              + h2_launches["uniform_step"] == h2_disp == sum(h2_launches.values()),
+              "every engine launch of the h2 path must be a K1, K3 or K4 launch")
+        for name in ("fused_step", "collapsed_step", "uniform_step"):
+            check(h2_launches[name] > 0, f"the h2 path must launch {name}")
+        del h2_engines
+        torch.cuda.empty_cache()
+    else:
+        check(TREE is not None, "the port has no h2 front")
+        log(f"[h2] {TREE} has no h2 front: the h2 phases are skipped")
+
+    phase_daemon_binary(has_h2)
     times = phase_timing(torch, np, rng, card, k3_calls, k4_calls)
     if has_persist:
         times.update({f"p_{k}": v for k, v in phase_persist_timing(torch, np, rng, card).items()})
@@ -2092,13 +2612,14 @@ def main() -> int:
             ("sketch_rotate", "sketch.cu", "gubernator_tpu/ops/sketch.py:63",
              times[f"s_k8_{SKETCH_WIDTH}"]),
         ]
-    # launches: the main path's run plus the persistence path's and the
-    # sketch path's, each counted from 0 (K2, K5 and K6 launch on the
-    # second only, K7 and K8 on the third only).
+    # launches: the main path's run plus the persistence path's, the
+    # sketch path's and the h2 path's, each counted from 0 (K2, K5 and K6
+    # launch on the second only, K7 and K8 on the third only).
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": f"gubernator_tpu_torch/csrc/{src}",
          "replaces": replaces,
-         "launches": main_launches[name] + persist_launches[name] + sketch_launches[name],
+         "launches": (main_launches[name] + persist_launches[name] + sketch_launches[name]
+                      + h2_launches[name]),
          "max_abs_err": errs[name],
          "ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": "bytes",
          "library_ms": t[3] if len(t) > 3 else None}

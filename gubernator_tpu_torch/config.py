@@ -8,8 +8,14 @@ duration such as "30s" or "500ms" or float seconds, default 30 s; 0
 turns the sweep off), the count-min sketch of Behavior.SKETCH items
 (GUBER_SKETCH_WINDOW, a Go duration or float seconds, default 1 s;
 GUBER_SKETCH_DEPTH, default 4; GUBER_SKETCH_WIDTH, default 2^20;
-reference config.py:697-701), and the engine's GUBER_PUMP (the step
-pump's queueing: "1" on, "0" off, unset = on the card only).
+reference config.py:697-701), the native h2 front
+(GUBER_H2_FAST_ADDRESS, "" = off, "127.0.0.1:0" binds an ephemeral port;
+GUBER_H2_FAST_WINDOW, its group-commit window, a Go duration or float
+seconds, default 2 ms; GUBER_H2_LANES, its SO_REUSEPORT accept lanes on
+the thread-per-connection plane, 0 = one per CPU; reference
+config.py:486-494, :738-740), and the engine's GUBER_PUMP (the step
+pump's queueing: "1" on, "0" off, unset = on the card only).  The h2
+front reads its other knobs itself (net/h2_fast.py).
 """
 
 from __future__ import annotations
@@ -30,6 +36,12 @@ class DaemonConfig:
     sketch_window_ms: int = 1_000
     sketch_depth: int = 4
     sketch_width: int = 1 << 20
+    # The native h2 front (net/h2_fast.py): "" = off.
+    h2_fast_address: str = ""
+    h2_fast_window: float = 0.002
+    # Its SO_REUSEPORT accept lanes (thread-per-connection plane); 0 =
+    # one per CPU.
+    h2_lanes: int = 0
 
 
 def _env(d: Mapping[str, str], key: str, default: str = "") -> str:
@@ -102,6 +114,9 @@ def setup_daemon_config(env: Optional[Mapping[str, str]] = None) -> DaemonConfig
         sketch_window_ms=int(_env_seconds(d, "GUBER_SKETCH_WINDOW", 1.0) * 1000),
         sketch_depth=_env_int(d, "GUBER_SKETCH_DEPTH", 4),
         sketch_width=_env_int(d, "GUBER_SKETCH_WIDTH", 1 << 20),
+        h2_fast_address=_env(d, "GUBER_H2_FAST_ADDRESS", ""),
+        h2_fast_window=_env_seconds(d, "GUBER_H2_FAST_WINDOW", 0.002),
+        h2_lanes=_env_int(d, "GUBER_H2_LANES", 0),
     )
 
 

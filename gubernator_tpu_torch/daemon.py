@@ -1,15 +1,18 @@
-"""Daemon — process bootstrap: engine + service + HTTP gateway.
+"""Daemon — process bootstrap: engine + service + HTTP gateway + h2 front.
 
 Port of `gubernator_tpu/daemon.py` for one node: `spawn_daemon(conf)`
 builds the decision engine on the card (or on `device` when given), with
 an optional write-through `store`, restores the cache from an optional
 `loader` before it serves, wires the V1 service, starts the HTTP
-gateway, and runs the periodic expiry sweep on a thread of its own
+gateway, then, when `conf.h2_fast_address` (GUBER_H2_FAST_ADDRESS) is
+set, the native h2 front (net/h2_fast.py; reference daemon.py:316-335),
+and runs the periodic expiry sweep on a thread of its own
 (`conf.sweep_interval`, GUBER_SWEEP_INTERVAL; SWEEP_WINDOWS_PER_TICK
-windows a tick).  `close` stops the sweeper, then the gateway, saves the
-cache to the loader, and closes the engine (reference daemon.py:631-674).
-The gRPC front, peer discovery and the cluster planes are not in this
-slice.
+windows a tick).  `close` stops the sweeper, then the h2 front (its
+dispatch thread calls into the engine), then the gateway, saves the
+cache to the loader, and closes the engine (reference
+daemon.py:631-674).  The gRPC front, peer discovery and the cluster
+planes are not in this slice.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ class Daemon:
         self.instance: V1Instance | None = None
         self.gateway: Gateway | None = None
         self.http_address = conf.http_listen_address
+        self.h2_fast = None
+        self.h2_fast_address = ""
         self._sweep_stop: threading.Event | None = None
         self._sweeper: threading.Thread | None = None
         self._serving = False  # start() ran to its end
@@ -64,6 +69,18 @@ class Daemon:
         self.gateway = Gateway(self.instance, self.conf.http_listen_address)
         self.http_address = self.gateway.address
         self.gateway.start()
+        if self.conf.h2_fast_address:
+            # One-method native serving with no per-RPC Python; a front
+            # that does not build or bind fails the start.
+            from gubernator_tpu_torch.net.h2_fast import H2FastFront
+
+            self.h2_fast = H2FastFront(
+                self.instance,
+                port=int(self.conf.h2_fast_address.rpartition(":")[2] or 0),
+                window_s=self.conf.h2_fast_window,
+                lanes=self.conf.h2_lanes or None,
+            )
+            self.h2_fast_address = self.h2_fast.address
         if self.conf.sweep_interval > 0:
             self._sweep_stop = threading.Event()
             self._sweeper = threading.Thread(target=self._sweep_loop, name="guber-sweep",
@@ -71,8 +88,8 @@ class Daemon:
             self._sweeper.start()
         self._serving = True
         log.info(
-            "gubernator_tpu_torch listening: http=%s device=%s slots=%d",
-            self.http_address, engine.device, engine.capacity,
+            "gubernator_tpu_torch listening: http=%s h2=%s device=%s slots=%d",
+            self.http_address, self.h2_fast_address or "off", engine.device, engine.capacity,
         )
 
     def _sweep_loop(self) -> None:
@@ -84,13 +101,17 @@ class Daemon:
 
     def close(self) -> None:
         """Graceful stop: the sweeper (joined, since a tick may be inside
-        the engine), the listener, the final save, then the engine."""
+        the engine), the h2 front (its stop joins the dispatch thread,
+        which calls into the engine), the listener, the final save, then
+        the engine."""
         if self._closed:
             return
         self._closed = True
         if self._sweep_stop is not None:
             self._sweep_stop.set()
             self._sweeper.join(timeout=5.0)
+        if self.h2_fast is not None:
+            self.h2_fast.close()
         if self.gateway is not None:
             self.gateway.close()
         if self.instance is not None:

@@ -1,15 +1,19 @@
 """Build and load the port's native code: the CUDA kernels (csrc/*.cu:
 K1 and K4 in fused_step.cu, K2 clear_occupied.cu, K3 collapsed_step.cu,
-K5 load_slots.cu, K6 sweep.cu, K7 and K8 sketch.cu) and the host intern
-table (csrc/intern_table.cpp).
+K5 load_slots.cu, K6 sweep.cu, K7 and K8 sketch.cu), the host intern
+table (csrc/intern_table.cpp), the wire codec (csrc/wire_codec.cpp), the
+h2 front (csrc/h2_server.cpp, linked with the wire codec into one
+library, as the reference's `_EXTRA_SOURCES` does) and the h2 load
+client (csrc/h2_client.cpp).
 
-Each source compiles into its own shared library with a plain C
-interface, loaded through `ctypes` (no PyTorch headers, so a build takes
-seconds): a `.cu` with `nvcc` for sm_90a, a `.cpp` with
-`g++ -O2 -shared -fPIC`.  Libraries land in `csrc/build/` under a name that
-carries a hash of the source and the flags, so an edited source builds
-anew and an unchanged one is reused.  `build_all()` starts one compiler
-per source at once and waits for all of them.
+Each library has a plain C interface, loaded through `ctypes` (no
+PyTorch headers, so a build takes seconds): a `.cu` with `nvcc` for
+sm_90a, `.cpp` sources with `g++ -O2 -shared -fPIC -pthread`.  Libraries
+land in `csrc/build/` under a name that carries a hash of every source
+of the library and the flags, so an edited source builds anew and an
+unchanged one is reused.  `build_all()` starts one compiler per library
+at once and waits for all of them.  `load` declares the argument and
+result types of every export.
 
 Nothing here runs at import: the CPU tests import every module.  `nvcc`
 runs only when a kernel is first launched on a CUDA tensor, or when a
@@ -30,15 +34,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 
-# library name → source file under csrc/
+# library name → its source files under csrc/
 SOURCES = {
-    "fused_step": "fused_step.cu",
-    "clear_occupied": "clear_occupied.cu",
-    "collapsed_step": "collapsed_step.cu",
-    "load_slots": "load_slots.cu",
-    "sweep": "sweep.cu",
-    "sketch": "sketch.cu",
-    "intern_table": "intern_table.cpp",
+    "fused_step": ("fused_step.cu",),
+    "clear_occupied": ("clear_occupied.cu",),
+    "collapsed_step": ("collapsed_step.cu",),
+    "load_slots": ("load_slots.cu",),
+    "sweep": ("sweep.cu",),
+    "sketch": ("sketch.cu",),
+    "intern_table": ("intern_table.cpp",),
+    "wire_codec": ("wire_codec.cpp",),
+    # The wire codec links into the h2 server, as the reference's does: its
+    # decision plane and columnar feeder (ROADMAP A items 5 and 11) decode
+    # in the server's own threads.
+    "h2_server": ("h2_server.cpp", "wire_codec.cpp"),
+    "h2_client": ("h2_client.cpp",),
 }
 # Sources a .cu includes: an edit to one rebuilds every kernel.
 HEADERS = ("coop_launch.cuh", "lane_math.cuh")
@@ -52,7 +62,17 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+# -pthread: the h2 server and client run threads of their own.
+GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread")
+
+# The h2 front's window callback (csrc/h2_server.cpp WindowCallback):
+# (concat bodies, len, item_counts [n_rpcs], body_lens [n_rpcs], n_rpcs,
+# total_items, out_cols [4 * total], out_rpc_status [n_rpcs]) → 0 or a
+# grpc status that fails the whole window.
+WINDOW_CALLBACK = ctypes.CFUNCTYPE(
+    ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -73,7 +93,7 @@ def nvcc_path() -> str:
 
 
 def _is_cuda(name: str) -> bool:
-    return SOURCES[name].endswith(".cu")
+    return SOURCES[name][0].endswith(".cu")
 
 
 def _compiler(name: str) -> tuple:
@@ -82,13 +102,13 @@ def _compiler(name: str) -> tuple:
         return (nvcc_path(), *NVCC_FLAGS)
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the intern table needs a C++ compiler")
+        raise RuntimeError(f"g++ not found: {name} needs a C++ compiler")
     return (gxx, *GXX_FLAGS)
 
 
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    data = src.read_bytes()
+    data = "\0".join(SOURCES[name]).encode()
+    data += b"".join((CSRC / src).read_bytes() for src in SOURCES[name])
     if _is_cuda(name):
         data += b"".join((CSRC / h).read_bytes() for h in HEADERS)
         data += "\0".join(NVCC_FLAGS).encode()
@@ -100,7 +120,7 @@ def _target(name: str) -> Path:
 
 def build_all(names=None) -> dict[str, Path]:
     """Compile every listed library that is missing, one compiler
-    process per source, all started together.  Returns name → library
+    process per library, all started together.  Returns name → library
     path; raises with the compiler's output if any build fails."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -111,14 +131,14 @@ def build_all(names=None) -> dict[str, Path]:
     procs = {}
     for n in todo:
         tmp = out[n].with_suffix(f".tmp{os.getpid()}")
-        cmd = [*_compiler(n), "-o", str(tmp), str(CSRC / SOURCES[n])]
+        cmd = [*_compiler(n), "-o", str(tmp), *(str(CSRC / src) for src in SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     errors = []
     for n, (tmp, p) in procs.items():
         log = p.communicate()[0].decode(errors="replace")
         build_logs[n] = log
         if p.returncode != 0:
-            errors.append(f"build failed for {SOURCES[n]} (rc {p.returncode}):\n{log}")
+            errors.append(f"build failed for {' + '.join(SOURCES[n])} (rc {p.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out[n])
@@ -194,3 +214,38 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.git_key_for_slot.argtypes = [p, ctypes.c_int32, p, i64]
         lib.git_contains.restype = i64
         lib.git_contains.argtypes = [p, ctypes.c_char_p, i64]
+    if name in ("wire_codec", "h2_server"):
+        i64 = ctypes.c_int64
+        # buf, len, max_items, disqualify_mask, key_buf, key_cap, then
+        # key_offsets, algo, behavior, hits, limit, duration, burst, fnv1,
+        # fnv1a, name_lens
+        lib.wire_decode_reqs.restype = i64
+        lib.wire_decode_reqs.argtypes = [ctypes.c_char_p, i64, i64, i64, p, i64] + [p] * 10
+        # status, limit, remaining, reset_time, n, out, out_cap
+        lib.wire_encode_resps.restype = i64
+        lib.wire_encode_resps.argtypes = [p, p, p, p, i64, p, i64]
+    if name == "h2_server":
+        i32, i64 = ctypes.c_int32, ctypes.c_int64
+        # port, window_us, max_batch, flush_items, lanes, event_front,
+        # reactors, idle_timeout_ms, callback
+        lib.h2s_start.restype = p
+        lib.h2s_start.argtypes = [i32, i64, i64, i64, i32, i32, i32, i64, WINDOW_CALLBACK]
+        for fn in (lib.h2s_port, lib.h2s_lanes, lib.h2s_reactors):
+            fn.restype = i32
+            fn.argtypes = [p]
+        lib.h2s_stats.restype = None
+        lib.h2s_stats.argtypes = [p, p]
+        lib.h2s_stop.restype = None
+        lib.h2s_stop.argtypes = [p]
+    elif name == "h2_client":
+        i32, i64, f64, s = ctypes.c_int32, ctypes.c_int64, ctypes.c_double, ctypes.c_char_p
+        # host, port, path, authority, payload, payload_len, seconds,
+        # n_conns, out_lats, max_lats, out_stats, out_resp, resp_cap,
+        # out_resp_len
+        lib.h2_bench_unary.restype = i64
+        lib.h2_bench_unary.argtypes = [s, i32, s, s, p, i64, f64, i32, p, i64, p, p, i64, p]
+        # host, port, path, authority, payload, payload_len, seconds,
+        # n_conns, n_active, threads, ramp_budget_s, out_lats, max_lats,
+        # out_stats
+        lib.h2_connscale_run.restype = i64
+        lib.h2_connscale_run.argtypes = [s, i32, s, s, p, i64, f64, i64, i64, i32, f64, p, i64, p]

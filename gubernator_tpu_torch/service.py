@@ -12,7 +12,9 @@ managers have no one to send to, so the engine's answer is the answer;
 but the GLOBAL manager still reads its keys back through the engine
 before its (empty) broadcast, and that read can change a bucket, so the
 port runs it too, as extra items at the tail of the same engine call
-(`_global_reads`).  Peers, forwarding and the cluster planes are not in
+(`_global_reads`).  `serve_decoded_local` is the columnar entry of the
+native h2 front (net/h2_fast.py): wire-decoded columns straight to
+`apply_columnar`.  Peers, forwarding and the cluster planes are not in
 the port yet.
 """
 
@@ -36,6 +38,16 @@ from gubernator_tpu_torch.types import (
 HEALTHY = "healthy"
 _GLOBAL = int(Behavior.GLOBAL)
 _SKETCH = int(Behavior.SKETCH)
+
+# Behaviors the columnar route declines (reference service.py:79-82):
+# GLOBAL and MULTI_REGION (their managers' queues), Gregorian durations
+# (per-item civil-time validation with an error in the response) and
+# SKETCH (the approximate limiter, not the bucket engine).  The port's
+# `apply_columnar` could serve Gregorian items, but the front declines
+# them as the reference's does.
+COLUMNAR_DISQUALIFIERS = (
+    _GLOBAL | int(Behavior.MULTI_REGION) | int(Behavior.DURATION_IS_GREGORIAN) | _SKETCH
+)
 
 
 class ServiceError(RuntimeError):
@@ -133,6 +145,26 @@ class V1Instance:
             for i, resp in zip(local, answers):
                 responses[i] = resp
         return responses  # type: ignore[return-value]
+
+    def serve_decoded_local(self, dec):
+        """The post-decode columnar serve of the native h2 front
+        (reference :1028): a `net.wire_codec.DecodedBatch` → (status,
+        limit, remaining, reset) columns from one `apply_columnar` call,
+        or None to decline (the front answers UNIMPLEMENTED).  It
+        declines when a write-through store is attached, which
+        `apply_columnar` cannot honour.  The reference's ownership gate
+        is true on a node with no peers, the only node the port has.  No
+        hot-key offer and no decision ledger: they come with ROADMAP A
+        items 13 and 5."""
+        from gubernator_tpu_torch.core.engine import PackedKeys
+
+        engine = self.engine
+        if engine.store is not None:
+            return None
+        return engine.apply_columnar(
+            PackedKeys(dec.key_buf, dec.key_offsets, dec.n), dec.algo, dec.behavior, dec.hits,
+            dec.limit, dec.duration, dec.burst,
+        )
 
     def health_check(self) -> HealthCheckResp:
         """A single node with no peers is healthy (reference:

@@ -31,6 +31,24 @@ defaults (window 1 s, depth 4, width 2^20), split as:
   GLOBAL owner's read-back items at its tail;
 * rest — validation, the request lists and the responses.
 
+A fifth, h2, is chip_smoke.py's h2 loads on a daemon on the card (live
+clock, 2^20 slots, its h2 front at the default 2 ms window), driven by
+the port's native client (`core/h2_client.py bench_unary`) after a
+0.5 s warm-up: the herd (32 connections of single-item RPCs on one key,
+2 s), the same herd from one connection and through a second front on
+the same instance with no window, and the 1000-item loop (one
+connection, one 1000-item leaky-bucket RPC, 3 s).  Each window's serve
+(`H2FastFront._serve`, on the C dispatch thread) is split as:
+
+* decode — the C wire decode (`net/wire_codec.py decode_reqs`);
+* schedule, collapse, rounds, flush, readback — the engine steps above;
+* rest — `serve_decoded_local` and `apply_columnar` around them;
+
+beside the window cycle (run time / windows: the 2 ms group-commit wait,
+the serve, and the hand-off to and from the C threads), the RPCs/s and
+the client's p50 / p99 latency, with the device's busy time and idle
+share over the whole run.
+
 The first 4 batches of a stream are warm-up; the next half are timed
 as above (medians per batch).  The rest run under `torch.profiler` (CUDA
 activity) as one window, timed on the host clock from a synchronised
@@ -153,6 +171,7 @@ def main() -> int:
         eng.close()
     report["sketch"] = profile_sketch(torch, np, rng, card, args.batches, profile,
                                       ProfilerActivity, DeviceType)
+    report["h2"] = profile_h2(torch, np, rng, card, profile, ProfilerActivity, DeviceType)
     print(json.dumps(report))
     return 0
 
@@ -224,6 +243,102 @@ def profile_sketch(torch, np, rng, card, n_batches, profile, ProfilerActivity, D
           f"{busy_us:.1f} us, idle share {1 - busy_us / window_us:.4f} | {card}", flush=True)
     inst.close()
     return med
+
+
+H2_STEPS = ("decode", "schedule", "collapse", "rounds", "flush", "readback")
+
+
+def profile_h2(torch, np, rng, card, profile, ProfilerActivity, DeviceType):
+    """The h2 loads' window split and profiled runs (see the module
+    docstring)."""
+    import chip_smoke as cs
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.core import h2_client
+    from gubernator_tpu_torch.core.readback import Ticket
+    from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.net import wire_codec
+    from gubernator_tpu_torch.net.h2_fast import H2FastFront
+
+    d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=cs.CAP_SERVE,
+                                  sweep_interval=0.0, h2_fast_address="127.0.0.1:0"),
+                     device="cuda")
+    front, eng = d.h2_fast, d.instance.engine
+    step_s = defaultdict(float)
+    timed = timer(step_s)
+    timed(wire_codec, "decode_reqs", "decode")
+    timed(eng.table, "schedule_packed", "schedule")
+    timed(eng, "_try_collapse", "collapse")
+    timed(eng, "_dispatch_rounds", "rounds")
+    timed(eng._pump, "flush_locked", "flush")
+    timed(Ticket, "fetch", "readback")
+    rows = []
+    no_window = H2FastFront(d.instance, window_s=0.0)
+
+    def split_serve(f):
+        serve = f._serve
+
+        def split(payload, total):
+            step_s.clear()
+            t = time.perf_counter()
+            try:
+                return serve(payload, total)
+            finally:
+                wall = (time.perf_counter() - t) * 1e6
+                row = {k: step_s[k] * 1e6 for k in H2_STEPS}
+                row["rest"] = wall - sum(row.values())
+                row["serve"] = wall
+                rows.append(row)
+
+        f._serve = split
+
+    split_serve(front)
+    split_serve(no_window)
+    keys = rng.choice(cs.H2_POOL, cs.BATCH, replace=False)
+    herd = cs.encode_get_rate_limits([("herd", "hot", 1, 10**9, 3_600_000, 0, 0, 0)])
+    loads = {
+        "herd": (front, herd, 32, 2.0),
+        "herd, 1 connection": (front, herd, 1, 2.0),
+        "herd, no window": (no_window, herd, 32, 2.0),
+        "1000": (front, cs.encode_get_rate_limits([("api", f"k{int(k)}", 1, 1000, 60_000, 1, 0, 0)
+                                                   for k in keys]), 1, 3.0),
+    }
+    out = {}
+    try:
+        for tag, (front, payload, conns, seconds) in loads.items():
+            h2_client.bench_unary(front.address, cs.H2_PATH, payload, 0.5, conns)  # warm-up
+            rows.clear()
+            w0 = front.stats()["windows"]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                rpcs, errors, lats, _frame, _conns = h2_client.bench_unary(
+                    front.address, cs.H2_PATH, payload, seconds, conns)
+                torch.cuda.synchronize()
+                run_us = (time.perf_counter() - t) * 1e6
+            windows = front.stats()["windows"] - w0
+            busy = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            busy_us = sum(t for _, t in busy) if busy else float("nan")
+            med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+            lat_ms = np.asarray(lats) * 1e3
+            med.update(rpcs=rpcs, errors=errors, windows=windows, rpcs_per_s=rpcs / seconds,
+                       cycle_us=run_us / windows, p50_ms=float(np.percentile(lat_ms, 50)),
+                       p99_ms=float(np.percentile(lat_ms, 99)),
+                       window={"wall_us": run_us, "busy_us": busy_us,
+                               "idle_share": 1 - busy_us / run_us,
+                               "busy_by_name_us": dict(busy)})
+            out[tag] = med
+            print(f"[h2 {tag}] {rpcs} RPCs, {errors} errors, {windows} windows in {seconds} s: "
+                  f"{rpcs / seconds:.1f} RPCs/s, p50 {med['p50_ms']:.3f} ms, p99 "
+                  f"{med['p99_ms']:.3f} ms; window cycle {med['cycle_us']:.1f} us; median serve "
+                  "per window " + ", ".join(f"{k} {med[k]:.1f} us"
+                                            for k in (*H2_STEPS, "rest", "serve"))
+                  + f"; device busy {busy_us:.1f} us of {run_us:.1f} us, idle share "
+                  f"{1 - busy_us / run_us:.4f} | {card}", flush=True)
+    finally:
+        no_window.close()
+        d.close()
+    return out
 
 
 if __name__ == "__main__":

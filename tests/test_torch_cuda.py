@@ -781,3 +781,49 @@ def test_sketch_items_on_the_card_match_the_cpu(cuda):
     assert fs.launches["sketch_step"] == 7 and fs.launches["sketch_rotate"] > 0
     gpu.close()
     cpu.close()
+
+
+def test_h2_front_on_the_card_matches_the_cpu(cuda):
+    """The h2 parity stream (chip_smoke.py `h2_stream`: 1000-item RPCs,
+    hot keys, token and leaky, RESET_REMAINING, clock steps, and GLOBAL,
+    Gregorian, SKETCH, empty-key and zero-item RPCs) through an
+    H2FastFront on a card engine and one on a CPU engine: grpc-status and
+    response bytes equal RPC by RPC, state words equal, and every engine
+    launch a K1, K3 or K4 launch."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
+    from gubernator_tpu_torch.net.h2_fast import H2FastFront
+    from gubernator_tpu_torch.service import V1Instance
+
+    rng = np.random.default_rng(7)
+    ns = 1_760_000_000_000 * 1_000_000
+    gpu = V1Instance(DecisionEngine(1 << 16, clock=Clock().freeze_at(ns), device=cuda))
+    cpu = V1Instance(DecisionEngine(1 << 16, clock=Clock().freeze_at(ns), device="cpu"))
+    fronts = [H2FastFront(gpu, window_s=0.001), H2FastFront(cpu, window_s=0.001)]
+    clients = [cs.H2Unary(f.address) for f in fronts]
+    fs.reset_launches()
+    try:
+        for body, step, status, n_items in cs.h2_stream(np, rng, n_rpcs=12):
+            for inst in (gpu, cpu):
+                inst.engine.clock.advance(ms=step)
+            got, want = clients[0].call(body), clients[1].call(body)
+            assert got == want
+            assert got[0] == status
+            if status == 0:
+                assert len(cs.decode_responses(got[1])) == n_items
+        got, exp = tk.state_to_numpy(gpu.engine.state), tk.state_to_numpy(cpu.engine.state)
+        for f in tk.BucketState._fields:
+            assert np.array_equal(got[f], exp[f]), f
+        k = fs.launches
+        assert (k["fused_step"] + k["collapsed_step"] + k["uniform_step"]
+                == gpu.engine.dispatches_total > 0)
+    finally:
+        for c in clients:
+            c.close()
+        for f in fronts:
+            f.close()
+        gpu.close()
+        cpu.close()
