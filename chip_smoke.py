@@ -68,7 +68,31 @@ RPCs on one key for 2 s: no errors, the key's remaining within its
 bound); and a 1-connection closed loop of one 1000-item leaky-bucket RPC
 for 3 s, at the 2 ms window and with none.  Its engine launches are all
 K1, K3 or K4, and each of them runs.  The daemon binary is also started
-with GUBER_H2_FAST_ADDRESS and answers one RPC there.
+with GUBER_H2_FAST_ADDRESS and answers one RPC there.  Since the decision
+ledger is on by default, the parity daemon and its CPU twin run it (no
+settle thread: both settle by hand before the state words compare), the
+herd's daemon attaches its native plane, and the isolation phase turns it
+off (the card serves its 9 RPCs as one window, the CPU as 9).
+
+A fifth path, the ledger path (core/ledger.py and the native decision
+plane, the reference's default hot-key path), counts its launches from 0
+too: (a) a V1Instance on the card and one on the CPU (2^20 slots, frozen
+clocks, no settle thread) answer 60 batches — 1000-item ones through
+serve_decoded_local, 200-item ones with Gregorian items through
+get_rate_limits — 30 % on 64 hot keys whose leases are granted, drained
+and revoked (RESET_REMAINING, limit and duration changes, over-asks,
+negative hits, TTL expiry) and whose sticky OVER lives across resets:
+answers equal row for row, and after flush_settles the return counts,
+ledger counters and every slot's state words; (b) the daemon on the live
+clock, its h2 front with the plane: 60 single-item RPCs on one key answer
+limit-1 .. limit-60 exactly, some in C, an HTTP request continues at
+limit-61 and h2 at limit-62; (c) 32 connections on a key whose limit is
+below the hits sent, 2 s: UNDER answers at most the limit, and once the
+plane is pulled and the key settled the device holds exactly limit -
+UNDER; (d) the herd's RPCs/s, p50 / p99 and share answered in C with the
+ledger and with GUBER_LEDGER=0.  K1 must launch; every launch is K1, K3
+or K4; and K1 is held to its plain version on launches whose lanes begin
+with the ledger's negative-hit return rows.
 
 It checks the launch counts of the main path (K1, K3 and K4 all launched; K1
 at most once per synchronous batch; the pump flushed), holds the zipf
@@ -93,7 +117,7 @@ another checkout (DIR, its root: for instance the parent commit unpacked
 with `git archive`), so that two trees are compared in one session on
 one card.  A tree from before `check_collapsed` existed runs without
 that layout check; one without K5 / K6, K7 / K8 or the h2 front skips the
-persistence, the sketch or the h2 phases.
+persistence, the sketch, the h2 or the ledger phases.
 
 The port imports nothing of JAX; neither does this script.
 """
@@ -2011,7 +2035,8 @@ def encode_get_rate_limits(items) -> bytes:
 
 def decode_responses(msg: bytes) -> list:
     """GetRateLimitsResp bytes → [(status, limit, remaining, reset_time)]
-    (fields 1-4; the h2 front writes no others)."""
+    (fields 1-4; the metadata map, field 6, which the decision plane
+    writes on OVER_LIMIT answers as a retry_after_ms hint, is skipped)."""
     def varint(pos):
         v = shift = 0
         while True:
@@ -2029,6 +2054,10 @@ def decode_responses(msg: bytes) -> list:
         end, item = pos + ln, [0, 0, 0, 0]
         while pos < end:
             tag = msg[pos]
+            if tag == (6 << 3 | 2):
+                n, pos = varint(pos + 1)
+                pos += n
+                continue
             check(tag & 7 == 0 and 1 <= tag >> 3 <= 4, f"[h2] unexpected field tag {tag}")
             item[(tag >> 3) - 1], pos = varint(pos + 1)
         out.append(tuple(item))
@@ -2219,10 +2248,14 @@ def phase_h2_parity(torch, np, rng):
     from gubernator_tpu_torch.service import V1Instance
 
     ns = NOW0 * 1_000_000
+    # The ledger's defaults (it is on) but no settle thread: the two sides
+    # settle by hand at the end, so their state words compare.
     d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=CAP_SERVE,
-                                  sweep_interval=0.0, h2_fast_address="127.0.0.1:0"),
+                                  sweep_interval=0.0, h2_fast_address="127.0.0.1:0",
+                                  **ledger_kw(ledger_settle_interval=0.0)),
                      clock=Clock().freeze_at(ns), device="cuda")
-    cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"))
+    cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"),
+                     **ledger_kw(ledger_opts=dict(settle_interval=0.0)))
     cpu_front = H2FastFront(cpu)
     card_c = cpu_c = None
     try:
@@ -2240,6 +2273,10 @@ def phase_h2_parity(torch, np, rng):
             check(got[0] == status, f"[h2 parity] RPC {r}: grpc-status {got[0]}, want {status}")
             if status == 0:
                 check(len(decode_responses(got[1])) == n_items, f"[h2 parity] RPC {r}: item count")
+        if has_ledger():
+            check(d.instance.ledger.flush_settles() == cpu.ledger.flush_settles(),
+                  "[h2 parity] the ledgers settled different row counts")
+            check(ledger_stats(d.instance) == ledger_stats(cpu), "[h2 parity] ledger counters")
         same_engines(np, d.instance.engine, cpu.engine, "parity", slots=True, path="h2")
         main = threading.get_ident()
         check(len(seen) == sum(1 for s in stream if s[2] == 0 and s[3]) and all(
@@ -2251,8 +2288,8 @@ def phase_h2_parity(torch, np, rng):
               f"[h2 parity] front stats {st}")
         log(f"[h2 parity] {len(stream)} RPCs of {BATCH} items (keys from a 2^20 pool, 8 % on 50 "
             "hot keys, token and leaky, RESET_REMAINING 3 %, clock steps) over HTTP/2 to the "
-            "daemon on the card and to a CPU instance's front: grpc-status and response bytes "
-            "equal RPC by RPC (GLOBAL, Gregorian, SKETCH and empty-key RPCs UNIMPLEMENTED, the "
+            "daemon on the card and to a CPU instance's front, both with the decision ledger on "
+            "(settled by hand at the end): grpc-status and response bytes equal RPC by RPC (GLOBAL, Gregorian, SKETCH and empty-key RPCs UNIMPLEMENTED, the "
             f"zero-item RPC empty OK), state words of {CAP_SERVE} slots equal; {len(seen)} "
             "windows, each on the C dispatch thread on device 0's default stream")
         return d
@@ -2281,8 +2318,13 @@ def phase_h2_isolation(torch, np, rng):
     from gubernator_tpu_torch.service import V1Instance
 
     ns = NOW0 * 1_000_000
-    gpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cuda"))
-    cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"))
+    # No decision ledger: the card serves the 9 RPCs as one window and the
+    # CPU as 9, so with the ledger the two would take their leases at
+    # different points and hold different pre-debited credit (answers
+    # equal, state words not); window isolation is the subject here.
+    off = ledger_kw(ledger=False)
+    gpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cuda"), **off)
+    cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"), **off)
     front = H2FastFront(gpu, window_s=0.05)
     cpu_front = H2FastFront(cpu, window_s=0.05)
     hot_cfg = [(10, 60_000, 0, 0, 0)]
@@ -2389,7 +2431,8 @@ def phase_h2_load(torch, np, rng, card):
         leaky = encode_get_rate_limits([("api", f"k{int(k)}", 1, 1000, 60_000, 1, 0, 0)
                                         for k in pool])
         reads = {}
-        no_window = H2FastFront(d.instance, window_s=0.0)
+        # No plane on the second front: the daemon's front keeps its own.
+        no_window = H2FastFront(d.instance, window_s=0.0, **ledger_kw(native_ledger=False))
         try:
             for tag, front in (("2 ms window", d.h2_fast), ("no window", no_window)):
                 w0 = front.stats()
@@ -2434,6 +2477,369 @@ def phase_h2(torch, np, rng, card):
     engines = [x.instance.engine for x in daemons] + [iso]
     return engines, readings, (sum(st["windows"] for st in stats),
                                sum(st["rpcs"] + st["errors"] for st in stats))
+
+
+# ---------------------------------------------------------------- ledger
+
+LEDGER_HOT = 64  # hot keys of the ledger stream, each with its own config
+LEDGER_BATCHES = 60
+
+
+def has_ledger() -> bool:
+    """The driven port has the decision ledger (a --tree checkout from
+    before it has not)."""
+    return importlib.util.find_spec("gubernator_tpu_torch.core.ledger") is not None
+
+
+def ledger_kw(**kw) -> dict:
+    """`kw` for V1Instance / DaemonConfig when the port has the ledger,
+    else nothing (an older --tree port takes no ledger arguments)."""
+    return kw if has_ledger() else {}
+
+
+def ledger_stream(np, rng, n_batches: int = LEDGER_BATCHES):
+    """The ledger parity stream: [(kind, items, clock step ms)], items as
+    (name, unique_key, hits, limit, duration, algorithm, behavior, burst).
+    "columnar" batches (1000 items) go through serve_decoded_local, every
+    sixth batch is a "dataclass" one (200 items, Gregorian ones among
+    them) through get_rate_limits.  30 % of the items fall on LEDGER_HOT
+    hot keys (zipf 1.3 over them: a few take most), token buckets with a
+    limit of 50 (they run out: sticky OVER), 2000 or 10^6 (leases) and
+    durations of 1 s or 1 min, every eighth one leaky (never leased);
+    the rest on a 2^20-key pool, token and leaky.  Events on hot keys:
+    RESET_REMAINING, a limit change, a duration change, an over-ask of
+    600 hits (above the 512-hit lease), negative hits and hits-0 reads;
+    clock steps of 0 to 40 ms, 250 ms (past the 0.2 s lease TTL) and,
+    every 15th batch, 1.1 s (past the 1 s resets)."""
+    cfg = [[int(rng.choice([50, 2000, 10**6])), int(rng.choice([1000, 60_000]))]
+           for _ in range(LEDGER_HOT)]
+
+    def hot_item(h, hits=1, behavior=0):
+        lim, dur = cfg[h]
+        return ("led", f"h{h}", hits, lim, dur, 1 if h % 8 == 7 else 0, behavior, 0)
+
+    out = []
+    for b in range(n_batches):
+        step = 1100 if b % 15 == 14 else int(rng.choice([0, 0, 3, 10, 40, 250]))
+        dataclass = b % 6 == 5
+        n = 200 if dataclass else BATCH
+        hot = rng.random(n) < 0.3
+        items = []
+        for j in range(n):
+            if hot[j]:
+                h = int(rng.zipf(1.3) - 1) % LEDGER_HOT
+                items.append(hot_item(h, hits=0 if rng.random() < 0.08 else 1))
+            else:
+                items.append(("led", f"k{int(rng.integers(H2_POOL))}",
+                              int(rng.choice([0, 1, 1, 2, 5])), int(rng.choice([10, 100, 10**6])),
+                              int(rng.choice([1000, 60_000])), int(rng.integers(2)), 0, 0))
+        events = []
+        if rng.random() < 0.3:
+            events.append(hot_item(int(rng.integers(4)), behavior=8))  # RESET_REMAINING
+        if rng.random() < 0.15:
+            h = int(rng.integers(8))
+            cfg[h][0] = int(rng.choice([50, 2000, 10**6]))  # a limit change
+        if rng.random() < 0.1:
+            h = int(rng.integers(8))
+            cfg[h][1] = 60_000 if cfg[h][1] == 1000 else 1000  # a duration change
+        if rng.random() < 0.2:
+            events.append(hot_item(int(rng.integers(4)), hits=600))  # an over-ask
+        if rng.random() < 0.1:
+            events.append(hot_item(int(rng.integers(4)), hits=-3))  # negative hits
+        if dataclass:
+            for _ in range(20):  # Gregorian intervals (minutes .. years)
+                key = f"h{int(rng.integers(4))}" if rng.random() < 0.3 else \
+                    f"g{int(rng.integers(1000))}"
+                events.append(("led", key, 1, 100, int(rng.integers(1, 6)), 0, 4, 0))
+        for ev in events:
+            items.insert(int(rng.integers(len(items) + 1)), ev)
+        out.append(("dataclass" if dataclass else "columnar", items, step))
+    return out
+
+
+def ledger_requests(items):
+    from gubernator_tpu_torch.types import RateLimitReq
+
+    return [RateLimitReq(name=name, unique_key=key, hits=hits, limit=limit, duration=dur,
+                         algorithm=algo, behavior=beh, burst=burst)
+            for name, key, hits, limit, dur, algo, beh, burst in items]
+
+
+def ledger_stats(inst) -> dict:
+    """The ledger's counters, less the mean settle lag (a wall-clock
+    reading)."""
+    st = inst.ledger.stats()
+    st.pop("settle_lag_ms_mean")
+    return st
+
+
+def phase_ledger_parity(torch, np, rng):
+    """(a) One V1Instance on the card and one on the CPU (2^20 slots each,
+    frozen clocks stepped alike, the ledger's defaults but no settle
+    thread) answer the ledger stream: columnar batches through
+    `serve_decoded_local` (the h2 front's serve: ledger plan, engine lane
+    of return rows + fall-through rows + acquisition rows, learn), the
+    dataclass ones through `get_rate_limits` (invalidate_keys, then the
+    engine).  Answers equal row for row; after `flush_settles` on both,
+    equal return counts, ledger counters and state words of every slot.
+    Keeps a copy of the inputs (and the state) of K1 launches on the card
+    whose pin holds a negative-hit row (a ledger return row), for the hold
+    against K1's plain version.  Returns (the card engine, those captures,
+    the counters)."""
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core import engine as engine_mod
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.net import wire_codec
+    from gubernator_tpu_torch.service import COLUMNAR_DISQUALIFIERS, V1Instance
+
+    ns = NOW0 * 1_000_000
+    card = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cuda"),
+                      ledger_opts=dict(settle_interval=0.0))
+    cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"),
+                     ledger_opts=dict(settle_interval=0.0))
+    captured = []
+    real_k1 = engine_mod.multi_fused_step
+
+    def k1(state, pin, *args, **kw):
+        # Row 4 of the general pin is each lane's hits_hi word: below 0
+        # only on a return row's negative hits.
+        if state.meta.is_cuda and len(captured) < 3 and bool((pin[4] < 0).any()):
+            captured.append((copy_state(state), (pin.clone(), *(a.clone() for a in args)),
+                             dict(kw)))
+        return real_k1(state, pin, *args, **kw)
+
+    engine_mod.multi_fused_step = k1
+    try:
+        stream = ledger_stream(np, rng)
+        for b, (kind, items, step) in enumerate(stream):
+            for inst in (card, cpu):
+                inst.engine.clock.advance(ms=step)
+            if kind == "dataclass":
+                reqs = ledger_requests(items)
+                got, want = card.get_rate_limits(reqs), cpu.get_rate_limits(reqs)
+                check(got == want, f"[ledger parity] dataclass batch {b}: answers differ")
+                continue
+            dec = wire_codec.decode_reqs(encode_get_rate_limits(items), BATCH + 16,
+                                         COLUMNAR_DISQUALIFIERS)
+            check(dec is not None and dec.n == len(items), f"[ledger parity] batch {b}: decode")
+            got = card.serve_decoded_local(dec)
+            want = cpu.serve_decoded_local(dec)
+            for col, (g, w) in enumerate(zip(got, want)):
+                check(np.array_equal(np.asarray(g, np.int64), np.asarray(w, np.int64)),
+                      f"[ledger parity] batch {b}: answer column {col} differs")
+    finally:
+        engine_mod.multi_fused_step = real_k1
+    try:
+        n_card, n_cpu = card.ledger.flush_settles(), cpu.ledger.flush_settles()
+        check(n_card == n_cpu, f"[ledger parity] settles {n_card} on the card, {n_cpu} on the CPU")
+        stats = ledger_stats(card)
+        check(stats == ledger_stats(cpu),
+              f"[ledger parity] counters: card {stats}, CPU {ledger_stats(cpu)}")
+        same_engines(np, card.engine, cpu.engine, "ledger stream", slots=True, path="ledger")
+        for k in ("answered", "leases_granted", "leases_revoked", "settles", "over_entries"):
+            check(stats[k] > 0, f"[ledger parity] the stream made no {k}: {stats}")
+        check(captured and all(bool((args[0][4] < 0).any()) for _s, args, _kw in captured),
+              "[ledger parity] no K1 launch on the card held a ledger return row")
+        cols = sum(1 for s in stream if s[0] == "columnar")
+        log(f"[ledger parity] {cols} columnar batches of {BATCH} items through "
+            f"serve_decoded_local and {len(stream) - cols} dataclass batches of ~220 (Gregorian "
+            "among them) through get_rate_limits, card vs CPU at 2^20 slots: answers equal row "
+            f"for row; after flush_settles ({n_card} return rows each) state words of every "
+            f"slot and the ledger counters equal: {stats}")
+        return card.engine, captured, stats
+    finally:
+        card.ledger.close()
+        cpu.close()
+
+
+def hold_ledger_k1(torch, errs, captured) -> None:
+    """K1 against its plain version on the captured ledger launches (pins
+    that hold negative-hit return rows), output and state words."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    hold = make_hold(torch, errs)
+    for state, args, kw in captured:
+        plain = copy_state(state)
+        hold("fused_step", fs.multi_fused_step(state, *args, **kw),
+             tk.multi_fused_step_reference(plain, *args), state, plain,
+             "a ledger lane with return rows")
+    log(f"[ledger kernels] K1 on {len(captured)} launches of the ledger stream whose pins hold "
+        "negative-hit return rows: equal to its plain version, output and state words")
+
+
+def post_json(address: str, items) -> list:
+    body = json.dumps({"requests": [
+        {"name": n, "unique_key": k, "hits": h, "limit": lim, "duration": d}
+        for n, k, h, lim, d in items]}).encode()
+    with urllib.request.urlopen(urllib.request.Request(
+            f"http://{address}/v1/GetRateLimits", data=body, method="POST"), timeout=60) as r:
+        return json.loads(r.read())["responses"]
+
+
+def live_daemon(**kw):
+    """The port's daemon on the card with the live clock, its h2 front on
+    (the default 2 ms window) and the ledger's defaults unless `kw` says
+    otherwise."""
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+
+    return spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=CAP_SERVE,
+                                     sweep_interval=0.0, h2_fast_address="127.0.0.1:0", **kw),
+                        device="cuda")
+
+
+def phase_ledger_live(torch, np):
+    """(b) The daemon on the live clock with its defaults: the h2 front
+    attaches the native decision plane.  60 sequential single-item RPCs
+    on one key (limit 10^6, 1 h) answer limit-1 .. limit-60 exactly, some
+    of them in C (native_rpcs > 0); one HTTP request continues at
+    limit-61 (the dataclass path pulls the lease through
+    invalidate_keys), one more h2 RPC at limit-62.  Returns the daemon's
+    engine."""
+    limit = 10**6
+    d = live_daemon()
+    try:
+        check(d.h2_fast.plane is not None, "[ledger live] the h2 front attached no decision plane")
+        check(d.instance.ledger._native is d.h2_fast.plane,
+              "[ledger live] the plane is not attached to the ledger")
+        body = encode_get_rate_limits([("live", "hot", 1, limit, 3_600_000, 0, 0, 0)])
+        c = H2Unary(d.h2_fast_address)
+        try:
+            rems = []
+            for _ in range(60):
+                status, msg = c.call(body)
+                check(status == 0, f"[ledger live] grpc-status {status}")
+                rems.append(decode_responses(msg)[0][2])
+            check(rems == list(range(limit - 1, limit - 61, -1)),
+                  f"[ledger live] remainings {rems}")
+            native = d.h2_fast.stats()["native_rpcs"]
+            check(native > 0, "[ledger live] no RPC was answered by the plane")
+            got = post_json(d.http_address, [("live", "hot", 1, limit, 3_600_000)])
+            check(got[0]["remaining"] == str(limit - 61), f"[ledger live] HTTP answer {got}")
+            status, msg = c.call(body)
+            check(status == 0 and decode_responses(msg)[0][2] == limit - 62,
+                  f"[ledger live] h2 after HTTP: {status} {decode_responses(msg)}")
+        finally:
+            c.close()
+        log(f"[ledger live] daemon on the live clock, plane attached: 60 h2 RPCs answered "
+            f"limit-1 .. limit-60 exactly ({native} of them in C), HTTP continued at limit-61, "
+            "h2 at limit-62")
+        return d.instance.engine
+    finally:
+        d.close()
+
+
+def phase_ledger_conserve(torch, np):
+    """(c) The herd on a key whose limit is below the hits sent: 32
+    connections (Python clients, one thread each) of single-item RPCs for
+    2 s on the default daemon (plane attached).  UNDER answers never
+    exceed the limit, and once the front is stopped (its plane's leases
+    pulled back) and `invalidate_keys` has returned the unused credit,
+    the bucket's remaining on the device is exactly limit - UNDER.
+    Returns the daemon's engine."""
+    import threading
+
+    limit = 3000
+    d = live_daemon()
+    body = encode_get_rate_limits([("cons", "hot", 1, limit, 3_600_000, 0, 0, 0)])
+    under = [0] * 32
+    total = [0] * 32
+    errors = []
+    start = threading.Barrier(33)
+
+    def conn(i):
+        c = H2Unary(d.h2_fast_address)
+        try:
+            start.wait()
+            end = time.perf_counter() + 2.0
+            while time.perf_counter() < end:
+                status, msg = c.call(body)
+                if status != 0:
+                    errors.append(status)
+                    return
+                total[i] += 1
+                under[i] += decode_responses(msg)[0][0] == 0
+        finally:
+            c.close()
+
+    try:
+        threads = [threading.Thread(target=conn, args=(i,)) for i in range(32)]
+        for t in threads:
+            t.start()
+        start.wait()
+        for t in threads:
+            t.join(timeout=120)
+        check(not any(t.is_alive() for t in threads) and not errors,
+              f"[ledger conserve] clients failed: {errors[:5]}")
+        admitted, sent = sum(under), sum(total)
+        native = d.h2_fast.stats()["native_rpcs"]
+        check(sent > limit, f"[ledger conserve] only {sent} RPCs sent, limit {limit}")
+        check(admitted <= limit, f"[ledger conserve] {admitted} admitted, limit {limit}")
+        d.h2_fast.close()  # detaches the plane: its leases come back to the ledger
+        d.instance.ledger.invalidate_keys([b"cons_hot"])
+        st, _lim, rem, _rst = d.instance.engine.apply_columnar(
+            [b"cons_hot"], np.zeros(1, np.int32), np.zeros(1, np.int32), np.zeros(1, np.int64),
+            np.full(1, limit, np.int64), np.full(1, 3_600_000, np.int64), np.zeros(1, np.int64))
+        check(int(rem[0]) == limit - admitted,
+              f"[ledger conserve] remaining {int(rem[0])} on the device, limit - admitted = "
+              f"{limit - admitted}")
+        log(f"[ledger conserve] 32 connections x single-item RPCs on a limit-{limit} key, 2 s: "
+            f"{sent} RPCs ({native} answered in C), {admitted} UNDER (<= limit); after the plane "
+            f"was pulled and the key settled, remaining {int(rem[0])} = limit - admitted")
+        return d.instance.engine
+    finally:
+        d.close()
+
+
+def herd_reading(np, d, card, tag):
+    """The "herdfast" shape through the native client: 32 connections of
+    single-item RPCs on one key (limit 10^9, 1 h) for 2 s.  Returns
+    (rps, p50 ms, p99 ms, share of RPCs answered in C)."""
+    from gubernator_tpu_torch.core import h2_client
+
+    limit = 10**9
+    herd = encode_get_rate_limits([("herd", "hot", 1, limit, 3_600_000, 0, 0, 0)])
+    s0 = d.h2_fast.stats()
+    res = h2_client.bench_unary(d.h2_fast_address, H2_PATH, herd, 2.0, 32)
+    check(res is not None, f"[ledger herd] {tag}: the native client could not connect")
+    rpcs, errors, lats, _frame, connected = res
+    check(errors == 0 and connected == 32 and rpcs > 0,
+          f"[ledger herd] {tag}: rpcs {rpcs}, errors {errors}, connected {connected}")
+    s1 = d.h2_fast.stats()
+    share = (s1.get("native_rpcs", 0) - s0.get("native_rpcs", 0)) / max(1, s1["rpcs"] - s0["rpcs"])
+    p50, p99 = latency_stats(np, lats)
+    log(f"[ledger herd] {tag}: 32 connections x single-item RPCs on one key, 2 s: {rpcs} RPCs "
+        f"({rpcs / 2.0:.0f} RPCs/s), 0 errors, p50 {p50:.3f} ms, p99 {p99:.3f} ms, "
+        f"{share:.4f} of RPCs answered in C | {card}")
+    return rpcs / 2.0, p50, p99, share
+
+
+def phase_ledger_readings(torch, np, card):
+    """(d) Readings, not claims: the herd on the default daemon (ledger and
+    plane on) and on one with GUBER_LEDGER=0 (the path before the ledger),
+    back to back.  Returns (their engines, readings)."""
+    engines, read = [], {}
+    for tag, kw in (("ledger on", {}), ("GUBER_LEDGER=0", {"ledger": False})):
+        d = live_daemon(**kw)
+        try:
+            check((d.h2_fast.plane is not None) == (not kw),
+                  f"[ledger herd] {tag}: plane {d.h2_fast.plane}")
+            read[tag] = herd_reading(np, d, card, tag)
+            engines.append(d.instance.engine)
+        finally:
+            d.close()
+    return engines, read
+
+
+def phase_ledger(torch, np, rng, card):
+    """The ledger path: parity (a), the live plane (b), conservation (c)
+    and the herd readings (d).  Returns (its card engines, the K1
+    captures, readings)."""
+    eng, captured, _stats = phase_ledger_parity(torch, np, rng)
+    engines = [eng, phase_ledger_live(torch, np), phase_ledger_conserve(torch, np)]
+    more, read = phase_ledger_readings(torch, np, card)
+    return engines + more, captured, read
 
 
 def main() -> int:
@@ -2575,6 +2981,35 @@ def main() -> int:
         check(TREE is not None, "the port has no h2 front")
         log(f"[h2] {TREE} has no h2 front: the h2 phases are skipped")
 
+    # ---- the ledger path (the decision ledger and its native plane, the
+    # reference's default hot-key path): counts from 0 just before, read
+    # just after.
+    ledger_launches = {k: 0 for k in fs.launches}
+    if has_ledger():
+        fs.reset_launches()
+        l_engines, l_captured, l_read = phase_ledger(torch, np, rng, card)
+        ledger_launches = dict(fs.launches)
+        l_disp = sum(e.dispatches_total for e in l_engines)
+        log(f"[ledger] launches {ledger_launches}; engine launches {l_disp} | {card}")
+        check(ledger_launches["fused_step"] + ledger_launches["collapsed_step"]
+              + ledger_launches["uniform_step"] == l_disp == sum(ledger_launches.values()),
+              "every engine launch of the ledger path must be a K1, K3 or K4 launch")
+        check(ledger_launches["fused_step"] > 0, "the ledger path must launch fused_step")
+        for e in l_engines:
+            e.close()
+        del l_engines
+        # Outside the counted run: the hold's own launches do not count.
+        hold_ledger_k1(torch, errs, l_captured)
+        del l_captured
+        on, off = l_read["ledger on"], l_read["GUBER_LEDGER=0"]
+        log(f"[ledger herd] ledger on / GUBER_LEDGER=0: {on[0]:.0f} / {off[0]:.0f} RPCs/s, p50 "
+            f"{on[1]:.3f} / {off[1]:.3f} ms, p99 {on[2]:.3f} / {off[2]:.3f} ms, answered in C "
+            f"{on[3]:.4f} / {off[3]:.4f} | {card}")
+        torch.cuda.empty_cache()
+    else:
+        check(TREE is not None, "the port has no decision ledger")
+        log(f"[ledger] {TREE} has no decision ledger: the ledger phases are skipped")
+
     phase_daemon_binary(has_h2)
     times = phase_timing(torch, np, rng, card, k3_calls, k4_calls)
     if has_persist:
@@ -2613,13 +3048,14 @@ def main() -> int:
              times[f"s_k8_{SKETCH_WIDTH}"]),
         ]
     # launches: the main path's run plus the persistence path's, the
-    # sketch path's and the h2 path's, each counted from 0 (K2, K5 and K6
-    # launch on the second only, K7 and K8 on the third only).
+    # sketch path's, the h2 path's and the ledger path's, each counted
+    # from 0 (K2, K5 and K6 launch on the second only, K7 and K8 on the
+    # third only).
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": f"gubernator_tpu_torch/csrc/{src}",
          "replaces": replaces,
          "launches": (main_launches[name] + persist_launches[name] + sketch_launches[name]
-                      + h2_launches[name]),
+                      + h2_launches[name] + ledger_launches[name]),
          "max_abs_err": errs[name],
          "ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": "bytes",
          "library_ms": t[3] if len(t) > 3 else None}

@@ -45,6 +45,14 @@ class Clock:
             self._frozen_ns = ns
         return self
 
+    @property
+    def frozen(self) -> bool:
+        """True while the clock is frozen (net/h2_fast.py attaches the
+        native decision plane, which reads the real time, only to a clock
+        that is not)."""
+        with self._lock:
+            return self._frozen_ns is not None
+
     def advance(self, *, ms: int = 0, ns: int = 0) -> None:
         """Advance a frozen clock; raises if the clock is not frozen."""
         with self._lock:

@@ -5,7 +5,11 @@ Env:  GUBER_HTTP_ADDRESS (default localhost:80), GUBER_CACHE_SIZE,
       GUBER_SWEEP_INTERVAL (default 30s), GUBER_SKETCH_WINDOW (default 1s),
       GUBER_SKETCH_DEPTH (default 4), GUBER_SKETCH_WIDTH (default 2^20),
       GUBER_H2_FAST_ADDRESS (the native h2 front, e.g. 127.0.0.1:0; default
-      off), GUBER_H2_FAST_WINDOW (default 2ms), GUBER_H2_LANES.
+      off), GUBER_H2_FAST_WINDOW (default 2ms), GUBER_H2_LANES,
+      GUBER_LEDGER (default on), GUBER_LEDGER_LEASE (512),
+      GUBER_LEDGER_LEASE_TTL (0.2s), GUBER_LEDGER_HOT_THRESHOLD (8),
+      GUBER_LEDGER_KEYS (65536), GUBER_LEDGER_SETTLE_INTERVAL (0.05s),
+      GUBER_NATIVE_LEDGER (default on), GUBER_RETRY_HINTS (default on).
 
 Serves GetRateLimits over HTTP/JSON, and over cleartext HTTP/2 gRPC at
 /pb.gubernator.V1/GetRateLimits when the h2 front is on, until SIGINT or

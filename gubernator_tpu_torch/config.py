@@ -13,9 +13,18 @@ reference config.py:697-701), the native h2 front
 GUBER_H2_FAST_WINDOW, its group-commit window, a Go duration or float
 seconds, default 2 ms; GUBER_H2_LANES, its SO_REUSEPORT accept lanes on
 the thread-per-connection plane, 0 = one per CPU; reference
-config.py:486-494, :738-740), and the engine's GUBER_PUMP (the step
-pump's queueing: "1" on, "0" off, unset = on the card only).  The h2
-front reads its other knobs itself (net/h2_fast.py).
+config.py:486-494, :738-740), the decision ledger (GUBER_LEDGER, on
+unless "0" / "false" / "no" / "off"; GUBER_LEDGER_LEASE, credit per
+lease, default 512; GUBER_LEDGER_LEASE_TTL, default 0.2 s;
+GUBER_LEDGER_HOT_THRESHOLD, hits in a 1 s window before a key leases,
+default 8; GUBER_LEDGER_KEYS, its entry capacity, default 65536;
+GUBER_LEDGER_SETTLE_INTERVAL, its background settle period, default
+0.05 s, 0 = none; reference config.py:157-176, :702-712), the native
+decision plane in the h2 front (GUBER_NATIVE_LEDGER, on by default;
+reference :544-549, :741), and the engine's GUBER_PUMP (the step pump's
+queueing: "1" on, "0" off, unset = on the card only).  The h2 front
+reads its other knobs itself (net/h2_fast.py), GUBER_RETRY_HINTS among
+them.  The ledger's defaults live here and in `DecisionLedger`.
 """
 
 from __future__ import annotations
@@ -42,10 +51,32 @@ class DaemonConfig:
     # Its SO_REUSEPORT accept lanes (thread-per-connection plane); 0 =
     # one per CPU.
     h2_lanes: int = 0
+    # The host-tier decision ledger (core/ledger.py): sticky over-limit
+    # answers and bounded credit leases for hot token keys.
+    ledger: bool = True
+    ledger_lease: int = 512
+    ledger_lease_ttl: float = 0.2
+    ledger_hot_threshold: int = 8
+    ledger_keys: int = 65536
+    ledger_settle_interval: float = 0.05
+    # The ledger's C twin in the h2 front's connection threads
+    # (core/native_plane.py); only on the live system clock.
+    native_ledger: bool = True
+
+    def ledger_opts(self) -> dict:
+        """The ledger's settings as `DecisionLedger` keywords."""
+        return dict(lease_size=self.ledger_lease, lease_ttl=self.ledger_lease_ttl,
+                    hot_threshold=self.ledger_hot_threshold, max_keys=self.ledger_keys,
+                    settle_interval=self.ledger_settle_interval)
 
 
 def _env(d: Mapping[str, str], key: str, default: str = "") -> str:
     return d.get(key, os.environ.get(key, default)) or default
+
+
+def _env_on(d: Mapping[str, str], key: str) -> bool:
+    """A switch that is on unless set to 0 / false / no / off."""
+    return _env(d, key, "1").strip().lower() not in ("0", "false", "no", "off")
 
 
 def _env_int(d: Mapping[str, str], key: str, default: int) -> int:
@@ -117,6 +148,15 @@ def setup_daemon_config(env: Optional[Mapping[str, str]] = None) -> DaemonConfig
         h2_fast_address=_env(d, "GUBER_H2_FAST_ADDRESS", ""),
         h2_fast_window=_env_seconds(d, "GUBER_H2_FAST_WINDOW", 0.002),
         h2_lanes=_env_int(d, "GUBER_H2_LANES", 0),
+        ledger=_env_on(d, "GUBER_LEDGER"),
+        ledger_lease=_env_int(d, "GUBER_LEDGER_LEASE", DaemonConfig.ledger_lease),
+        ledger_lease_ttl=_env_seconds(d, "GUBER_LEDGER_LEASE_TTL", DaemonConfig.ledger_lease_ttl),
+        ledger_hot_threshold=_env_int(d, "GUBER_LEDGER_HOT_THRESHOLD",
+                                      DaemonConfig.ledger_hot_threshold),
+        ledger_keys=_env_int(d, "GUBER_LEDGER_KEYS", DaemonConfig.ledger_keys),
+        ledger_settle_interval=_env_seconds(d, "GUBER_LEDGER_SETTLE_INTERVAL",
+                                            DaemonConfig.ledger_settle_interval),
+        native_ledger=_env_on(d, "GUBER_NATIVE_LEDGER"),
     )
 
 

@@ -405,6 +405,7 @@ class DecisionEngine:
         burst: np.ndarray,  # int64 [n]
         now_ms: Optional[int] = None,
         want_async: bool = False,
+        count_decisions: bool = True,
     ):
         """Vectorized decision path; returns (status int32, limit int64,
         remaining int64, reset_time int64) numpy arrays in request order
@@ -413,7 +414,12 @@ class DecisionEngine:
         output comes home.  Gregorian lanes are computed per item; an
         invalid interval raises GregorianError (columnar callers
         pre-validate).  Raises with a store attached: the write-through
-        path needs the request dataclasses (use get_rate_limits)."""
+        path needs the request dataclasses (use get_rate_limits).
+
+        `count_decisions=False` applies the batch without bumping
+        `requests_total` / `batches_total` (reference :972): the decision
+        ledger's settle rows (core/ledger.py) are device work, not client
+        decisions."""
         if self.store is not None:
             raise RuntimeError(
                 "apply_columnar does not support a write-through Store; use get_rate_limits"
@@ -433,9 +439,10 @@ class DecisionEngine:
             keys, (algo, behavior, hits, limit, duration, burst, greg_dur, greg_exp), now_ms,
             uniform_ok=True,
         )
-        with self._lock:
-            self.requests_total += n
-            self.batches_total += 1
+        if count_decisions:
+            with self._lock:
+                self.requests_total += n
+                self.batches_total += 1
         return pending if want_async else pending.get()
 
     def _apply(self, keys, cols, now_ms: int, *, uniform_ok: bool) -> PendingColumnar:

@@ -45,12 +45,12 @@
 // (gubernator_tpu_torch/net/h2_fast.py loads it).  Both connection planes,
 // the group-commit window, the early flush at flush_items, the oversized-
 // RPC admission, flow control, GOAWAY and the response encode are the
-// reference's, unchanged.  Left out, with the planes they serve (each
-// comes back with its ROADMAP A item):
+// reference's, unchanged, and so is the native decision plane's probe
+// at the top of `serve_rpc` (`dp_try_serve`, decision_plane.cpp, linked
+// into the same library; attached with `h2s_attach_plane`): a hot-key
+// RPC the plane answers whole never reaches the window queue.  Left out,
+// with the planes they serve (each comes back with its ROADMAP A item):
 //
-// - the native decision plane's probe in the connection threads
-//   (`dp_try_serve`, `h2s_attach_plane`; decision_plane.cpp) — item 5,
-//   the decision ledger;
 // - the event ring's per-stage latency records (`evr_record`,
 //   `h2s_attach_ring`; event_ring.cpp) — item 11, the observability
 //   planes.  Its clock, `evr_now_ns`, stays as `now_ns` below: the
@@ -62,8 +62,7 @@
 //   the reference's with GUBER_NATIVE_FEEDER=0.
 //
 // `h2s_stats` keeps the reference's slot layout; the slots of the
-// planes left out (native_rpcs, native_items, feeder_rpcs,
-// feeder_items) read 0.
+// columnar feeder (feeder_rpcs, feeder_items) read 0.
 //
 // Concatenation trick: protobuf repeated-field semantics mean the
 // byte-concatenation of N serialized GetRateLimitsReq messages IS one
@@ -98,6 +97,14 @@
 #include <thread>
 #include <unordered_map>
 #include <vector>
+
+// Native decision plane (decision_plane.cpp, same library): whole-RPC
+// hot-key serve inside the connection thread — no interpreter lock, no
+// Python frame, no device launch.
+extern "C" int64_t dp_try_serve(void* handle, const uint8_t* body,
+                                int64_t len, int64_t max_items,
+                                int64_t now_ms, uint8_t* out,
+                                int64_t out_cap);
 
 namespace {
 
@@ -271,8 +278,13 @@ struct Server {
   std::mutex q_mu;
   std::condition_variable q_cv;
   std::deque<PendingRpc> queue;
+  // Optional native decision plane (decision_plane.cpp).  The Python
+  // side attaches and detaches it; connection threads load it per RPC,
+  // so a detach takes effect at the next request.
+  std::atomic<void*> plane{nullptr};
   // Stats.
   std::atomic<int64_t> rpcs{0}, windows{0}, errors{0};
+  std::atomic<int64_t> native_rpcs{0}, native_items{0};
   std::atomic<int64_t> conns_open{0}, idle_reaped{0};
   // Threaded plane only: connection threads are DETACHED (a long-
   // lived daemon must not accumulate unjoined thread handles across
@@ -694,14 +706,44 @@ void drop_stream(ReadState& rs, uint32_t id) {
     }
 }
 
-// One fully-deframed RPC body onto the byte window queue — the per-RPC
-// pipeline both connection planes share.  Runs on the conn thread
-// (threaded plane) or the owning reactor (event plane); never touches
-// Python.  (The reference probes its decision plane and packs into its
-// columnar feeder first; neither is in this copy.)
+// One fully-deframed RPC body: native-plane probe, then the byte window
+// queue — the per-RPC pipeline both connection planes share.  Runs on
+// the conn thread (threaded plane) or the owning reactor (event plane);
+// never touches Python.  (The reference packs declined RPCs into its
+// columnar feeder before the queue; the feeder is not in this copy.)
 // guberlint: gil-free
 void serve_rpc(Server* srv, const std::shared_ptr<Conn>& conn,
                uint32_t stream, std::string body, int64_t items) {
+  // Native decision plane: hot-key RPCs answer right here, in this
+  // thread — no queue, no window wait, no Python.  Any decline (cold
+  // key, fall-through row, out-of-scope behavior) takes the window path
+  // unchanged.
+  void* plane = srv->plane.load();
+  if (plane != nullptr && items > 0) {
+    std::string resp;
+    // Sized for the retry-hint encode (dp_set_hints): 4 varint fields
+    // + one metadata entry per item.
+    resp.resize(static_cast<size_t>(items) * 96 + 16);
+    const int64_t m = dp_try_serve(
+        plane, reinterpret_cast<const uint8_t*>(body.data()),
+        static_cast<int64_t>(body.size()), items, -1,
+        reinterpret_cast<uint8_t*>(&resp[0]),
+        static_cast<int64_t>(resp.size()));
+    if (m >= 0) {
+      resp.resize(static_cast<size_t>(m));
+      std::string data;
+      data.push_back(0);  // uncompressed grpc frame
+      uint8_t len4[4];
+      put_u32(len4, static_cast<uint32_t>(resp.size()));
+      data.append(reinterpret_cast<char*>(len4), 4);
+      data += resp;
+      send_rpc_payload(conn, stream, std::move(data), 0);
+      srv->rpcs.fetch_add(1);
+      srv->native_rpcs.fetch_add(1);
+      srv->native_items.fetch_add(items);
+      return;
+    }
+  }
   std::lock_guard<std::mutex> lock(srv->q_mu);
   srv->queue.push_back(PendingRpc{conn, stream, std::move(body), items});
   srv->queued_items += items;
@@ -1493,8 +1535,8 @@ void h2s_stats(void* handle, int64_t* out) {
   out[0] = srv->rpcs.load();
   out[1] = srv->windows.load();
   out[2] = srv->errors.load();
-  out[3] = 0;  // native_rpcs: no decision plane in this copy
-  out[4] = 0;  // native_items
+  out[3] = srv->native_rpcs.load();
+  out[4] = srv->native_items.load();
   out[5] = 0;  // feeder_rpcs: no columnar feeder in this copy
   out[6] = 0;  // feeder_items
   out[7] = srv->conns_open.load();
@@ -1503,9 +1545,17 @@ void h2s_stats(void* handle, int64_t* out) {
   out[10] = srv->event_front ? 1 : 0;
 }
 
+// Attach (or detach with nullptr) a decision plane created by
+// dp_create.  The plane must outlive the server's connection threads:
+// the Python side detaches before h2s_stop and frees after it.
+void h2s_attach_plane(void* handle, void* plane) {
+  static_cast<Server*>(handle)->plane.store(plane);
+}
+
 void h2s_stop(void* handle) {
   auto* srv = static_cast<Server*>(handle);
   srv->closing.store(true);
+  srv->plane.store(nullptr);
   for (int fd : srv->listen_fds) {
     ::shutdown(fd, SHUT_RDWR);
     ::close(fd);

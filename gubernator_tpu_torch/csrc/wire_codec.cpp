@@ -3,9 +3,10 @@
 //
 // A copy of the two functions of gubernator_tpu/core/native/wire_codec.cpp
 // that the h2 front's byte-window path calls, with their helpers:
-// `wire_decode_reqs` (reference :105) and `wire_encode_resps` (:228).
-// The hint, owner, peer-request and globals encoders/decoders wait for
-// the planes that call them (ROADMAP A items 5 and 11).  The decode's
+// `wire_decode_reqs` (reference :105) and `wire_encode_resps` (:228),
+// and the decision plane's `wire_encode_resps_hint` (:273).  The owner,
+// peer-request and globals encoders/decoders wait for the cluster
+// planes that call them (ROADMAP A item 11).  The decode's
 // key bytes ("name_unique-key") and its FNV-1 / FNV-1a columns are
 // bit-equal to the reference's (tests/test_torch_wire_codec.py).
 //
@@ -254,6 +255,83 @@ int64_t wire_encode_resps(const int32_t* status, const int64_t* limit,
     if (reset_time[i]) {
       *p++ = (4 << 3) | 0;
       p = put_varint(p, (uint64_t)reset_time[i]);
+    }
+  }
+  return p - out;
+}
+
+// Like wire_encode_resps, but OVER_LIMIT items (status ==
+// over_status) also carry metadata {"retry_after_ms": <ms until
+// reset_time>} — the native tier's herd-backoff hint ("When Two is
+// Worse Than One": synchronized retry storms need an explicit back-off
+// signal, not just a denial).  Clamped at zero so a stale reset never
+// advertises a negative wait.  Reference wire_codec.cpp:273; the
+// decision plane (decision_plane.cpp) encodes its answers with it.
+int64_t wire_encode_resps_hint(const int32_t* status, const int64_t* limit,
+                               const int64_t* remaining,
+                               const int64_t* reset_time, int64_t n,
+                               int32_t over_status, int64_t now_ms,
+                               uint8_t* out, int64_t out_cap) {
+  static const char kHintKey[] = "retry_after_ms";
+  constexpr int kHintKeyLen = 14;
+  uint8_t* p = out;
+  uint8_t* end = out + out_cap;
+  for (int64_t i = 0; i < n; ++i) {
+    int msize = 0;
+    uint64_t st = (uint64_t)(uint32_t)status[i];
+    if (st) msize += 1 + varint_size(st);
+    if (limit[i]) msize += 1 + varint_size((uint64_t)limit[i]);
+    if (remaining[i]) msize += 1 + varint_size((uint64_t)remaining[i]);
+    if (reset_time[i]) msize += 1 + varint_size((uint64_t)reset_time[i]);
+    int entry_size = 0;
+    char hint[24];
+    int hint_len = 0;
+    if (status[i] == over_status && reset_time[i] > 0) {
+      int64_t wait = reset_time[i] - now_ms;
+      if (wait < 0) wait = 0;
+      // Decimal render without snprintf (hot path, no locale).
+      char tmp[24];
+      int t = 0;
+      do {
+        tmp[t++] = (char)('0' + wait % 10);
+        wait /= 10;
+      } while (wait > 0 && t < 20);
+      for (int k = 0; k < t; ++k) hint[k] = tmp[t - 1 - k];
+      hint_len = t;
+      entry_size = 1 + varint_size(kHintKeyLen) + kHintKeyLen + 1 +
+                   varint_size((uint64_t)hint_len) + hint_len;
+      msize += 1 + varint_size((uint64_t)entry_size) + entry_size;
+    }
+    if (end - p < 2 + varint_size(msize) + msize) return -1;
+    *p++ = (1 << 3) | 2;  // responses = 1
+    p = put_varint(p, (uint64_t)msize);
+    if (st) {
+      *p++ = (1 << 3) | 0;
+      p = put_varint(p, st);
+    }
+    if (limit[i]) {
+      *p++ = (2 << 3) | 0;
+      p = put_varint(p, (uint64_t)limit[i]);
+    }
+    if (remaining[i]) {
+      *p++ = (3 << 3) | 0;
+      p = put_varint(p, (uint64_t)remaining[i]);
+    }
+    if (reset_time[i]) {
+      *p++ = (4 << 3) | 0;
+      p = put_varint(p, (uint64_t)reset_time[i]);
+    }
+    if (entry_size) {
+      *p++ = (6 << 3) | 2;  // metadata map entry
+      p = put_varint(p, (uint64_t)entry_size);
+      *p++ = (1 << 3) | 2;
+      p = put_varint(p, kHintKeyLen);
+      std::memcpy(p, kHintKey, kHintKeyLen);
+      p += kHintKeyLen;
+      *p++ = (2 << 3) | 2;
+      p = put_varint(p, (uint64_t)hint_len);
+      std::memcpy(p, hint, hint_len);
+      p += hint_len;
     }
   }
   return p - out;

@@ -3,16 +3,20 @@
 Port of `gubernator_tpu/daemon.py` for one node: `spawn_daemon(conf)`
 builds the decision engine on the card (or on `device` when given), with
 an optional write-through `store`, restores the cache from an optional
-`loader` before it serves, wires the V1 service, starts the HTTP
-gateway, then, when `conf.h2_fast_address` (GUBER_H2_FAST_ADDRESS) is
-set, the native h2 front (net/h2_fast.py; reference daemon.py:316-335),
-and runs the periodic expiry sweep on a thread of its own
-(`conf.sweep_interval`, GUBER_SWEEP_INTERVAL; SWEEP_WINDOWS_PER_TICK
-windows a tick).  `close` stops the sweeper, then the h2 front (its
-dispatch thread calls into the engine), then the gateway, saves the
-cache to the loader, and closes the engine (reference
-daemon.py:631-674).  The gRPC front, peer discovery and the cluster
-planes are not in this slice.
+`loader` before it serves, wires the V1 service with its decision
+ledger (`conf.ledger*`, GUBER_LEDGER*; reference daemon.py:186-191),
+starts the HTTP gateway, then, when `conf.h2_fast_address`
+(GUBER_H2_FAST_ADDRESS) is set, the native h2 front (net/h2_fast.py;
+reference daemon.py:316-335), which attaches the ledger's native
+decision plane when `conf.native_ledger` (GUBER_NATIVE_LEDGER) is on and
+the clock is the live one, and runs the periodic expiry sweep on a
+thread of its own (`conf.sweep_interval`, GUBER_SWEEP_INTERVAL;
+SWEEP_WINDOWS_PER_TICK windows a tick).  `close` stops the sweeper, then
+the h2 front (its dispatch thread calls into the engine; it pulls the
+plane's leases back to the ledger), then the gateway, saves the cache to
+the loader, and closes the service (the ledger settles, then the engine
+closes; reference daemon.py:631-674).  The gRPC front, peer discovery
+and the cluster planes are not in this slice.
 """
 
 from __future__ import annotations
@@ -60,7 +64,9 @@ class Daemon:
                                 store=self._store)
         self.instance = V1Instance(engine, sketch_window_ms=self.conf.sketch_window_ms,
                                    sketch_depth=self.conf.sketch_depth,
-                                   sketch_width=self.conf.sketch_width)
+                                   sketch_width=self.conf.sketch_width,
+                                   ledger=self.conf.ledger,
+                                   ledger_opts=self.conf.ledger_opts())
         if self._loader is not None:
             # Restore persisted buckets before serving (reference:
             # gubernator.go:146-152).
@@ -79,6 +85,7 @@ class Daemon:
                 port=int(self.conf.h2_fast_address.rpartition(":")[2] or 0),
                 window_s=self.conf.h2_fast_window,
                 lanes=self.conf.h2_lanes or None,
+                native_ledger=self.conf.native_ledger,
             )
             self.h2_fast_address = self.h2_fast.address
         if self.conf.sweep_interval > 0:

@@ -8,9 +8,24 @@ response encode; Python is entered ONCE per window with the concatenated
 request bodies (protobuf repeated-field semantics make the concatenation
 of N GetRateLimitsReq messages one valid GetRateLimitsReq), decodes them
 into columns (net/wire_codec.py), runs them through
-`V1Instance.serve_decoded_local` → `DecisionEngine.apply_columnar` (the
-port's main path: K1, K3 or K4 on the card), and hands the decision
-columns back.
+`V1Instance.serve_decoded_local` (the decision ledger, then
+`DecisionEngine.apply_columnar`: the port's main path, K1, K3 or K4 on
+the card), and hands the decision columns back.
+
+Native decision plane (`native_ledger`, default on; the daemon passes
+GUBER_NATIVE_LEDGER): when the instance runs the decision ledger on the
+live SYSTEM_CLOCK, the front creates a `NativeDecisionPlane`
+(core/native_plane.py, csrc/decision_plane.cpp), attaches it to the
+ledger and to the C server, and every RPC is first probed there, in its
+connection thread: an RPC whose every item is a sticky over-limit key
+or drains a delegated lease is answered whole in C, with no window, no
+Python and no device launch (`stats()["native_rpcs"]`); any other RPC
+takes the window path unchanged.  A second front on the same instance
+takes the ledger's leases over from the first one's plane
+(`DecisionLedger.attach_native`).  A frozen clock never gets a plane
+(the plane reads the real time).  Plane-served OVER_LIMIT items carry a
+`retry_after_ms` metadata hint (GUBER_RETRY_HINTS, default on);
+window-path answers carry none, as on the reference's byte window path.
 
 Scope, documented for operators: the front answers plain rate-limit
 checks — requests that decode on the columnar path and whose responses
@@ -34,12 +49,12 @@ close).  GUBER_H2_EVENT_FRONT=0 restores the thread-per-connection
 plane, where GUBER_H2_LANES (default: CPU count) shards the listener
 across SO_REUSEPORT accept lanes.
 
-Not in this slice (the reference has them): the native decision plane
-(GUBER_NATIVE_LEDGER; ROADMAP A item 5), the columnar feeder
-(GUBER_NATIVE_FEEDER, the reference's default ingest; item 11) and the
-event ring (GUBER_NATIVE_EVENTS; item 11).  Every RPC takes the byte
-window path, which answers as the reference's does with
-GUBER_NATIVE_FEEDER=0 (tests/test_torch_h2_fast.py holds it to both).
+Not in this slice (the reference has them): the columnar feeder
+(GUBER_NATIVE_FEEDER, the reference's default ingest; ROADMAP A item 11)
+and the event ring (GUBER_NATIVE_EVENTS; item 11).  Every RPC the plane
+declines takes the byte window path, which answers as the reference's
+does with GUBER_NATIVE_FEEDER=0 (tests/test_torch_h2_fast.py holds it to
+both, with the ledger off and on).
 
 Threads: the window callback runs on the C server's dispatch thread
 through a ctypes callback (which takes the interpreter lock).  Its
@@ -86,6 +101,12 @@ def default_lanes() -> int:
         log.warning("GUBER_H2_LANES=%r not an integer; using CPU count", v)
         n = 0
     return n if n > 0 else max(1, os.cpu_count() or 1)
+
+
+def retry_hints_enabled() -> bool:
+    """GUBER_RETRY_HINTS (default on): retry_after_ms metadata on
+    OVER_LIMIT items the plane answers, so herds back off."""
+    return not _off(os.environ.get("GUBER_RETRY_HINTS", "1"))
 
 
 def event_front_enabled() -> bool:
@@ -138,6 +159,7 @@ class H2FastFront:
         max_batch: int = 16384,
         flush_items: int = 4096,  # early flush: an engine batch's worth
         lanes: Optional[int] = None,
+        native_ledger: bool = True,
         event_front: Optional[bool] = None,
         reactors: Optional[int] = None,
         idle_timeout_s: Optional[float] = None,
@@ -166,6 +188,35 @@ class H2FastFront:
         self.lanes = int(self._lib.h2s_lanes(self._handle))
         self.reactors = int(self._lib.h2s_reactors(self._handle))
         self.event_front = bool(event_front)
+        self.plane = None
+        self._attach_plane(native_ledger)
+
+    def _attach_plane(self, native_ledger: bool) -> None:
+        """Create and attach the native decision plane when the ledger
+        runs on the live clock and `native_ledger` is on (reference
+        net/h2_fast.py:340).  A frozen clock, or any clock but
+        SYSTEM_CLOCK, gets none: the plane compares deadlines against
+        the real time, and a clock ahead of it would
+        let stale leases answer (tests that manage the clock attach with
+        `ledger.attach_native` themselves).  A plane that does not build
+        fails the front, as the server itself does."""
+        ledger = getattr(self.instance, "ledger", None)
+        if ledger is None or not native_ledger:
+            return
+        from gubernator_tpu_torch.clock import SYSTEM_CLOCK
+
+        clock = self.instance.engine.clock
+        if clock is not SYSTEM_CLOCK or clock.frozen:
+            log.info("native decision plane off: the engine clock is not the live system clock")
+            return
+        from gubernator_tpu_torch.core.native_plane import NativeDecisionPlane
+        from gubernator_tpu_torch.service import COLUMNAR_DISQUALIFIERS
+
+        self.plane = NativeDecisionPlane(max_keys=ledger.max_keys,
+                                         disqualify_mask=COLUMNAR_DISQUALIFIERS)
+        ledger.attach_native(self.plane)
+        self.plane.set_hints(retry_hints_enabled())
+        self._lib.h2s_attach_plane(self._handle, self.plane.handle)
 
     # -- the per-window entry ------------------------------------------
 
@@ -255,10 +306,17 @@ class H2FastFront:
 
     def stats(self) -> dict:
         """RPCs answered OK, windows dispatched, RPCs answered with an
-        error status, and the connection plane (zeros once closed)."""
+        error status, RPCs and items the decision plane answered in C,
+        the connection plane (zeros once closed), and the plane's own
+        counters while it is attached."""
         out = self._raw_stats()
-        return {"rpcs": int(out[0]), "windows": int(out[1]), "errors": int(out[2]),
-                **self._conn_slice(out), "lanes": self.lanes}
+        stats = {"rpcs": int(out[0]), "windows": int(out[1]), "errors": int(out[2]),
+                 "native_rpcs": int(out[3]), "native_items": int(out[4]),
+                 **self._conn_slice(out), "lanes": self.lanes}
+        with self._teardown_mu:
+            if self.plane is not None:
+                stats.update({k: v for k, v in self.plane.stats().items() if k != "native_rpcs"})
+        return stats
 
     def close(self) -> None:
         """Stop the server: h2s_stop joins the reactors, the accept
@@ -267,5 +325,19 @@ class H2FastFront:
         `_teardown_mu` first, so a concurrent stats call sees None."""
         with self._teardown_mu:
             handle, self._handle = self._handle, None
-        if handle:
-            self._lib.h2s_stop(handle)
+        if not handle:
+            return
+        if self.plane is not None:
+            # Detach before the stop: connection threads re-read the
+            # pointer per RPC, so no new native serve starts; the stop
+            # joins them before the ledger pulls its credit back and the
+            # table is freed.
+            self._lib.h2s_attach_plane(handle, None)
+        self._lib.h2s_stop(handle)
+        if self.plane is not None:
+            # Only this front's plane: another front may have attached
+            # its own since.
+            self.instance.ledger.detach_native(self.plane)
+            with self._teardown_mu:
+                plane, self.plane = self.plane, None
+            plane.close()

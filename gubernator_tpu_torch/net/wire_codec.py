@@ -1,7 +1,8 @@
 """ctypes wrapper over the port's wire codec (csrc/wire_codec.cpp).
 
 Port of `gubernator_tpu/net/wire_codec.py` (`DecodedBatch` :32, `load`
-:47, `decode_reqs` :254, `encode_resps` :309).  `decode_reqs(raw)` turns
+:47, `gather_key_slices` :115, `decode_reqs` :254, `encode_resps` :309,
+`encode_resps_hint` :333).  `decode_reqs(raw)` turns
 one GetRateLimitsReq payload into engine-ready columns: the concatenated
 key buffer and offsets that the native intern table's `schedule_packed`
 takes as they are, the request fields, and per-key FNV-1 / FNV-1a
@@ -47,6 +48,19 @@ def load():
 
 def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
+
+
+def gather_key_slices(key_buf: np.ndarray, starts: np.ndarray, lens: np.ndarray):
+    """Gather variable-length key slices of `key_buf` into one contiguous
+    buffer: returns (sub_buf, sub_offsets) with sub_offsets[0] == 0.  One
+    vectorized pass: the source index of each output byte is
+    repeat(starts - dest_starts, lens) + arange(total)."""
+    n = len(starts)
+    off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=off[1:])
+    total = int(off[-1])
+    pos = np.repeat(starts - off[:-1], lens) + np.arange(total, dtype=np.int64)
+    return key_buf[pos], off
 
 
 def decode_reqs(raw: bytes, max_items: int, disqualify_mask: int) -> Optional[DecodedBatch]:
@@ -112,4 +126,27 @@ def encode_resps(status: np.ndarray, limit: np.ndarray, remaining: np.ndarray,
     )
     if written < 0:
         raise RuntimeError("wire_encode_resps: output buffer too small")
+    return out[:written].tobytes()
+
+
+def encode_resps_hint(status: np.ndarray, limit: np.ndarray, remaining: np.ndarray,
+                      reset_time: np.ndarray, over_status: int, now_ms: int) -> bytes:
+    """Like `encode_resps`, plus metadata {"retry_after_ms": max(0,
+    reset_time - now_ms)} on the items whose status is `over_status`:
+    the decision plane's encode (csrc/decision_plane.cpp)."""
+    lib = load()
+    n = len(status)
+    status = np.ascontiguousarray(status, dtype=np.int32)
+    limit = np.ascontiguousarray(limit, dtype=np.int64)
+    remaining = np.ascontiguousarray(remaining, dtype=np.int64)
+    reset_time = np.ascontiguousarray(reset_time, dtype=np.int64)
+    # Worst case per item: the plain encode's 52 bytes + the metadata
+    # entry (2 + 16 key + 2 + 20 digits + 3 framing).
+    out = np.empty(n * 96 + 16, dtype=np.uint8)
+    written = lib.wire_encode_resps_hint(
+        _ptr(status), _ptr(limit), _ptr(remaining), _ptr(reset_time), n, int(over_status),
+        int(now_ms), _ptr(out), len(out),
+    )
+    if written < 0:
+        raise RuntimeError("wire_encode_resps_hint: output buffer too small")
     return out[:written].tobytes()

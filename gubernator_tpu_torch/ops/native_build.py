@@ -2,9 +2,10 @@
 K1 and K4 in fused_step.cu, K2 clear_occupied.cu, K3 collapsed_step.cu,
 K5 load_slots.cu, K6 sweep.cu, K7 and K8 sketch.cu), the host intern
 table (csrc/intern_table.cpp), the wire codec (csrc/wire_codec.cpp), the
-h2 front (csrc/h2_server.cpp, linked with the wire codec into one
-library, as the reference's `_EXTRA_SOURCES` does) and the h2 load
-client (csrc/h2_client.cpp).
+h2 front (csrc/h2_server.cpp, linked with the wire codec and the native
+decision plane, csrc/decision_plane.cpp, into one library, as the
+reference's `_EXTRA_SOURCES` does) and the h2 load client
+(csrc/h2_client.cpp).
 
 Each library has a plain C interface, loaded through `ctypes` (no
 PyTorch headers, so a build takes seconds): a `.cu` with `nvcc` for
@@ -44,10 +45,11 @@ SOURCES = {
     "sketch": ("sketch.cu",),
     "intern_table": ("intern_table.cpp",),
     "wire_codec": ("wire_codec.cpp",),
-    # The wire codec links into the h2 server, as the reference's does: its
-    # decision plane and columnar feeder (ROADMAP A items 5 and 11) decode
-    # in the server's own threads.
-    "h2_server": ("h2_server.cpp", "wire_codec.cpp"),
+    # The wire codec and the decision plane link into the h2 server, as the
+    # reference's do: the plane decodes and answers hot-key RPCs in the
+    # server's own threads (the columnar feeder, ROADMAP A item 11, will
+    # join them).
+    "h2_server": ("h2_server.cpp", "wire_codec.cpp", "decision_plane.cpp"),
     "h2_client": ("h2_client.cpp",),
 }
 # Sources a .cu includes: an edit to one rebuilds every kernel.
@@ -224,6 +226,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # status, limit, remaining, reset_time, n, out, out_cap
         lib.wire_encode_resps.restype = i64
         lib.wire_encode_resps.argtypes = [p, p, p, p, i64, p, i64]
+        # status, limit, remaining, reset_time, n, over_status, now_ms,
+        # out, out_cap
+        lib.wire_encode_resps_hint.restype = i64
+        lib.wire_encode_resps_hint.argtypes = [p, p, p, p, i64, ctypes.c_int32, i64, p, i64]
     if name == "h2_server":
         i32, i64 = ctypes.c_int32, ctypes.c_int64
         # port, window_us, max_batch, flush_items, lanes, event_front,
@@ -237,6 +243,40 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.h2s_stats.argtypes = [p, p]
         lib.h2s_stop.restype = None
         lib.h2s_stop.argtypes = [p]
+        lib.h2s_attach_plane.restype = None
+        lib.h2s_attach_plane.argtypes = [p, p]
+        # The native decision plane (csrc/decision_plane.cpp).
+        # max_keys, token_algo, breakers_mask, disqualify_mask,
+        # over_status, under_status
+        lib.dp_create.restype = p
+        lib.dp_create.argtypes = [i64, i64, i64, i64, i32, i32]
+        lib.dp_free.restype = None
+        lib.dp_free.argtypes = [p]
+        for fn in (lib.dp_set_clock_offset, lib.dp_set_hints):
+            fn.restype = None
+            fn.argtypes = [p, i64]
+        # plane, key, klen, limit, duration, reset
+        lib.dp_install_over.restype = i64
+        lib.dp_install_over.argtypes = [p, ctypes.c_char_p, i64, i64, i64, i64]
+        # ..., rem, credit, consumed, expiry
+        lib.dp_install_lease.restype = i64
+        lib.dp_install_lease.argtypes = [p, ctypes.c_char_p, i64, i64, i64, i64, i64, i64, i64,
+                                         i64]
+        for fn in (lib.dp_pull, lib.dp_peek):  # plane, key, klen, out4
+            fn.restype = i64
+            fn.argtypes = [p, ctypes.c_char_p, i64, p]
+        lib.dp_clear.restype = None
+        lib.dp_clear.argtypes = [p]
+        # plane, key, klen, algo, behavior, hits, limit, duration, now_ms,
+        # out3
+        lib.dp_probe.restype = i64
+        lib.dp_probe.argtypes = [p, ctypes.c_char_p, i64, i32, i32, i64, i64, i64, i64, p]
+        # plane, body, len, max_items, now_ms (-1 = the plane's clock),
+        # out, out_cap
+        lib.dp_try_serve.restype = i64
+        lib.dp_try_serve.argtypes = [p, ctypes.c_char_p, i64, i64, i64, p, i64]
+        lib.dp_stats.restype = None
+        lib.dp_stats.argtypes = [p, p]
     elif name == "h2_client":
         i32, i64, f64, s = ctypes.c_int32, ctypes.c_int64, ctypes.c_double, ctypes.c_char_p
         # host, port, path, authority, payload, payload_len, seconds,

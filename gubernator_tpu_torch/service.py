@@ -13,16 +13,22 @@ but the GLOBAL manager still reads its keys back through the engine
 before its (empty) broadcast, and that read can change a bucket, so the
 port runs it too, as extra items at the tail of the same engine call
 (`_global_reads`).  `serve_decoded_local` is the columnar entry of the
-native h2 front (net/h2_fast.py): wire-decoded columns straight to
-`apply_columnar`.  Peers, forwarding and the cluster planes are not in
-the port yet.
+native h2 front (net/h2_fast.py): wire-decoded columns through the
+decision ledger (core/ledger.py; the reference's default, GUBER_LEDGER)
+to `apply_columnar`.  The ledger is built, as the reference's is
+(:293-313), when `ledger` is on and no write-through store is attached;
+the dataclass path settles and drops the ledger's entries for its keys
+before its engine call (`invalidate_keys`), so the engine computes on
+the sequential state.  Peers, forwarding and the cluster planes are not
+in the port yet: with no peers there is no GLOBAL broadcast cache for
+the ledger's read-only tier.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import replace
-from typing import List, Optional, Sequence
+from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -75,12 +81,22 @@ def _global_reads(reqs: Sequence[RateLimitReq]) -> List[RateLimitReq]:
 
 
 class V1Instance:
-    """GetRateLimits and HealthCheck over one DecisionEngine and one
-    sketch limiter (`sketch_*`: GUBER_SKETCH_*, config.py)."""
+    """GetRateLimits and HealthCheck over one DecisionEngine, its decision
+    ledger (`ledger`: GUBER_LEDGER; `ledger_opts`: `DecisionLedger`'s
+    keywords, `DaemonConfig.ledger_opts()`) and one sketch limiter
+    (`sketch_*`: GUBER_SKETCH_*; config.py)."""
 
     def __init__(self, engine, *, sketch_window_ms: int = 1_000, sketch_depth: int = 4,
-                 sketch_width: int = 1 << 20):
+                 sketch_width: int = 1 << 20, ledger: bool = True,
+                 ledger_opts: Optional[Mapping] = None):
         self.engine = engine
+        # Host-tier decision ledger: sticky over-limit answers and bounded
+        # credit leases serve hot-key decisions with no device work.
+        self.ledger = None
+        if ledger and engine.store is None:
+            from gubernator_tpu_torch.core.ledger import DecisionLedger
+
+            self.ledger = DecisionLedger(engine, **(ledger_opts or {}))
         self.sketch_window_ms = sketch_window_ms
         self.sketch_depth = sketch_depth
         self.sketch_width = sketch_width
@@ -141,7 +157,13 @@ class V1Instance:
                 responses[i] = resp
         if local:
             reqs = [requests[i] for i in local]
-            answers = self.engine.get_rate_limits(reqs + _global_reads(reqs), now_ms=now_ms)
+            batch = reqs + _global_reads(reqs)
+            if self.ledger is not None:
+                # This batch runs on the engine outside the ledger: settle
+                # and drop any ledger entry for its keys first (reference
+                # :1672-1678; one dict probe per key, almost always a miss).
+                self.ledger.invalidate_keys([r.hash_key().encode() for r in batch])
+            answers = self.engine.get_rate_limits(batch, now_ms=now_ms)
             for i, resp in zip(local, answers):
                 responses[i] = resp
         return responses  # type: ignore[return-value]
@@ -149,22 +171,50 @@ class V1Instance:
     def serve_decoded_local(self, dec):
         """The post-decode columnar serve of the native h2 front
         (reference :1028): a `net.wire_codec.DecodedBatch` → (status,
-        limit, remaining, reset) columns from one `apply_columnar` call,
-        or None to decline (the front answers UNIMPLEMENTED).  It
-        declines when a write-through store is attached, which
+        limit, remaining, reset) columns, through the decision ledger when
+        it is on, or None to decline (the front answers UNIMPLEMENTED).
+        It declines when a write-through store is attached, which
         `apply_columnar` cannot honour.  The reference's ownership gate
         is true on a node with no peers, the only node the port has.  No
-        hot-key offer and no decision ledger: they come with ROADMAP A
-        items 13 and 5."""
+        hot-key offer: it comes with ROADMAP A item 13."""
         from gubernator_tpu_torch.core.engine import PackedKeys
 
         engine = self.engine
         if engine.store is not None:
             return None
+        if self.ledger is not None:
+            return self._serve_decoded_ledger(dec)
         return engine.apply_columnar(
             PackedKeys(dec.key_buf, dec.key_offsets, dec.n), dec.algo, dec.behavior, dec.hits,
             dec.limit, dec.duration, dec.burst,
         )
+
+    def _serve_decoded_ledger(self, dec):
+        """Ledger-aware columnar serve (reference :1065): hot-key rows
+        (sticky over-limit, live lease credit) are answered without device
+        work, and a window of only such rows makes no engine call at all.
+        The engine lane is [settle / return rows, fall-through rows,
+        acquisition rows]; a failed engine call rolls the plan back."""
+        from gubernator_tpu_torch.core.engine import PackedKeys
+
+        engine = self.engine
+        plan = self.ledger.plan(dec, engine.clock.now_ms())
+        if plan.full:
+            return plan.dense_cols()
+        lane = plan.build_engine_lane()
+        try:
+            out = engine.apply_columnar(
+                PackedKeys(lane.key_buf, lane.key_offsets, lane.n), lane.algo, lane.behavior,
+                lane.hits, lane.limit, lane.duration, lane.burst,
+            )
+        except Exception:
+            plan.rollback()
+            raise
+        st, lim, rem, rst = out
+        plan.learn(st, lim, rem, rst)
+        if not plan.answered_rows and lane is dec:
+            return out
+        return plan.merge_outputs(st, rem, rst)
 
     def health_check(self) -> HealthCheckResp:
         """A single node with no peers is healthy (reference:
@@ -172,4 +222,8 @@ class V1Instance:
         return HealthCheckResp(status=HEALTHY, peer_count=0)
 
     def close(self) -> None:
+        """Close the ledger (its flusher joined, every delegated lease
+        pulled back, pending returns applied), then the engine."""
+        if self.ledger is not None:
+            self.ledger.close()
         self.engine.close()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a batch's wall time goes in the port's engine on one GPU.
 
-    python3 scripts/torch_engine_profile.py [--batches N]
+    python3 scripts/torch_engine_profile.py [--batches N] [--streams h2,...]
 
 Drives three of chip_smoke.py's streams (mixed: 2^20 slots, batches of
 1000; zipf: the reference's zipf deployment, 2^24 slots, batches of
@@ -36,18 +36,28 @@ clock, 2^20 slots, its h2 front at the default 2 ms window), driven by
 the port's native client (`core/h2_client.py bench_unary`) after a
 0.5 s warm-up: the herd (32 connections of single-item RPCs on one key,
 2 s), the same herd from one connection and through a second front on
-the same instance with no window, and the 1000-item loop (one
-connection, one 1000-item leaky-bucket RPC, 3 s).  Each window's serve
+the same instance with no window (and no decision plane: the daemon's
+front keeps its own), and the 1000-item loop (one connection, one
+1000-item leaky-bucket RPC, 3 s).  Each window's serve
 (`H2FastFront._serve`, on the C dispatch thread) is split as:
 
 * decode — the C wire decode (`net/wire_codec.py decode_reqs`);
+* plan, lane, learn, merge — the decision ledger's steps, when the
+  instance runs it (core/ledger.py: `DecisionLedger.plan`,
+  `LedgerPlan.build_engine_lane`, `DecisionLedger._learn`,
+  `LedgerPlan.merge_outputs`);
 * schedule, collapse, rounds, flush, readback — the engine steps above;
 * rest — `serve_decoded_local` and `apply_columnar` around them;
 
 beside the window cycle (run time / windows: the 2 ms group-commit wait,
 the serve, and the hand-off to and from the C threads), the RPCs/s and
 the client's p50 / p99 latency, with the device's busy time and idle
-share over the whole run.
+share over the whole run.  The split is the same on a tree with no
+ledger: its four steps then read 0, so one copy of this script times a
+parent tree and its child alike.
+
+`--streams` picks a comma-separated subset of mixed, zipf, uniform,
+sketch and h2 (default: all five).
 
 The first 4 batches of a stream are warm-up; the next half are timed
 as above (medians per batch).  The rest run under `torch.profiler` (CUDA
@@ -72,6 +82,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 STEPS = ("schedule", "collapse", "rounds", "flush", "readback")
+STREAMS = ("mixed", "zipf", "uniform", "sketch", "h2")
 
 
 def timer(step_s):
@@ -96,7 +107,12 @@ def timer(step_s):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=40, help="batches per stream (default 40)")
+    ap.add_argument("--streams", default=",".join(STREAMS),
+                    help="comma-separated subset of " + ", ".join(STREAMS) + " (default: all)")
     args = ap.parse_args()
+    streams = set(args.streams.split(","))
+    if not streams <= set(STREAMS):
+        ap.error(f"unknown streams {sorted(streams - set(STREAMS))}")
 
     import numpy as np
     import torch
@@ -119,7 +135,7 @@ def main() -> int:
     rng = np.random.default_rng(cs.SEED)
     report = {"card": card}
     for tag, cap, batches, _opts in cs.streams(np, rng, args.batches):
-        if tag not in ("mixed", "zipf", "uniform"):
+        if tag not in streams:
             continue
         eng = engine_mod.DecisionEngine(cap, clock=Clock().freeze_at(cs.NOW0 * 1_000_000),
                                         device="cuda", max_kernel_width=8192)
@@ -169,9 +185,11 @@ def main() -> int:
               f"{busy_us:.1f} us, idle share {1 - busy_us / window_us:.4f} | {card}",
               flush=True)
         eng.close()
-    report["sketch"] = profile_sketch(torch, np, rng, card, args.batches, profile,
-                                      ProfilerActivity, DeviceType)
-    report["h2"] = profile_h2(torch, np, rng, card, profile, ProfilerActivity, DeviceType)
+    if "sketch" in streams:
+        report["sketch"] = profile_sketch(torch, np, rng, card, args.batches, profile,
+                                          ProfilerActivity, DeviceType)
+    if "h2" in streams:
+        report["h2"] = profile_h2(torch, np, rng, card, profile, ProfilerActivity, DeviceType)
     print(json.dumps(report))
     return 0
 
@@ -245,7 +263,8 @@ def profile_sketch(torch, np, rng, card, n_batches, profile, ProfilerActivity, D
     return med
 
 
-H2_STEPS = ("decode", "schedule", "collapse", "rounds", "flush", "readback")
+H2_STEPS = ("decode", "plan", "lane", "learn", "merge", "schedule", "collapse", "rounds", "flush",
+            "readback")
 
 
 def profile_h2(torch, np, rng, card, profile, ProfilerActivity, DeviceType):
@@ -271,8 +290,18 @@ def profile_h2(torch, np, rng, card, profile, ProfilerActivity, DeviceType):
     timed(eng, "_dispatch_rounds", "rounds")
     timed(eng._pump, "flush_locked", "flush")
     timed(Ticket, "fetch", "readback")
+    ledger = getattr(d.instance, "ledger", None)
+    if ledger is not None:
+        timed(ledger, "plan", "plan")
+        timed(ledger, "_learn", "learn")
+        from gubernator_tpu_torch.core.ledger import LedgerPlan
+
+        timed(LedgerPlan, "build_engine_lane", "lane")
+        timed(LedgerPlan, "merge_outputs", "merge")
     rows = []
-    no_window = H2FastFront(d.instance, window_s=0.0)
+    # A tree with the ledger: the second front takes no plane.
+    no_window = H2FastFront(d.instance, window_s=0.0,
+                            **({} if ledger is None else {"native_ledger": False}))
 
     def split_serve(f):
         serve = f._serve

@@ -789,7 +789,10 @@ def test_h2_front_on_the_card_matches_the_cpu(cuda):
     Gregorian, SKETCH, empty-key and zero-item RPCs) through an
     H2FastFront on a card engine and one on a CPU engine: grpc-status and
     response bytes equal RPC by RPC, state words equal, and every engine
-    launch a K1, K3 or K4 launch."""
+    launch a K1, K3 or K4 launch.  Both instances run the decision ledger
+    (the default) with no settle thread, and settle by hand before the
+    state words are compared: a thread would return idle leases' credit
+    at different moments on the two sides."""
     import sys
 
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -800,8 +803,10 @@ def test_h2_front_on_the_card_matches_the_cpu(cuda):
 
     rng = np.random.default_rng(7)
     ns = 1_760_000_000_000 * 1_000_000
-    gpu = V1Instance(DecisionEngine(1 << 16, clock=Clock().freeze_at(ns), device=cuda))
-    cpu = V1Instance(DecisionEngine(1 << 16, clock=Clock().freeze_at(ns), device="cpu"))
+    gpu = V1Instance(DecisionEngine(1 << 16, clock=Clock().freeze_at(ns), device=cuda),
+                     ledger_opts=dict(settle_interval=0))
+    cpu = V1Instance(DecisionEngine(1 << 16, clock=Clock().freeze_at(ns), device="cpu"),
+                     ledger_opts=dict(settle_interval=0))
     fronts = [H2FastFront(gpu, window_s=0.001), H2FastFront(cpu, window_s=0.001)]
     clients = [cs.H2Unary(f.address) for f in fronts]
     fs.reset_launches()
@@ -814,6 +819,7 @@ def test_h2_front_on_the_card_matches_the_cpu(cuda):
             assert got[0] == status
             if status == 0:
                 assert len(cs.decode_responses(got[1])) == n_items
+        assert gpu.ledger.flush_settles() == cpu.ledger.flush_settles()
         got, exp = tk.state_to_numpy(gpu.engine.state), tk.state_to_numpy(cpu.engine.state)
         for f in tk.BucketState._fields:
             assert np.array_equal(got[f], exp[f]), f

@@ -480,10 +480,19 @@ def _without_retry_hints(msg: bytes) -> bytes:
     return resp.SerializeToString()
 
 
-@pytest.mark.parametrize("mode", ["feeder_off", "feeder_on_no_hints", "feeder_on"])
+# The ledger's knobs when it is on, in each side's spelling: a hot
+# threshold of 2 so the stream's hot keys take leases, and no settle thread
+# (settles run by hand at the end), as in tests/test_torch_ledger.py.
+_REF_LEDGER_ON = dict(ledger=True, ledger_hot_threshold=2, ledger_settle_interval=0)
+_PORT_LEDGER_ON = dict(ledger=True, ledger_opts=dict(hot_threshold=2, settle_interval=0))
+
+
+@pytest.mark.parametrize("mode", ["feeder_off", "feeder_on_no_hints", "feeder_on",
+                                  "ledger-feeder_off", "ledger-feeder_on_no_hints",
+                                  "ledger-feeder_on"])
 def test_stream_equals_the_reference_front(mode, monkeypatch):
     """The same seeded sequential stream through the reference's front
-    (no ledger) and the port's (CPU engine), frozen clocks stepped alike:
+    and the port's (CPU engine), frozen clocks stepped alike:
     grpc-status and response bytes equal RPC by RPC, out-of-scope RPCs
     UNIMPLEMENTED, the zero-item RPC empty OK, and every live key's state
     words equal at the end.  512 slots under a 700-key pool, so evictions
@@ -495,14 +504,26 @@ def test_stream_equals_the_reference_front(mode, monkeypatch):
     metadata hint on OVER_LIMIT answers (GUBER_RETRY_HINTS, default on),
     which the byte window path never writes; with the hint off its bytes
     are the byte path's, and with it on they are equal once the hint is
-    taken off (the hint comes with the feeder, ROADMAP A item 11)."""
+    taken off (the hint comes with the feeder, ROADMAP A item 11).
+
+    Both sides run with the decision ledger off, or (the `ledger-` modes)
+    both with it on: answers are the same either way, but state words
+    equal the reference's only when both ledgers hold the same leases.
+    With it on, both ledgers' settles are flushed before the words are
+    compared, and their counters must be equal and show leases granted
+    and revoked.  A frozen clock attaches no decision plane on
+    either side."""
+    ledger = mode.startswith("ledger-")
+    mode = mode.removeprefix("ledger-")
     feeder = mode != "feeder_off"
     if mode == "feeder_on_no_hints":
         monkeypatch.setenv("GUBER_RETRY_HINTS", "0")
     ref_engine = RefEngine(capacity=512, clock=RefClock().freeze_at(T0_NS))
-    ref = RefInstance(RefConfig(ledger=False), ref_engine)
+    ref = RefInstance(RefConfig(**_REF_LEDGER_ON) if ledger else RefConfig(ledger=False),
+                      ref_engine)
     ref_front = RefFront(ref, window_s=0.001, native_feeder=feeder)
-    port = V1Instance(DecisionEngine(512, clock=Clock().freeze_at(T0_NS), device="cpu"))
+    port = V1Instance(DecisionEngine(512, clock=Clock().freeze_at(T0_NS), device="cpu"),
+                      **(_PORT_LEDGER_ON if ledger else dict(ledger=False)))
     front = H2FastFront(port, window_s=0.001)
     try:
         ref_ch = grpc.insecure_channel(ref_front.address)
@@ -526,6 +547,18 @@ def test_stream_equals_the_reference_front(mode, monkeypatch):
         assert (ref_front.stats()["feeder_front_rpcs"] > 0) == feeder
         assert (hinted > 0) == (mode == "feeder_on")
         assert front.stats()["errors"] == 5
+        assert ref_front.plane is None and front.plane is None
+        assert (port.ledger is not None) == ledger == (ref.ledger is not None)
+        if ledger:
+            assert port.ledger.flush_settles() == ref.ledger.flush_settles()
+            stats, ref_stats = port.ledger.stats(), ref.ledger.stats()
+            stats.pop("settle_lag_ms_mean")
+            ref_stats.pop("settle_lag_ms_mean")
+            # The reference's read-only tier (the GLOBAL broadcast cache)
+            # is filled only by peers.
+            assert ref_stats.pop("readonly_entries") == 0
+            assert stats == ref_stats
+            assert stats["leases_granted"] > 0 and stats["leases_revoked"] > 0
         assert _port_words_by_key(port.engine) == _ref_words_by_key(ref_engine)
         assert port.engine.table.evictions > 0
     finally:

@@ -65,6 +65,9 @@ def test_port_modules_import_without_jax_or_the_reference():
         "gubernator_tpu_torch.net.h2_fast",
         "gubernator_tpu_torch.net.wire_codec",
         "gubernator_tpu_torch.core.h2_client",
+        "gubernator_tpu_torch.core.ledger",
+        "gubernator_tpu_torch.core.native_plane",
+        "gubernator_tpu_torch.utils.metrics",
         "gubernator_tpu_torch.daemon",
         "gubernator_tpu_torch.cmd.daemon",
         "gubernator_tpu_torch.config",

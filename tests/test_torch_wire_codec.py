@@ -164,22 +164,53 @@ def test_decode_and_encode_equal_the_reference(seed):
 
 def test_codec_symbols_load_in_both_libraries():
     """The codec is a library of its own and is linked into the h2
-    server's; both load (a missing symbol shows at CDLL load) with every
-    export declared."""
+    server's, with the decision plane; both load (a missing symbol shows
+    at CDLL load) with every export declared."""
     for name in ("wire_codec", "h2_server"):
         lib = native_build.load(name)
         assert lib.wire_decode_reqs.argtypes and lib.wire_encode_resps.argtypes
-    assert native_build.SOURCES["h2_server"] == ("h2_server.cpp", "wire_codec.cpp")
+        assert lib.wire_encode_resps_hint.argtypes
+    assert native_build.SOURCES["h2_server"] == ("h2_server.cpp", "wire_codec.cpp",
+                                                 "decision_plane.cpp")
     assert "-pthread" in native_build.GXX_FLAGS
 
 
 def test_cache_key_covers_every_source(tmp_path, monkeypatch):
     """An edit to any source of a library (the codec linked into the h2
     server included) names a new build; an unchanged tree names the same."""
-    for name in ("h2_server.cpp", "wire_codec.cpp"):
+    for name in native_build.SOURCES["h2_server"]:
         (tmp_path / name).write_bytes((native_build.CSRC / name).read_bytes())
     monkeypatch.setattr(native_build, "CSRC", tmp_path)
     before = native_build._target("h2_server")
     assert native_build._target("h2_server") == before
     (tmp_path / "wire_codec.cpp").write_bytes(b"// edited\n" + (tmp_path / "wire_codec.cpp").read_bytes())
     assert native_build._target("h2_server") != before
+    after = native_build._target("h2_server")
+    (tmp_path / "decision_plane.cpp").write_bytes(b"// edited\n")
+    assert native_build._target("h2_server") != after
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_encode_hint_equals_the_reference(seed):
+    """`wire_encode_resps_hint` byte for byte against the reference's
+    (core/native/wire_codec.cpp:273): OVER_LIMIT items with a reset carry
+    retry_after_ms = max(0, reset - now) (past resets clamp to 0), UNDER
+    items and OVER items with reset 0 carry none."""
+    rng = np.random.default_rng(seed)
+    n = 64
+    now = 1_760_000_000_123
+    status = rng.integers(0, 2, n).astype(np.int32)
+    limit = rng.choice([0, 5, 1000, 1 << 40], n).astype(np.int64)
+    remaining = rng.choice([0, 0, 3, 999], n).astype(np.int64)
+    reset = (now + rng.choice([-500, 0, 1, 1234, 3_600_000], n)).astype(np.int64)
+    reset[::7] = 0
+    cols = (status, limit, remaining, reset)
+    got = wire_codec.encode_resps_hint(*cols, 1, now)
+    assert got == ref_codec.encode_resps_hint(*cols, 1, now)
+    for st, rst, r in zip(status, reset, pb.GetRateLimitsResp.FromString(got).responses):
+        want = {"retry_after_ms": str(max(0, int(rst) - now))} if st == 1 and rst > 0 else {}
+        assert dict(r.metadata) == want
+    # Only the OVER items differ from the plain encode: UNDER-only columns
+    # encode to the same bytes with and without the hint.
+    under = (np.zeros(n, np.int32), limit, remaining, reset)
+    assert wire_codec.encode_resps_hint(*under, 1, now) == wire_codec.encode_resps(*under)
