@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's native code from gubernator_tpu_torch/csrc (the CUDA
-kernels K1-K8 and the host intern table, one compiler each, in
+kernels K1-K10 and the host libraries, one compiler each, in
 parallel), holds each kernel against its plain PyTorch version on the
 card at 2^20 and 10^8 slots (K1 over one round and over R ragged rounds
 with eviction clears; K3, the collapsed hot-key step, on a zipf batch, a
@@ -94,6 +94,30 @@ ledger and with GUBER_LEDGER=0.  K1 must launch; every launch is K1, K3
 or K4; and K1 is held to its plain version on launches whose lanes begin
 with the ledger's negative-hit return rows.
 
+A sixth path, the paged path (GUBER_PAGED, core/paging.py), counts its
+launches from 0 too.  (a) Parity, the shape of the reference's zipfpaged
+bench (BENCH_r18_cpu_zipfpaged.json: pages of 64, 1024 frames = 65,536
+resident rows, 655,360 logical keys): a paged card engine, a paged CPU
+engine and a dense card engine at 655,360 take a fill of every key in
+batches of 8192, then zipf(1.2) over the keys in a seeded order in
+batches of 1024, with the hot-key sketch's provider on the eviction
+clock: answers equal (paged against dense too), and the counters, the
+page table, the host words of used pages and the device words card
+against CPU; then a checkpoint through NpzFileLoader loaded with no
+fault (cold pages restored into the host store), and sweeps that free
+every expired key, cold pages from the host words, with no fault.  (b)
+The full width: pages of 512 (the default), 2^24 resident rows (the zipf
+deployment's device size) and 2^25 logical keys, filled in batches of
+8192, then zipf(1.2) over the keys in a seeded order in batches of 8192,
+each batch answered as a dense card engine at 2^25 answers it: faults
+per batch, the mean fault, spill and refill wall a page, decisions/s,
+K9 / K10 launches and the device's busy and idle share.  (c) K9 and K10
+are held bit-equal to their plain versions at P = 16, 64 and 512 with
+k = 1 and 64 pages, starts at row 0 and at the last frame, on state with
+bit 31 set in the `*_lo` words, and timed at P = 512 beside their bound
+and one PyTorch call each: torch.stack of the pages' column slices (K9),
+torch._foreach_copy_ into them (K10).
+
 It checks the launch counts of the main path (K1, K3 and K4 all launched; K1
 at most once per synchronous batch; the pump flushed), holds the zipf
 stream's collapsed pins to K3's layout (`check_collapsed`), and times
@@ -116,8 +140,9 @@ runs the same phases on the same seeded inputs against the port of
 another checkout (DIR, its root: for instance the parent commit unpacked
 with `git archive`), so that two trees are compared in one session on
 one card.  A tree from before `check_collapsed` existed runs without
-that layout check; one without K5 / K6, K7 / K8 or the h2 front skips the
-persistence, the sketch, the h2 or the ledger phases.
+that layout check; one without K5 / K6, K7 / K8, the h2 front or K9 /
+K10 skips the persistence, the sketch, the h2, the ledger or the paged
+phases.
 
 The port imports nothing of JAX; neither does this script.
 """
@@ -2842,6 +2867,406 @@ def phase_ledger(torch, np, rng, card):
     return engines + more, captured, read
 
 
+# ---------------------------------------------------------------------------
+# The paged path: paged state (core/paging.py) with K9, the page spill, and
+# K10, the refill (csrc/page_words.cu)
+
+# (a) the shape of the reference's zipfpaged bench (BENCH_r18_cpu_zipfpaged.json):
+# pages of 64 rows, 1024 frames (65,536 resident rows), 655,360 logical keys.
+PAGED_A = (64, 1024, 655_360)
+# (b) the zipf deployment's device size: pages of 512 (the default), 2^24
+# resident rows (32,768 frames, ZIPF_CAP, 800 MB), 2^25 logical keys (a
+# 1.6 GB host store, 2x the frames).
+PAGED_B = (512, 1 << 15, 1 << 25)
+PAGED_FILL = 8192  # fill batches
+PAGED_A_BATCH, PAGED_A_BATCHES = 1024, 100  # (a)'s zipf batches
+PAGED_B_BATCHES = 48  # (b)'s zipf batches of ZIPF_BATCH
+PAGED_DURATION = 3_600_000  # the zipf deployment's 1 h
+
+
+def has_paging() -> bool:
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    return "gather_pages" in fs.launches
+
+
+@contextlib.contextmanager
+def paged_env(page: int, frames: int):
+    """GUBER_PAGED=1 with these knobs while engines are built (an engine
+    reads them at construction), the environment as it was afterwards."""
+    names = ("GUBER_PAGED", "GUBER_PAGE_SIZE", "GUBER_PAGED_RESIDENT")
+    old = {k: os.environ.get(k) for k in names}
+    os.environ.update(GUBER_PAGED="1", GUBER_PAGE_SIZE=str(page),
+                      GUBER_PAGED_RESIDENT=str(frames))
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def paged_keys(np, idx):
+    """PackedKeys of key indexes, b"pg" and 7 hex digits each: 2^25 keys
+    with no Python object per key."""
+    from gubernator_tpu_torch.core.engine import PackedKeys
+
+    idx = np.asarray(idx, dtype=np.int64)
+    n = len(idx)
+    hexd = np.frombuffer(b"0123456789abcdef", np.uint8)
+    buf = np.empty((n, 9), np.uint8)
+    buf[:, 0], buf[:, 1] = ord("p"), ord("g")
+    buf[:, 2:] = hexd[(idx[:, None] >> (4 * np.arange(6, -1, -1))) & 15]
+    return PackedKeys(buf.reshape(-1), np.arange(0, 9 * n + 1, 9, dtype=np.int64), n)
+
+
+def paged_cols(np, idx):
+    """The zipf deployment's config: the algorithm a property of the key,
+    hits 1, limit and burst 10^6, duration 1 h."""
+    n = len(idx)
+    return ((np.asarray(idx) % 2).astype(np.int32), np.zeros(n, np.int32), np.ones(n, np.int64),
+            np.full(n, 10**6, np.int64), np.full(n, PAGED_DURATION, np.int64),
+            np.full(n, 10**6, np.int64))
+
+
+def paged_zipf(np, rng, perm, n):
+    """n key indexes: zipf(1.2) ranks over the keys in the seeded order
+    `perm`, so hot keys lie on pages all over the key space."""
+    return perm[(rng.zipf(ZIPF_S, n) - 1) % len(perm)]
+
+
+def same_answers(np, got, want, what: str) -> None:
+    for g, w in zip(got, want):
+        check(np.array_equal(np.asarray(g), np.asarray(w)), f"{what}: answers differ")
+
+
+def same_paging(np, tk, a, b, what: str, *, words: bool = False) -> None:
+    """Counters and page table of two paged engines; with `words`, the host
+    words of used pages and the device words too."""
+    pa, pb = a.paging, b.paging
+    ca, cb = (pa.faults, pa.spills, pa.refills), (pb.faults, pb.spills, pb.refills)
+    check(ca == cb, f"{what}: faults / spills / refills {ca} vs {cb}")
+    for name in ("frame_of", "page_of", "_ref", "_ever_used"):
+        check(np.array_equal(getattr(pa, name), getattr(pb, name)), f"{what}: {name} differs")
+    check(pa._hand == pb._hand, f"{what}: clock hand {pa._hand} vs {pb._hand}")
+    if words:
+        used = np.nonzero(pa._ever_used)[0]
+        check(np.array_equal(pa.host_words[used], pb.host_words[used]), f"{what}: host words")
+        wa, wb = tk.state_to_numpy(a.state), tk.state_to_numpy(b.state)
+        for f in tk.BucketState._fields:
+            check(np.array_equal(wa[f], wb[f]), f"{what}: device words ({f})")
+
+
+def extreme_page_state(torch, np, rng, cap: int):
+    """Every bit pattern likely: bit 31 set in the `*_lo` columns."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+
+    return tk.BucketState(*(torch.from_numpy(rng.integers(
+        -(2**31), 2**31, cap, dtype=np.int64).astype(np.int32)).cuda()
+        for _ in tk.BucketState._fields))
+
+
+def page_bound_ms(k: int, page: int) -> float:
+    """K9 / K10: 12 columns x 4 B x page rows of k pages, read once and
+    written once."""
+    return 2 * 12 * 4 * page * k / HBM_BYTES_PER_S * 1e3
+
+
+def phase_paged_kernels(torch, np, rng, errs):
+    """(c) K9 and K10 bit-equal to their plain versions at P = 16, 64 and
+    512 with k = 1 and 64 pages, starts at row 0 and at the last frame,
+    on state with extreme words."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops.page_words import gather_pages, load_pages
+
+    frames = 256
+    for page in (16, 64, 512):
+        cap = frames * page
+        state = extreme_page_state(torch, np, rng, cap)
+        plain = copy_state(state)
+        spread = np.sort(rng.choice(frames, 64, replace=False)) * page
+        spread[0], spread[-1] = 0, cap - page
+        for starts in ([0], [cap - page], spread):
+            k = len(starts)
+            st = torch.from_numpy(np.asarray(starts, np.int32)).cuda()
+            got = gather_pages(state, st, page)
+            want = tk.gather_page_words_reference(plain, st, page)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            errs["gather_pages"] = max(errs["gather_pages"], err)
+            check(err == 0, f"K9 differs from its plain version at P={page} k={k}")
+            check(bool((want[:, tk.BucketState._fields.index("rem_lo")] < 0).any()),
+                  "K9's inputs must set bit 31 of the *_lo words")
+            words = torch.from_numpy(rng.integers(-(2**31), 2**31, (k, 12, page),
+                                                  dtype=np.int64).astype(np.int32)).cuda()
+            load_pages(state, st, words)
+            tk.load_page_words_reference(plain, st, words)
+            torch.cuda.synchronize()
+            err = compare_states(torch, state, plain)
+            errs["load_pages"] = max(errs["load_pages"], err)
+            check(err == 0, f"K10 differs from its plain version at P={page} k={k}")
+        del state, plain
+    log("[paged kernels] K9 / K10 bit-equal to their plain versions at P = 16, 64, 512, "
+        "k = 1 and 64, starts at row 0 and at the last frame")
+
+
+def hot_sketch(engine):
+    """A frozen-clock hot-key sketch wired into `engine`'s eviction clock as
+    the service wires it (V1Instance._hot_slots_provider)."""
+    from gubernator_tpu_torch.service import V1Instance
+    from gubernator_tpu_torch.utils.hotkeys import SpaceSaving
+
+    sk = SpaceSaving(capacity=1024, window_s=5.0, now=lambda: 1.0)
+    engine.paging.hot_slots_provider = V1Instance._hot_slots_provider(engine, sk)
+    return sk
+
+
+def phase_paged_parity(torch, np, rng, tmp: Path):
+    """(a) Paged card engine against a paged CPU engine (same knobs) and a
+    dense card engine at the logical capacity: the fill, the zipf stream
+    with the hot-key provider, a checkpoint load with no fault, and a sweep
+    of cold expired rows with no fault.  Returns the card engines."""
+    from gubernator_tpu_torch.checkpoint import NpzFileLoader
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+
+    page, frames, n_keys = PAGED_A
+    ns = NOW0 * 10**6
+    with paged_env(page, frames):
+        card = DecisionEngine(n_keys, clock=Clock().freeze_at(ns))
+        cpu = DecisionEngine(n_keys, clock=Clock().freeze_at(ns), device="cpu")
+    dense = DecisionEngine(n_keys, clock=Clock().freeze_at(ns))
+    check(card.capacity == frames * page and dense.paging is None,
+          "[paged a] the paged engine must hold the frames only")
+    t = time.perf_counter()
+    for lo in range(0, n_keys, PAGED_FILL):
+        idx = np.arange(lo, min(lo + PAGED_FILL, n_keys))
+        keys, cols = paged_keys(np, idx), paged_cols(np, np.zeros_like(idx))
+        got = card.apply_columnar(keys, *cols, now_ms=NOW0)
+        same_answers(np, got, cpu.apply_columnar(keys, *cols, now_ms=NOW0), "[paged a] fill")
+        same_answers(np, got, dense.apply_columnar(keys, *cols, now_ms=NOW0),
+                     "[paged a] fill, dense")
+        same_paging(np, tk, card, cpu, f"[paged a] fill at {lo}")
+    same_paging(np, tk, card, cpu, "[paged a] after the fill", words=True)
+    fill_faults = card.paging.faults
+    log(f"[paged a] fill of {n_keys} keys in {time.perf_counter() - t:.1f} s: "
+        f"{fill_faults} faults, {card.paging.spills} spills, card = CPU = dense")
+    perm = rng.permutation(n_keys)
+    sketches = [hot_sketch(card), hot_sketch(cpu)]
+    now = NOW0
+    for b in range(PAGED_A_BATCHES):
+        now += 7
+        idx = paged_zipf(np, rng, perm, PAGED_A_BATCH)
+        keys, cols = paged_keys(np, idx), paged_cols(np, idx)
+        for sk in sketches:
+            sk.offer_columns(keys.buf, keys.offsets, cols[2], limit=cols[3], duration=cols[4])
+        got = card.apply_columnar(keys, *cols, now_ms=now)
+        same_answers(np, got, cpu.apply_columnar(keys, *cols, now_ms=now), "[paged a] zipf")
+        same_answers(np, got, dense.apply_columnar(keys, *cols, now_ms=now),
+                     "[paged a] zipf, dense")
+        same_paging(np, tk, card, cpu, f"[paged a] zipf batch {b}", words=b % 25 == 24)
+    check(card.paging.faults > fill_faults, "[paged a] the zipf stream must fault")
+    check(bool(card.paging._hot_pages) or card.paging._faults_since_hot_refresh > 0,
+          "[paged a] the hot-key provider must be read")
+    log(f"[paged a] {PAGED_A_BATCHES} zipf batches of {PAGED_A_BATCH}: "
+        f"{card.paging.faults - fill_faults} faults in {card.paging.fault_batches} fault "
+        f"batches, hot pages {len(card.paging._hot_pages)}; card = CPU = dense, page table, "
+        "host words and device words equal")
+    dense.close()
+
+    path = str(tmp / "paged.npz")
+    t = time.perf_counter()
+    card.save(NpzFileLoader(path))
+    t_save = time.perf_counter() - t
+    with paged_env(page, frames):
+        fresh = DecisionEngine(n_keys, clock=Clock().freeze_at(now * 10**6))
+    t = time.perf_counter()
+    n = fresh.load(NpzFileLoader(path))
+    t_load = time.perf_counter() - t
+    check(n == len(card.table) and fresh.paging.faults == 0,
+          f"[paged a] the load must restore every key with no fault ({n}, "
+          f"{fresh.paging.faults} faults)")
+    cold = len(fresh.paging.nonresident_used_pages())
+    check(cold > 0, "[paged a] the load must restore cold pages into the host store")
+    idx = paged_zipf(np, rng, perm, PAGED_A_BATCH)
+    keys, cols = paged_keys(np, idx), paged_cols(np, idx)
+    got = card.apply_columnar(keys, *cols, now_ms=now + 1)
+    same_answers(np, fresh.apply_columnar(keys, *cols, now_ms=now + 1), got,
+                 "[paged a] after the checkpoint")
+    same_answers(np, cpu.apply_columnar(keys, *cols, now_ms=now + 1), got, "[paged a] zipf")
+    log(f"[paged a] checkpoint of {n} keys: save {t_save:.1f} s, load {t_load:.1f} s with no "
+        f"fault ({cold} cold pages restored into the host store); a batch answers as the "
+        "engine that never stopped")
+
+    faults, freed = card.paging.faults, []
+    t_sweep = now + 2 * PAGED_DURATION
+    while True:
+        a, b = card.sweep(now_ms=t_sweep), cpu.sweep(now_ms=t_sweep)
+        check(a == b, f"[paged a] sweep: card freed {a}, CPU {b}")
+        if a == 0:
+            break
+        freed.append(a)
+    check(card.paging.faults == faults, "[paged a] the sweep must not fault")
+    check(sum(freed) == n_keys and card.cache_size() == cpu.cache_size() == 0,
+          f"[paged a] the sweep must free every expired key ({sum(freed)})")
+    same_paging(np, tk, card, cpu, "[paged a] after the sweep", words=True)
+    log(f"[paged a] sweeps freed {freed} (device windows and cold pages from the host words) "
+        "with no fault, as the CPU engine's")
+    cpu.close()
+    return [card, fresh, dense]
+
+
+def phase_paged_full(torch, np, rng, card_name):
+    """(b) The full width: pages of 512, 2^24 resident rows, 2^25 keys —
+    the fill, then zipf(1.2) over the keys in a seeded order in batches of
+    8192, each batch answered as a dense card engine at 2^25 answers it.
+    Returns (card engines, fault-batch sizes, readings)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    page, frames, n_keys = PAGED_B
+    ns = NOW0 * 10**6
+    with paged_env(page, frames):
+        paged = DecisionEngine(n_keys, clock=Clock().freeze_at(ns))
+    dense = DecisionEngine(n_keys, clock=Clock().freeze_at(ns))
+    check(paged.capacity == ZIPF_CAP, "[paged b] 2^24 resident rows")
+    fill_cols = paged_cols(np, np.zeros(PAGED_FILL, np.int64))
+    t = time.perf_counter()
+    for lo in range(0, n_keys, PAGED_FILL):
+        keys = paged_keys(np, np.arange(lo, lo + PAGED_FILL))
+        same_answers(np, paged.apply_columnar(keys, *fill_cols, now_ms=NOW0),
+                     dense.apply_columnar(keys, *fill_cols, now_ms=NOW0), "[paged b] fill")
+    fill_s = time.perf_counter() - t
+    fill_faults = paged.paging.faults
+    log(f"[paged b] fill of {n_keys} keys in {fill_s:.1f} s (both engines): {fill_faults} "
+        f"faults in {paged.paging.fault_batches} fault batches | {card_name}")
+    perm = rng.permutation(n_keys)
+    k9_0, k10_0 = fs.launches["gather_pages"], fs.launches["load_pages"]
+    st0 = [(s.count, s.total) for s in (paged.paging.fault_duration,
+                                         paged.paging.spill_duration, paged.paging.refill_wait)]
+    per_batch, walls, batches = [], [], []
+    for _ in range(PAGED_B_BATCHES):
+        idx = paged_zipf(np, rng, perm, ZIPF_BATCH)
+        batches.append((paged_keys(np, idx), paged_cols(np, idx)))
+    n_prof = 8  # the last batches run under the profiler, the paged engine alone
+
+    def paged_batch(b):
+        keys, cols = batches[b]
+        f0 = paged.paging.faults
+        t = time.perf_counter()
+        got = paged.apply_columnar(keys, *cols, now_ms=NOW0 + 7 * (b + 1))
+        walls.append(time.perf_counter() - t)
+        per_batch.append(paged.paging.faults - f0)
+        return got
+
+    def dense_batch(b):
+        keys, cols = batches[b]
+        return dense.apply_columnar(keys, *cols, now_ms=NOW0 + 7 * (b + 1))
+
+    for b in range(PAGED_B_BATCHES - n_prof):
+        same_answers(np, paged_batch(b), dense_batch(b), "[paged b] zipf")
+    tail = range(PAGED_B_BATCHES - n_prof, PAGED_B_BATCHES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = [paged_batch(b) for b in tail]
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t) * 1e6
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+    for b, g in zip(tail, got):
+        same_answers(np, g, dense_batch(b), "[paged b] zipf")
+    check(sum(per_batch) > 0, "[paged b] the zipf stream must fault")
+    pp = paged.paging
+    means = [((s.total - t0) / max(s.count - c0, 1)) * 1e3
+             for (c0, t0), s in zip(st0, (pp.fault_duration, pp.spill_duration, pp.refill_wait))]
+    k9, k10 = fs.launches["gather_pages"] - k9_0, fs.launches["load_pages"] - k10_0
+    read = {"faults_per_batch": statistics.mean(per_batch), "max_faults": max(per_batch),
+            "fault_ms": means[0], "spill_ms": means[1], "refill_ms": means[2],
+            "decisions_per_s": ZIPF_BATCH * len(walls) / sum(walls), "k9": k9, "k10": k10,
+            "busy_us": busy_us, "window_us": window_us, "fill_s": fill_s}
+    log(f"[paged b] {PAGED_B_BATCHES} zipf batches of {ZIPF_BATCH} over 2^25 keys: faults per "
+        f"batch mean {read['faults_per_batch']:.1f} (max {read['max_faults']}), mean wall a "
+        f"faulted page: fault {means[0] * 1e3:.2f} us, spill {means[1] * 1e3:.2f} us, refill "
+        f"{means[2] * 1e3:.2f} us; {read['decisions_per_s']:.0f} decisions/s; K9 / K10 "
+        f"launches {k9} / {k10}; profiled window of {n_prof} batches: wall {window_us:.1f} us, "
+        f"device busy {busy_us:.1f} us, idle share {1 - busy_us / window_us:.4f}; paged = "
+        f"dense at 2^25 | {card_name}")
+    return [paged, dense], per_batch, read
+
+
+def phase_paged_timing(torch, np, rng, card, zipf_k: int):
+    """K9 / K10 at pages of 512 (CUDA events behind the spin kernel) with k
+    = 1, k = PAGED_FILL / 512 = 16 (each fill batch's faults on path (b)) and
+    k = `zipf_k` (the median zipf fault batch there), beside their bytes
+    bound, their plain versions and, at k <= 16, each one's library call:
+    torch.stack of the pages' column slices for K9, torch._foreach_copy_
+    into them for K10 (at the zipf's k their thousands of views make the
+    calls host-bound).  The kernels line takes k = 16."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops.page_words import gather_pages, load_pages
+
+    page, frames = 512, PAGED_B[1]
+    cap = frames * page
+    state = extreme_page_state(torch, np, rng, cap)
+    out = {}
+    fill_k = PAGED_FILL // page
+    for k in sorted({1, fill_k, min(max(zipf_k, 1), frames)}):
+        sets = [torch.from_numpy((np.sort(rng.choice(frames, k, replace=False)) * page)
+                                 .astype(np.int32)).cuda() for _ in range(16)]
+        host = [s.cpu().tolist() for s in sets]
+        words = torch.from_numpy(rng.integers(-(2**31), 2**31, (k, 12, page),
+                                              dtype=np.int64).astype(np.int32)).cuda()
+        k9 = device_ms(torch, lambda i: gather_pages(state, sets[i % 16], page), 200)
+        k9_plain = host_ms(torch, lambda i: tk.gather_page_words_reference(
+            state, sets[i % 16], page), 20, windows=3)
+        k10 = device_ms(torch, lambda i: load_pages(state, sets[i % 16], words), 200)
+        k10_plain = host_ms(torch, lambda i: tk.load_page_words_reference(
+            state, sets[i % 16], words), 20, windows=3)
+        k9_lib = k10_lib = None
+        if k <= fill_k:
+            # The library calls on the same 12 * k column slices, their
+            # views built ahead so that the host keeps the queue full: one
+            # torch.stack of them (K9), one torch._foreach_copy_ from the
+            # block's rows into them (K10).  Each is checked once.
+            views = [[col[s : s + page] for s in h for col in state] for h in host]
+            src = [words[j, c] for j in range(k) for c in range(12)]
+            k9_lib = device_ms(torch, lambda i: torch.stack(views[i % 16]), 200)
+            k10_lib = device_ms(torch, lambda i: torch._foreach_copy_(views[i % 16], src), 200)
+            torch._foreach_copy_(views[0], src)
+            block = tk.gather_page_words_reference(state, sets[0], page)
+            if not (torch.equal(block, words)
+                    and torch.equal(torch.stack(views[0]).view(k, 12, page), block)):
+                raise AssertionError("a library call disagrees with the page block")
+        bound = page_bound_ms(k, page)
+        out[k] = ((k9, k9_plain, bound, k9_lib), (k10, k10_plain, bound, k10_lib))
+        lib = "" if k9_lib is None else (
+            f", torch.stack of the {12 * k} column slices {k9_lib * 1e3:.2f} us, "
+            f"torch._foreach_copy_ into them {k10_lib * 1e3:.2f} us")
+        log(f"[time] K9 / K10 at P=512, k={k}: {k9 * 1e3:.2f} / {k10 * 1e3:.2f} us/launch, "
+            f"bound {bound * 1e3:.4f} us (bytes), plain {k9_plain * 1e3:.1f} / "
+            f"{k10_plain * 1e3:.1f} us{lib} | {card}")
+    del state
+    torch.cuda.empty_cache()
+    return {"k9": out[fill_k][0], "k10": out[fill_k][1], "by_k": out}
+
+
+def phase_paged(torch, np, rng, card):
+    """The paged path: (a) parity and (b) the full width.  Returns (card
+    engines, fault-batch sizes of (b)'s zipf, readings)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        engines = phase_paged_parity(torch, np, rng, Path(tmp))
+    more, per_batch, read = phase_paged_full(torch, np, rng, card)
+    return engines + more, per_batch, read
+
+
 def main() -> int:
     global TREE
     ap = argparse.ArgumentParser(description="Smoke run of gubernator_tpu_torch on one GPU.")
@@ -2875,6 +3300,9 @@ def main() -> int:
     log(f"[tree] driving the port in {pkg}")
     t_start = time.perf_counter()
     rng = np.random.default_rng(SEED)
+    # The paged phases draw from a generator of their own, so every other
+    # phase sees the inputs it sees on a tree without them (--tree A/B).
+    paged_rng = np.random.default_rng(SEED + 9)
     card = phase_device(torch)
     phase_build()
     errs = {k: 0 for k in fs.launches}
@@ -2896,6 +3324,13 @@ def main() -> int:
     else:
         check(TREE is not None, "the port has no sketch path")
         log(f"[sketch] {TREE} has no K7 / K8: the sketch phases are skipped")
+    # ... and one from before the paged slice has no K9 / K10.
+    has_paged = has_paging()
+    if has_paged:
+        phase_paged_kernels(torch, np, paged_rng, errs)
+    else:
+        check(TREE is not None, "the port has no paged path")
+        log(f"[paged] {TREE} has no K9 / K10: the paged phases are skipped")
 
     # ---- the main path: counts from 0 just before, read just after.
     fs.reset_launches()
@@ -3010,12 +3445,40 @@ def main() -> int:
         check(TREE is not None, "the port has no decision ledger")
         log(f"[ledger] {TREE} has no decision ledger: the ledger phases are skipped")
 
+    # ---- the paged path (paged state with the page spill K9 and the refill
+    # K10): counts from 0 just before, read just after.
+    paged_launches = {k: 0 for k in fs.launches}
+    zipf_k = 0
+    if has_paged:
+        fs.reset_launches()
+        pg_engines, pg_per_batch, pg_read = phase_paged(torch, np, paged_rng, card)
+        paged_launches = dict(fs.launches)
+        pg_disp = sum(e.dispatches_total for e in pg_engines)
+        pg_win = sum(e.sweep_windows_total for e in pg_engines)
+        log(f"[paged] launches {paged_launches}; engine launches {pg_disp} + sweep windows "
+            f"{pg_win} | {card}")
+        check(sum(paged_launches.values()) == pg_disp + pg_win,
+              "every launch of the paged path must be an engine launch or a sweep window")
+        for name in ("gather_pages", "load_pages", "collapsed_step", "uniform_step",
+                     "load_slots", "sweep_window"):
+            check(paged_launches[name] > 0, f"the paged path must launch {name}")
+        check(pg_read["k9"] > 0 and pg_read["k10"] > 0,
+              "the full-width zipf stream must spill and refill")
+        zipf_k = int(statistics.median([k for k in pg_per_batch if k > 0]))
+        for e in pg_engines:
+            e.close()
+        del pg_engines
+        torch.cuda.empty_cache()
+
     phase_daemon_binary(has_h2)
     times = phase_timing(torch, np, rng, card, k3_calls, k4_calls)
     if has_persist:
         times.update({f"p_{k}": v for k, v in phase_persist_timing(torch, np, rng, card).items()})
     if has_sketch:
         times.update({f"s_{k}": v for k, v in phase_sketch_timing(torch, np, rng, card).items()})
+    if has_paged:
+        times.update({f"pg_{k}": v for k, v in phase_paged_timing(torch, np, paged_rng, card,
+                                                                 zipf_k).items()})
     log(f"[time] HTTP GetRateLimits on the card: {http_rate:.0f} decisions/s | {card}")
     phase_rates(torch, np, rng, card)
 
@@ -3047,15 +3510,25 @@ def main() -> int:
             ("sketch_rotate", "sketch.cu", "gubernator_tpu/ops/sketch.py:63",
              times[f"s_k8_{SKETCH_WIDTH}"]),
         ]
+    if has_paged:
+        # K9's and K10's rows: one launch of 16 pages of 512 rows, the faults
+        # of each fill batch of the full-width paged stream.
+        rows += [
+            ("gather_pages", "page_words.cu", "gubernator_tpu/ops/bucket_kernel.py:1596",
+             times["pg_k9"]),
+            ("load_pages", "page_words.cu", "gubernator_tpu/ops/bucket_kernel.py:1612",
+             times["pg_k10"]),
+        ]
     # launches: the main path's run plus the persistence path's, the
-    # sketch path's, the h2 path's and the ledger path's, each counted
-    # from 0 (K2, K5 and K6 launch on the second only, K7 and K8 on the
-    # third only).
+    # sketch path's, the h2 path's, the ledger path's and the paged
+    # path's, each counted from 0 (K2, K5 and K6 launch on the second and
+    # the last only, K7 and K8 on the third only, K9 and K10 on the last
+    # only).
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": f"gubernator_tpu_torch/csrc/{src}",
          "replaces": replaces,
          "launches": (main_launches[name] + persist_launches[name] + sketch_launches[name]
-                      + h2_launches[name] + ledger_launches[name]),
+                      + h2_launches[name] + ledger_launches[name] + paged_launches[name]),
          "max_abs_err": errs[name],
          "ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": "bytes",
          "library_ms": t[3] if len(t) > 3 else None}
@@ -3073,7 +3546,9 @@ def main() -> int:
            f"{times['p_tick'] * 1e3:.2f} ms" if has_persist else "")
         + (f"; K7 {times[f's_k7_{SKETCH_WIDTH}_{BATCH}'][0] * 1e3:.2f} us per 1000-key batch, "
            f"K8 {times[f's_k8_{SKETCH_WIDTH}'][0] * 1e3:.2f} us per 2^20-wide plane"
-           if has_sketch else "") + ")")
+           if has_sketch else "")
+        + (f"; K9 / K10 {times['pg_k9'][0] * 1e3:.2f} / {times['pg_k10'][0] * 1e3:.2f} us per "
+           f"16 pages of 512" if has_paged else "") + ")")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

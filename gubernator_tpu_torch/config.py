@@ -21,8 +21,14 @@ default 8; GUBER_LEDGER_KEYS, its entry capacity, default 65536;
 GUBER_LEDGER_SETTLE_INTERVAL, its background settle period, default
 0.05 s, 0 = none; reference config.py:157-176, :702-712), the native
 decision plane in the h2 front (GUBER_NATIVE_LEDGER, on by default;
-reference :544-549, :741), and the engine's GUBER_PUMP (the step pump's
-queueing: "1" on, "0" off, unset = on the card only).  The h2 front
+reference :544-549, :741), and the engine's knobs, which the engine reads
+itself: GUBER_PUMP (the step pump's queueing: "1" on, "0" off, unset =
+on the card only) and paged device state (core/paging.py; reference
+config.py:280-309): GUBER_PAGED (only "1" turns it on), GUBER_PAGE_SIZE
+(rows a page, a power of two >= 16, default 512) and
+GUBER_PAGED_RESIDENT (device frames, default 0 = every page resident).
+The hot-key sketch reads GUBER_HOTKEYS, GUBER_HOTKEYS_K and
+GUBER_HOTKEYS_WINDOW itself (utils/hotkeys.py `from_env`).  The h2 front
 reads its other knobs itself (net/h2_fast.py), GUBER_RETRY_HINTS among
 them.  The ledger's defaults live here and in `DecisionLedger`.
 """
@@ -166,3 +172,31 @@ def env_pump(device_type: str) -> bool:
     (reference: core/engine.py, the `want_pump` rule)."""
     v = os.environ.get("GUBER_PUMP", "")
     return v == "1" or (v != "0" and device_type == "cuda")
+
+
+def env_paged() -> bool:
+    """GUBER_PAGED: page the device bucket state behind a page table
+    with host spill (core/paging.py).  Default off: the dense state."""
+    return os.environ.get("GUBER_PAGED", "").strip() == "1"
+
+
+def env_page_size(default: int = 512) -> int:
+    """GUBER_PAGE_SIZE: bucket rows per page, a power of two >= 16
+    (slot → (page, row) is a shift and a mask); anything else falls back
+    to the default."""
+    try:
+        v = int(os.environ.get("GUBER_PAGE_SIZE", "") or default)
+    except ValueError:
+        return default
+    if v < 16 or v & (v - 1):
+        return default
+    return v
+
+
+def env_paged_resident(default: int = 0) -> int:
+    """GUBER_PAGED_RESIDENT: device frames (resident pages).  0 keeps
+    every page resident; a negative value reads as 0."""
+    try:
+        return max(0, int(os.environ.get("GUBER_PAGED_RESIDENT", "") or default))
+    except ValueError:
+        return default

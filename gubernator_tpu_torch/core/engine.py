@@ -57,9 +57,23 @@ Persistence and expiry (reference :212, :266, :770-:803, :914,
   a cursor (kernel K6, `ops/expiry.py`) and hands them back to the
   intern table in ascending order, window after window.
 
-Each of them runs what the pump holds first.  Not in this slice: paging
-and the ledger.  `now_ms` flows in from the caller or the injected
-Clock.
+Each of them runs what the pump holds first.  `now_ms` flows in from the
+caller or the injected Clock.
+
+Paged state (GUBER_PAGED; core/paging.py; reference :349-372): the
+engine's `capacity` argument becomes `logical_capacity`, the intern
+table's size, and `capacity` the device's, the resident frames' rows:
+the state, the padding lanes `capacity + lane` of every packer and the
+sweep use it.  A batch with more unique keys than frames is cut into
+arrival-order segments (`_segments_by_unique_keys`).  Right after
+`schedule`, `paging.translate` faults the batch's pages in and gives
+device rows; the intern table keeps the logical slots (`set_expiry`).
+An eviction clear of a cold page drops the occupied bit in the host
+store; a resident one goes to the device as its row, inside the round
+buffers as always (`_device_clears`).  Restores into cold pages write
+the host store (`_apply_restores`), the sweep frees cold expired rows
+from the host words after the device windows, and `export_items` reads
+cold pages from the host store: none of them faults a page in.
 
 Threads: the kernels launch on the calling thread's current stream, and
 PyTorch's current stream is the device's default stream in every thread
@@ -78,8 +92,14 @@ import numpy as np
 import torch
 
 from gubernator_tpu_torch.clock import SYSTEM_CLOCK, Clock
-from gubernator_tpu_torch.config import env_pump
+from gubernator_tpu_torch.config import (
+    env_page_size,
+    env_paged,
+    env_paged_resident,
+    env_pump,
+)
 from gubernator_tpu_torch.core.native import make_intern_table
+from gubernator_tpu_torch.core.paging import PagePlane
 from gubernator_tpu_torch.core.pump import StepPump
 from gubernator_tpu_torch.core.readback import ReadbackCombiner
 from gubernator_tpu_torch.gregorian import (
@@ -138,6 +158,25 @@ _STATUS_OF = {int(s): s for s in Status}
 
 def _aligned(n: int) -> int:
     return -(-n // ROUND_ALIGN) * ROUND_ALIGN
+
+
+def _segments_by_unique_keys(keys: List, budget: int) -> List[tuple]:
+    """Cut a batch into contiguous arrival-order segments of at most
+    `budget` unique keys each (paged state: unique pages <= unique keys,
+    so each segment's pages fit the frames); returns [(lo, hi)] ranges
+    covering the batch (reference :83)."""
+    segs: List[tuple] = []
+    lo = 0
+    seen: set = set()
+    for i, k in enumerate(keys):
+        if k not in seen:
+            if len(seen) >= budget:
+                segs.append((lo, i))
+                lo = i
+                seen = set()
+            seen.add(k)
+    segs.append((lo, len(keys)))
+    return segs
 
 
 class PackedKeys:
@@ -272,10 +311,18 @@ class DecisionEngine:
         store=None,  # store.Store: write-through hooks
     ):
         self.device = resolve_device(device)
+        # Paged state: `capacity` is the logical key space, the device
+        # holds the resident frames only (GUBER_PAGED*, read here as the
+        # reference's engine reads them).
+        self.logical_capacity = capacity
+        self.paging: Optional[PagePlane] = None
+        if env_paged():
+            self.paging = PagePlane(capacity, env_page_size(), env_paged_resident())
+            capacity = self.paging.device_capacity
         self.capacity = capacity
         self.clock = clock
         self.max_kernel_width = max_kernel_width
-        self.table = make_intern_table(capacity)
+        self.table = make_intern_table(self.logical_capacity)
         self._state: BucketState = make_state(capacity, self.device)
         self.store = store
         # Next window start of the incremental sweep.
@@ -294,9 +341,11 @@ class DecisionEngine:
         # Rounds and sub-rounds run, plus one per collapsed chunk.
         self.rounds_total = 0
         # Every kernel launch the serving, store and load paths make (K1,
-        # K3, K4; K2 and K5 where a round restores or a load runs).
+        # K3, K4; K2 and K5 where a round restores or a load runs; K9 and
+        # K10 where paged state faults).
         self.dispatches_total = 0
-        # Eviction clears run, inside those launches or as K2's.
+        # Eviction clears run, inside those launches or as K2's (or, for a
+        # cold page, in the host store).
         self.clears_total = 0
         # Sweep windows run (K6 launches).
         self.sweep_windows_total = 0
@@ -457,12 +506,22 @@ class DecisionEngine:
         if n == 0:
             return PendingColumnar(self, [], limit, 0)
         with self._lock:
+            key_list, segs = self._segments(keys)
+            if segs is not None:
+                return self._segmented(segs, limit, lambda lo, hi: self._apply(
+                    key_list[lo:hi], tuple(c[lo:hi] for c in cols), now_ms,
+                    uniform_ok=uniform_ok))
             if isinstance(keys, PackedKeys):
                 slots, rounds_arr, evicted, evict_rounds = self.table.schedule_packed(
                     keys.buf, keys.offsets, now_ms
                 )
             else:
                 slots, rounds_arr, evicted, evict_rounds = self.table.schedule(keys, now_ms)
+            lslots = slots
+            if self.paging is not None:
+                slots = self.paging.translate(self, lslots)
+                evicted, res = self._device_clears(evicted)
+                evict_rounds = evict_rounds[res]
             pieces = None
             if int(rounds_arr.max()) > 0:
                 # Hot keys: one collapsed launch instead of a round per
@@ -475,8 +534,41 @@ class DecisionEngine:
                 pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms, clear_by_round,
                                                uniform_ok)
             # Host TTL mirror for eviction accounting (device is authoritative).
-            self.table.set_expiry(slots, self._expiry(cols, now_ms))
+            self.table.set_expiry(lslots, self._expiry(cols, now_ms))
         return PendingColumnar(self, pieces, limit, n)
+
+    def _segments(self, keys):
+        """Paged state: (the keys as a list, the segments) of a batch with
+        more unique keys than frames (reference :561, :1029), or (None,
+        None) when it fits."""
+        if self.paging is None or len(keys) <= self.paging.frames:
+            return None, None
+        key_list = keys.to_list() if isinstance(keys, PackedKeys) else keys
+        segs = _segments_by_unique_keys(key_list, self.paging.frames)
+        return (key_list, segs) if len(segs) > 1 else (None, None)
+
+    def _segmented(self, segs, limit, apply_segment) -> PendingColumnar:
+        """Apply a batch segment by segment, in order; each segment's
+        pieces are re-offset into the caller's lanes (reference
+        :1043-1044)."""
+        pieces = []
+        for lo, hi in segs:
+            for p in apply_segment(lo, hi)._pieces:
+                pieces.append((p[0], p[1] + lo) + p[2:])
+        return PendingColumnar(self, pieces, limit, len(limit))
+
+    def _device_clears(self, evicted):
+        """Paged state: eviction clears (logical slots, after the batch's
+        translation) → (the device rows of the resident ones, the resident
+        mask).  A slot whose page is not resident is cleared in the host
+        store here: no batch touches it (reference `_apply_clears`
+        :740-757)."""
+        evicted = np.asarray(evicted, dtype=_I64)
+        res = self.paging.resident_mask(evicted)
+        if not res.all():
+            self.paging.clear_host_slots(evicted[~res])
+            self.clears_total += int((~res).sum())
+        return self.paging.resident_rows(evicted[res]), res
 
     def _apply_store(self, reqs, cols, now_ms: int) -> PendingColumnar:
         """The decision path with a write-through store (reference
@@ -485,6 +577,11 @@ class DecisionEngine:
         next use, and `store.get` for every new key, whose item restores
         its slot in that round.  No collapse.  Caller holds the lock."""
         n = len(reqs)
+        if self.paging is not None and n > self.paging.frames:
+            _keys, segs = self._segments([r.hash_key() for r in reqs])
+            if segs is not None:
+                return self._segmented(segs, cols[3], lambda lo, hi: self._apply_store(
+                    reqs[lo:hi], tuple(c[lo:hi] for c in cols), now_ms))
         slots = np.empty(n, dtype=_I32)
         rounds_arr = np.empty(n, dtype=_I32)
         seq: dict[int, int] = {}
@@ -506,9 +603,19 @@ class DecisionEngine:
                 item = self.store.get(r)
                 if item is not None and item.value is not None:
                     restore_by_round.setdefault(k, []).append((slot, item))
+        lslots = slots
+        if self.paging is not None:
+            # Device rows for the rounds and the clears they carry; restores
+            # stay logical (`_apply_restores` maps them).
+            slots = self.paging.translate(self, lslots)
+            for k, cleared in clear_by_round.items():
+                # A restoring round's clears stay logical: they run through
+                # `_apply_clears`, which maps them.
+                if k not in restore_by_round:
+                    clear_by_round[k] = self._device_clears(cleared)[0].tolist()
         pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms, clear_by_round, False,
                                        restore_by_round)
-        self.table.set_expiry(slots, self._expiry(cols, now_ms))
+        self.table.set_expiry(lslots, self._expiry(cols, now_ms))
         return PendingColumnar(self, pieces, cols[3], n)
 
     def _uniform_params(self, algo, behavior, hits, limit, duration, burst) -> Optional[tuple]:
@@ -682,7 +789,13 @@ class DecisionEngine:
 
     def _apply_clears(self, cleared: np.ndarray) -> None:
         """Eviction clears as one K2 launch of their own (reference :730),
-        padded to the pow2 ladder from 16 with `capacity + lane`."""
+        padded to the pow2 ladder from 16 with `capacity + lane`.  The slots
+        are logical: with paged state a cold page's slots clear in the host
+        store, the resident ones at their device rows (:740-757)."""
+        if self.paging is not None:
+            cleared = self._device_clears(cleared)[0]
+            if len(cleared) == 0:
+                return
         self._flush_pump()
         c = np.arange(self.capacity, self.capacity + pad_size(len(cleared), floor=16),
                       dtype=np.int64).astype(_I32)
@@ -693,9 +806,21 @@ class DecisionEngine:
 
     def _apply_restores(self, restores: List[tuple]) -> None:
         """Hydrate items into fresh slots, `restores` = [(slot, CacheItem)]
-        with unique slots: one record buffer, one copy, one K5 launch
-        (reference :770)."""
+        with unique logical slots: one record buffer, one copy, one K5
+        launch (reference :770).  With paged state the items of cold pages
+        go to the host store instead (no fault) and the others to their
+        device rows."""
         self._flush_pump()
+        if self.paging is not None:
+            res = self.paging.resident_mask([s for s, _ in restores])
+            cold = [r for r, ok in zip(restores, res) if not ok]
+            if cold:
+                self.paging.host_restore(cold)
+            hot = [r for r, ok in zip(restores, res) if ok]
+            if not hot:
+                return
+            rows = self.paging.resident_rows(np.asarray([s for s, _ in hot], dtype=_I64))
+            restores = [(int(d), item) for d, (_s, item) in zip(rows, hot)]
         rec = pack_restore_host(build_restore_record(restores, self.capacity))
         load_slots(self._state, self._stage(rec))
         self.dispatches_total += 1
@@ -714,12 +839,25 @@ class DecisionEngine:
         def release(freed: np.ndarray, start: int) -> int:
             self.sweep_windows_total += 1
             if len(freed):
-                self.table.release_slots(freed + start)
+                slots = freed + start
+                if self.paging is not None:
+                    # The intern table only knows logical slots.
+                    slots = self.paging.logical_of_device(slots)
+                self.table.release_slots(slots)
             return len(freed)
 
         with self._lock:
             self._flush_pump()
-            return windowed_sweep(self, self.capacity, now_ms, max_windows, release)
+            freed = windowed_sweep(self, self.capacity, now_ms, max_windows, release)
+            if self.paging is not None:
+                # Cold pages never reach the device sweep: their expired
+                # rows free from the host words, with no fault (reference
+                # :940-944).
+                host_freed = self.paging.sweep_host(now_ms)
+                if len(host_freed):
+                    self.table.release_slots(host_freed)
+                    freed += len(host_freed)
+            return freed
 
     # ------------------------------------------------------------------
     # Bulk persistence (reference :1401-:1500; store.go:69-78 Loader).
@@ -772,9 +910,18 @@ class DecisionEngine:
         with self._lock:
             self._flush_pump()
             u = unpack_state_host(self._state)
-            rows = [(int(sl), self.table.key_for_slot(int(sl)))
-                    for sl in np.nonzero(u["occupied"])[0]]
-        for sl, key in rows:
+            dev = np.nonzero(u["occupied"])[0]
+            lsl = dev if self.paging is None else self.paging.logical_of_device(dev)
+            rows = [(u, int(sl), self.table.key_for_slot(int(ls))) for sl, ls in zip(dev, lsl)]
+            if self.paging is not None:
+                # Cold pages export from the host store, bit-identical
+                # words, with no fault (reference :1468-1477).
+                for page in self.paging.nonresident_used_pages():
+                    hu = self.paging.host_rows(page)
+                    base = int(page) << self.paging.page_shift
+                    rows.extend((hu, int(r), self.table.key_for_slot(base + int(r)))
+                                for r in np.nonzero(hu["occupied"])[0])
+        for u, sl, key in rows:
             if key is None:
                 continue
             yield item_from_record(

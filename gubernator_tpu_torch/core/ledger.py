@@ -449,6 +449,11 @@ class DecisionLedger:
         # bridge calls happen under _lock, so the lock order is always
         # ledger lock → plane mutex (the C mutex never calls back out).
         self._native = None  # guarded by _lock
+        # Optional hot-key sketch (utils/hotkeys.py, attached by the
+        # service): native drains are credited to it when a lease is pulled
+        # back, the only moment the C tier's per-key counts surface.  Leaf
+        # lock: the sketch never calls back into the ledger.
+        self.hotkeys = None
         self._stop = threading.Event()
         self._flusher = None
         if settle_interval > 0:
@@ -503,6 +508,8 @@ class DecisionLedger:
         next (engine lane, revoke, settle)."""
         res = self._native.pull(e.key)
         if res is not None and res[0] == _K_LEASE:
+            if self.hotkeys is not None and res[1] > e.consumed:
+                self.hotkeys.offer(e.key, res[1] - e.consumed)
             e.consumed = res[1]
         e.kind = _K_LEASE
 

@@ -15,8 +15,13 @@ SWEEP_WINDOWS_PER_TICK windows a tick).  `close` stops the sweeper, then
 the h2 front (its dispatch thread calls into the engine; it pulls the
 plane's leases back to the ledger), then the gateway, saves the cache to
 the loader, and closes the service (the ledger settles, then the engine
-closes; reference daemon.py:631-674).  The gRPC front, peer discovery
-and the cluster planes are not in this slice.
+closes; reference daemon.py:631-674).  Paged state and the hot-key
+sketch need nothing here: the engine reads GUBER_PAGED, GUBER_PAGE_SIZE
+and GUBER_PAGED_RESIDENT itself, and the service GUBER_HOTKEYS*, as the
+reference's do; with paging on, `conf.cache_size` is the logical key
+space and the store, the loader and the sweep thread reach cold pages
+through the host store.  The gRPC front, peer discovery and the cluster
+planes are not in this slice.
 """
 
 from __future__ import annotations
@@ -95,8 +100,9 @@ class Daemon:
             self._sweeper.start()
         self._serving = True
         log.info(
-            "gubernator_tpu_torch listening: http=%s h2=%s device=%s slots=%d",
+            "gubernator_tpu_torch listening: http=%s h2=%s device=%s slots=%d keys=%d",
             self.http_address, self.h2_fast_address or "off", engine.device, engine.capacity,
+            engine.logical_capacity,
         )
 
     def _sweep_loop(self) -> None:

@@ -1293,3 +1293,66 @@ def load_slots_reference(state: BucketState, rec: torch.Tensor) -> None:
     )
     for col, w in zip(state, words):
         col[dst] = w.to(_I32)
+
+
+# ---------------------------------------------------------------------------
+# Page words: the spill and refill of paged state (reference :1585-:1629,
+# `gather_page_words` / `_load_page_words_impl`).  A page is its 12
+# columns' raw words at device rows [start, start + page_size), one int32
+# row per column in `BucketState` order.  The reference bitcasts its
+# uint32 columns to int32; the port already holds them as int32, so a
+# page block is a plain copy, bit for bit the reference's block.
+
+PAGE_WORD_ROWS = N_COLS  # 12, one row per column
+
+
+def check_page_starts(state: BucketState, starts: torch.Tensor, page_size: int) -> int:
+    """Validate a page launch's state and starts (int32 [k], k >= 1, on
+    the state's device); returns the capacity."""
+    cap = check_state(state)
+    if page_size < 1 or page_size > cap:
+        raise ValueError(f"page_size must be in [1, {cap}]; got {page_size}")
+    if starts.dtype != _I32 or starts.dim() != 1 or starts.shape[0] < 1:
+        raise ValueError(f"starts must be int32 [k], k >= 1; got {starts.dtype} "
+                         f"{list(starts.shape)}")
+    if starts.device != state.meta.device:
+        raise ValueError(f"starts is on {starts.device}, state on {state.meta.device}")
+    return cap
+
+
+def gather_page_words_reference(state: BucketState, starts: torch.Tensor,
+                                page_size: int) -> torch.Tensor:
+    """Spill, plain version: the words of k pages, int32
+    [k, PAGE_WORD_ROWS, page_size]; page i starts at device row
+    `starts[i]` (taken as the reference's dynamic slice takes it)."""
+    cap = check_page_starts(state, starts, page_size)
+    rows = _page_rows(starts, cap, page_size)
+    return torch.stack([col[rows] for col in state], dim=1)
+
+
+def load_page_words_reference(state: BucketState, starts: torch.Tensor,
+                              words: torch.Tensor) -> None:
+    """Refill, plain version: write page i's block `words[i]` (int32
+    [k, PAGE_WORD_ROWS, P]) into the columns at device row `starts[i]`,
+    in place.  The pages must not overlap (every caller's starts are
+    distinct frames)."""
+    if words.dtype != _I32 or words.dim() != 3 or words.shape[1] != PAGE_WORD_ROWS:
+        raise ValueError(f"words must be int32 [k, {PAGE_WORD_ROWS}, P]; got {words.dtype} "
+                         f"{list(words.shape)}")
+    page_size = words.shape[2]
+    cap = check_page_starts(state, starts, page_size)
+    if words.shape[0] != starts.shape[0]:
+        raise ValueError("words and starts disagree on the number of pages")
+    rows = _page_rows(starts, cap, page_size).reshape(-1)
+    for c, col in enumerate(state):
+        col[rows] = words[:, c, :].reshape(-1)
+
+
+def _page_rows(starts: torch.Tensor, cap: int, page_size: int) -> torch.Tensor:
+    """The device rows of k pages, int64 [k, page_size], each start taken
+    as the reference's `lax.dynamic_slice` takes it: a negative start
+    counts from the end, then it is clamped so that its page lies inside
+    [0, cap)."""
+    s = starts.to(_I64)
+    s = torch.where(s < 0, s + cap, s).clamp(0, cap - page_size)
+    return s[:, None] + torch.arange(page_size, dtype=_I64, device=starts.device)

@@ -1,6 +1,7 @@
 """Build and load the port's native code: the CUDA kernels (csrc/*.cu:
 K1 and K4 in fused_step.cu, K2 clear_occupied.cu, K3 collapsed_step.cu,
-K5 load_slots.cu, K6 sweep.cu, K7 and K8 sketch.cu), the host intern
+K5 load_slots.cu, K6 sweep.cu, K7 and K8 sketch.cu, K9 and K10
+page_words.cu), the host intern
 table (csrc/intern_table.cpp), the wire codec (csrc/wire_codec.cpp), the
 h2 front (csrc/h2_server.cpp, linked with the wire codec and the native
 decision plane, csrc/decision_plane.cpp, into one library, as the
@@ -43,6 +44,7 @@ SOURCES = {
     "load_slots": ("load_slots.cu",),
     "sweep": ("sweep.cu",),
     "sketch": ("sketch.cu",),
+    "page_words": ("page_words.cu",),
     "intern_table": ("intern_table.cpp",),
     "wire_codec": ("wire_codec.cpp",),
     # The wire codec and the decision plane link into the h2 server, as the
@@ -197,6 +199,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.guber_sketch_step.restype = i
         lib.guber_sketch_rotate.argtypes = [p, ll, p]
         lib.guber_sketch_rotate.restype = i
+    elif name == "page_words":
+        # cols, cap, starts, k, page, out / words, stream
+        for fn in (lib.guber_gather_pages, lib.guber_load_pages):
+            fn.argtypes = [ctypes.POINTER(p), ctypes.c_longlong, p, i, i, p, p]
+            fn.restype = i
     elif name == "intern_table":
         i64 = ctypes.c_int64
         lib.git_new.restype = p

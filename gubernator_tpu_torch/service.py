@@ -22,6 +22,17 @@ before its engine call (`invalidate_keys`), so the engine computes on
 the sequential state.  Peers, forwarding and the cluster planes are not
 in the port yet: with no peers there is no GLOBAL broadcast cache for
 the ledger's read-only tier.
+
+The hot-key sketch (utils/hotkeys.py `SpaceSaving`, GUBER_HOTKEYS, on by
+default; reference :465-509) counts the decision keys of both entry
+points: the dataclass path's items before the engine call (:604-620) and
+the columnar rows before the ledger (`_offer_hotkeys`, :1009); the ledger
+credits what its native plane answered when it pulls a lease back.  Its
+one reader in the port is paged state's eviction clock (`_hot_slots`):
+pages that hold the top keys get a grace pass of the clock hand, as in
+the reference, whose victims, and so device words, the port must match.
+So the sketch is built only over a paged engine; the reference's other
+readers (`/debug/hotkeys`, the replication plane) are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,8 +43,10 @@ from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 
+from gubernator_tpu_torch.utils import hotkeys as _hotkeys
 from gubernator_tpu_torch.types import (
     MAX_BATCH_SIZE,
+    Algorithm,
     Behavior,
     HealthCheckResp,
     RateLimitReq,
@@ -44,6 +57,13 @@ from gubernator_tpu_torch.types import (
 HEALTHY = "healthy"
 _GLOBAL = int(Behavior.GLOBAL)
 _SKETCH = int(Behavior.SKETCH)
+_TOKEN = int(Algorithm.TOKEN_BUCKET)
+# Rows that can never be answered from leased credit (reference :68): the
+# sketch stamps limit 0 for them, so lease sizing skips them.
+_LEASE_BREAKERS = (
+    int(Behavior.DURATION_IS_GREGORIAN) | int(Behavior.RESET_REMAINING)
+    | int(Behavior.MULTI_REGION) | _SKETCH
+)
 
 # Behaviors the columnar route declines (reference service.py:79-82):
 # GLOBAL and MULTI_REGION (their managers' queues), Gregorian durations
@@ -103,6 +123,40 @@ class V1Instance:
         self._sketch = None
         self._sketch_lock = threading.Lock()
         self.counters = {"sketch": 0}  # items decided by the approximate limiter
+        # Hot-key attribution: None when GUBER_HOTKEYS is off or no
+        # paged state reads it.
+        paging = getattr(engine, "paging", None)
+        self.hotkeys = _hotkeys.from_env() if paging is not None else None
+        if self.hotkeys is not None:
+            paging.hot_slots_provider = self._hot_slots_provider(engine, self.hotkeys)
+        if self.ledger is not None and self.hotkeys is not None:
+            # Native drains surface their per-key counts only when the
+            # ledger pulls a lease back: it credits them there.
+            self.ledger.hotkeys = self.hotkeys
+
+    @staticmethod
+    def _hot_slots_provider(engine, sketch):
+        """The paged state's heat feed (reference :474-498): the logical
+        slots of the sketch's 32 top keys by current rate.  It runs under
+        the engine lock (from `translate`), so `contains` then `intern`
+        is atomic; `intern` of a present key is a lookup."""
+        table, clock = engine.table, engine.clock
+
+        def hot_slots() -> List[int]:
+            out: List[int] = []
+            now = clock.now_ms()
+            for key, rate, _lim, _dur in sketch.top_rates(32):
+                if rate <= 0:
+                    break
+                try:
+                    ks = key.decode()
+                except UnicodeDecodeError:
+                    continue
+                if table.contains(ks):
+                    out.append(table.intern(ks, now, []))
+            return out
+
+        return hot_slots
 
     def sketch(self):
         """The sketch limiter, built on first use (reference :528)."""
@@ -157,6 +211,16 @@ class V1Instance:
                 responses[i] = resp
         if local:
             reqs = [requests[i] for i in local]
+            if self.hotkeys is not None:
+                # Lease-sizing aux: only rows the lease algebra could cover
+                # stamp their limit (reference :604-620).
+                self.hotkeys.offer_many_params(
+                    (r.hash_key().encode(), max(r.hits, 1),
+                     r.limit if int(r.algorithm) == _TOKEN
+                     and not int(r.behavior) & _LEASE_BREAKERS else 0,
+                     r.duration)
+                    for r in reqs
+                )
             batch = reqs + _global_reads(reqs)
             if self.ledger is not None:
                 # This batch runs on the engine outside the ledger: settle
@@ -175,19 +239,32 @@ class V1Instance:
         it is on, or None to decline (the front answers UNIMPLEMENTED).
         It declines when a write-through store is attached, which
         `apply_columnar` cannot honour.  The reference's ownership gate
-        is true on a node with no peers, the only node the port has.  No
-        hot-key offer: it comes with ROADMAP A item 13."""
+        is true on a node with no peers, the only node the port has.  The
+        rows are offered to the hot-key sketch first."""
         from gubernator_tpu_torch.core.engine import PackedKeys
 
         engine = self.engine
         if engine.store is not None:
             return None
+        self._offer_hotkeys(dec)
         if self.ledger is not None:
             return self._serve_decoded_ledger(dec)
         return engine.apply_columnar(
             PackedKeys(dec.key_buf, dec.key_offsets, dec.n), dec.algo, dec.behavior, dec.hits,
             dec.limit, dec.duration, dec.burst,
         )
+
+    def _offer_hotkeys(self, dec) -> None:
+        """Columnar hot-key accounting (reference :1009): rows the lease
+        algebra could never cover stamp limit 0."""
+        hk = self.hotkeys
+        if hk is None:
+            return
+        lim = np.asarray(dec.limit)
+        elig = ((np.asarray(dec.algo) == _TOKEN)
+                & ((np.asarray(dec.behavior) & _LEASE_BREAKERS) == 0) & (lim > 0))
+        hk.offer_columns(dec.key_buf, dec.key_offsets, dec.hits, hashes=dec.fnv1a,
+                         limit=np.where(elig, lim, 0), duration=dec.duration)
 
     def _serve_decoded_ledger(self, dec):
         """Ledger-aware columnar serve (reference :1065): hot-key rows

@@ -28,8 +28,9 @@ def swallowed_counts() -> dict:
 class DurationStat:
     """Count and sum of observed durations (seconds): the part of the
     reference's DurationStat (:79) the ledger reads, its settle lag's
-    mean.  The reference's max, histogram and quantiles come with the
-    debug routes that read them (ROADMAP A item 13)."""
+    mean, and the paging timers.  The reference's max, histogram and
+    quantiles come with the debug routes that read them (ROADMAP A item
+    13)."""
 
     __slots__ = ("count", "total", "_lock")
 
@@ -38,9 +39,11 @@ class DurationStat:
         self.total = 0.0
         self._lock = threading.Lock()
 
-    def observe(self, seconds: float) -> None:
+    def observe(self, seconds: float, count: int = 1) -> None:
+        """Record `count` durations that sum to `seconds` (paging times
+        a batch of faults once)."""
         with self._lock:
-            self.count += 1
+            self.count += count
             self.total += seconds
 
     def mean(self) -> float:

@@ -391,9 +391,17 @@ def test_wrappers_route_cpu_tensors_to_the_plain_version():
     pin[2] = torch.arange(64)
     assert ps.sketch_step(counts, pin, 0)[1, 0] == 2 and counts[0, 0, 0] == 2
     assert ps.sketch_rotate(counts, 0, 1) == 1 and counts[1].abs().sum() == 0
+    from gubernator_tpu_torch.ops import page_words as pw
+
+    starts = torch.tensor([0, 112], dtype=torch.int32)
+    block = pw.gather_pages(state, starts, 16)
+    assert block.shape == (2, 12, 16) and int(block[0, 0, 3]) == int(state.meta[3])
+    pw.load_pages(state, starts.flip(0), block)
+    assert int(state.meta[115]) == int(block[0, 0, 3])
     assert fs.launches == {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0,
                            "uniform_step": 0, "load_slots": 0, "sweep_window": 0,
-                           "sketch_step": 0, "sketch_rotate": 0}
+                           "sketch_step": 0, "sketch_rotate": 0, "gather_pages": 0,
+                           "load_pages": 0}
     meta_state = tk.BucketState(*(torch.empty(8, dtype=torch.int32, device="meta") for _ in range(12)))
     with pytest.raises(ValueError):
         fs.fused_step(meta_state, torch.empty((16, 64), dtype=torch.int32, device="meta"))

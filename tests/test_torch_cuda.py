@@ -833,3 +833,102 @@ def test_h2_front_on_the_card_matches_the_cpu(cuda):
             f.close()
         gpu.close()
         cpu.close()
+
+
+def _page_state(rng, cap, dev):
+    """Every bit pattern likely: bit 31 set in the `*_lo` columns."""
+    return tk.BucketState(*(torch.from_numpy(
+        rng.integers(-(2**31), 2**31, cap, dtype=np.int64).astype(np.int32)).to(dev)
+        for _ in tk.BucketState._fields))
+
+
+@pytest.mark.parametrize("page_size", [16, 64, 512])
+@pytest.mark.parametrize("k", [1, 64])
+def test_page_kernels_bit_equal_to_plain(cuda, page_size, k):
+    """K9 (gather_pages) and K10 (load_pages) against their plain versions,
+    starts at row 0 and at the last frame among them."""
+    from gubernator_tpu_torch.ops.page_words import gather_pages, load_pages
+
+    rng = np.random.default_rng(page_size + k)
+    frames = 128
+    cap = frames * page_size
+    gpu = _page_state(rng, cap, cuda)
+    cpu = tk.BucketState(*(c.cpu() for c in gpu))
+    starts = np.sort(rng.choice(frames, k, replace=False)) * page_size
+    starts[0], starts[-1] = 0, cap - page_size
+    st = torch.from_numpy(starts.astype(np.int32))
+    fs.reset_launches()
+    got = gather_pages(gpu, st.to(cuda), page_size)
+    torch.cuda.synchronize()
+    want = tk.gather_page_words_reference(cpu, st, page_size)
+    assert torch.equal(got.cpu(), want)
+    assert (want[:, 3] < 0).any()
+    words = torch.from_numpy(rng.integers(-(2**31), 2**31, (len(starts), 12, page_size),
+                                          dtype=np.int64).astype(np.int32))
+    load_pages(gpu, st.to(cuda), words.to(cuda))
+    torch.cuda.synchronize()
+    tk.load_page_words_reference(cpu, st, words)
+    for a, b in zip(gpu, cpu):
+        assert torch.equal(a.cpu(), b)
+    assert fs.launches["gather_pages"] == fs.launches["load_pages"] == 1
+
+
+def test_page_kernels_reject_a_bad_launch(cuda):
+    from gubernator_tpu_torch.ops.page_words import gather_pages, load_pages
+
+    state = _page_state(np.random.default_rng(1), 256, cuda)
+    st = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        gather_pages(state, st, 18)  # not a multiple of 4
+    with pytest.raises(ValueError):
+        gather_pages(state, st.cpu(), 16)
+    with pytest.raises(ValueError):
+        load_pages(state, st, torch.zeros((2, 12, 16), dtype=torch.int32, device=cuda))
+
+
+def test_paged_engine_on_the_card_matches_the_cpu(cuda, monkeypatch, tmp_path):
+    """A paged engine on the card (K9 / K10 on every fault batch) against
+    a paged CPU engine: answers, counters, page table, host store and
+    device words; then a checkpoint load with no fault and a host sweep."""
+    from gubernator_tpu_torch.checkpoint import NpzFileLoader
+
+    monkeypatch.setenv("GUBER_PAGED", "1")
+    monkeypatch.setenv("GUBER_PAGE_SIZE", "16")
+    monkeypatch.setenv("GUBER_PAGED_RESIDENT", "8")
+    rng = np.random.default_rng(13)
+    ns = 1_760_000_000_000 * 1_000_000
+    gpu = DecisionEngine(4096, clock=Clock().freeze_at(ns), device=cuda)
+    cpu = DecisionEngine(4096, clock=Clock().freeze_at(ns), device="cpu")
+    fs.reset_launches()
+    for _ in range(40):
+        n = int(rng.integers(1, 120))
+        keys = [b"pg_%d" % int(k) for k in rng.integers(0, 1500, n)]
+        cols = (rng.integers(0, 2, n).astype(np.int32), np.zeros(n, np.int32),
+                rng.integers(0, 3, n).astype(np.int64), np.full(n, 20, np.int64),
+                rng.choice([500, 60_000], n).astype(np.int64), np.zeros(n, np.int64))
+        for a, b in zip(gpu.apply_columnar(keys, *cols), cpu.apply_columnar(keys, *cols)):
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+        dt = int(rng.integers(0, 100))
+        for e in (gpu, cpu):
+            e.clock.advance(ms=dt)
+    gp, cp = gpu.paging, cpu.paging
+    assert gp.faults > 0 and (gp.faults, gp.spills, gp.refills) == (cp.faults, cp.spills,
+                                                                     cp.refills)
+    for name in ("frame_of", "page_of", "_ref", "_ever_used"):
+        assert np.array_equal(getattr(gp, name), getattr(cp, name)), name
+    assert np.array_equal(gp.host_words, cp.host_words)
+    got, want = tk.state_to_numpy(gpu.state), tk.state_to_numpy(cpu.state)
+    for f in tk.BucketState._fields:
+        assert np.array_equal(got[f], want[f]), f
+    assert fs.launches["gather_pages"] > 0 and fs.launches["load_pages"] == gp.fault_batches
+    path = str(tmp_path / "paged.npz")
+    gpu.save(NpzFileLoader(path))
+    fresh = DecisionEngine(4096, clock=Clock().freeze_at(gpu.clock.now_ms() * 10**6),
+                           device=cuda)
+    assert fresh.load(NpzFileLoader(path)) == len(gpu.table)
+    assert fresh.paging.faults == 0
+    for e in (gpu, cpu):
+        e.clock.advance(ms=120_000)
+    faults = gp.faults
+    assert gpu.sweep() == cpu.sweep() > 0
+    assert gp.faults == faults
