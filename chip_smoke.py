@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's native code from gubernator_tpu_torch/csrc (the CUDA
-kernels K1-K10 and the host libraries, one compiler each, in
+kernels K1-K13 and the host libraries, one compiler each, in
 parallel), holds each kernel against its plain PyTorch version on the
 card at 2^20 and 10^8 slots (K1 over one round and over R ragged rounds
 with eviction clears; K3, the collapsed hot-key step, on a zipf batch, a
@@ -118,6 +118,26 @@ bit 31 set in the `*_lo` words, and timed at P = 512 beside their bound
 and one PyTorch call each: torch.stack of the pages' column slices (K9),
 torch._foreach_copy_ into them (K10).
 
+A seventh path, the sharded path (parallel/sharded_engine.py, the
+reference's single-program sharded engine on one card), counts its
+launches from 0 too; K11 (the per-shard round), K12 (the per-shard
+collapsed chunk) and K13 (the sweep window of every shard) are held
+bit-equal to their plain versions first, at 8 shards x 2^16 and 4 x 2.5 x
+10^7 with padding lanes, an empty shard and clears.  (a) Card against
+CPU at 8 shards x 2^16: a fill of 700,000 keys (evictions), zipf(1.1)
+columnar batches of 8192 (the flat K1 / K3) and get_rate_limits batches
+of 1000 (K11, K12), Gregorian minutes on 1 key in 7, sweeps (K13), and a
+store engine whose swept keys come back from the store (K5): answers and
+state words equal.  (b) The full size, BASELINE.json configs[3] (the
+north star's v5e-4, one shard a chip): 4 shards x 2.5 x 10^7 slots,
+10^8 key ranks, half token half leaky, zipf(1.1) and spread batches of
+8192 through apply_columnar and of 1000 through V1Instance, each answered
+as a dense card engine of 10^8 slots answers it; decisions/s a route,
+the launches a route, the device's idle share; a save / load of the whole
+state (timed) and one K13 sweep pass.  (c) The daemon with
+GUBER_DEVICE_COUNT=4 answers the h2 parity stream byte for byte as the
+same daemon on the CPU.
+
 It checks the launch counts of the main path (K1, K3 and K4 all launched; K1
 at most once per synchronous batch; the pump flushed), holds the zipf
 stream's collapsed pins to K3's layout (`check_collapsed`), and times
@@ -140,9 +160,9 @@ runs the same phases on the same seeded inputs against the port of
 another checkout (DIR, its root: for instance the parent commit unpacked
 with `git archive`), so that two trees are compared in one session on
 one card.  A tree from before `check_collapsed` existed runs without
-that layout check; one without K5 / K6, K7 / K8, the h2 front or K9 /
-K10 skips the persistence, the sketch, the h2, the ledger or the paged
-phases.
+that layout check; one without K5 / K6, K7 / K8, the h2 front, K9 /
+K10 or the sharded engine skips the persistence, the sketch, the h2, the
+ledger, the paged or the sharded phases.
 
 The port imports nothing of JAX; neither does this script.
 """
@@ -3267,6 +3287,566 @@ def phase_paged(torch, np, rng, card):
     return engines + more, per_batch, read
 
 
+# ---------------------------------------------------------------------------
+# The sharded path: ShardedDecisionEngine (parallel/sharded_engine.py), with
+# its per-shard steps K11 / K12 (csrc/sharded_step.cu) and sweep K13
+# (csrc/sweep.cu)
+
+SHARD_A = (8, 1 << 16)  # (a) card vs CPU: the reference's 8-device mesh, 2^16 slots a shard
+SHARD_A_POOL = 700_000  # (a)'s keys: more than its 524,288 slots, so it evicts
+# (b) BASELINE.json configs[3] ("Mixed token+leaky, Zipf-skewed 100M keys,
+# DURATION_IS_GREGORIAN resets"; the north star's v5e-4): one shard a chip
+# of the four, 10^8 keys in all, 4.8 GB of state on the one card.
+SHARD_B = (4, 25_000_000)
+CFG3_KEYS = 100_000_000
+CFG3_ZIPF = 1.1
+CFG3_BATCHES = 12  # (b): columnar batches of 8192 and V1Instance batches of 1000, each
+
+
+def has_sharding() -> bool:
+    """The driven port has the sharded engine (a --tree checkout from
+    before it has not)."""
+    return importlib.util.find_spec("gubernator_tpu_torch.parallel") is not None
+
+
+def cfg3_ranks(np, rng, n: int, zipf: bool):
+    """n key ranks over 10^8: zipf(1.1), or n distinct uniform ones (a
+    batch of spread keys, which runs as one round)."""
+    if zipf:
+        return (rng.zipf(CFG3_ZIPF, n) - 1) % CFG3_KEYS
+    return rng.choice(CFG3_KEYS, n, replace=False)
+
+
+def cfg3_fields(np, ranks):
+    """Each key's configuration, a property of its rank: token or leaky by
+    parity, limit (= burst) 10 / 100 / 1000, 1 key in 7 on Gregorian
+    minutes (behavior DURATION_IS_GREGORIAN, duration 0 = GregorianMinutes),
+    the others 1 min.  Returns (algo, behavior, limit, duration, burst)."""
+    r = np.asarray(ranks, dtype=np.int64)
+    greg = r % 7 == 0
+    limit = np.array([10, 100, 1000], dtype=np.int64)[r % 3]
+    return ((r % 2).astype(np.int32), np.where(greg, 4, 0).astype(np.int32), limit,
+            np.where(greg, 0, 60_000).astype(np.int64), limit)
+
+
+def cfg3_keys(np, ranks):
+    """PackedKeys of key ranks, b"cfg3_" and 7 hex digits each (the
+    `hash_key` of name "cfg3", unique_key the digits)."""
+    from gubernator_tpu_torch.core.engine import PackedKeys
+
+    idx = np.asarray(ranks, dtype=np.int64)
+    n = len(idx)
+    hexd = np.frombuffer(b"0123456789abcdef", np.uint8)
+    buf = np.empty((n, 12), np.uint8)
+    buf[:, :5] = np.frombuffer(b"cfg3_", np.uint8)
+    buf[:, 5:] = hexd[(idx[:, None] >> (4 * np.arange(6, -1, -1))) & 15]
+    return PackedKeys(buf.reshape(-1), np.arange(0, 12 * n + 1, 12, dtype=np.int64), n)
+
+
+def cfg3_columnar(np, ranks, hits):
+    """(keys, algo, behavior, hits, limit, duration, burst) for apply_columnar."""
+    algo, beh, limit, dur, burst = cfg3_fields(np, ranks)
+    return (cfg3_keys(np, ranks), algo, beh, np.asarray(hits, dtype=np.int64), limit, dur, burst)
+
+
+def cfg3_requests(np, ranks, hits):
+    from gubernator_tpu_torch.types import RateLimitReq
+
+    algo, beh, limit, dur, burst = (c.tolist() for c in cfg3_fields(np, ranks))
+    return [RateLimitReq(name="cfg3", unique_key=f"{r:07x}", hits=h, limit=lim, duration=d,
+                         algorithm=a, behavior=b, burst=u)
+            for r, h, a, b, lim, d, u in zip(np.asarray(ranks).tolist(),
+                                              np.asarray(hits).tolist(), algo, beh, limit, dur,
+                                              burst)]
+
+
+def shard_state_words(torch, np, a, b) -> bool:
+    """Every state word of two engines (card or CPU) equal."""
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a.state, b.state))
+
+
+def sharded_pin(np, rng, n_sh: int, cap: int, width: int, now: int, *, collapsed: bool):
+    """A K11 (or, `collapsed`, a K12) input of n_sh shards: shard 0 full,
+    the others padded (one empty), each packed with the shard's capacity;
+    K12's chunks hold a hot key that spans tiles.  Returns (pin, the
+    shards' lane or segment slots)."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+
+    pins, slots_of = [], []
+    for sh in range(n_sh):
+        m = width if sh == 0 else (0 if sh == 1 else int(rng.integers(1, width)))
+        if not collapsed:
+            slots = np.sort(rng.choice(cap, m, replace=False)).astype(np.int32)
+            algo, beh, limit, dur, burst = cfg3_fields(np, rng.integers(0, 10**6, m))
+            hits = rng.choice([-1, 0, 1, 1, 5], m).astype(np.int64)
+            pins.append(tk.pack_batch_host(width, now, cap, slots, algo, beh, hits, limit, dur,
+                                           burst, np.where(beh == 4, 60_000, 0),
+                                           np.where(beh == 4, now + 30_000, 0)))
+            slots_of.append(slots)
+            continue
+        lanes = np.concatenate([np.full(m // 2, int(rng.integers(cap))),
+                                rng.choice(cap, m - m // 2)]).astype(np.int64)
+        uniq, counts = np.unique(lanes[: max(m - 1, 0)], return_counts=True)
+        algo, beh, limit, dur, burst = cfg3_fields(np, uniq)
+        seg = np.repeat(np.arange(len(uniq)), counts).astype(np.int32)
+        pos = (np.arange(len(seg)) - np.repeat(np.cumsum(counts) - counts, counts)).astype(np.int32)
+        pins.append(tk.pack_collapsed_host(
+            width, now, cap, uniq.astype(np.int32), counts.astype(np.int64),
+            (algo, beh, np.ones(len(uniq), np.int64), limit, dur, burst,
+             np.where(beh == 4, 60_000, 0), np.where(beh == 4, now + 30_000, 0)), seg, pos))
+        slots_of.append(uniq.astype(np.int32))
+    return np.stack(pins), slots_of
+
+
+def shard_clears(np, rng, cap: int, slots_of):
+    """Each shard's clears (a few of its lanes' slots and other slots, one
+    shard with none), as K11 / K12 take them."""
+    from gubernator_tpu_torch.ops.sharded_step import shard_clear_rows
+
+    out = []
+    for sh, own in enumerate(slots_of):
+        pick = list(rng.choice(own, min(4, len(own)), replace=False)) if len(own) else []
+        out.append([] if sh == 2 else sorted({int(s) for s in pick}
+                                             | {int(s) for s in rng.choice(cap, 8)}))
+    return shard_clear_rows(out, cap)
+
+
+def k11_bound_ms(pin, rows, cap: int) -> float:
+    """Least time for one K11 launch: per shard the 8 B header, per lane
+    rows 1-15 of pin read (60 B) and pout written (20 B), per in-range
+    lane 12 state words read and written (96 B), 12 B per in-range
+    clear, at peak HBM."""
+    n_sh, _, width = pin.shape
+    lanes = sum(n_in_range(p[1], cap) for p in pin)
+    clears = sum(n_in_range(r, cap) for r in rows)
+    return (n_sh * (8 + width * 80) + lanes * 96 + clears * 12) / HBM_BYTES_PER_S * 1e3
+
+
+def k12_bound_ms(pin, rows, cap: int) -> float:
+    """K3's bound (k3_bound_ms) summed over the shards."""
+    return sum(k3_bound_ms(p, r, cap) for p, r in zip(pin, rows))
+
+
+def k13_bound_ms(n_sh: int, window: int, freed: int) -> float:
+    """K6's bound (k6_bound_ms) over the same window of every shard."""
+    return (12 * window * n_sh + 8 * freed + 4 * n_sh) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_shard_kernels(torch, np, rng, errs):
+    """K11, K12 and K13 against their plain versions on the card, bit-exact
+    in the output and all 12 columns: 8 shards x 2^16 and 4 shards x 2.5 x
+    10^7, a full shard, padded shards and an empty one, clears of lane
+    slots and of other slots; K13 one 2^17 window of every shard with
+    expiries at now - 1, now and now + 1."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import expiry
+    from gubernator_tpu_torch.ops.sharded_step import shard_collapsed_step, shard_step
+
+    for n_sh, cap in (SHARD_A, SHARD_B):
+        kern = random_state(torch, n_sh * cap, NOW0, int(rng.integers(2**31)))
+        arm_expiries(torch, kern, NOW0, int(rng.integers(2**31)))
+        plain = copy_state(kern)
+        for collapsed, name, width in ((False, "shard_step", 256), (True, "shard_collapsed", 1024)):
+            for it in range(4):
+                pin_np, slots_of = sharded_pin(np, rng, n_sh, cap, width, NOW0 + it,
+                                               collapsed=collapsed)
+                rows_np = shard_clears(np, rng, cap, slots_of)
+                pin, rows = torch.from_numpy(pin_np).cuda(), torch.from_numpy(rows_np).cuda()
+                if collapsed:
+                    got = shard_collapsed_step(kern, pin, cap, rows)
+                    tk.shard_clears_reference(plain, rows, cap)
+                    want = tk.sharded_collapsed_step_reference(plain, pin, cap)
+                else:
+                    got = shard_step(kern, pin, cap, rows)
+                    tk.shard_clears_reference(plain, rows, cap)
+                    want = tk.sharded_fused_step_reference(plain, pin, cap)
+                torch.cuda.synchronize()
+                err = max(int((got.long() - want.long()).abs().max().item()),
+                          compare_states(torch, kern, plain))
+                errs[name] = max(errs[name], err)
+                check(err == 0, f"{name} differs from its plain version: {n_sh} x {cap}, "
+                      f"call {it}, err {err}")
+        window = min(cap, 1 << 17)
+        for start in sorted({0, cap - window}):
+            got = expiry.shard_sweep_window(kern.meta, kern.hi2, kern.expire_lo, n_sh, NOW0,
+                                            start, window)
+            want = expiry.shard_sweep_window_reference(plain.meta, plain.hi2, plain.expire_lo,
+                                                       n_sh, NOW0, start, window)
+            torch.cuda.synchronize()
+            c = want[:, 0].cpu().tolist()
+            err = compare_states(torch, (kern.meta,), (plain.meta,))
+            err = max(err, *(int((got[sh, : 1 + n].long() - want[sh, : 1 + n].long()).abs()
+                                 .max().item()) for sh, n in enumerate(c)))
+            errs["shard_sweep"] = max(errs["shard_sweep"], err)
+            check(err == 0 and sum(c) > 0, f"K13 differs from its plain version: {n_sh} x "
+                  f"{cap}, window at {start}, err {err}")
+        log(f"[shard kernels] {n_sh} x {cap}: K11 (4 rounds of 256 lanes a shard) and K12 (4 "
+            "chunks of 1024 lanes a shard, a hot key across tiles), with padding, an empty "
+            f"shard and clears, and K13 (the first and the last window of {window} of every shard) "
+            "bit-equal to their plain versions (tolerance: exact)")
+        del kern, plain
+        torch.cuda.empty_cache()
+
+
+def sharded_pair(cap: int, n_sh: int, ns: int, **kw):
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.parallel.sharded_engine import ShardedDecisionEngine
+
+    return [ShardedDecisionEngine(cap, n_shards=n_sh, clock=Clock().freeze_at(ns), device=dev,
+                                  **{k: v() for k, v in kw.items()})
+            for dev in ("cuda", "cpu")]
+
+
+def phase_sharded_parity(torch, np, rng):
+    """(a) Card against CPU at 8 shards x 2^16 (both the port): a fill of
+    700,000 keys in columnar batches of 8192 (evictions past 524,288
+    slots), then batches of 8192 (zipf ranks over the keys: the flat K3)
+    and of 1000 through get_rate_limits (spread: K11 with the clears;
+    zipf: K12), Gregorian minutes on 1 key in 7, sweeps (K13) with new
+    keys onto the freed slots; and a store engine (write-through
+    MemoryStore) whose swept keys come back from the store (K2, K5, K11).
+    Answers and every state word equal.  Returns the card engines."""
+    from gubernator_tpu_torch.store import MemoryStore
+
+    n_sh, cap = SHARD_A
+    ns = NOW0 * 10**6
+    card, cpu = sharded_pair(cap, n_sh, ns)
+    t = time.perf_counter()
+    now = NOW0
+    for lo in range(0, SHARD_A_POOL, ZIPF_BATCH):
+        ranks = np.arange(lo, min(lo + ZIPF_BATCH, SHARD_A_POOL))
+        cols = cfg3_columnar(np, ranks, np.ones(len(ranks)))
+        same_answers(np, card.apply_columnar(*cols, now_ms=now), cpu.apply_columnar(
+            *cols, now_ms=now), "[sharded a] fill")
+    evictions = sum(tb.evictions for tb in card.tables)
+    check(evictions > 0 and evictions == sum(tb.evictions for tb in cpu.tables),
+          f"[sharded a] the fill must evict ({evictions})")
+    check(shard_state_words(torch, np, card, cpu), "[sharded a] state words after the fill")
+    swept = []
+    for b in range(24):
+        now += int(rng.choice([0, 7, 250, 1500]))
+        ranks = (rng.zipf(CFG3_ZIPF, ZIPF_BATCH) - 1) % SHARD_A_POOL
+        cols = cfg3_columnar(np, ranks, np.ones(ZIPF_BATCH))
+        same_answers(np, card.apply_columnar(*cols, now_ms=now),
+                     cpu.apply_columnar(*cols, now_ms=now), f"[sharded a] zipf {b}")
+        zipf = b % 2 == 1
+        ranks = ((rng.zipf(CFG3_ZIPF, BATCH) - 1) % SHARD_A_POOL if zipf
+                 else rng.integers(0, 2 * SHARD_A_POOL, BATCH))
+        reqs = cfg3_requests(np, ranks, np.ones(BATCH, np.int64) if zipf
+                             else rng.choice([0, 1, 1, 2], BATCH))
+        got, want = card.get_rate_limits(reqs, now_ms=now), cpu.get_rate_limits(reqs, now_ms=now)
+        check([(r.status, r.remaining, r.reset_time, r.error) for r in got]
+              == [(r.status, r.remaining, r.reset_time, r.error) for r in want],
+              f"[sharded a] get_rate_limits batch {b}: answers differ")
+        if b % 8 == 7:
+            now += 61_000
+            swept.append(card.sweep(now_ms=now))
+            check(swept[-1] == cpu.sweep(now_ms=now) > 0, "[sharded a] sweeps differ")
+            check(shard_state_words(torch, np, card, cpu), f"[sharded a] state words, batch {b}")
+    check(card.cache_size() == cpu.cache_size(), "[sharded a] key counts differ")
+    log(f"[sharded a] {n_sh} shards x {cap}: a fill of {SHARD_A_POOL} keys ({evictions} "
+        f"evictions), 24 zipf batches of {ZIPF_BATCH} and 24 get_rate_limits batches of {BATCH} "
+        f"(spread and zipf, Gregorian minutes on 1 key in 7), sweeps freeing {swept}; card = "
+        f"CPU, answers and every state word ({time.perf_counter() - t:.1f} s)")
+
+    scard, scpu = sharded_pair(cap, n_sh, ns, store=MemoryStore)
+    t = time.perf_counter()
+    now = NOW0
+    for b in range(12):
+        ranks = rng.integers(0, 6000, BATCH)
+        reqs = cfg3_requests(np, ranks, rng.choice([0, 1, 2], BATCH))
+        got, want = scard.get_rate_limits(reqs, now_ms=now), scpu.get_rate_limits(reqs, now_ms=now)
+        check([(r.status, r.remaining, r.reset_time, r.error) for r in got]
+              == [(r.status, r.remaining, r.reset_time, r.error) for r in want],
+              f"[sharded a] store batch {b}: answers differ")
+        now += 20_000
+        if b % 4 == 3:
+            check(scard.sweep(now_ms=now) == scpu.sweep(now_ms=now), "[sharded a] store sweeps")
+    check(shard_state_words(torch, np, scard, scpu), "[sharded a] store engine state words")
+    check({k: vars(v) for k, v in scard.store.data.items()}
+          == {k: vars(v) for k, v in scpu.store.data.items()}, "[sharded a] stores differ")
+    log(f"[sharded a] store engine, {n_sh} x {cap}: 12 get_rate_limits batches of {BATCH} over "
+        f"6000 keys, swept keys restored from the store ({scard.store.get_calls} store reads); "
+        f"card = CPU, answers, state words and store items ({time.perf_counter() - t:.1f} s)")
+    cpu.close()
+    scpu.close()
+    return [card, scard]
+
+
+def phase_sharded_full(torch, np, rng, card_name, tmp: Path):
+    """(b) The full size, BASELINE.json configs[3] on one card: 4 shards x
+    2.5 x 10^7 slots (10^8 keys, 4.8 GB of state), the traffic half token
+    half leaky, zipf(1.1) over 10^8 key ranks, Gregorian minutes on 1 key
+    in 7: columnar batches of 8192 (apply_columnar, the flat K1 / K3:
+    zipf batches collapse, spread ones run one round) and V1Instance
+    batches of 1000 (K11 / K12), each held against a dense card
+    DecisionEngine of 10^8 slots, which evicts nothing, so the answers must
+    be equal; then a save / load of the whole state, and one sweep pass.
+    Returns (card engines, the K11 / K12 inputs of the run, readings)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gubernator_tpu_torch.checkpoint import NpzFileLoader
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.ops import fused_step as fs
+    from gubernator_tpu_torch.parallel import sharded_engine as se
+    from gubernator_tpu_torch.parallel.sharded_engine import ShardedDecisionEngine
+    from gubernator_tpu_torch.service import V1Instance
+
+    n_sh, cap = SHARD_B
+    ns = NOW0 * 10**6
+    t = time.perf_counter()
+    sharded = ShardedDecisionEngine(cap, n_shards=n_sh, clock=Clock().freeze_at(ns))
+    dense = DecisionEngine(CFG3_KEYS, clock=Clock().freeze_at(ns))
+    inst, dense_inst = V1Instance(sharded, ledger=False), V1Instance(dense, ledger=False)
+    build_s = time.perf_counter() - t
+    captured = {"shard_step": [], "shard_collapsed": []}
+    real = {"shard_step": se.shard_step, "shard_collapsed": se.shard_collapsed_step}
+
+    def capture(name):
+        def call(state, pin, shard_cap, rows):
+            if len(captured[name]) < 16:
+                captured[name].append((pin.clone(), rows.clone()))
+            return real[name](state, pin, shard_cap, rows)
+        return call
+
+    se.shard_step, se.shard_collapsed_step = capture("shard_step"), capture("shard_collapsed")
+    walls = {"columnar": [], "dataclass": []}
+    routes = {"columnar": {}, "dataclass": {}}
+    n_prof = 4  # the last batches run under the profiler, the sharded engine alone
+    busy_us = window_us = 0.0
+    try:
+        batches = []
+        for b in range(CFG3_BATCHES):
+            zipf = b % 2 == 0
+            ranks = cfg3_ranks(np, rng, ZIPF_BATCH, zipf)
+            d_ranks = cfg3_ranks(np, rng, BATCH, zipf)
+            batches.append((cfg3_columnar(np, ranks, np.ones(ZIPF_BATCH)),
+                            cfg3_requests(np, d_ranks, np.ones(BATCH, np.int64) if zipf
+                                          else rng.choice([0, 1, 1, 2], BATCH))))
+
+        def sharded_batch(b, now):
+            cols, reqs = batches[b]
+            out = []
+            for route, call in (("columnar", lambda: sharded.apply_columnar(*cols, now_ms=now)),
+                                ("dataclass", lambda: inst.get_rate_limits(reqs))):
+                before = dict(fs.launches)
+                t0 = time.perf_counter()
+                out.append(call())
+                walls[route].append(time.perf_counter() - t0)
+                for k, v in fs.launches.items():
+                    if v > before[k]:
+                        routes[route][k] = routes[route].get(k, 0) + v - before[k]
+            return out
+
+        def check_batch(b, now, got):
+            cols, reqs = batches[b]
+            same_answers(np, got[0], dense.apply_columnar(*cols, now_ms=now),
+                         f"[sharded b] columnar batch {b}")
+            want = dense_inst.get_rate_limits(reqs)
+            check([(r.status, r.remaining, r.reset_time, r.error) for r in got[1]]
+                  == [(r.status, r.remaining, r.reset_time, r.error) for r in want],
+                  f"[sharded b] V1Instance batch {b}: answers differ")
+
+        now = NOW0
+        for b in range(CFG3_BATCHES - n_prof):
+            now += 50
+            for e in (sharded, dense):
+                e.clock.advance(ms=50)
+            check_batch(b, now, sharded_batch(b, now))
+        tail = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in range(CFG3_BATCHES - n_prof, CFG3_BATCHES):
+                now += 50
+                sharded.clock.advance(ms=50)
+                tail.append((b, now, sharded_batch(b, now)))
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+        for b, at, got in tail:
+            dense.clock.advance(ms=50)
+            check_batch(b, at, got)
+    finally:
+        se.shard_step, se.shard_collapsed_step = real["shard_step"], real["shard_collapsed"]
+    for route in ("columnar", "dataclass"):
+        log(f"[sharded b] {route} route: launches {routes[route]}")
+    check(routes["columnar"].get("fused_step", 0) > 0 and routes["columnar"].get(
+        "collapsed_step", 0) > 0, "[sharded b] the columnar route must launch K1 and K3")
+    check(routes["dataclass"].get("shard_step", 0) > 0 and routes["dataclass"].get(
+        "shard_collapsed", 0) > 0, "[sharded b] the V1Instance route must launch K11 and K12")
+    rates = {r: (ZIPF_BATCH if r == "columnar" else BATCH) * len(w) / sum(w)
+             for r, w in walls.items()}
+    keys = sharded.cache_size()
+    check(keys == dense.cache_size() and sum(tb.evictions for tb in sharded.tables) == 0,
+          "[sharded b] the sharded engine holds every key, as the dense one")
+    log(f"[sharded b] {n_sh} shards x {cap} ({n_sh * cap} slots, engines built in {build_s:.1f} "
+        f"s), {CFG3_BATCHES} columnar batches of {ZIPF_BATCH} and {CFG3_BATCHES} V1Instance "
+        f"batches of {BATCH} (zipf(1.1) and spread, alternating) over 10^8 key ranks, {keys} keys "
+        f"held: answers equal the dense card engine's at 10^8; decisions/s columnar "
+        f"{rates['columnar']:.0f}, V1Instance {rates['dataclass']:.0f}; profiled window of "
+        f"{n_prof} batch pairs: wall {window_us:.1f} us, device busy {busy_us:.1f} us, idle "
+        f"share {1 - busy_us / window_us:.4f} | {card_name}")
+
+    path = str(tmp / "sharded.npz")
+    t0 = time.perf_counter()
+    sharded.save(NpzFileLoader(path))
+    save_s = time.perf_counter() - t0
+    fresh = ShardedDecisionEngine(cap, n_shards=n_sh, clock=Clock().freeze_at(now * 10**6))
+    t0 = time.perf_counter()
+    n = fresh.load(NpzFileLoader(path))
+    load_s = time.perf_counter() - t0
+    check(n == keys, f"[sharded b] the load restored {n} of {keys} keys")
+    check(all(torch.equal(a, b) for a, b in zip(fresh._state, sharded._state)),
+          "[sharded b] the loaded state words differ from the saved engine's")
+    fresh.close()
+    del fresh
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    freed = sharded.sweep(now_ms=now + 3 * 60_000)
+    sweep_s = time.perf_counter() - t0
+    check(freed == dense.sweep(now_ms=now + 3 * 60_000) == keys,
+          f"[sharded b] the sweep pass freed {freed} (dense engine: its own count, keys {keys})")
+    log(f"[sharded b] checkpoint of {keys} keys at 10^8 slots: save {save_s:.1f} s, load "
+        f"{load_s:.1f} s (the whole state decoded and encoded on the host, as the reference "
+        f"does), the loaded words equal; one sweep pass of {sharded.sweep_windows_total} K13 "
+        f"windows (2^17 of each shard) freed all {freed} keys in {sweep_s:.2f} s | {card_name}")
+    read = {"rates": rates, "busy_us": busy_us, "window_us": window_us, "save_s": save_s,
+            "load_s": load_s, "sweep_s": sweep_s, "keys": keys, "routes": routes}
+    inst.close()
+    dense_inst.close()
+    return [sharded, dense], captured, read
+
+
+def phase_sharded_daemon(torch, np, rng):
+    """(c) The daemon with GUBER_DEVICE_COUNT=4 (the sharded engine, 4 x
+    2^18 slots, on the card) and the same daemon on the CPU answer the h2
+    parity stream (30 RPCs of 1000 items): grpc-status and response bytes
+    equal RPC by RPC; after the ledgers settle, every state word equal.
+    Returns the card daemon's engine (the daemon closed)."""
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.config import setup_daemon_config
+    from gubernator_tpu_torch.daemon import spawn_daemon
+
+    conf = setup_daemon_config({"GUBER_DEVICE_COUNT": "4", "GUBER_CACHE_SIZE": str(CAP_SERVE),
+                                "GUBER_HTTP_ADDRESS": "127.0.0.1:0",
+                                "GUBER_H2_FAST_ADDRESS": "127.0.0.1:0",
+                                "GUBER_SWEEP_INTERVAL": "0", "GUBER_LEDGER_SETTLE_INTERVAL": "0"})
+    ns = NOW0 * 10**6
+    d = spawn_daemon(conf, clock=Clock().freeze_at(ns), device="cuda")
+    dc = spawn_daemon(conf, clock=Clock().freeze_at(ns), device="cpu")
+    card_c = cpu_c = None
+    try:
+        eng = d.instance.engine
+        check(getattr(eng, "n_shards", 1) == 4 and eng.shard_capacity == CAP_SERVE // 4
+              and eng.state.meta.is_cuda, "[sharded c] GUBER_DEVICE_COUNT=4 must build 4 shards "
+              "on the card")
+        card_c, cpu_c = H2Unary(d.h2_fast_address), H2Unary(dc.h2_fast_address)
+        stream = h2_stream(np, rng)
+        for r, (body, step, status, n_items) in enumerate(stream):
+            d.clock.advance(ms=step)
+            dc.clock.advance(ms=step)
+            got, want = card_c.call(body), cpu_c.call(body)
+            check(got == want, f"[sharded c] RPC {r}: card {got[0]} / {len(got[1])} bytes, CPU "
+                  f"{want[0]} / {len(want[1])} bytes: responses differ")
+            check(got[0] == status, f"[sharded c] RPC {r}: grpc-status {got[0]}, want {status}")
+        check(d.instance.ledger.flush_settles() == dc.instance.ledger.flush_settles(),
+              "[sharded c] the ledgers settled different row counts")
+        check(shard_state_words(torch, np, eng, dc.instance.engine),
+              "[sharded c] state words differ")
+        log(f"[sharded c] the daemon with GUBER_DEVICE_COUNT=4 (4 shards x {CAP_SERVE // 4} on "
+            f"the card) and on the CPU: {len(stream)} h2 RPCs of {BATCH} items, grpc-status and "
+            "response bytes equal RPC by RPC, state words equal after the ledgers settle")
+        return eng
+    finally:
+        for c in (card_c, cpu_c):
+            if c is not None:
+                c.close()
+        dc.close()
+        d.close()
+
+
+def phase_sharded(torch, np, rng, card):
+    """The sharded path: (a) parity, (b) the full size, (c) the daemon.
+    Returns (card engines, the K11 / K12 inputs of (b), readings)."""
+    engines = phase_sharded_parity(torch, np, rng)
+    with tempfile.TemporaryDirectory() as tmp:
+        more, captured, read = phase_sharded_full(torch, np, rng, card, Path(tmp))
+    engines += more
+    engines.append(phase_sharded_daemon(torch, np, rng))
+    return engines, captured, read
+
+
+def phase_sharded_timing(torch, np, rng, card, captured):
+    """K11 and K12 on (b)'s own inputs (the median launch of each, a 1000-
+    item V1Instance batch over 4 shards) and K13 on one 2^17 window of each
+    of 4 shards, all on a random state of 4 x 2.5 x 10^7 slots, each
+    checked once against its plain version, then timed (CUDA events
+    behind the spin kernel) beside its bytes bound and its plain version.
+    No single PyTorch call computes any of them."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import expiry
+    from gubernator_tpu_torch.ops.sharded_step import shard_collapsed_step, shard_step
+
+    n_sh, cap = SHARD_B
+    state = random_state(torch, n_sh * cap, NOW0, int(rng.integers(2**31)))
+    arm_expiries(torch, state, NOW0, int(rng.integers(2**31)))
+    out = {}
+    for name, kern, plain, bound in (
+            ("shard_step", shard_step, tk.sharded_fused_step_reference, k11_bound_ms),
+            ("shard_collapsed", shard_collapsed_step, tk.sharded_collapsed_step_reference,
+             k12_bound_ms)):
+        calls = captured[name]
+        check(len(calls) > 0, f"[time] no {name} launch was captured")
+        pin, rows = sorted(calls, key=lambda c: c[0].shape[2])[len(calls) // 2]
+        a, b = copy_state(state), copy_state(state)
+        got = kern(a, pin, cap, rows)
+        tk.shard_clears_reference(b, rows, cap)
+        want = plain(b, pin, cap)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and compare_states(torch, a, b) == 0,
+              f"[time] {name} differs from its plain version on the path's input")
+        del a, b
+        ms = device_ms(torch, lambda i: kern(state, pin, cap, rows), 200)
+
+        def plain_call(i, pin=pin, rows=rows, plain=plain):
+            tk.shard_clears_reference(state, rows, cap)
+            plain(state, pin, cap)
+
+        plain_ms = host_ms(torch, plain_call, 5, windows=3)
+        bnd = bound(pin.cpu().numpy(), rows.cpu().numpy(), cap)
+        out[name] = (ms, plain_ms, bnd, None)
+        log(f"[time] {name} on the path's median input ({n_sh} shards, {pin.shape[2]} lanes a "
+            f"shard, {rows.shape[1]} clear entries a shard): {ms * 1e3:.2f} us/launch, bound "
+            f"{bnd * 1e3:.4f} us (bytes), plain {plain_ms * 1e3:.1f} us | {card}")
+    window = 1 << 17
+    plain_state = copy_state(state)
+    got = expiry.shard_sweep_window(state.meta, state.hi2, state.expire_lo, n_sh, NOW0, 0, window)
+    want = expiry.shard_sweep_window_reference(plain_state.meta, plain_state.hi2,
+                                               plain_state.expire_lo, n_sh, NOW0, 0, window)
+    torch.cuda.synchronize()
+    counts = want[:, 0].cpu().tolist()
+    check(all(torch.equal(got[sh, : 1 + c], want[sh, : 1 + c]) for sh, c in enumerate(counts))
+          and torch.equal(state.meta, plain_state.meta), "[time] K13 differs on the timed window")
+    del plain_state
+    ms = device_ms(torch, lambda i: expiry.shard_sweep_window(
+        state.meta, state.hi2, state.expire_lo, n_sh, NOW0, window * (1 + i % 150), window), 200)
+    plain_ms = host_ms(torch, lambda i: expiry.shard_sweep_window_reference(
+        state.meta, state.hi2, state.expire_lo, n_sh, NOW0, window * (1 + i % 150), window), 10,
+        windows=3)
+    bnd = k13_bound_ms(n_sh, window, sum(counts))
+    out["shard_sweep"] = (ms, plain_ms, bnd, None)
+    log(f"[time] shard_sweep (K13), one 2^17 window of each of {n_sh} shards of {cap}: "
+        f"{ms * 1e3:.2f} us, bound {bnd * 1e3:.4f} us (bytes, {sum(counts)} freed in the "
+        f"checked window), plain {plain_ms * 1e3:.1f} us | {card}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     global TREE
     ap = argparse.ArgumentParser(description="Smoke run of gubernator_tpu_torch on one GPU.")
@@ -3300,9 +3880,11 @@ def main() -> int:
     log(f"[tree] driving the port in {pkg}")
     t_start = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    # The paged phases draw from a generator of their own, so every other
-    # phase sees the inputs it sees on a tree without them (--tree A/B).
+    # The paged and the sharded phases draw from generators of their own,
+    # so every other phase sees the inputs it sees on a tree without them
+    # (--tree A/B).
     paged_rng = np.random.default_rng(SEED + 9)
+    shard_rng = np.random.default_rng(SEED + 10)
     card = phase_device(torch)
     phase_build()
     errs = {k: 0 for k in fs.launches}
@@ -3331,6 +3913,13 @@ def main() -> int:
     else:
         check(TREE is not None, "the port has no paged path")
         log(f"[paged] {TREE} has no K9 / K10: the paged phases are skipped")
+    # ... and one from before the sharded slice has no K11-K13.
+    has_sharded = has_sharding()
+    if has_sharded:
+        phase_shard_kernels(torch, np, shard_rng, errs)
+    else:
+        check(TREE is not None, "the port has no sharded engine")
+        log(f"[sharded] {TREE} has no sharded engine: the sharded phases are skipped")
 
     # ---- the main path: counts from 0 just before, read just after.
     fs.reset_launches()
@@ -3470,6 +4059,29 @@ def main() -> int:
         del pg_engines
         torch.cuda.empty_cache()
 
+    # ---- the sharded path (the sharded engine with its per-shard steps K11
+    # / K12 and sweep K13, the flat K1 / K3, the daemon with
+    # GUBER_DEVICE_COUNT): counts from 0 just before, read just after.
+    shard_launches = {k: 0 for k in fs.launches}
+    sh_captured = None
+    if has_sharded:
+        fs.reset_launches()
+        sh_engines, sh_captured, sh_read = phase_sharded(torch, np, shard_rng, card)
+        shard_launches = dict(fs.launches)
+        sh_disp = sum(e.dispatches_total for e in sh_engines)
+        sh_win = sum(e.sweep_windows_total for e in sh_engines)
+        log(f"[sharded] launches {shard_launches}; engine launches {sh_disp} + sweep windows "
+            f"{sh_win} | {card}")
+        check(sum(shard_launches.values()) == sh_disp + sh_win,
+              "every launch of the sharded path must be an engine launch or a sweep window")
+        for name in ("shard_step", "shard_collapsed", "shard_sweep", "fused_step",
+                     "collapsed_step", "load_slots"):
+            check(shard_launches[name] > 0, f"the sharded path must launch {name}")
+        for e in sh_engines:
+            e.close()
+        del sh_engines
+        torch.cuda.empty_cache()
+
     phase_daemon_binary(has_h2)
     times = phase_timing(torch, np, rng, card, k3_calls, k4_calls)
     if has_persist:
@@ -3479,6 +4091,9 @@ def main() -> int:
     if has_paged:
         times.update({f"pg_{k}": v for k, v in phase_paged_timing(torch, np, paged_rng, card,
                                                                  zipf_k).items()})
+    if has_sharded:
+        times.update({f"sh_{k}": v for k, v in phase_sharded_timing(torch, np, shard_rng, card,
+                                                                   sh_captured).items()})
     log(f"[time] HTTP GetRateLimits on the card: {http_rate:.0f} decisions/s | {card}")
     phase_rates(torch, np, rng, card)
 
@@ -3519,16 +4134,30 @@ def main() -> int:
             ("load_pages", "page_words.cu", "gubernator_tpu/ops/bucket_kernel.py:1612",
              times["pg_k10"]),
         ]
+    if has_sharded:
+        # K11's and K12's rows: the median launch of the full-size path's
+        # 1000-item V1Instance batches (4 shards of 2.5 x 10^7); K13's: one
+        # 2^17 window of each of those shards.
+        rows += [
+            ("shard_step", "sharded_step.cu",
+             "gubernator_tpu/parallel/sharded_engine.py:339", times["sh_shard_step"]),
+            ("shard_collapsed", "sharded_step.cu",
+             "gubernator_tpu/parallel/sharded_engine.py:351", times["sh_shard_collapsed"]),
+            ("shard_sweep", "sweep.cu", "gubernator_tpu/parallel/sharded_engine.py:727",
+             times["sh_shard_sweep"]),
+        ]
     # launches: the main path's run plus the persistence path's, the
-    # sketch path's, the h2 path's, the ledger path's and the paged
-    # path's, each counted from 0 (K2, K5 and K6 launch on the second and
-    # the last only, K7 and K8 on the third only, K9 and K10 on the last
-    # only).
+    # sketch path's, the h2 path's, the ledger path's, the paged path's and
+    # the sharded path's, each counted from 0 (K2 launches on the second
+    # only, K5 on the second, the paged and the sharded, K6 on the second
+    # and the paged, K7 and K8 on the third only, K9 and K10 on the paged
+    # only, K11-K13 on the sharded only).
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": f"gubernator_tpu_torch/csrc/{src}",
          "replaces": replaces,
          "launches": (main_launches[name] + persist_launches[name] + sketch_launches[name]
-                      + h2_launches[name] + ledger_launches[name] + paged_launches[name]),
+                      + h2_launches[name] + ledger_launches[name] + paged_launches[name]
+                      + shard_launches[name]),
          "max_abs_err": errs[name],
          "ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": "bytes",
          "library_ms": t[3] if len(t) > 3 else None}
@@ -3548,7 +4177,11 @@ def main() -> int:
            f"K8 {times[f's_k8_{SKETCH_WIDTH}'][0] * 1e3:.2f} us per 2^20-wide plane"
            if has_sketch else "")
         + (f"; K9 / K10 {times['pg_k9'][0] * 1e3:.2f} / {times['pg_k10'][0] * 1e3:.2f} us per "
-           f"16 pages of 512" if has_paged else "") + ")")
+           f"16 pages of 512" if has_paged else "")
+        + (f"; K11 / K12 {times['sh_shard_step'][0] * 1e3:.2f} / "
+           f"{times['sh_shard_collapsed'][0] * 1e3:.2f} us per 1000-item batch over 4 shards, K13 "
+           f"{times['sh_shard_sweep'][0] * 1e3:.2f} us per 2^17 window of 4 shards"
+           if has_sharded else "") + ")")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,11 @@ on the card only) and paged device state (core/paging.py; reference
 config.py:280-309): GUBER_PAGED (only "1" turns it on), GUBER_PAGE_SIZE
 (rows a page, a power of two >= 16, default 512) and
 GUBER_PAGED_RESIDENT (device frames, default 0 = every page resident).
-The hot-key sketch reads GUBER_HOTKEYS, GUBER_HOTKEYS_K and
+GUBER_DEVICE_COUNT (reference config.py:650) splits the state into that
+many shards (parallel/sharded_engine.py; unset, 0 or 1: one engine);
+the sharded engine's host tier reads GUBER_MULTI_THREADS itself
+(core/native.py, its threads: unset or 0 = one a shard, at most one a
+CPU).  The hot-key sketch reads GUBER_HOTKEYS, GUBER_HOTKEYS_K and
 GUBER_HOTKEYS_WINDOW itself (utils/hotkeys.py `from_env`).  The h2 front
 reads its other knobs itself (net/h2_fast.py), GUBER_RETRY_HINTS among
 them.  The ledger's defaults live here and in `DecisionLedger`.
@@ -44,6 +48,11 @@ from typing import Mapping, Optional
 class DaemonConfig:
     http_listen_address: str = "localhost:80"
     cache_size: int = 50_000
+    # Shards of the bucket state (GUBER_DEVICE_COUNT; reference
+    # config.py:476).  None or 1: one DecisionEngine; n > 1: a
+    # ShardedDecisionEngine of n shards of cache_size // n slots, all on
+    # the one card (the reference puts one a device).
+    device_count: Optional[int] = None
     # Seconds between the daemon's incremental expiry sweeps (0 = none).
     sweep_interval: float = 30.0
     # The approximate limiter of Behavior.SKETCH (ops/sketch.py): window,
@@ -147,6 +156,7 @@ def setup_daemon_config(env: Optional[Mapping[str, str]] = None) -> DaemonConfig
     return DaemonConfig(
         http_listen_address=_env(d, "GUBER_HTTP_ADDRESS", "localhost:80"),
         cache_size=_env_int(d, "GUBER_CACHE_SIZE", 50_000),
+        device_count=_env_int(d, "GUBER_DEVICE_COUNT", 0) or None,
         sweep_interval=_env_seconds(d, "GUBER_SWEEP_INTERVAL", 30.0),
         sketch_window_ms=int(_env_seconds(d, "GUBER_SKETCH_WINDOW", 1.0) * 1000),
         sketch_depth=_env_int(d, "GUBER_SKETCH_DEPTH", 4),

@@ -216,7 +216,11 @@ class PendingColumnar:
     their way home.  `.get()` returns (status int32, limit int64,
     remaining int64, reset_time int64) in request order (reference
     :154).  Each piece is (ticket, request indices, output lanes,
-    unpack); the over-limit counter moves when the result is made."""
+    unpack); the over-limit counter moves when the result is made.  A
+    sharded piece (parallel/sharded_engine.py, reference :182-195) has a
+    list of request indices a shard and a list of lane counts a shard,
+    and its output is [n_shards, 5, W]: shard sh answers its first
+    counts[sh] lanes."""
 
     __slots__ = ("_engine", "_pieces", "_limit", "_n", "_result")
 
@@ -236,6 +240,14 @@ class PendingColumnar:
         o_reset = np.empty(n, dtype=_I64)
         for ticket, dst_idx, lanes, unpack in self._pieces:
             arr = ticket.fetch()
+            if isinstance(dst_idx, list):
+                for sh, idxs in enumerate(dst_idx):
+                    if lanes[sh]:
+                        st, rem, rst = unpack(arr[sh], lanes[sh])
+                        o_status[idxs] = st
+                        o_rem[idxs] = rem
+                        o_reset[idxs] = rst
+                continue
             st, rem, rst = unpack(arr[:, lanes], len(lanes))
             o_status[dst_idx] = st
             o_rem[dst_idx] = rem

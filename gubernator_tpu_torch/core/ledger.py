@@ -52,6 +52,7 @@ engine's lock orders the two.  Lock order: ledger lock → plane mutex
 
 from __future__ import annotations
 
+import inspect
 import logging
 import threading
 import time
@@ -419,6 +420,13 @@ class DecisionLedger:
         self.lease_ttl_ms = max(1, int(lease_ttl * 1000))
         self.hot_threshold = max(1, hot_threshold)
         self.max_keys = max_keys
+        # Whether the engine takes `count_decisions` (reference :437): looked
+        # up once, never by catching a TypeError after the apply.
+        try:
+            self._count_kw = "count_decisions" in inspect.signature(
+                engine.apply_columnar).parameters
+        except (TypeError, ValueError):
+            self._count_kw = False
         self._items: "OrderedDict[int, _Entry]" = OrderedDict()  # guarded by _lock
         # OVER/LEASE entries indexed by key bytes — the dataclass-path
         # invalidation hook must be O(1) per key with zero hashing.
@@ -1150,9 +1158,14 @@ class DecisionLedger:
                     np.zeros(m, dtype=np.int64),
                 )
                 try:
-                    # Returns are reconciliation, not decisions: keep
-                    # them out of the decision counters.
-                    engine.apply_columnar(*cols, count_decisions=False)
+                    if self._count_kw:
+                        # Returns are reconciliation, not decisions: keep
+                        # them out of the decision counters where the
+                        # engine can (the sharded engine counts them, as
+                        # the reference's does).
+                        engine.apply_columnar(*cols, count_decisions=False)
+                    else:
+                        engine.apply_columnar(*cols)
                 except Exception:  # noqa: BLE001
                     record_swallowed("ledger.return_apply")
                     log.exception(

@@ -7,7 +7,9 @@ serialization rounds and returns the eviction clears with their rounds,
 where the plain table walks the keys one by one in Python.  The library
 is `csrc/intern_table.cpp`, built with g++ by `ops.native_build` on
 first use.  The two tables agree on every observable
-(tests/test_torch_native_table.py).
+(tests/test_torch_native_table.py).  `multi_schedule` is the sharded
+engine's whole host tier over one table a shard in one call (reference
+:262).
 
 There is no fallback: `make_intern_table` raises when the library does
 not build or load, and the engine does not quietly serve from the plain
@@ -17,6 +19,7 @@ table.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -37,11 +40,15 @@ class NativeInternTable:
         self._lib = native_build.load("intern_table")
         self.capacity = capacity
         self._t = self._lib.git_new(capacity)
-        # Mirrors of the C++ cumulative counters, refreshed by schedule().
+        # Mirrors of the C++ cumulative counters, refreshed by schedule()
+        # and multi_schedule(), less `_stat_off`.
         self.hits = 0
         self.misses = 0
         self.evictions = 0
         self.unexpired_evictions = 0
+        # Discounts subtracted from the C++ counters when they are
+        # mirrored (`discount_stats`; reference :128).
+        self._stat_off = [0, 0, 0, 0]
 
     def __del__(self):
         t = getattr(self, "_t", None)
@@ -88,10 +95,26 @@ class NativeInternTable:
             _ptr(idx) if idx is not None else None, n, now_ms,
             _ptr(slots), _ptr(rounds), _ptr(evicted), _ptr(evict_rounds), _ptr(stats),
         )
-        self.hits, self.misses, self.evictions, self.unexpired_evictions = (
-            int(v) for v in stats
-        )
+        self._mirror(stats)
         return slots, rounds, evicted[:n_ev], evict_rounds[:n_ev]
+
+    def _mirror(self, stats) -> None:
+        """Take the C++ cumulative (hits, misses, evictions,
+        unexpired_evictions), less the discounts."""
+        self.hits, self.misses, self.evictions, self.unexpired_evictions = (
+            int(v) - off for v, off in zip(stats, self._stat_off)
+        )
+
+    def discount_stats(self, hits: int, misses: int, evictions: int = 0,
+                       unexpired: int = 0) -> None:
+        """Leave traffic out of the mirrored counters from now on
+        (reference :190)."""
+        for k, v in enumerate((hits, misses, evictions, unexpired)):
+            self._stat_off[k] += v
+        self.hits -= hits
+        self.misses -= misses
+        self.evictions -= evictions
+        self.unexpired_evictions -= unexpired
 
     # -- the InternTable API ---------------------------------------------
 
@@ -133,6 +156,73 @@ class NativeInternTable:
             if ln <= cap:
                 return out.raw[:ln].decode()
             cap = int(ln)
+
+
+_DEFAULT_THREADS: Optional[int] = None
+
+
+def _default_threads() -> int:
+    """GUBER_MULTI_THREADS, read once (a malformed value fails at first
+    use); 0 or unset = one thread a shard, at most one a CPU (reference
+    :249)."""
+    global _DEFAULT_THREADS
+    if _DEFAULT_THREADS is None:
+        env = os.environ.get("GUBER_MULTI_THREADS", "")
+        _DEFAULT_THREADS = int(env) if env else 0
+    return _DEFAULT_THREADS
+
+
+def multi_schedule(
+    tables: List[NativeInternTable],
+    buf_arr: np.ndarray,  # uint8: the keys' bytes, concatenated
+    offsets: np.ndarray,  # int64 [n+1]
+    hashes: Optional[np.ndarray],  # uint64 fnv1a-64 a key (None = computed in C)
+    now_ms: int,
+    expires: Optional[np.ndarray] = None,  # int64 [n]: TTL mirror writes
+    threads: Optional[int] = None,  # None = GUBER_MULTI_THREADS, else one a shard
+):
+    """The sharded engine's host tier in one native call (reference
+    :262): shard routing (fnv1a-64 % n_shards), each table's interning,
+    LRU, eviction and rounds (a table on one thread only), the TTL mirror
+    writes, and the dispatch order, grouped by shard and sorted by
+    (slot, round) within each shard.  Returns (max_round, shard, slots,
+    rounds, order, shard_counts, evicted, evict_shard, evict_rounds),
+    numpy arrays."""
+    n_sh = len(tables)
+    n = len(offsets) - 1
+    lib = tables[0]._lib
+    if threads is None:
+        threads = _default_threads() or min(n_sh, os.cpu_count() or 1)
+    buf_arr = np.ascontiguousarray(buf_arr, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    if hashes is not None:
+        hashes = np.ascontiguousarray(hashes, dtype=np.uint64)
+    if expires is not None:
+        expires = np.ascontiguousarray(expires, dtype=np.int64)
+    shard = np.empty(n, dtype=np.int32)
+    slots = np.empty(n, dtype=np.int32)
+    rounds = np.empty(n, dtype=np.int32)
+    order = np.empty(n, dtype=np.int64)
+    shard_counts = np.empty(n_sh, dtype=np.int64)
+    evicted = np.empty(max(n, 1), dtype=np.int32)
+    evict_shard = np.empty(max(n, 1), dtype=np.int32)
+    evict_rounds = np.empty(max(n, 1), dtype=np.int32)
+    n_evicted = np.zeros(1, dtype=np.int64)
+    stats = np.zeros(4 * n_sh, dtype=np.int64)
+    ptrs = (ctypes.c_void_p * n_sh)(*[t._t for t in tables])
+    max_round = lib.git_multi_schedule(
+        ptrs, n_sh, _ptr(buf_arr), _ptr(offsets),
+        _ptr(hashes) if hashes is not None else None, n, now_ms,
+        _ptr(expires) if expires is not None else None,
+        _ptr(shard), _ptr(slots), _ptr(rounds), _ptr(order), _ptr(shard_counts),
+        _ptr(evicted), _ptr(evict_shard), _ptr(evict_rounds), _ptr(n_evicted), _ptr(stats),
+        int(threads),
+    )
+    for sh, t in enumerate(tables):
+        t._mirror(stats[4 * sh : 4 * sh + 4])
+    ne = int(n_evicted[0])
+    return (int(max_round), shard, slots, rounds, order, shard_counts,
+            evicted[:ne], evict_shard[:ne], evict_rounds[:ne])
 
 
 def make_intern_table(capacity: int) -> NativeInternTable:

@@ -21,7 +21,9 @@
 // `_multi_uniform_core` (:1198): the same update with the header's config
 // broadcast to every lane, and the narrow 2-row output.  Its plain
 // version is `multi_uniform_step_reference`.  The two formats share the
-// lane math (csrc/lane_math.cuh, with K3) and the format structs below;
+// lane math (csrc/lane_math.cuh, with K3) and the format structs (the
+// general one, `General`, in csrc/general_lane.cuh, with K11; `Uniform`
+// below);
 // each has a round loop of its own: K1 `rounds_kernel` (a cooperative
 // grid with a grid barrier between rounds), K4 `slot_range_kernel` (a
 // plain launch, no grid barrier).
@@ -100,6 +102,7 @@
 #include <cuda_runtime.h>
 
 #include "coop_launch.cuh"
+#include "general_lane.cuh"
 #include "lane_math.cuh"
 
 namespace cg = cooperative_groups;
@@ -123,47 +126,6 @@ __device__ __forceinline__ void cp_async_wait_prior() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
-
-// The general format (K1): pin int32 [16, L], one lane's request in rows
-// 1-15; the round header is `now` in row 0 of the round's first two
-// lanes; pout int32 [5, L].
-struct General {
-  static constexpr int kReqRows = 15;  // pin rows 1-15: slot and the request fields
-  struct Header {
-    int64_t now;
-  };
-  static __device__ __forceinline__ Header header(const int32_t* __restrict__ pin, int lo) {
-    return {combine(__ldg(pin + lo), __ldg(pin + lo + 1))};
-  }
-  // `req` is the lane's column of the request tile (pin rows 1-15,
-  // `stride` words apart).
-  static __device__ __forceinline__ void step(const Cols& st, long long cap, const Header& h,
-                                              const int32_t* req, int stride, int lane,
-                                              int32_t* __restrict__ pout, size_t w) {
-    auto row = [&](int r) { return req[(r - 1) * stride]; };
-    auto row64 = [&](int hr, int lr) { return combine(row(hr), row(lr)); };
-    const int32_t slot = row(1);
-    const bool valid = slot >= 0 && (long long)slot < cap;
-    int32_t g[kCols];
-    gather(st, slot, valid, g);
-    const Req q{row(2), row(3), row64(4, 5), row64(6, 7),
-                row64(8, 9), row64(10, 11), row64(12, 13), row64(14, 15)};
-    Vals v;
-    Resp out;
-    int64_t lk_rate_i;
-    update_lane(g, valid, q, h.now, v, out, lk_rate_i);
-    if (valid) {
-      int32_t words[kCols];
-      encode_vals(v, words);
-      store(st, slot, words);
-    }
-    pout[lane] = out.status;
-    pout[w + lane] = hi_word(out.rem);
-    pout[2 * w + lane] = lo_word(out.rem);
-    pout[3 * w + lane] = hi_word(out.reset);
-    pout[4 * w + lane] = lo_word(out.reset);
-  }
-};
 
 // The uniform narrow format (K4): pin int32 [2, L], row 1 the slot; the
 // round header in row 0 of the round's first ten lanes holds `now` and

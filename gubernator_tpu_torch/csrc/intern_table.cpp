@@ -4,8 +4,8 @@
 // (the JAX package's table), cut to what the single-node engine calls:
 // git_new / git_free / git_len, git_schedule_idx, git_set_expiry,
 // git_remove, git_release, git_key_for_slot and git_contains, with the
-// hit / miss / eviction statistics.  The sharded engine's
-// git_multi_schedule comes with that engine.
+// hit / miss / eviction statistics, and git_multi_schedule, the sharded
+// engine's whole host tier in one call (parallel/sharded_engine.py).
 //
 // It maps a batch of key strings to dense device-slot indices (LRU
 // eviction, TTL bookkeeping) and assigns each request its serialization
@@ -18,17 +18,21 @@
 // fnv1a-64) sized 2*capacity rounded up to a power of two; key bytes
 // owned per slot; LRU as intrusive prev/next arrays over slots; per-
 // batch round counters use epoch stamping, so no O(capacity) clearing
-// per call.  Single-threaded by design: the engine serializes batches
-// under its lock.  The Python InternTable (core/interning.py) is the
+// per call.  A table is single-threaded by design: the engine serializes
+// batches under its lock (git_multi_schedule gives each table to one
+// thread).  The Python InternTable (core/interning.py) is the
 // plain version; the two agree on slots, rounds, evictions and
 // statistics (tests/test_torch_native_table.py).
 //
 // C ABI only (loaded through ctypes); built with g++ -O2 -shared -fPIC
 // by ops/native_build.py.
 
+#include <algorithm>
+#include <array>
 #include <cstdint>
 #include <cstring>
 #include <string>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -313,6 +317,154 @@ int64_t git_schedule_idx(void* tp, const uint8_t* buf, const int64_t* offsets,
   stats_out[2] = t.evictions;
   stats_out[3] = t.unexpired_evictions;
   return n_evicted;
+}
+
+// Schedule one batch across n_sh shard tables in ONE call (the
+// sharded engine's whole host tier for a batch): shard routing
+// (hash % n_sh), per-table interning + LRU + eviction, round
+// assignment, TTL mirror writes, and the dispatch ordering the packers
+// need, where a Python loop would make per-shard nonzero / schedule /
+// set_expiry / argsort calls.
+//
+//   tables[n_sh]      Table* per shard
+//   hashes[n]         fnv1a-64 per key (nullable → computed here);
+//                     must be the canonical-key fnv1a (the wire
+//                     codec's dec.fnv1a is bit-identical)
+//   expires[n]        per-item TTL mirror write (nullable)
+//   out_shard/slots/rounds[n]   per-item results
+//   out_order[n]      permutation of [0,n): grouped by shard, sorted
+//                     by (slot, round) within each shard — round-0
+//                     dispatch and the hot-key collapse both consume
+//                     this ordering directly
+//   out_shard_counts[n_sh]      group sizes of out_order
+//   out_evicted/out_evict_shard/out_evict_rounds[n], *out_n_evicted
+//   stats_out[4*n_sh] cumulative per-table (hits, misses, evictions,
+//                     unexpired_evictions)
+// Returns max_round (>= 0).
+int64_t git_multi_schedule(
+    void** tables, int64_t n_sh, const uint8_t* buf, const int64_t* offsets,
+    const uint64_t* hashes, int64_t n, int64_t now_ms, const int64_t* expires,
+    int32_t* out_shard, int32_t* out_slots, int32_t* out_rounds,
+    int64_t* out_order, int64_t* out_shard_counts, int32_t* out_evicted,
+    int32_t* out_evict_shard, int32_t* out_evict_rounds,
+    int64_t* out_n_evicted, int64_t* stats_out, int64_t n_threads) {
+  for (int64_t sh = 0; sh < n_sh; ++sh)
+    ++static_cast<Table*>(tables[sh])->epoch;
+  const uint64_t ns = static_cast<uint64_t>(n_sh);
+
+  // Pass 1 (serial): hash + shard per item, then a counting sort that
+  // leaves out_order grouped by shard in ARRIVAL order — the layout
+  // the per-shard workers consume.
+  std::vector<uint64_t> h_local;
+  const uint64_t* h_all = hashes;
+  if (!h_all) {
+    h_local.resize(static_cast<size_t>(n));
+    for (int64_t j = 0; j < n; ++j)
+      h_local[j] = fnv1a(buf + offsets[j], offsets[j + 1] - offsets[j]);
+    h_all = h_local.data();
+  }
+  std::vector<int64_t> start(static_cast<size_t>(n_sh) + 1, 0);
+  for (int64_t j = 0; j < n; ++j) {
+    const int64_t sh = static_cast<int64_t>(h_all[j] % ns);
+    out_shard[j] = static_cast<int32_t>(sh);
+    ++start[sh + 1];
+  }
+  for (int64_t sh = 0; sh < n_sh; ++sh) {
+    out_shard_counts[sh] = start[sh + 1];
+    start[sh + 1] += start[sh];
+  }
+  {
+    std::vector<int64_t> cursor(start.begin(), start.end() - 1);
+    for (int64_t j = 0; j < n; ++j) out_order[cursor[out_shard[j]]++] = j;
+  }
+
+  // Pass 2: per-shard scheduling — tables are independent, so shards
+  // run CONCURRENTLY on multi-core hosts (the ctypes caller released
+  // the GIL; n_threads <= 1 runs inline).  Each worker schedules its
+  // shard's items in arrival order, defers its TTL writes to after
+  // its loop (same-batch evictions must read pre-batch expire — the
+  // deferred git_set_expiry semantics), sorts its out_order segment
+  // by (slot, round), and publishes per-table stats.
+  std::vector<std::vector<std::array<int32_t, 2>>> evs(
+      static_cast<size_t>(n_sh));
+  std::vector<int32_t> shard_max(static_cast<size_t>(n_sh), 0);
+
+  auto work_shard = [&](int64_t sh) {
+    Table& t = *static_cast<Table*>(tables[sh]);
+    const int64_t lo = start[sh], hi = start[sh + 1];
+    auto& ev = evs[static_cast<size_t>(sh)];
+    int32_t local_max = 0;
+    constexpr int64_t kAhead = 8;
+    for (int64_t k = lo; k < hi; ++k) {
+      if (k + kAhead < hi) {
+        const uint64_t hn = h_all[out_order[k + kAhead]];
+        __builtin_prefetch(&t.buckets[hn & t.mask]);
+        __builtin_prefetch(&t.bucket_hash[hn & t.mask]);
+      }
+      const int64_t j = out_order[k];
+      int32_t ev_slot, ev_round;
+      const int32_t slot = schedule_one(
+          t, buf + offsets[j], offsets[j + 1] - offsets[j], h_all[j],
+          now_ms, &ev_slot, &ev_round);
+      if (ev_slot >= 0) ev.push_back({ev_slot, ev_round});
+      const int32_t round = t.next_round(slot);
+      if (round > local_max) local_max = round;
+      out_slots[j] = slot;
+      out_rounds[j] = round;
+    }
+    if (expires) {
+      for (int64_t k = lo; k < hi; ++k) {
+        const int64_t j = out_order[k];
+        t.expire[out_slots[j]] = expires[j];
+      }
+    }
+    // (slot, round) sort: pairs are unique within a shard — round k
+    // IS the k-th occurrence of the slot — so the sort is total and,
+    // for duplicate slots, round order equals arrival order (what
+    // the hot-key collapse requires).
+    std::sort(out_order + lo, out_order + hi,
+              [&](int64_t a, int64_t b) {
+                if (out_slots[a] != out_slots[b])
+                  return out_slots[a] < out_slots[b];
+                return out_rounds[a] < out_rounds[b];
+              });
+    shard_max[static_cast<size_t>(sh)] = local_max;
+    stats_out[4 * sh + 0] = t.hits;
+    stats_out[4 * sh + 1] = t.misses;
+    stats_out[4 * sh + 2] = t.evictions;
+    stats_out[4 * sh + 3] = t.unexpired_evictions;
+  };
+
+  int64_t k_threads = n_threads;
+  if (k_threads > n_sh) k_threads = n_sh;
+  if (k_threads <= 1) {
+    for (int64_t sh = 0; sh < n_sh; ++sh) work_shard(sh);
+  } else {
+    std::vector<std::thread> pool;
+    pool.reserve(static_cast<size_t>(k_threads));
+    for (int64_t w = 0; w < k_threads; ++w)
+      pool.emplace_back([&, w]() {
+        for (int64_t sh = w; sh < n_sh; sh += k_threads) work_shard(sh);
+      });
+    for (auto& th : pool) th.join();
+  }
+
+  // Merge evictions (shard-grouped; consumers bucket by (round,
+  // shard), so inter-shard order is irrelevant).
+  int64_t n_evicted = 0;
+  int64_t max_round = 0;
+  for (int64_t sh = 0; sh < n_sh; ++sh) {
+    if (shard_max[static_cast<size_t>(sh)] > max_round)
+      max_round = shard_max[static_cast<size_t>(sh)];
+    for (const auto& e : evs[static_cast<size_t>(sh)]) {
+      out_evicted[n_evicted] = e[0];
+      out_evict_shard[n_evicted] = static_cast<int32_t>(sh);
+      out_evict_rounds[n_evicted] = e[1];
+      ++n_evicted;
+    }
+  }
+  *out_n_evicted = n_evicted;
+  return max_round;
 }
 
 void git_set_expiry(void* tp, const int32_t* slots, const int64_t* expires,

@@ -1,6 +1,6 @@
 // The bucket update of one lane, shared by the port's kernels: K1 and K4
-// (fused_step.cu, the general and uniform formats) and K3
-// (collapsed_step.cu).  One copy of the f64 chain, as the reference keeps
+// (fused_step.cu, the general and uniform formats), K3
+// (collapsed_step.cu), and K11 and K12 (sharded_step.cu).  One copy of the f64 chain, as the reference keeps
 // one `update_lanes` for its Pallas kernel and its XLA programs.
 //
 // `update_lane` transcribes gubernator_tpu/ops/bucket_kernel.py:514

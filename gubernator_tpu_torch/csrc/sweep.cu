@@ -1,4 +1,6 @@
-// K6: the expiry sweep of one window, for Hopper (sm_90a).
+// K6 and K13: the expiry sweep of one window, for Hopper (sm_90a); K13
+// sweeps the same window of every shard of a sharded state in one launch
+// pair.
 //
 // Replaces gubernator_tpu/ops/expiry.py:40 `sweep_window_scan` and :78
 // `sweep_window_commit` (and :131 `sweep_expired`, which is one window of
@@ -30,9 +32,21 @@
 //            index at its rank (ascending) and clears its meta bit, so the
 //            writes of a word are one coalesced store each.
 //
+// K13 replaces the same two programs over the sharded engine's
+// [n_sh, shard_cap] state (gubernator_tpu/parallel/sharded_engine.py:727
+// `sweep`): the reference's scan runs along the last axis, so one window
+// [start, start + window) covers that range of every shard, and gives
+// each shard's freed count and compacted indices.  The kernels are K6's
+// with the shard as the grid's y index: shard sh reads its columns at
+// sh * shard_cap, writes its output row (int32 [n_sh, window + 1], each
+// row laid out as K6's `out`) and keeps its own ballot words, tile counts
+// and ticket counter, so its last block scans its own tiles only.  K6 is
+// K13 with one shard.  The plain version is `shard_sweep_window_reference`.
+//
 // Bound: bytes.  12 B read per slot of the window (meta, hi2, expire_lo),
 // 8 B per freed slot (its index and its meta word) and the 4 B count;
-// 1.5 MB for a 2^17-slot window, 0.47 us at 3.35 TB/s.  What this design
+// 1.5 MB for a 2^17-slot window, 0.47 us at 3.35 TB/s (times n_sh in
+// K13).  What this design
 // adds: the ballot words (1/8 B per slot, written and read back), the
 // freed slots' meta words read again, and a second launch.  A decoupled
 // look-back scan could make it one launch.
@@ -88,13 +102,39 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums, int& 
   return before + incl - v;
 }
 
+// The scratch of a launch: one ticket counter a shard, then each shard's
+// ballot words and tile counts.
+struct Scratch {
+  unsigned int* done;    // [n_sh]
+  uint32_t* ballots;     // this shard's [tiles * kTileWords]
+  int32_t* tile_counts;  // this shard's [tiles]
+};
+
+__device__ __forceinline__ Scratch shard_scratch(int32_t* scratch, int n_sh, int sh, int tiles) {
+  const size_t per = (size_t)tiles * kTileWords + tiles;
+  uint32_t* ballots = reinterpret_cast<uint32_t*>(scratch + n_sh + (size_t)sh * per);
+  return {reinterpret_cast<unsigned int*>(scratch) + sh, ballots,
+          reinterpret_cast<int32_t*>(ballots + (size_t)tiles * kTileWords)};
+}
+
+// Grid (tiles, n_sh): shard blockIdx.y's columns start at blockIdx.y *
+// stride, its output row at blockIdx.y * (window + 1).
 __global__ void __launch_bounds__(kThreads)
 sweep_count_kernel(const int32_t* __restrict__ meta, const int32_t* __restrict__ hi2,
-                   const int32_t* __restrict__ expire_lo, long long start, long long window,
-                   int32_t now_hi, uint32_t now_lo, uint32_t* __restrict__ ballots,
-                   int32_t* tile_counts, int32_t* out, unsigned int* done) {
+                   const int32_t* __restrict__ expire_lo, long long stride, long long start,
+                   long long window, int32_t now_hi, uint32_t now_lo, int32_t* scratch,
+                   int32_t* out) {
   __shared__ int warp_sums[32];
   __shared__ bool is_last;
+  const int sh = (int)blockIdx.y;
+  const Scratch sc = shard_scratch(scratch, (int)gridDim.y, sh, (int)gridDim.x);
+  uint32_t* __restrict__ ballots = sc.ballots;
+  int32_t* tile_counts = sc.tile_counts;
+  unsigned int* done = sc.done;
+  meta += sh * stride;
+  hi2 += sh * stride;
+  expire_lo += sh * stride;
+  out += sh * (window + 1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long word0 = (long long)blockIdx.x * kTileWords + warp * kWordsPerWarp;
   int count = 0;
@@ -139,9 +179,14 @@ sweep_count_kernel(const int32_t* __restrict__ meta, const int32_t* __restrict__
 }
 
 __global__ void __launch_bounds__(kThreads)
-sweep_scatter_kernel(int32_t* __restrict__ meta, long long start,
-                     const uint32_t* __restrict__ ballots,
-                     const int32_t* __restrict__ tile_offsets, int32_t* __restrict__ out) {
+sweep_scatter_kernel(int32_t* __restrict__ meta, long long stride, long long start,
+                     long long window, int32_t* scratch, int32_t* __restrict__ out) {
+  const int sh = (int)blockIdx.y;
+  const Scratch sc = shard_scratch(scratch, (int)gridDim.y, sh, (int)gridDim.x);
+  const uint32_t* __restrict__ ballots = sc.ballots;
+  const int32_t* __restrict__ tile_offsets = sc.tile_counts;
+  meta += sh * stride;
+  out += sh * (window + 1);
   __shared__ int warp_sums[32];
   __shared__ unsigned int s_bits[kTileWords];
   __shared__ int s_base[kTileWords];
@@ -173,37 +218,53 @@ sweep_scatter_kernel(int32_t* __restrict__ meta, long long start,
 }  // namespace
 
 // The scratch the launcher needs, in int32 words, for a window of
-// `window` slots: ballot words, tile counts and the ticket counter.
-extern "C" long long guber_sweep_scratch_words(long long window) {
+// `window` slots over n_sh shards: a ticket counter a shard, then each
+// shard's ballot words and tile counts.
+extern "C" long long guber_shard_sweep_scratch_words(int n_sh, long long window) {
   const long long tiles = (window + kTileSlots - 1) / kTileSlots;
-  return tiles * kTileWords + tiles + 1;
+  return n_sh + n_sh * (tiles * kTileWords + tiles);
 }
 
-// meta, hi2, expire_lo: int32 [cap] on the device; the window
-// [start, start + window) lies in [0, cap), window >= 1; now_ms the sweep's
-// instant; out: int32 [window + 1]; scratch: int32
-// [guber_sweep_scratch_words(window)].  Returns the first CUDA error of the
-// memset and the two launches.
-extern "C" int guber_sweep_window(void* meta, const void* hi2, const void* expire_lo,
-                                  long long start, long long window, long long now_ms,
-                                  void* out, void* scratch, void* stream) {
+extern "C" long long guber_sweep_scratch_words(long long window) {
+  return guber_shard_sweep_scratch_words(1, window);
+}
+
+// meta, hi2, expire_lo: int32 [n_sh * stride] on the device, shard sh's
+// columns at sh * stride; the window [start, start + window) lies in
+// [0, stride), window >= 1; now_ms the sweep's instant; out: int32
+// [n_sh, window + 1]; scratch: int32
+// [guber_shard_sweep_scratch_words(n_sh, window)].  Returns the first CUDA
+// error of the memset and the two launches.
+extern "C" int guber_shard_sweep_window(void* meta, const void* hi2, const void* expire_lo,
+                                        int n_sh, long long stride, long long start,
+                                        long long window, long long now_ms, void* out,
+                                        void* scratch, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = (window + kTileSlots - 1) / kTileSlots;
-  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  uint32_t* ballots = static_cast<uint32_t*>(scratch);
-  int32_t* tile_counts = reinterpret_cast<int32_t*>(ballots + tiles * kTileWords);
-  unsigned int* done = reinterpret_cast<unsigned int*>(tile_counts + tiles);
-  cudaError_t err = cudaMemsetAsync(done, 0, sizeof(unsigned int), s);
+  if (tiles > 0x7fffffffLL || n_sh < 1 || n_sh > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)n_sh * sizeof(unsigned int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int32_t now_hi = static_cast<int32_t>(now_ms >> 32);
   const uint32_t now_lo = static_cast<uint32_t>(now_ms & 0xFFFFFFFFLL);
-  sweep_count_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
+  const dim3 grid((unsigned)tiles, (unsigned)n_sh);
+  sweep_count_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const int32_t*>(meta), static_cast<const int32_t*>(hi2),
-      static_cast<const int32_t*>(expire_lo), start, window, now_hi, now_lo, ballots,
-      tile_counts, static_cast<int32_t*>(out), done);
+      static_cast<const int32_t*>(expire_lo), stride, start, window, now_hi, now_lo,
+      static_cast<int32_t*>(scratch), static_cast<int32_t*>(out));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sweep_scatter_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
-      static_cast<int32_t*>(meta), start, ballots, tile_counts, static_cast<int32_t*>(out));
+  sweep_scatter_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<int32_t*>(meta), stride, start, window, static_cast<int32_t*>(scratch),
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K6: one window of one state (meta, hi2, expire_lo int32 [cap]); out
+// int32 [window + 1]; scratch int32 [guber_sweep_scratch_words(window)].
+extern "C" int guber_sweep_window(void* meta, const void* hi2, const void* expire_lo,
+                                  long long start, long long window, long long now_ms,
+                                  void* out, void* scratch, void* stream) {
+  return guber_shard_sweep_window(meta, hi2, expire_lo, 1, 0, start, window, now_ms, out,
+                                  scratch, stream);
 }

@@ -1,7 +1,9 @@
 """Daemon — process bootstrap: engine + service + HTTP gateway + h2 front.
 
 Port of `gubernator_tpu/daemon.py` for one node: `spawn_daemon(conf)`
-builds the decision engine on the card (or on `device` when given), with
+builds the decision engine on the card (or on `device` when given) —
+with `conf.device_count` (GUBER_DEVICE_COUNT) n > 1, the sharded engine
+of n shards (parallel/sharded_engine.py), all on that one device — with
 an optional write-through `store`, restores the cache from an optional
 `loader` before it serves, wires the V1 service with its decision
 ledger (`conf.ledger*`, GUBER_LEDGER*; reference daemon.py:186-191),
@@ -65,8 +67,7 @@ class Daemon:
         self._closed = False
 
     def start(self) -> None:
-        engine = DecisionEngine(self.conf.cache_size, clock=self.clock, device=self.device,
-                                store=self._store)
+        engine = self._build_engine()
         self.instance = V1Instance(engine, sketch_window_ms=self.conf.sketch_window_ms,
                                    sketch_depth=self.conf.sketch_depth,
                                    sketch_width=self.conf.sketch_width,
@@ -104,6 +105,22 @@ class Daemon:
             self.http_address, self.h2_fast_address or "off", engine.device, engine.capacity,
             engine.logical_capacity,
         )
+
+    def _build_engine(self):
+        """The engine (reference daemon.py:124-147): with `device_count` n
+        > 1, a ShardedDecisionEngine of n shards of cache_size // n slots;
+        else one DecisionEngine of cache_size.  The reference puts its n
+        shards on its first n devices; here all n live on the one card."""
+        n = self.conf.device_count or 1
+        if n > 1:
+            from gubernator_tpu_torch.parallel.sharded_engine import ShardedDecisionEngine
+
+            return ShardedDecisionEngine(
+                shard_capacity=max(1, self.conf.cache_size // n), n_shards=n,
+                clock=self.clock, store=self._store, device=self.device,
+            )
+        return DecisionEngine(self.conf.cache_size, clock=self.clock, device=self.device,
+                              store=self._store)
 
     def _sweep_loop(self) -> None:
         while not self._sweep_stop.wait(self.conf.sweep_interval):

@@ -1,9 +1,10 @@
 """Key hashing: FNV-1a 64-bit over a batch of byte keys, in numpy.
 
-The port's own copy of `gubernator_tpu/hashing.py:59 fnv1a_64_batch`
-and `:73 pack_keys` (the port imports nothing of the JAX package); the
-same bits.  The sketch limiter (`ops/sketch.py`) derives its row
-indexes from one fnv1a-64 per key.
+The port's own copy of `gubernator_tpu/hashing.py:32 fnv1a_64`, `:59
+fnv1a_64_batch` and `:73 pack_keys` (the port imports nothing of the JAX
+package); the same bits.  The sketch limiter (`ops/sketch.py`) derives
+its row indexes from one fnv1a-64 per key, and the sharded engine
+(`parallel/sharded_engine.py`) a key's shard.
 """
 
 from __future__ import annotations
@@ -12,6 +13,15 @@ import numpy as np
 
 FNV1_OFFSET = 0xCBF29CE484222325
 FNV1_PRIME = 0x100000001B3
+_MASK = (1 << 64) - 1
+
+
+def fnv1a_64(data: bytes) -> int:
+    """FNV-1a 64-bit (xor, then multiply) of one key."""
+    h = FNV1_OFFSET
+    for b in data:
+        h = ((h ^ b) * FNV1_PRIME) & _MASK
+    return h
 
 
 def fnv1a_64_batch(padded: np.ndarray, lengths: np.ndarray) -> np.ndarray:

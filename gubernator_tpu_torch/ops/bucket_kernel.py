@@ -1151,6 +1151,66 @@ def collapsed_step_reference(state: BucketState, pin: torch.Tensor) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
+# The sharded engine's per-shard steps (reference parallel/sharded_engine.py
+# :323 `_build_step_single_program`: `jax.vmap(_fused_step_core)` and
+# `jax.vmap(collapsed_fused_one)`).  The state of n_sh shards of `shard_cap`
+# slots is one `BucketState` of [n_sh * shard_cap] columns, shard sh at rows
+# [sh * shard_cap, (sh + 1) * shard_cap): the [n_sh, shard_cap] layout,
+# row-major.  Each shard's pin is packed with the shard's own capacity, so
+# its padding lanes (`shard_cap + lane`) are out of range in the shard.
+
+
+def shard_views(state: BucketState, shard_cap: int) -> list:
+    """The shards of a sharded state: one `BucketState` view of
+    `shard_cap` rows a shard (writes through a view land in `state`)."""
+    cap = check_state(state)
+    if shard_cap < 1 or cap % shard_cap:
+        raise ValueError(f"capacity {cap} is not a whole number of shards of {shard_cap}")
+    return [BucketState(*(col[sh * shard_cap : (sh + 1) * shard_cap] for col in state))
+            for sh in range(cap // shard_cap)]
+
+
+def check_shard_pin(pin: torch.Tensor, rows: int, n_sh: int) -> None:
+    if pin.dtype != _I32 or pin.dim() != 3 or pin.shape[0] != n_sh or pin.shape[1] != rows:
+        raise ValueError(f"pin must be int32 [{n_sh}, {rows}, W]; got {pin.dtype} "
+                         f"{list(pin.shape)}")
+
+
+def sharded_fused_step_reference(state: BucketState, pin: torch.Tensor,
+                                 shard_cap: int) -> torch.Tensor:
+    """The plain per-shard packed step: shard sh runs `fused_step_reference`
+    on its own rows with `pin[sh]` (int32 [n_sh, 16, W]); returns pout int32
+    [n_sh, 5, W], `state` updated IN PLACE."""
+    shards = shard_views(state, shard_cap)
+    check_shard_pin(pin, PACKED_IN_ROWS, len(shards))
+    return torch.stack([fused_step_reference(st, pin[sh]) for sh, st in enumerate(shards)])
+
+
+def sharded_collapsed_step_reference(state: BucketState, pin: torch.Tensor,
+                                     shard_cap: int) -> torch.Tensor:
+    """The plain per-shard collapsed step: shard sh runs
+    `collapsed_step_reference` on its own rows with `pin[sh]` (int32
+    [n_sh, 19, W], each shard's chunk as `pack_collapsed_host` lays it out
+    with the shard's capacity); returns pout int32 [n_sh, 5, W], `state`
+    updated IN PLACE."""
+    shards = shard_views(state, shard_cap)
+    check_shard_pin(pin, COLLAPSED_IN_ROWS, len(shards))
+    return torch.stack([collapsed_step_reference(st, pin[sh]) for sh, st in enumerate(shards)])
+
+
+def shard_clears_reference(state: BucketState, clear_slots: torch.Tensor, shard_cap: int) -> None:
+    """The shards' eviction clears, plain version (the reference's
+    `jax.vmap(_clear_occupied_impl)`): `clear_slots` int32 [n_sh, C], row
+    sh the shard's slots, entries outside [0, shard_cap) dropped."""
+    shards = shard_views(state, shard_cap)
+    if clear_slots.dtype != _I32 or clear_slots.dim() != 2 or clear_slots.shape[0] != len(shards):
+        raise ValueError(f"clear_slots must be int32 [{len(shards)}, C]")
+    if clear_slots.shape[1]:
+        for st, row in zip(shards, clear_slots):
+            clear_occupied_reference(st.meta, row)
+
+
+# ---------------------------------------------------------------------------
 # Restore: store and loader items hydrated into slots (reference
 # bucket_kernel.py:1504 `SlotRecord`, :1526 `_load_slots_impl`).
 #

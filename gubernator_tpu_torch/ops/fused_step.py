@@ -28,10 +28,12 @@ _clear_occupied_impl`):
   restored items (record layout `ops.bucket_kernel.RESTORE_FIELDS`) at
   their slots, in place.
 
-K3, the collapsed step, has its wrapper in `ops.collapsed_step`, K6, the
-expiry sweep, in `ops.expiry`, K7 / K8, the count-min sketch's step
-and rotation, in `ops.sketch`, and K9 / K10, the page spill and refill,
-in `ops.page_words`; their launches count here too.
+K3, the collapsed step, has its wrapper in `ops.collapsed_step`, K6 and
+K13, the expiry sweep of one state and of every shard, in `ops.expiry`,
+K7 / K8, the count-min sketch's step and rotation, in `ops.sketch`,
+K9 / K10, the page spill and refill, in `ops.page_words`, and K11 / K12,
+the sharded engine's per-shard steps, in `ops.sharded_step`; their
+launches count here too.
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
 PyTorch version in `ops.bucket_kernel`; any other device raises.  There
@@ -69,7 +71,8 @@ from gubernator_tpu_torch.ops.bucket_kernel import (
 # Kernel launches since the last reset_launches(), by kernel name.
 launches = {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0, "uniform_step": 0,
             "load_slots": 0, "sweep_window": 0, "sketch_step": 0, "sketch_rotate": 0,
-            "gather_pages": 0, "load_pages": 0}
+            "gather_pages": 0, "load_pages": 0, "shard_step": 0, "shard_collapsed": 0,
+            "shard_sweep": 0}
 
 
 def reset_launches() -> None:

@@ -1,7 +1,7 @@
 """Build and load the port's native code: the CUDA kernels (csrc/*.cu:
 K1 and K4 in fused_step.cu, K2 clear_occupied.cu, K3 collapsed_step.cu,
-K5 load_slots.cu, K6 sweep.cu, K7 and K8 sketch.cu, K9 and K10
-page_words.cu), the host intern
+K5 load_slots.cu, K6 and K13 sweep.cu, K7 and K8 sketch.cu, K9 and K10
+page_words.cu, K11 and K12 sharded_step.cu), the host intern
 table (csrc/intern_table.cpp), the wire codec (csrc/wire_codec.cpp), the
 h2 front (csrc/h2_server.cpp, linked with the wire codec and the native
 decision plane, csrc/decision_plane.cpp, into one library, as the
@@ -45,6 +45,7 @@ SOURCES = {
     "sweep": ("sweep.cu",),
     "sketch": ("sketch.cu",),
     "page_words": ("page_words.cu",),
+    "sharded_step": ("sharded_step.cu",),
     "intern_table": ("intern_table.cpp",),
     "wire_codec": ("wire_codec.cpp",),
     # The wire codec and the decision plane link into the h2 server, as the
@@ -55,7 +56,7 @@ SOURCES = {
     "h2_client": ("h2_client.cpp",),
 }
 # Sources a .cu includes: an edit to one rebuilds every kernel.
-HEADERS = ("coop_launch.cuh", "lane_math.cuh")
+HEADERS = ("coop_launch.cuh", "lane_math.cuh", "general_lane.cuh", "collapsed_tile.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -192,6 +193,23 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.guber_sweep_scratch_words.restype = ll
         lib.guber_sweep_window.argtypes = [p, p, p, ll, ll, ll, p, p, p]
         lib.guber_sweep_window.restype = i
+        lib.guber_shard_sweep_scratch_words.argtypes = [i, ll]
+        lib.guber_shard_sweep_scratch_words.restype = ll
+        # meta, hi2, expire_lo, n_sh, stride, start, window, now_ms, out,
+        # scratch, stream
+        lib.guber_shard_sweep_window.argtypes = [p, p, p, i, ll, ll, ll, ll, p, p, p]
+        lib.guber_shard_sweep_window.restype = i
+    elif name == "sharded_step":
+        ll = ctypes.c_longlong
+        # cols, shard_cap, n_sh, pin, width, clear_slots, n_clear, pout, stream
+        lib.guber_shard_step.argtypes = [ctypes.POINTER(p), ll, i, p, i, p, i, p, p]
+        lib.guber_shard_step.restype = i
+        # ..., n_clear, pub, pub_tiles, tiles_before, pout, stream
+        lib.guber_shard_collapsed.argtypes = [ctypes.POINTER(p), ll, i, p, i, p, i, p, ll, ll,
+                                              p, p]
+        lib.guber_shard_collapsed.restype = i
+        lib.guber_shard_collapsed_threads.argtypes = []
+        lib.guber_shard_collapsed_threads.restype = i
     elif name == "sketch":
         ll = ctypes.c_longlong
         # counts, depth, width, pin, size, cur, out, row_est scratch, stream
@@ -215,6 +233,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # out_rounds, out_evicted, out_evict_rounds, stats_out
         lib.git_schedule_idx.restype = i64
         lib.git_schedule_idx.argtypes = [p, p, p, p, i64, i64, p, p, p, p, p]
+        # tables (void*[n_sh]), n_sh, buf, offsets, hashes (nullable), n,
+        # now_ms, expires (nullable), out_shard, out_slots, out_rounds,
+        # out_order, out_shard_counts, out_evicted, out_evict_shard,
+        # out_evict_rounds, out_n_evicted, stats_out, n_threads
+        lib.git_multi_schedule.restype = i64
+        lib.git_multi_schedule.argtypes = [p, i64, p, p, p, i64, i64, p] + [p] * 10 + [i64]
         lib.git_set_expiry.argtypes = [p, p, p, i64]
         lib.git_remove.restype = ctypes.c_int32
         lib.git_remove.argtypes = [p, ctypes.c_char_p, i64]

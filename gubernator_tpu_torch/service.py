@@ -251,8 +251,14 @@ class V1Instance:
             return self._serve_decoded_ledger(dec)
         return engine.apply_columnar(
             PackedKeys(dec.key_buf, dec.key_offsets, dec.n), dec.algo, dec.behavior, dec.hits,
-            dec.limit, dec.duration, dec.burst,
+            dec.limit, dec.duration, dec.burst, **self._routes(dec.fnv1a),
         )
+
+    def _routes(self, fnv1a) -> dict:
+        """The sharded engine's shard routes (reference :1055-1062): the
+        wire decode's fnv1a-64 of each key, the intern table's own hash,
+        so the host tier hashes nothing again."""
+        return {"route_hashes": fnv1a} if hasattr(self.engine, "tables") else {}
 
     def _offer_hotkeys(self, dec) -> None:
         """Columnar hot-key accounting (reference :1009): rows the lease
@@ -282,7 +288,7 @@ class V1Instance:
         try:
             out = engine.apply_columnar(
                 PackedKeys(lane.key_buf, lane.key_offsets, lane.n), lane.algo, lane.behavior,
-                lane.hits, lane.limit, lane.duration, lane.burst,
+                lane.hits, lane.limit, lane.duration, lane.burst, **self._routes(lane.fnv1a),
             )
         except Exception:
             plan.rollback()

@@ -398,10 +398,25 @@ def test_wrappers_route_cpu_tensors_to_the_plain_version():
     assert block.shape == (2, 12, 16) and int(block[0, 0, 3]) == int(state.meta[3])
     pw.load_pages(state, starts.flip(0), block)
     assert int(state.meta[115]) == int(block[0, 0, 3])
+    from gubernator_tpu_torch.ops import sharded_step as ss
+    from gubernator_tpu_torch.ops.expiry import shard_sweep_window
+
+    spin = np.stack([tk.pack_batch_host(64, 1000, 64, np.array([9], np.int32),
+                                        *([np.array([1])] * 8))] * 2)
+    rows = torch.from_numpy(ss.shard_clear_rows([[], [9]], 64))
+    assert ss.shard_step(state, torch.from_numpy(spin), 64, rows).shape == (2, 5, 64)
+    scol = np.stack([tk.pack_collapsed_host(32, 1000, 64, np.array([7], np.int32),
+                                            np.array([3]), tuple(np.array([v]) for v in
+                                                                 (0, 0, 1, 5, 1000, 0, 0, 0)),
+                                            np.zeros(3, np.int32), np.arange(3, dtype=np.int32))]
+                    * 2)
+    assert ss.shard_collapsed_step(state, torch.from_numpy(scol), 64, rows).shape == (2, 5, 32)
+    assert shard_sweep_window(state.meta, state.hi2, state.expire_lo, 2, 0, 0, 64).shape == (2, 65)
     assert fs.launches == {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0,
                            "uniform_step": 0, "load_slots": 0, "sweep_window": 0,
                            "sketch_step": 0, "sketch_rotate": 0, "gather_pages": 0,
-                           "load_pages": 0}
+                           "load_pages": 0, "shard_step": 0, "shard_collapsed": 0,
+                           "shard_sweep": 0}
     meta_state = tk.BucketState(*(torch.empty(8, dtype=torch.int32, device="meta") for _ in range(12)))
     with pytest.raises(ValueError):
         fs.fused_step(meta_state, torch.empty((16, 64), dtype=torch.int32, device="meta"))

@@ -932,3 +932,222 @@ def test_paged_engine_on_the_card_matches_the_cpu(cuda, monkeypatch, tmp_path):
     faults = gp.faults
     assert gpu.sweep() == cpu.sweep() > 0
     assert gp.faults == faults
+
+
+# ---------------------------------------------------------------------------
+# K11, K12 and K13: the sharded engine's per-shard steps and sweep.
+
+
+def _shard_rows(rng, n_sh, cap, lane_slots):
+    """Per-shard clears (some lane slots, some other slots, one shard with
+    none) as K11 / K12 take them."""
+    from gubernator_tpu_torch.ops.sharded_step import shard_clear_rows
+
+    clears = []
+    for sh in range(n_sh):
+        own = list(rng.choice(lane_slots[sh], min(4, len(lane_slots[sh])), replace=False)) \
+            if len(lane_slots[sh]) else []
+        other = [int(s) for s in rng.choice(cap, 6, replace=False)]
+        clears.append([] if sh == 1 else sorted({int(s) for s in own} | set(other)))
+    return shard_clear_rows(clears, cap)
+
+
+@pytest.mark.parametrize("n_sh", [1, 4, 8])
+def test_shard_step_kernel_bit_equal_to_plain(cuda, n_sh):
+    """K11 against the shards' clears + `sharded_fused_step_reference`: a
+    full shard, padded shards (their `shard_cap + lane` padding would be
+    the next shard's first slots if it were global) and an empty one,
+    clears of lane slots and of other slots; pout and all 12 columns."""
+    from gubernator_tpu_torch.ops.sharded_step import shard_step
+
+    rng = np.random.default_rng(110 + n_sh)
+    cap, width, now = 256, 128, 1_760_000_000_000
+    words = _state_words(rng, n_sh * cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    for it in range(6):
+        now += int(rng.integers(0, 300))
+        pins, lane_slots = [], []
+        for sh in range(n_sh):
+            m = width if sh == 0 else (0 if sh == 2 else int(rng.integers(1, width)))
+            slots = np.sort(rng.choice(cap, m, replace=False)).astype(np.int32)
+            lane_slots.append(slots)
+            pins.append(tk.pack_batch_host(width, now, cap, slots, *_rand_cols(rng, m, now)))
+        pin = torch.from_numpy(np.stack(pins)).to(cuda)
+        rows = torch.from_numpy(_shard_rows(rng, n_sh, cap, lane_slots)).to(cuda)
+        if it % 3 == 2:
+            rows = rows[:, :0]
+        got = shard_step(kern, pin, cap, rows)
+        tk.shard_clears_reference(plain, rows, cap)
+        want = tk.sharded_fused_step_reference(plain, pin, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), it
+        for name, a, b in zip(tk.BucketState._fields, kern, plain):
+            assert torch.equal(a, b), (it, name)
+    assert fs.launches["shard_step"] == 6
+
+
+@pytest.mark.parametrize("n_sh", [1, 4, 8])
+def test_shard_collapsed_kernel_bit_equal_to_plain(cuda, n_sh):
+    """K12 against the shards' clears + `sharded_collapsed_step_reference`:
+    each shard its own chunk, a hot key whose segment spans several tiles
+    in some shards (each shard's publication chain), short segments,
+    padding shards; clears of segment slots and of other slots."""
+    from gubernator_tpu_torch.ops.sharded_step import shard_collapsed_step
+
+    rng = np.random.default_rng(120 + n_sh)
+    cap, now = 1 << 12, 1_760_000_000_000
+    words = _state_words(rng, n_sh * cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    for call in range(6):
+        now += int(rng.integers(0, 3_000))
+        width = int(rng.choice([64, 512, 1024]))
+        pins, seg_slots = [], []
+        for sh in range(n_sh):
+            if sh == 2:
+                lanes = np.zeros(0, np.int32)
+            elif sh % 2 == 0:  # one hot key then spread ones
+                hot = int(rng.integers(cap))
+                spread = rng.choice(cap, width // 4, replace=True)
+                lanes = np.concatenate([np.full(width // 2, hot), spread])[: width - 1]
+            else:
+                lanes = rng.choice(cap, int(rng.integers(1, width)), replace=True)
+            if len(lanes):
+                pin, uniq = _collapsed_pin(rng, cap, now, np.sort(lanes).astype(np.int32),
+                                           size=width)
+            else:
+                empty = np.zeros(0, np.int64)
+                pin = tk.pack_collapsed_host(width, now, cap, np.zeros(0, np.int32), empty,
+                                             (empty,) * 8, np.zeros(0, np.int32),
+                                             np.zeros(0, np.int32))
+                uniq = np.zeros(0, np.int32)
+            pins.append(pin)
+            seg_slots.append(uniq)
+        pin = torch.from_numpy(np.stack(pins)).to(cuda)
+        rows = torch.from_numpy(_shard_rows(rng, n_sh, cap, seg_slots)).to(cuda)
+        if call % 3 == 2:
+            rows = rows[:, :0]
+        got = shard_collapsed_step(kern, pin, cap, rows)
+        tk.shard_clears_reference(plain, rows, cap)
+        want = tk.sharded_collapsed_step_reference(plain, pin, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), call
+        for name, a, b in zip(tk.BucketState._fields, kern, plain):
+            assert torch.equal(a, b), (call, name)
+    assert fs.launches["shard_collapsed"] == 6
+
+
+@pytest.mark.parametrize("n_sh,cap,start,window", [(1, 1 << 17, 0, 1 << 17),
+                                                   (4, 300_000, 300_000 - 131_072, 131_072),
+                                                   (8, 5000, 1234, 777)])
+def test_shard_sweep_kernel_bit_equal_to_plain(cuda, n_sh, cap, start, window):
+    """K13 against `shard_sweep_window_reference`: each shard's count,
+    freed indices (ascending) and meta words bit-equal, expiries at now -
+    1, now and now + 1 with bit 31 of the low word set."""
+    from gubernator_tpu_torch.ops import expiry
+
+    rng = np.random.default_rng(n_sh + cap)
+    now = 1_760_000_000_123 | (1 << 31)
+    words = _sweep_state(rng, n_sh * cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    got = expiry.shard_sweep_window(kern.meta, kern.hi2, kern.expire_lo, n_sh, now, start,
+                                    window)
+    want = expiry.shard_sweep_window_reference(plain.meta, plain.hi2, plain.expire_lo, n_sh,
+                                               now, start, window)
+    torch.cuda.synchronize()
+    assert got.shape == (n_sh, window + 1)
+    for sh in range(n_sh):
+        c = int(want[sh, 0])
+        assert c > 0 and int(got[sh, 0]) == c, sh
+        assert torch.equal(got[sh, 1 : 1 + c], want[sh, 1 : 1 + c]), sh
+    assert torch.equal(kern.meta, plain.meta)
+    assert fs.launches["shard_sweep"] == 1
+    again = expiry.shard_sweep_window(kern.meta, kern.hi2, kern.expire_lo, n_sh, now, start,
+                                      window)
+    assert int(again[:, 0].sum()) == 0
+
+
+@pytest.mark.parametrize("n_sh", [1, 4, 8])
+def test_sharded_engine_on_the_card_matches_the_cpu(cuda, n_sh, tmp_path):
+    """The sharded engine on the card against the same on the CPU: a
+    dataclass stream under eviction pressure with hot keys (K11, K12), a
+    columnar stream with Gregorian items (the flat K1 / K3), a store
+    engine (K2, K5, K11), a checkpoint and sweeps (K13); answers and every
+    state word equal."""
+    from gubernator_tpu_torch.checkpoint import NpzFileLoader
+    from gubernator_tpu_torch.parallel.sharded_engine import ShardedDecisionEngine
+    from gubernator_tpu_torch.store import MemoryStore
+    from gubernator_tpu_torch.types import RateLimitReq
+
+    rng = np.random.default_rng(130 + n_sh)
+    ns = 1_760_000_000_000 * 1_000_000
+
+    def pair(cap, **kw):
+        kws = [dict(kw, store=MemoryStore()) if "store" in kw else kw for _ in range(2)]
+        return (ShardedDecisionEngine(cap, n_shards=n_sh, clock=Clock().freeze_at(ns),
+                                      device=cuda, **kws[0]),
+                ShardedDecisionEngine(cap, n_shards=n_sh, clock=Clock().freeze_at(ns),
+                                      device="cpu", **kws[1]))
+
+    def batch(n, pool, hot=False):
+        """Spread keys (Gregorian minutes on 1 in 10), or with `hot` only
+        three hot keys, each with one config (the collapse, K12)."""
+        out = []
+        for _ in range(n):
+            if hot:
+                h = int(rng.integers(3))
+                out.append(RateLimitReq(name="s", unique_key=f"h{h}", hits=1, limit=40 + h,
+                                        duration=60_000, algorithm=h % 2, burst=40))
+                continue
+            greg = rng.random() < 0.1
+            out.append(RateLimitReq(
+                name="s", unique_key=f"u{int(rng.integers(pool))}",
+                hits=int(rng.choice([0, 1, 2])), limit=int(rng.choice([5, 50])),
+                duration=0 if greg else int(rng.choice([500, 60_000])), behavior=4 if greg else 0,
+                algorithm=int(rng.integers(0, 2)), burst=int(rng.choice([0, 9]))))
+        return out
+
+    def same_words(a, b):
+        x, y = tk.state_to_numpy(a.state), tk.state_to_numpy(b.state)
+        for f in tk.BucketState._fields:
+            assert np.array_equal(x[f], y[f]), f
+
+    def advance(ms, *engines):
+        for e in engines:
+            e.clock.advance(ms=ms)
+
+    fs.reset_launches()
+    gpu, cpu = pair(32)
+    for b in range(20):
+        reqs = batch(int(rng.integers(10, 200)), 600, hot=b % 4 == 0)
+        assert [(r.status, r.remaining, r.reset_time) for r in gpu.get_rate_limits(reqs)] == [
+            (r.status, r.remaining, r.reset_time) for r in cpu.get_rate_limits(reqs)]
+        keys = [r.hash_key().encode() for r in reqs]
+        cols = tuple(np.asarray([getattr(r, f) for r in reqs], t) for f, t in (
+            ("algorithm", np.int32), ("behavior", np.int32), ("hits", np.int64),
+            ("limit", np.int64), ("duration", np.int64), ("burst", np.int64)))
+        for x, y in zip(gpu.apply_columnar(keys, *cols), cpu.apply_columnar(keys, *cols)):
+            assert np.array_equal(x, y), b
+        advance(int(rng.integers(0, 400)), gpu, cpu)
+    same_words(gpu, cpu)
+    path = str(tmp_path / "s.npz")
+    gpu.save(NpzFileLoader(path))
+    fresh, fresh_cpu = pair(32)
+    advance(gpu.clock.now_ms() - fresh.clock.now_ms(), fresh, fresh_cpu)
+    assert fresh.load(NpzFileLoader(path)) == fresh_cpu.load(NpzFileLoader(path)) \
+        == gpu.cache_size()
+    same_words(fresh, fresh_cpu)
+    advance(120_000, gpu, cpu)
+    assert gpu.sweep() == cpu.sweep() > 0
+    same_words(gpu, cpu)
+    sgpu, scpu = pair(4, store=True)
+    for b in range(10):
+        reqs = batch(int(rng.integers(5, 60)), 80)
+        assert [(r.status, r.remaining, r.reset_time) for r in sgpu.get_rate_limits(reqs)] == [
+            (r.status, r.remaining, r.reset_time) for r in scpu.get_rate_limits(reqs)]
+    same_words(sgpu, scpu)
+    for name in ("shard_step", "shard_collapsed", "shard_sweep", "fused_step",
+                 "collapsed_step", "clear_occupied", "load_slots"):
+        assert fs.launches[name] > 0, name

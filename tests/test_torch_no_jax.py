@@ -55,6 +55,9 @@ def test_port_modules_import_without_jax_or_the_reference():
         "gubernator_tpu_torch.ops.expiry",
         "gubernator_tpu_torch.ops.sketch",
         "gubernator_tpu_torch.ops.page_words",
+        "gubernator_tpu_torch.ops.sharded_step",
+        "gubernator_tpu_torch.parallel",
+        "gubernator_tpu_torch.parallel.sharded_engine",
         "gubernator_tpu_torch.core.paging",
         "gubernator_tpu_torch.utils.hotkeys",
         "gubernator_tpu_torch.hashing",
