@@ -53,20 +53,31 @@ answers the same kind of batches over HTTP (bodies compared).  K7 must
 launch once per apply with sketch items, K8 at least once.
 
 A fourth path, the h2 path (the native h2 front, net/h2_fast.py, into
-apply_columnar), counts its launches from 0 as well: the port's daemon on
-the card (2^20 slots, frozen clock, its front from GUBER_H2_FAST_ADDRESS's
-config) and a CPU instance behind its own front answer the same 30
-sequential RPCs of 1000 items over HTTP/2 (a short stdlib client here,
-`H2Unary`; the card's machine has no grpcio): grpc-status and response
-bytes equal RPC by RPC, a GLOBAL, a Gregorian, a SKETCH and an empty-key
-RPC UNIMPLEMENTED, a zero-item RPC empty OK, state words equal, every
-window on the C dispatch thread on the default stream; 8 plain RPCs and a
-GLOBAL one sharing one 50 ms window (the plain ones served as a CPU front
-serves them, the GLOBAL one UNIMPLEMENTED); the reference's "herdfast"
-shape through the port's native client (32 connections of single-item
-RPCs on one key for 2 s: no errors, the key's remaining within its
-bound); and a 1-connection closed loop of one 1000-item leaky-bucket RPC
-for 3 s, at the 2 ms window and with none.  Its engine launches are all
+apply_columnar), counts its launches from 0 as well, once for each of
+its two runs.  It runs twice: with
+the front's columnar feeder (the default ingest: csrc/columnar_feeder.cpp
+packs each RPC into a ring of column windows in the connection threads,
+and the feeder's own thread serves a window at a time) and with
+GUBER_NATIVE_FEEDER=0 (the byte window path).  Each time the port's
+daemon on the card (2^20 slots, frozen clock, its front from
+GUBER_H2_FAST_ADDRESS's config) and a CPU instance behind its own front,
+with the feeder alike, answer the same 30 sequential RPCs of 1000 items
+over HTTP/2 (a short stdlib client here, `H2Unary`; the card's machine
+has no grpcio): grpc-status and response bytes equal RPC by RPC, the
+metadata map included (`decode_responses` reads it: with the feeder
+every OVER_LIMIT item carries retry_after_ms = reset - now, without it
+none does), a GLOBAL, a Gregorian, a SKETCH and an empty-key RPC
+UNIMPLEMENTED, a zero-item RPC empty OK, state words equal, every window
+on one thread (the feeder's serve thread, or the C dispatch thread) on
+the default stream, and with the feeder every in-scope RPC answered by
+it (`feeder_front_rpcs`) and no byte window but the declined RPCs'; 8
+plain RPCs and a GLOBAL one sent at once to a 50 ms window (the plain
+ones served as a CPU front serves them, in one feeder window or one byte
+window, the GLOBAL one UNIMPLEMENTED); the reference's "herdfast" shape
+through the port's native client (32 connections of single-item RPCs on
+one key for 2 s: no errors, the key's remaining within its bound); and a
+1-connection closed loop of one 1000-item leaky-bucket RPC for 3 s, at
+the 2 ms window and with none.  In each run its engine launches are all
 K1, K3 or K4, and each of them runs.  The daemon binary is also started
 with GUBER_H2_FAST_ADDRESS and answers one RPC there.  Since the decision
 ledger is on by default, the parity daemon and its CPU twin run it (no
@@ -146,10 +157,10 @@ and its plain version (K3 also on one-key and spread zipf chunks without
 and with clears, K4 also on joined launches of 2 and 16 rounds; K5 per 4096-record restore and
 K6 per 2^17-slot window at 10^8 slots, the wall time of a 16-window
 sweep tick, a save / load round trip at 2^20; K7 per 1000- and
-8192-key batch and K8 per plane at widths 2^20 and 2^24, K8 beside
-`zero_()` on the same plane), apply_columnar's decisions/s on each
-stream, and the h2 path's RPCs/s, p50 and p99 (herd and 1000-item
-loop) and windows per RPC.  Any
+8192-key batch and K8 on one plane and on both at widths 2^20 and 2^24,
+beside `zero_()` on the same span), apply_columnar's decisions/s on each stream, and the h2 path's
+RPCs/s, p50 and p99 (herd and 1000-item loop, feeder on and off) and
+byte windows per RPC.  Any
 failed phase exits non-zero before the result lines.  The last three
 lines of standard output are the kernels JSON line, the card's
 `name, power.limit` from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -2004,10 +2015,12 @@ def phase_sketch_http(torch, np, rng):
 
 
 def phase_sketch_timing(torch, np, rng, card):
-    """K7 per batch of 1000 and 8192 zipf keys and K8 per plane, at
-    widths 2^20 and 2^24 (CUDA events), beside their bytes bounds, their
-    plain versions and, for K8, `zero_()` on the same plane (the one
-    PyTorch call that computes it; the port never calls it)."""
+    """K7 per batch of 1000 and 8192 zipf keys and K8 per plane and per
+    pair of planes, at widths 2^20 and 2^24 (CUDA events), beside their
+    bytes bounds, their plain versions and, for K8, `zero_()` on the same
+    span (the one PyTorch call that computes it; the port never calls
+    it), timed in turns (K8, zero_(), zero_(), K8), each the mean of its
+    two turns."""
     from gubernator_tpu_torch.ops import sketch as ps
 
     out = {}
@@ -2028,14 +2041,24 @@ def phase_sketch_timing(torch, np, rng, card):
                 f"{k_ms * 1e3:.2f} us/call (two launches), bound {bound * 1e3:.3f} us (bytes), "
                 f"plain {p_ms * 1e3:.1f} us | {card}")
         words = SKETCH_DEPTH * width
-        k_ms = device_ms(torch, lambda i: ps.sketch_rotate(counts, i & 1, 1), 50)
-        both = device_ms(torch, lambda i: ps.sketch_rotate(counts, 0, 2), 20)
-        lib_ms = device_ms(torch, lambda i: counts[i & 1].zero_(), 50)
+        reads = {}
+        for span, delta, n_launch in (("one", 1, 50), ("both", 3, 20)):
+            designs = {"K8": lambda i: ps.sketch_rotate(counts, i & 1, delta),
+                       "zero_()": (lambda i: counts[i & 1].zero_()) if delta == 1
+                       else (lambda i: counts.zero_())}
+            got = {k: [] for k in designs}
+            for k in ("K8", "zero_()", "zero_()", "K8"):
+                got[k].append(device_ms(torch, designs[k], n_launch))
+            reads[span] = {k: statistics.mean(v) for k, v in got.items()}
         p_ms = host_ms(torch, lambda i: ps.rotate_reference(plain, i & 1, 1), 20, windows=3)
-        out[f"k8_{width}"] = (k_ms, p_ms, k8_bound_ms(words), lib_ms)
-        log(f"[time] K8 at width {width}: one plane ({words * 4 >> 20} MiB) {k_ms * 1e3:.2f} us, "
-            f"both planes {both * 1e3:.2f} us, bound {k8_bound_ms(words) * 1e3:.2f} us per plane "
-            f"(bytes), zero_() {lib_ms * 1e3:.2f} us, plain {p_ms * 1e3:.1f} us | {card}")
+        one, both = reads["one"], reads["both"]
+        out[f"k8_{width}"] = (one["K8"], p_ms, k8_bound_ms(words), one["zero_()"])
+        out[f"k8_{width}_both"] = (both["K8"], None, k8_bound_ms(2 * words), both["zero_()"])
+        for span, words_n, r in (("one plane", words, one), ("both planes", 2 * words, both)):
+            log(f"[time] K8 at width {width}, {span} ({words_n * 4 >> 20} MiB): "
+                f"{r['K8'] * 1e3:.2f} us, zero_() {r['zero_()'] * 1e3:.2f} us, bound "
+                f"{k8_bound_ms(words_n) * 1e3:.2f} us (bytes)"
+                + (f", plain {p_ms * 1e3:.1f} us" if span == "one plane" else "") + f" | {card}")
         del counts, plain
         torch.cuda.empty_cache()
     return out
@@ -2079,9 +2102,10 @@ def encode_get_rate_limits(items) -> bytes:
 
 
 def decode_responses(msg: bytes) -> list:
-    """GetRateLimitsResp bytes → [(status, limit, remaining, reset_time)]
-    (fields 1-4; the metadata map, field 6, which the decision plane
-    writes on OVER_LIMIT answers as a retry_after_ms hint, is skipped)."""
+    """GetRateLimitsResp bytes → [(status, limit, remaining, reset_time,
+    metadata)]: fields 1-4 and the metadata map, field 6, as a dict of
+    str (the columnar feeder and the decision plane write a
+    retry_after_ms hint there on OVER_LIMIT answers)."""
     def varint(pos):
         v = shift = 0
         while True:
@@ -2092,22 +2116,51 @@ def decode_responses(msg: bytes) -> list:
             if not b & 0x80:
                 return (v - (1 << 64) if v >= 1 << 63 else v), pos
 
+    def text(pos, end, field):
+        check(msg[pos] == (field << 3 | 2), f"[h2] unexpected map entry tag {msg[pos]}")
+        n, pos = varint(pos + 1)
+        check(pos + n <= end, "[h2] truncated map entry")
+        return msg[pos : pos + n].decode(), pos + n
+
     out, pos = [], 0
     while pos < len(msg):
         check(msg[pos] == 0x0A, f"[h2] unexpected tag {msg[pos]} in a response")
         ln, pos = varint(pos + 1)
-        end, item = pos + ln, [0, 0, 0, 0]
+        end, item, meta = pos + ln, [0, 0, 0, 0], {}
         while pos < end:
             tag = msg[pos]
             if tag == (6 << 3 | 2):
                 n, pos = varint(pos + 1)
-                pos += n
+                entry_end = pos + n
+                key, pos = text(pos, entry_end, 1)
+                meta[key], pos = text(pos, entry_end, 2)
+                check(pos == entry_end, "[h2] malformed metadata entry")
                 continue
             check(tag & 7 == 0 and 1 <= tag >> 3 <= 4, f"[h2] unexpected field tag {tag}")
             item[(tag >> 3) - 1], pos = varint(pos + 1)
-        out.append(tuple(item))
+        check(pos == end, "[h2] truncated response item")
+        out.append((*item, meta))
     check(pos == len(msg), "[h2] truncated response")
     return out
+
+
+def retry_hints(msg: bytes, now_ms: int) -> int:
+    """The items of a response that carry a retry_after_ms hint.  The hint
+    may sit on OVER_LIMIT items only, must be max(0, reset_time - now_ms),
+    and a response with one has it on every OVER_LIMIT item."""
+    items = decode_responses(msg)
+    hinted = 0
+    for status, _lim, _rem, reset, meta in items:
+        if meta:
+            check(set(meta) == {"retry_after_ms"} and status == 1,
+                  f"[h2] metadata {meta} on an item of status {status}")
+            check(int(meta["retry_after_ms"]) == max(0, reset - now_ms),
+                  f"[h2] retry_after_ms {meta['retry_after_ms']}, reset {reset}, now {now_ms}")
+            hinted += 1
+    if hinted:
+        check(all(meta for status, *_x, meta in items if status == 1),
+              "[h2] an OVER_LIMIT item without a retry_after_ms hint")
+    return hinted
 
 
 def h2_frame(ftype: int, flags: int, stream: int, payload: bytes = b"") -> bytes:
@@ -2256,33 +2309,91 @@ def h2_stream(np, rng, n_rpcs: int = 30):
     return out
 
 
+def has_feeder() -> bool:
+    """The port's h2 front has the columnar feeder (a --tree checkout from
+    before its slice does not)."""
+    from gubernator_tpu_torch.net import h2_fast
+
+    return hasattr(h2_fast, "native_feeder_enabled")
+
+
+def feeder_modes() -> tuple:
+    return (True, False) if has_feeder() else (False,)
+
+
+def feeder_tag(feeder: bool) -> str:
+    return "feeder on" if feeder else "GUBER_NATIVE_FEEDER=0"
+
+
+@contextlib.contextmanager
+def feeder_env(feeder: bool):
+    """GUBER_NATIVE_FEEDER set for the daemons built inside (each front
+    reads it when it is built)."""
+    old = os.environ.get("GUBER_NATIVE_FEEDER")
+    os.environ["GUBER_NATIVE_FEEDER"] = "1" if feeder else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("GUBER_NATIVE_FEEDER", None)
+        else:
+            os.environ["GUBER_NATIVE_FEEDER"] = old
+
+
+def front_kw(feeder: bool) -> dict:
+    return {"native_feeder": feeder} if has_feeder() else {}
+
+
 def serving_threads(torch, instance, seen: list):
     """Wrap `instance.serve_decoded_local` to note, per window, the
-    calling thread, its current device and whether its current stream is
-    the device's default stream (the one every other serving thread
-    launches on)."""
+    calling thread, the front's entry that called it (`_feeder_window` on
+    the feeder's serve thread, `_serve` on the byte path's dispatch
+    thread), its current device and whether its current stream is the
+    device's default stream (the one every other serving thread launches
+    on)."""
     import threading
 
     real = instance.serve_decoded_local
     dev = instance.engine.device
 
     def spy(dec):
-        seen.append((threading.get_ident(), torch.cuda.current_device(),
+        seen.append((threading.get_ident(), sys._getframe(1).f_code.co_name,
+                     torch.cuda.current_device(),
                      torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)))
         return real(dec)
 
     instance.serve_decoded_local = spy
 
 
-def phase_h2_parity(torch, np, rng):
+def settled_stats(front, n_rpcs: int, timeout: float = 10.0) -> dict:
+    """A front's stats once it has counted `n_rpcs` answered RPCs: the C
+    side bumps its counters after the response is sent (the feeder's
+    `feeder_front_rpcs` before `rpcs`), so a client can read its answer
+    before they move."""
+    deadline = time.perf_counter() + timeout
+    st = front.stats()
+    while st["rpcs"] + st["errors"] < n_rpcs and time.perf_counter() < deadline:
+        time.sleep(0.005)
+        st = front.stats()
+    return st
+
+
+def phase_h2_parity(torch, np, rng, feeder: bool):
     """The port's daemon on the card (2^20 slots, frozen clock, its h2
-    front from DaemonConfig) and a port instance on the CPU (2^20 slots,
-    frozen clock, an H2FastFront) answer the same 30 sequential RPCs of
-    1000 items: grpc-status and response bytes equal RPC by RPC, the
-    out-of-scope RPCs UNIMPLEMENTED, the zero-item RPC an empty OK, and
-    the state words equal at the end.  Every window runs on the C
-    server's dispatch thread, on device 0's default stream.  Returns the
-    card daemon (still serving)."""
+    front from DaemonConfig, its columnar feeder on or off by
+    GUBER_NATIVE_FEEDER) and a port instance on the CPU (2^20 slots,
+    frozen clock, an H2FastFront with the feeder alike) answer the same 30
+    sequential RPCs of 1000 items: grpc-status and response bytes equal
+    RPC by RPC, the metadata map included, the out-of-scope RPCs
+    UNIMPLEMENTED, the zero-item RPC an empty OK, and the state words
+    equal at the end.  With the feeder, every OVER_LIMIT item carries a
+    retry_after_ms hint equal to reset - now in the engine's clock, every
+    in-scope RPC rides the feeder and only the out-of-scope and zero-item
+    RPCs take byte windows; without it, no item carries one.  Every
+    window runs on one thread, the feeder's serve thread (from
+    `_feeder_window`) or the C server's dispatch thread (from `_serve`),
+    on device 0's default stream.  Returns the card daemon (still
+    serving)."""
     import threading
 
     from gubernator_tpu_torch.clock import Clock
@@ -2292,51 +2403,72 @@ def phase_h2_parity(torch, np, rng):
     from gubernator_tpu_torch.net.h2_fast import H2FastFront
     from gubernator_tpu_torch.service import V1Instance
 
+    tag = f"[h2 parity, {feeder_tag(feeder)}]"
     ns = NOW0 * 1_000_000
     # The ledger's defaults (it is on) but no settle thread: the two sides
     # settle by hand at the end, so their state words compare.
-    d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=CAP_SERVE,
-                                  sweep_interval=0.0, h2_fast_address="127.0.0.1:0",
-                                  **ledger_kw(ledger_settle_interval=0.0)),
-                     clock=Clock().freeze_at(ns), device="cuda")
+    with feeder_env(feeder):
+        d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=CAP_SERVE,
+                                      sweep_interval=0.0, h2_fast_address="127.0.0.1:0",
+                                      **ledger_kw(ledger_settle_interval=0.0)),
+                         clock=Clock().freeze_at(ns), device="cuda")
     cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"),
                      **ledger_kw(ledger_opts=dict(settle_interval=0.0)))
-    cpu_front = H2FastFront(cpu)
+    cpu_front = H2FastFront(cpu, **front_kw(feeder))
     card_c = cpu_c = None
     try:
-        check(d.instance.engine.state.meta.is_cuda, "[h2 parity] the daemon's engine is not on the card")
+        check(d.instance.engine.state.meta.is_cuda, f"{tag} the daemon's engine is not on the card")
+        check((getattr(d.h2_fast, "feeder", None) is not None) == feeder,
+              f"{tag} the daemon's front feeder is {getattr(d.h2_fast, 'feeder', None)}")
         seen = []
         serving_threads(torch, d.instance, seen)
         card_c, cpu_c = H2Unary(d.h2_fast_address), H2Unary(cpu_front.address)
         stream = h2_stream(np, rng)
+        hinted = 0
         for r, (body, step, status, n_items) in enumerate(stream):
             d.clock.advance(ms=step)
             cpu.engine.clock.advance(ms=step)
             got, want = card_c.call(body), cpu_c.call(body)
-            check(got == want, f"[h2 parity] RPC {r}: card {got[0]} / {len(got[1])} bytes, "
+            check(got == want, f"{tag} RPC {r}: card {got[0]} / {len(got[1])} bytes, "
                   f"CPU {want[0]} / {len(want[1])} bytes: responses differ")
-            check(got[0] == status, f"[h2 parity] RPC {r}: grpc-status {got[0]}, want {status}")
+            check(got[0] == status, f"{tag} RPC {r}: grpc-status {got[0]}, want {status}")
             if status == 0:
-                check(len(decode_responses(got[1])) == n_items, f"[h2 parity] RPC {r}: item count")
+                check(len(decode_responses(got[1])) == n_items, f"{tag} RPC {r}: item count")
+                hinted += retry_hints(got[1], d.clock.now_ms())
+        check((hinted > 0) == feeder, f"{tag} {hinted} items carry a retry_after_ms hint")
         if has_ledger():
             check(d.instance.ledger.flush_settles() == cpu.ledger.flush_settles(),
-                  "[h2 parity] the ledgers settled different row counts")
-            check(ledger_stats(d.instance) == ledger_stats(cpu), "[h2 parity] ledger counters")
+                  f"{tag} the ledgers settled different row counts")
+            check(ledger_stats(d.instance) == ledger_stats(cpu), f"{tag} ledger counters")
         same_engines(np, d.instance.engine, cpu.engine, "parity", slots=True, path="h2")
         main = threading.get_ident()
-        check(len(seen) == sum(1 for s in stream if s[2] == 0 and s[3]) and all(
-            t != main and dev == 0 and default for t, dev, default in seen),
-              f"[h2 parity] windows must run on the dispatch thread, device 0, default stream: "
+        entry = "_feeder_window" if feeder else "_serve"
+        served = sum(1 for s in stream if s[2] == 0 and s[3])
+        check(len(seen) == served and len({t for t, *_x in seen}) == 1 and all(
+            t != main and fn == entry and dev == 0 and default for t, fn, dev, default in seen),
+              f"{tag} windows must run on one thread from {entry}, device 0, default stream: "
               f"{set(seen)}")
-        st = d.h2_fast.stats()
-        check(st["errors"] == 4 and st["rpcs"] == len(stream) - 4,
-              f"[h2 parity] front stats {st}")
-        log(f"[h2 parity] {len(stream)} RPCs of {BATCH} items (keys from a 2^20 pool, 8 % on 50 "
+        st = settled_stats(d.h2_fast, len(stream))
+        check(st["errors"] == 4 and st["rpcs"] == len(stream) - 4, f"{tag} front stats {st}")
+        if feeder:
+            check(st["feeder_front_rpcs"] == served and st["windows"] == len(stream) - served
+                  and st["feeder_ring_full"] == 0,
+                  f"{tag} the feeder must answer every in-scope RPC, the byte path the rest: {st}")
+            log(f"{tag} front counters: rpcs {st['rpcs']}, errors {st['errors']}, byte windows "
+                f"{st['windows']}, feeder_front_rpcs {st['feeder_front_rpcs']}, "
+                f"feeder_front_items {st['feeder_front_items']}; feeder: rpcs "
+                f"{st['feeder_rpcs']}, rows {st['feeder_rows']}, windows {st['feeder_windows']}, "
+                f"served rows {st['feeder_served_rows']}, declined {st['feeder_declined']}, "
+                f"ring full {st['feeder_ring_full']}, window errors "
+                f"{st['feeder_window_errors']}")
+        log(f"{tag} {len(stream)} RPCs of {BATCH} items (keys from a 2^20 pool, 8 % on 50 "
             "hot keys, token and leaky, RESET_REMAINING 3 %, clock steps) over HTTP/2 to the "
             "daemon on the card and to a CPU instance's front, both with the decision ledger on "
-            "(settled by hand at the end): grpc-status and response bytes equal RPC by RPC (GLOBAL, Gregorian, SKETCH and empty-key RPCs UNIMPLEMENTED, the "
-            f"zero-item RPC empty OK), state words of {CAP_SERVE} slots equal; {len(seen)} "
-            "windows, each on the C dispatch thread on device 0's default stream")
+            "(settled by hand at the end): grpc-status and response bytes equal RPC by RPC, the "
+            f"metadata map included ({hinted} items with a retry_after_ms hint, each reset - "
+            "now), GLOBAL, Gregorian, SKETCH and empty-key RPCs UNIMPLEMENTED, the zero-item RPC "
+            f"empty OK; state words of {CAP_SERVE} slots equal; {len(seen)} windows, each on "
+            f"one thread from {entry} on device 0's default stream")
         return d
     except BaseException:
         d.close()
@@ -2349,12 +2481,15 @@ def phase_h2_parity(torch, np, rng):
         cpu.close()
 
 
-def phase_h2_isolation(torch, np, rng):
-    """A front with a 50 ms window on a card engine: 8 plain RPCs and one
-    GLOBAL RPC sent at once share one window; the plain ones are answered
-    as a CPU engine answers the same items, the GLOBAL one UNIMPLEMENTED,
-    and the state words equal the CPU engine's.  Returns the card engine
-    and its front's stats."""
+def phase_h2_isolation(torch, np, rng, feeder: bool):
+    """A front with a 50 ms window on a card engine, its feeder on or off:
+    8 plain RPCs and one GLOBAL RPC sent at once.  Without the feeder the
+    nine share one byte window; with it the eight share one feeder window
+    and the GLOBAL one, declined in C, takes a byte window alone.  The
+    plain ones are answered as a CPU front with the feeder alike answers
+    the same items one at a time, the GLOBAL one UNIMPLEMENTED, and the
+    state words equal the CPU engine's.  Returns the card engine and its
+    front's stats."""
     import threading
 
     from gubernator_tpu_torch.clock import Clock
@@ -2362,6 +2497,7 @@ def phase_h2_isolation(torch, np, rng):
     from gubernator_tpu_torch.net.h2_fast import H2FastFront
     from gubernator_tpu_torch.service import V1Instance
 
+    tag = f"[h2 isolation, {feeder_tag(feeder)}]"
     ns = NOW0 * 1_000_000
     # No decision ledger: the card serves the 9 RPCs as one window and the
     # CPU as 9, so with the ledger the two would take their leases at
@@ -2370,8 +2506,8 @@ def phase_h2_isolation(torch, np, rng):
     off = ledger_kw(ledger=False)
     gpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cuda"), **off)
     cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"), **off)
-    front = H2FastFront(gpu, window_s=0.05)
-    cpu_front = H2FastFront(cpu, window_s=0.05)
+    front = H2FastFront(gpu, window_s=0.05, **front_kw(feeder))
+    cpu_front = H2FastFront(cpu, window_s=0.05, **front_kw(feeder))
     hot_cfg = [(10, 60_000, 0, 0, 0)]
     bodies = []
     for r in range(9):  # 100 items each: 900 queued items stay under the early flush
@@ -2394,22 +2530,27 @@ def phase_h2_isolation(torch, np, rng):
             t.start()
         for t in threads:
             t.join(timeout=120)
-        check(not any(t.is_alive() for t in threads), "[h2 isolation] a client hung")
+        check(not any(t.is_alive() for t in threads), f"{tag} a client hung")
         stats = front.stats()
-        check(stats["windows"] == 1, f"[h2 isolation] the 9 RPCs took {stats['windows']} windows")
+        check(stats["windows"] == 1, f"{tag} the byte path took {stats['windows']} windows")
+        if feeder:
+            check(stats["feeder_windows"] == 1,
+                  f"{tag} the 8 plain RPCs took {stats['feeder_windows']} feeder windows")
         c = H2Unary(cpu_front.address)
         try:
             want = [c.call(b) for b in bodies]  # one at a time: the CPU's own windows
         finally:
             c.close()
         for i, (g, w) in enumerate(zip(got, want)):
-            check(g == w, f"[h2 isolation] RPC {i}: card {g[0]}, CPU {w[0]}: responses differ")
+            check(g == w, f"{tag} RPC {i}: card {g[0]}, CPU {w[0]}: responses differ")
         check([g[0] for g in got] == [0] * 4 + [UNIMPLEMENTED] + [0] * 4,
-              f"[h2 isolation] statuses {[g[0] for g in got]}")
+              f"{tag} statuses {[g[0] for g in got]}")
         same_engines(np, gpu.engine, cpu.engine, "isolation", slots=False, path="h2")
-        log("[h2 isolation] 8 plain RPCs and 1 GLOBAL RPC in one 50 ms window on the card: the "
-            "plain ones answered byte-equal to a CPU front's, the GLOBAL one UNIMPLEMENTED, live "
-            "keys' state words equal")
+        log(f"{tag} 8 plain RPCs and 1 GLOBAL RPC at once, 50 ms window, on the card: "
+            + ("the 8 in one feeder window, the GLOBAL one alone in a byte window"
+               if feeder else "all 9 in one byte window")
+            + "; the plain ones answered byte-equal to a CPU front's, the GLOBAL one "
+            "UNIMPLEMENTED, live keys' state words equal")
         return gpu.engine, stats
     finally:
         for cl in clients:
@@ -2424,36 +2565,42 @@ def latency_stats(np, lats) -> tuple:
     return float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 99))
 
 
-def phase_h2_load(torch, np, rng, card):
+def phase_h2_load(torch, np, rng, card, feeder: bool):
     """Readings, not claims, on a daemon on the card with a live clock
-    (2^20 slots, the default 2 ms window), through the port's native
-    client (core/h2_client.py bench_unary): the reference's "herdfast"
-    shape (single-item RPCs on one hot key, token bucket, limit 10^9,
-    from 32 connections for 2 s: no errors, and the key's remaining
-    within [limit - rpcs - 32, limit - rpcs], since each connection has
-    at most one RPC in flight the client never counted), then a
-    1-connection closed loop of one 1000-item leaky-bucket RPC
-    (BASELINE.json configs[1]) for 3 s, at the daemon's 2 ms window and
-    through a second front on the same instance with no window (a lone
-    RPC otherwise waits the whole group-commit window).  Returns (the
-    card daemon, readings)."""
+    (2^20 slots, the default 2 ms window, its feeder on or off by
+    GUBER_NATIVE_FEEDER), through the port's native client
+    (core/h2_client.py bench_unary): the reference's "herdfast" shape
+    (single-item RPCs on one hot key, token bucket, limit 10^9, from 32
+    connections for 2 s: no errors, and the key's remaining within
+    [limit - rpcs - 32, limit - rpcs], since each connection has at most
+    one RPC in flight the client never counted), then a 1-connection
+    closed loop of one 1000-item leaky-bucket RPC (BASELINE.json
+    configs[1]) for 3 s, at the daemon's 2 ms window and through a second
+    front on the same instance with no window (a lone RPC otherwise waits
+    the whole group-commit window; the feeder keeps its 2 ms default when
+    given 0, as the reference's does).  With the feeder no RPC takes a
+    byte window.  Returns (the card daemon, readings)."""
     from gubernator_tpu_torch.config import DaemonConfig
     from gubernator_tpu_torch.core import h2_client
     from gubernator_tpu_torch.daemon import spawn_daemon
     from gubernator_tpu_torch.net.h2_fast import H2FastFront
 
+    mode = feeder_tag(feeder)
     limit = 10**9
-    d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=CAP_SERVE,
-                                  sweep_interval=0.0, h2_fast_address="127.0.0.1:0"),
-                     device="cuda")
+    with feeder_env(feeder):
+        d = spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=CAP_SERVE,
+                                      sweep_interval=0.0, h2_fast_address="127.0.0.1:0"),
+                         device="cuda")
     try:
+        check((getattr(d.h2_fast, "feeder", None) is not None) == feeder,
+              f"[h2 herd, {mode}] the front's feeder")
         herd = encode_get_rate_limits([("herd", "hot", 1, limit, 3_600_000, 0, 0, 0)])
         w0 = d.h2_fast.stats()
         res = h2_client.bench_unary(d.h2_fast_address, H2_PATH, herd, 2.0, 32)
-        check(res is not None, "[h2 herd] the native client could not connect")
+        check(res is not None, f"[h2 herd, {mode}] the native client could not connect")
         rpcs, errors, lats, _frame, connected = res
         check(errors == 0 and connected == 32 and rpcs > 0,
-              f"[h2 herd] rpcs {rpcs}, errors {errors}, connected {connected}")
+              f"[h2 herd, {mode}] rpcs {rpcs}, errors {errors}, connected {connected}")
         w1 = d.h2_fast.stats()
         c = H2Unary(d.h2_fast_address)
         try:
@@ -2461,41 +2608,51 @@ def phase_h2_load(torch, np, rng, card):
                 [("herd", "hot", 0, limit, 3_600_000, 0, 0, 0)]))
         finally:
             c.close()
-        check(status == 0, f"[h2 herd] read-back status {status}")
+        check(status == 0, f"[h2 herd, {mode}] read-back status {status}")
         rem = decode_responses(msg)[0][2]
         check(limit - rpcs - 32 <= rem <= limit - rpcs,
-              f"[h2 herd] remaining {rem} outside [{limit - rpcs - 32}, {limit - rpcs}]")
+              f"[h2 herd, {mode}] remaining {rem} outside [{limit - rpcs - 32}, {limit - rpcs}]")
+        if feeder:
+            check(w1["windows"] == w0["windows"], f"[h2 herd, {mode}] byte windows "
+                  f"{w1['windows'] - w0['windows']}")
         p50, p99 = latency_stats(np, lats)
         herd_read = dict(rpcs=rpcs, rps=rpcs / 2.0, p50=p50, p99=p99,
                          windows_per_rpc=(w1["windows"] - w0["windows"]) / max(1, w1["rpcs"] - w0["rpcs"]))
-        log(f"[h2 herd] 32 connections x single-item RPCs on one key, 2 s: {rpcs} RPCs "
+        log(f"[h2 herd, {mode}] 32 connections x single-item RPCs on one key, 2 s: {rpcs} RPCs "
             f"({rpcs / 2.0:.0f} RPCs/s), 0 errors, p50 {p50:.3f} ms, p99 {p99:.3f} ms, "
-            f"{herd_read['windows_per_rpc']:.4f} windows per RPC; remaining {rem} in "
-            f"[limit - rpcs - 32, limit - rpcs] | {card}")
+            f"{herd_read['windows_per_rpc']:.4f} byte windows per RPC, "
+            f"{w1.get('native_rpcs', 0) - w0.get('native_rpcs', 0)} RPCs answered by the plane, "
+            f"{w1.get('feeder_front_rpcs', 0) - w0.get('feeder_front_rpcs', 0)} by the feeder; "
+            f"remaining {rem} in [limit - rpcs - 32, limit - rpcs] | {card}")
         pool = rng.choice(H2_POOL, BATCH, replace=False)
         leaky = encode_get_rate_limits([("api", f"k{int(k)}", 1, 1000, 60_000, 1, 0, 0)
                                         for k in pool])
         reads = {}
         # No plane on the second front: the daemon's front keeps its own.
-        no_window = H2FastFront(d.instance, window_s=0.0, **ledger_kw(native_ledger=False))
+        no_window = H2FastFront(d.instance, window_s=0.0, **ledger_kw(native_ledger=False),
+                                **front_kw(feeder))
         try:
             for tag, front in (("2 ms window", d.h2_fast), ("no window", no_window)):
                 w0 = front.stats()
                 res = h2_client.bench_unary(front.address, H2_PATH, leaky, 3.0, 1)
                 check(res is not None and res[1] == 0 and res[0] > 0,
-                      f"[h2 1000] closed loop failed: {res and res[:2]}")
+                      f"[h2 1000, {mode}] closed loop failed: {res and res[:2]}")
                 rpcs, _, lats, frame, _ = res
-                check(len(decode_responses(frame[5:])) == BATCH, "[h2 1000] response item count")
+                check(len(decode_responses(frame[5:])) == BATCH,
+                      f"[h2 1000, {mode}] response item count")
                 w1 = front.stats()
+                if feeder:
+                    check(w1["windows"] == w0["windows"],
+                          f"[h2 1000, {mode}] {tag}: byte windows {w1['windows'] - w0['windows']}")
                 p50, p99 = latency_stats(np, lats)
                 reads[tag] = dict(rpcs=rpcs, rps=rpcs / 3.0, p50=p50, p99=p99,
                                   windows_per_rpc=(w1["windows"] - w0["windows"])
                                   / max(1, w1["rpcs"] - w0["rpcs"]))
-                log(f"[h2 1000] {tag}: 1 connection, closed loop of one {BATCH}-item "
+                log(f"[h2 1000, {mode}] {tag}: 1 connection, closed loop of one {BATCH}-item "
                     f"leaky-bucket RPC (2^20 slots), 3 s: {rpcs} RPCs ({rpcs / 3.0:.1f} RPCs/s, "
                     f"{rpcs * BATCH / 3.0:.0f} decisions/s), p50 {p50:.3f} ms, p99 {p99:.3f} ms "
                     f"({'under' if p99 < 2.0 else 'over'} the 2 ms limit), "
-                    f"{reads[tag]['windows_per_rpc']:.4f} windows per RPC | {card}")
+                    f"{reads[tag]['windows_per_rpc']:.4f} byte windows per RPC | {card}")
         finally:
             no_window.close()
         return d, dict(herd=herd_read, **reads)
@@ -2505,23 +2662,38 @@ def phase_h2_load(torch, np, rng, card):
 
 
 def phase_h2(torch, np, rng, card):
-    """The h2 path: parity stream, window isolation, herd and the
-    1000-item loop.  Returns (the path's card engines, readings, windows
-    and RPCs of its fronts), every front and daemon closed."""
-    parity = phase_h2_parity(torch, np, rng)
-    daemons = [parity]
-    try:
-        iso, iso_stats = phase_h2_isolation(torch, np, rng)
-        load_daemon, readings = phase_h2_load(torch, np, rng, card)
-        daemons.append(load_daemon)
-        stats = [x.h2_fast.stats() for x in daemons] + [iso_stats]
-    finally:
-        for x in daemons:
-            x.close()
-    iso.close()
-    engines = [x.instance.engine for x in daemons] + [iso]
-    return engines, readings, (sum(st["windows"] for st in stats),
-                               sum(st["rpcs"] + st["errors"] for st in stats))
+    """The h2 path, with the columnar feeder (the default) and with
+    GUBER_NATIVE_FEEDER=0: in each mode the parity stream, window
+    isolation, the herd and the 1000-item loop, the launch counts from 0
+    just before the mode and read just after, its fronts and daemons
+    closed.  Returns, by feeder mode, the launch counts, the launches its
+    card engines counted and the readings, and the windows and RPCs of
+    all the fronts."""
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    launches, disp, readings, windows, rpcs = {}, {}, {}, 0, 0
+    for feeder in feeder_modes():
+        tag = feeder_tag(feeder)
+        fs.reset_launches()
+        daemons, engines, stats = [], [], []
+        try:
+            daemons.append(phase_h2_parity(torch, np, rng, feeder))
+            iso, iso_stats = phase_h2_isolation(torch, np, rng, feeder)
+            engines.append(iso)
+            stats.append(iso_stats)
+            load_daemon, readings[tag] = phase_h2_load(torch, np, rng, card, feeder)
+            daemons.append(load_daemon)
+            stats += [x.h2_fast.stats() for x in daemons]
+        finally:
+            for x in daemons:
+                x.close()
+            for e in engines:
+                e.close()
+        launches[tag] = dict(fs.launches)
+        disp[tag] = sum(e.dispatches_total for e in engines + [x.instance.engine for x in daemons])
+        windows += sum(st["windows"] for st in stats)
+        rpcs += sum(st["rpcs"] + st["errors"] for st in stats)
+    return launches, disp, readings, (windows, rpcs)
 
 
 # ---------------------------------------------------------------- ledger
@@ -3984,22 +4156,28 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- the h2 path (the native h2 front into apply_columnar): counts
-    # from 0 just before, read just after.
+    # from 0 just before each feeder mode, read just after it; the kernels
+    # line sums the modes.
     h2_launches = {k: 0 for k in fs.launches}
     h2_read = None
     if has_h2:
-        fs.reset_launches()
-        h2_engines, h2_read, (h2_windows, h2_rpcs) = phase_h2(torch, np, rng, card)
-        h2_launches = dict(fs.launches)
-        h2_disp = sum(e.dispatches_total for e in h2_engines)
-        log(f"[h2] launches {h2_launches}; engine launches {h2_disp}; {h2_windows} windows for "
-            f"{h2_rpcs} RPCs ({h2_windows / h2_rpcs:.4f} windows per RPC) | {card}")
-        check(h2_launches["fused_step"] + h2_launches["collapsed_step"]
-              + h2_launches["uniform_step"] == h2_disp == sum(h2_launches.values()),
-              "every engine launch of the h2 path must be a K1, K3 or K4 launch")
-        for name in ("fused_step", "collapsed_step", "uniform_step"):
-            check(h2_launches[name] > 0, f"the h2 path must launch {name}")
-        del h2_engines
+        h2_by_mode, h2_disp, h2_read, (h2_windows, h2_rpcs) = phase_h2(torch, np, rng, card)
+        for mode, got in h2_by_mode.items():
+            log(f"[h2, {mode}] launches {got}; engine launches {h2_disp[mode]} | {card}")
+            check(got["fused_step"] + got["collapsed_step"] + got["uniform_step"]
+                  == h2_disp[mode] == sum(got.values()),
+                  f"every engine launch of the h2 path, {mode}, must be a K1, K3 or K4 launch")
+            for name in ("fused_step", "collapsed_step", "uniform_step"):
+                check(got[name] > 0, f"the h2 path, {mode}, must launch {name}")
+            for name in h2_launches:
+                h2_launches[name] += got[name]
+        log(f"[h2] launches {h2_launches}; {h2_windows} byte windows for {h2_rpcs} RPCs "
+            f"({h2_windows / h2_rpcs:.4f} byte windows per RPC) | {card}")
+        for mode, r in h2_read.items():
+            log(f"[h2 readings] {mode}: " + "; ".join(
+                f"{tag} {x['rps']:.1f} RPCs/s, p50 {x['p50']:.3f} ms, p99 {x['p99']:.3f} ms"
+                for tag, x in (("herd", r["herd"]), ("1000-item, 2 ms window", r["2 ms window"]),
+                               ("1000-item, no window", r["no window"]))) + f" | {card}")
         torch.cuda.empty_cache()
     else:
         check(TREE is not None, "the port has no h2 front")

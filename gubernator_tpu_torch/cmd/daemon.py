@@ -9,7 +9,10 @@ Env:  GUBER_HTTP_ADDRESS (default localhost:80), GUBER_CACHE_SIZE,
       GUBER_LEDGER (default on), GUBER_LEDGER_LEASE (512),
       GUBER_LEDGER_LEASE_TTL (0.2s), GUBER_LEDGER_HOT_THRESHOLD (8),
       GUBER_LEDGER_KEYS (65536), GUBER_LEDGER_SETTLE_INTERVAL (0.05s),
-      GUBER_NATIVE_LEDGER (default on), GUBER_RETRY_HINTS (default on).
+      GUBER_NATIVE_LEDGER (default on), GUBER_NATIVE_FEEDER (the h2
+      front's columnar feeder, default on), GUBER_FEEDER_RING_SLOTS (4),
+      GUBER_FEEDER_RING_ROWS (8192), GUBER_FEEDER_RING_KEYBYTES (2^20),
+      GUBER_RETRY_HINTS (default on).
 
 Serves GetRateLimits over HTTP/JSON, and over cleartext HTTP/2 gRPC at
 /pb.gubernator.V1/GetRateLimits when the h2 front is on, until SIGINT or

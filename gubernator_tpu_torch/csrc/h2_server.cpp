@@ -48,21 +48,21 @@
 // reference's, unchanged, and so is the native decision plane's probe
 // at the top of `serve_rpc` (`dp_try_serve`, decision_plane.cpp, linked
 // into the same library; attached with `h2s_attach_plane`): a hot-key
-// RPC the plane answers whole never reaches the window queue.  Left out,
-// with the planes they serve (each comes back with its ROADMAP A item):
+// RPC the plane answers whole never reaches the window queue.  So are
+// the columnar feeder's hooks (columnar_feeder.cpp, linked into the same
+// library; attached with `h2s_attach_feeder`): an RPC the plane declines
+// is packed by `cf_pack` into the feeder's ring of column windows from
+// the connection thread, carried by a `FeederToken` and answered by the
+// feeder's serve thread through `h2s_feeder_respond`; only an RPC the
+// feeder declines (slow-path rows, ring pressure, no feeder attached)
+// takes the byte window queue.  `h2s_stats` slots 5 / 6 count the
+// feeder's RPCs and items, as the reference's do.  Left out, with the
+// plane it serves (it comes back with its ROADMAP A item):
 //
 // - the event ring's per-stage latency records (`evr_record`,
-//   `h2s_attach_ring`; event_ring.cpp) — item 11, the observability
+//   `h2s_attach_ring`; event_ring.cpp) — item 13, the observability
 //   planes.  Its clock, `evr_now_ns`, stays as `now_ns` below: the
-//   reactors' idle sweep and accept back-off read it;
-// - the columnar feeder's pack in the connection threads and its
-//   response scatter (`cf_pack`, `h2s_attach_feeder`, `FeederToken`,
-//   `h2s_feeder_respond`, `h2s_feeder_release`; columnar_feeder.cpp) —
-//   item 11.  Every RPC therefore takes the byte window path, which is
-//   the reference's with GUBER_NATIVE_FEEDER=0.
-//
-// `h2s_stats` keeps the reference's slot layout; the slots of the
-// columnar feeder (feeder_rpcs, feeder_items) read 0.
+//   reactors' idle sweep and accept back-off read it.
 //
 // Concatenation trick: protobuf repeated-field semantics mean the
 // byte-concatenation of N serialized GetRateLimitsReq messages IS one
@@ -105,6 +105,15 @@ extern "C" int64_t dp_try_serve(void* handle, const uint8_t* body,
                                 int64_t len, int64_t max_items,
                                 int64_t now_ms, uint8_t* out,
                                 int64_t out_cap);
+// Columnar feeder plane (columnar_feeder.cpp, same library): wire bytes →
+// device-ready columns inside the CALLING thread (a connection thread on
+// the threaded plane, a reactor on the event plane — the pack scratch is
+// thread_local, so the event plane pays one scratch per reactor instead
+// of one per connection); returns packed rows (> 0) or a decline, and
+// the byte window path takes over.
+extern "C" int64_t cf_pack(void* handle, const uint8_t* body, int64_t len,
+                           int64_t max_items, void* conn_token,
+                           int64_t stream, int64_t t_enq_ns);
 
 namespace {
 
@@ -282,9 +291,14 @@ struct Server {
   // side attaches and detaches it; connection threads load it per RPC,
   // so a detach takes effect at the next request.
   std::atomic<void*> plane{nullptr};
+  // Optional columnar feeder plane (columnar_feeder.cpp), attached like
+  // the plane; connection threads re-read it per RPC, so a detach takes
+  // effect at the next request.
+  std::atomic<void*> feeder{nullptr};
   // Stats.
   std::atomic<int64_t> rpcs{0}, windows{0}, errors{0};
   std::atomic<int64_t> native_rpcs{0}, native_items{0};
+  std::atomic<int64_t> feeder_rpcs{0}, feeder_items{0};
   std::atomic<int64_t> conns_open{0}, idle_reaped{0};
   // Threaded plane only: connection threads are DETACHED (a long-
   // lived daemon must not accumulate unjoined thread handles across
@@ -399,7 +413,7 @@ struct Conn : std::enable_shared_from_this<Conn> {
   }
 
   // Arm/disarm EPOLLOUT on the owning reactor.  epoll_ctl is
-  // thread-safe, so the dispatch thread can arm from its
+  // thread-safe, so the dispatch/feeder threads can arm from their
   // own context; a conn already removed from the epoll set fails
   // ENOENT harmlessly (its fd stays open until the last shared_ptr
   // drops, so the fd cannot be reused out from under a late MOD).
@@ -706,18 +720,25 @@ void drop_stream(ReadState& rs, uint32_t id) {
     }
 }
 
-// One fully-deframed RPC body: native-plane probe, then the byte window
-// queue — the per-RPC pipeline both connection planes share.  Runs on
-// the conn thread (threaded plane) or the owning reactor (event plane);
-// never touches Python.  (The reference packs declined RPCs into its
-// columnar feeder before the queue; the feeder is not in this copy.)
+// Opaque per-RPC handle the columnar feeder carries from pack to
+// response scatter: keeps the Conn alive (shared_ptr) and remembers the
+// server for stats.  Allocated here on a successful pack, consumed by
+// h2s_feeder_respond / h2s_feeder_release.
+struct FeederToken {
+  std::shared_ptr<Conn> conn;
+  Server* srv;
+};
+
+// One fully-deframed RPC body: native-plane probe → feeder pack → byte
+// window queue, in that order of preference — the per-RPC pipeline both
+// connection planes share.  Runs on the conn thread (threaded plane) or
+// the owning reactor (event plane); never touches Python.
 // guberlint: gil-free
 void serve_rpc(Server* srv, const std::shared_ptr<Conn>& conn,
                uint32_t stream, std::string body, int64_t items) {
   // Native decision plane: hot-key RPCs answer right here, in this
   // thread — no queue, no window wait, no Python.  Any decline (cold
-  // key, fall-through row, out-of-scope behavior) takes the window path
-  // unchanged.
+  // key, fall-through row, out-of-scope behavior) goes on to the feeder.
   void* plane = srv->plane.load();
   if (plane != nullptr && items > 0) {
     std::string resp;
@@ -742,6 +763,25 @@ void serve_rpc(Server* srv, const std::shared_ptr<Conn>& conn,
       srv->native_rpcs.fetch_add(1);
       srv->native_items.fetch_add(items);
       return;
+    }
+  }
+  // Columnar feeder: the RPC packs straight into the device-ready
+  // window ring from THIS thread — the decode, the key hashes and the
+  // column append run here, in parallel across lanes, instead of
+  // serially in the dispatch thread.  Any decline (slow-path rows, ring
+  // backpressure) drops to the byte window path unchanged.
+  if (items > 0) {
+    void* feeder = srv->feeder.load();
+    if (feeder != nullptr) {
+      auto* token = new FeederToken{conn, srv};
+      const int64_t fr = cf_pack(
+          feeder, reinterpret_cast<const uint8_t*>(body.data()),
+          static_cast<int64_t>(body.size()), items, token, stream, 0);
+      if (fr > 0) {
+        srv->feeder_items.fetch_add(fr);
+        return;  // the feeder's serve thread answers it
+      }
+      delete token;  // on a decline the token stays the caller's
     }
   }
   std::lock_guard<std::mutex> lock(srv->q_mu);
@@ -1093,7 +1133,7 @@ struct Reactor {
   // run out.  Paused = removed from the epoll set until the deadline.
   int64_t accept_paused_until_ns = 0;
   // Connections killed by the WRITE side (backpressure cap, writev
-  // failure) from the dispatch thread: a parked peer
+  // failure) from the dispatch/feeder threads: a parked peer
   // generates no epoll event, so the killer enqueues the fd here and
   // kicks wake_fd; the owning reactor drops them next wake.
   std::mutex dead_mu;
@@ -1139,7 +1179,7 @@ void reactor_drop(Server* srv, Reactor* rx, int fd) {
   it->second->dead.store(true);
   epoll_ctl(rx->epfd, EPOLL_CTL_DEL, fd, nullptr);
   // shutdown (not close): the fd must stay allocated until the last
-  // shared_ptr drops — the dispatch thread may still hold
+  // shared_ptr drops — the dispatch/feeder threads may still hold
   // this conn, and a recycled fd number under a late EPOLLOUT arm
   // would hit a stranger's socket.  ~Conn closes it.
   ::shutdown(fd, SHUT_RDWR);
@@ -1286,7 +1326,8 @@ void reactor_sweep_idle(Server* srv, Reactor* rx, int64_t now_ns) {
 
 // The reactor loop: one epoll owns this lane's listen fd plus every
 // connection accepted from it.  Everything the threaded plane did per
-// connection — deframe, byte-window queue, response framing — runs here through the same shared frame
+// connection — deframe, native-plane probe, feeder pack, byte-window
+// queue, response framing — runs here through the same shared frame
 // machine, across ALL the lane's connections, in one thread.
 // guberlint: gil-free
 // guberlint: epoll-root
@@ -1334,7 +1375,7 @@ void reactor_loop(Server* srv, Reactor* rx) {
     }
     {
       // Write-side deaths (backpressure cap / writev failure from
-      // the dispatch thread): a parked peer fires no
+      // the dispatch or feeder threads): a parked peer fires no
       // epoll event, so the killers queue the fd and kick wake_fd.
       std::vector<int> doomed;
       {
@@ -1537,8 +1578,8 @@ void h2s_stats(void* handle, int64_t* out) {
   out[2] = srv->errors.load();
   out[3] = srv->native_rpcs.load();
   out[4] = srv->native_items.load();
-  out[5] = 0;  // feeder_rpcs: no columnar feeder in this copy
-  out[6] = 0;  // feeder_items
+  out[5] = srv->feeder_rpcs.load();
+  out[6] = srv->feeder_items.load();
   out[7] = srv->conns_open.load();
   out[8] = srv->idle_reaped.load();
   out[9] = static_cast<int64_t>(srv->reactors.size());
@@ -1552,10 +1593,62 @@ void h2s_attach_plane(void* handle, void* plane) {
   static_cast<Server*>(handle)->plane.store(plane);
 }
 
+// Attach (or detach with nullptr) a columnar feeder created by
+// cf_create.  Lifetime contract: detach here FIRST, then cf_stop
+// (drains in-flight windows, releasing their conn tokens), then
+// h2s_stop, then cf_free — conn threads re-read the pointer per RPC, so
+// a detach takes effect at the next request.
+void h2s_attach_feeder(void* handle, void* feeder) {
+  static_cast<Server*>(handle)->feeder.store(feeder);
+}
+
+// Response scatter bridge (called by the feeder's serve thread): wrap
+// one RPC's protobuf payload in a grpc frame and send it through the
+// connection's flow-control-aware write path; consumes the token.
+void h2s_feeder_respond(void* conn_token, int64_t stream,
+                        const uint8_t* payload, int64_t len,
+                        int32_t grpc_status) {
+  auto* token = static_cast<FeederToken*>(conn_token);
+  if (token == nullptr) return;
+  // The counters follow the byte window path's (dispatch_loop): a dead
+  // connection counts nothing, an error counts only into `errors`, a
+  // success only into `rpcs` — so errors / rpcs means the same with the
+  // feeder on and off.
+  if (!token->conn->dead.load()) {
+    std::string data;
+    if (grpc_status == 0) {
+      data.push_back(0);  // uncompressed grpc frame
+      uint8_t len4[4];
+      put_u32(len4, static_cast<uint32_t>(len));
+      data.append(reinterpret_cast<char*>(len4), 4);
+      data.append(reinterpret_cast<const char*>(payload),
+                  static_cast<size_t>(len));
+    }
+    send_rpc_payload(token->conn, static_cast<uint32_t>(stream),
+                     std::move(data), grpc_status);
+    if (grpc_status == 0) {
+      // feeder_rpcs first: a reader that has seen `rpcs` reach a count
+      // sees every feeder RPC in it.
+      token->srv->feeder_rpcs.fetch_add(1);
+      token->srv->rpcs.fetch_add(1);
+    } else {
+      token->srv->errors.fetch_add(1);
+    }
+  }
+  delete token;
+}
+
+// Teardown-side token release: free without sending (the feeder was
+// stopped with windows still claimed — cf_free walks them).
+void h2s_feeder_release(void* conn_token) {
+  delete static_cast<FeederToken*>(conn_token);
+}
+
 void h2s_stop(void* handle) {
   auto* srv = static_cast<Server*>(handle);
   srv->closing.store(true);
   srv->plane.store(nullptr);
+  srv->feeder.store(nullptr);
   for (int fd : srv->listen_fds) {
     ::shutdown(fd, SHUT_RDWR);
     ::close(fd);

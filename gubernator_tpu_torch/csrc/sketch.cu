@@ -43,6 +43,17 @@
 // counts) and keeps `cur`; the kernel is a grid-stride fill with 16-byte
 // stores.  Bound: bytes, the span written once: 16 MiB for one plane at
 // depth 4 and width 2^20, 5.0 us at 3.35 TB/s.
+//
+// Tried for K8 and not kept: Hopper's bulk asynchronous copy (TMA,
+// `cp.async.bulk.global.shared::cta.bulk_group`) of a zeroed shared-memory
+// tile, one elected thread a block, from a persistent grid of one or two
+// blocks an SM each owning one contiguous run of the span, and with 16 KiB
+// chunks dealt out one a block.  On an H100 it did not beat this fill: the
+// persistent grid was no faster at width 2^20 and 14 % slower at 2^24; the
+// dealt chunks were 2-3 % faster at 2^24 but 4 % slower on both planes at
+// 2^20, the default width.
+// scripts/torch_k8_tma.py builds that design and times it beside K8 and
+// `zero_()`.
 
 #include <climits>
 #include <cstdint>

@@ -11,11 +11,13 @@ starts the HTTP gateway, then, when `conf.h2_fast_address`
 (GUBER_H2_FAST_ADDRESS) is set, the native h2 front (net/h2_fast.py;
 reference daemon.py:316-335), which attaches the ledger's native
 decision plane when `conf.native_ledger` (GUBER_NATIVE_LEDGER) is on and
-the clock is the live one, and runs the periodic expiry sweep on a
+the clock is the live one, and its columnar feeder, the default ingest,
+unless GUBER_NATIVE_FEEDER=0 (the front reads that knob and the ring's
+sizes itself, as the reference's does), and runs the periodic expiry sweep on a
 thread of its own (`conf.sweep_interval`, GUBER_SWEEP_INTERVAL;
 SWEEP_WINDOWS_PER_TICK windows a tick).  `close` stops the sweeper, then
-the h2 front (its dispatch thread calls into the engine; it pulls the
-plane's leases back to the ledger), then the gateway, saves the cache to
+the h2 front (its dispatch and feeder threads call into the engine; it
+pulls the plane's leases back to the ledger), then the gateway, saves the cache to
 the loader, and closes the service (the ledger settles, then the engine
 closes; reference daemon.py:631-674).  Paged state and the hot-key
 sketch need nothing here: the engine reads GUBER_PAGED, GUBER_PAGE_SIZE
@@ -131,8 +133,8 @@ class Daemon:
 
     def close(self) -> None:
         """Graceful stop: the sweeper (joined, since a tick may be inside
-        the engine), the h2 front (its stop joins the dispatch thread,
-        which calls into the engine), the listener, the final save, then
+        the engine), the h2 front (its stop joins the dispatch and
+        feeder threads, which call into the engine), the listener, the final save, then
         the engine."""
         if self._closed:
             return

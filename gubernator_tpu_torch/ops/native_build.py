@@ -3,9 +3,10 @@ K1 and K4 in fused_step.cu, K2 clear_occupied.cu, K3 collapsed_step.cu,
 K5 load_slots.cu, K6 and K13 sweep.cu, K7 and K8 sketch.cu, K9 and K10
 page_words.cu, K11 and K12 sharded_step.cu), the host intern
 table (csrc/intern_table.cpp), the wire codec (csrc/wire_codec.cpp), the
-h2 front (csrc/h2_server.cpp, linked with the wire codec and the native
-decision plane, csrc/decision_plane.cpp, into one library, as the
-reference's `_EXTRA_SOURCES` does) and the h2 load client
+h2 front (csrc/h2_server.cpp, linked with the wire codec, the native
+decision plane, csrc/decision_plane.cpp, and the columnar feeder,
+csrc/columnar_feeder.cpp, into one library, as the reference's
+`_EXTRA_SOURCES` does) and the h2 load client
 (csrc/h2_client.cpp).
 
 Each library has a plain C interface, loaded through `ctypes` (no
@@ -48,11 +49,12 @@ SOURCES = {
     "sharded_step": ("sharded_step.cu",),
     "intern_table": ("intern_table.cpp",),
     "wire_codec": ("wire_codec.cpp",),
-    # The wire codec and the decision plane link into the h2 server, as the
-    # reference's do: the plane decodes and answers hot-key RPCs in the
-    # server's own threads (the columnar feeder, ROADMAP A item 11, will
-    # join them).
-    "h2_server": ("h2_server.cpp", "wire_codec.cpp", "decision_plane.cpp"),
+    # The wire codec, the decision plane and the columnar feeder link into
+    # the h2 server, as the reference's do: the plane answers hot-key RPCs
+    # and the feeder packs the others into column windows, both in the
+    # server's own threads.
+    "h2_server": ("h2_server.cpp", "wire_codec.cpp", "decision_plane.cpp",
+                  "columnar_feeder.cpp"),
     "h2_client": ("h2_client.cpp",),
 }
 # Sources a .cu includes: an edit to one rebuilds every kernel.
@@ -77,6 +79,13 @@ GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread")
 WINDOW_CALLBACK = ctypes.CFUNCTYPE(
     ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+)
+
+# The columnar feeder's window callback (csrc/columnar_feeder.cpp
+# ColumnarCallback): (slot, n_rows, n_rpcs, key_bytes) → 0 or a grpc
+# status that fails the whole window.
+FEEDER_CALLBACK = ctypes.CFUNCTYPE(
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
 )
 
 _lock = threading.Lock()
@@ -308,6 +317,33 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.dp_try_serve.argtypes = [p, ctypes.c_char_p, i64, i64, i64, p, i64]
         lib.dp_stats.restype = None
         lib.dp_stats.argtypes = [p, p]
+        # The columnar feeder (csrc/columnar_feeder.cpp).
+        # n_slots, max_rows, key_cap, max_rpcs, disqualify_mask, window_us,
+        # flush_rows, over_status, callback
+        lib.cf_create.restype = p
+        lib.cf_create.argtypes = [i64, i64, i64, i64, i64, i64, i64, i32, FEEDER_CALLBACK]
+        lib.cf_set_hints.restype = None
+        lib.cf_set_hints.argtypes = [p, i64]
+        lib.cf_slot_ptrs.restype = None  # feeder, slot, out19
+        lib.cf_slot_ptrs.argtypes = [p, i64, p]
+        # feeder, body, len, max_items, conn_token, stream, t_enq_ns
+        lib.cf_pack.restype = i64
+        lib.cf_pack.argtypes = [p, p, i64, i64, p, i64, i64]
+        for fn in (lib.cf_flush, lib.cf_stop, lib.cf_free):
+            fn.restype = None
+            fn.argtypes = [p]
+        lib.cf_stats.restype = None  # feeder, out13
+        lib.cf_stats.argtypes = [p, p]
+        # feeder, body, len, max_items, reps, threads
+        lib.cf_bench_pack.restype = i64
+        lib.cf_bench_pack.argtypes = [p, p, i64, i64, i64, i64]
+        lib.h2s_attach_feeder.restype = None
+        lib.h2s_attach_feeder.argtypes = [p, p]
+        # conn_token, stream, payload, len, grpc_status
+        lib.h2s_feeder_respond.restype = None
+        lib.h2s_feeder_respond.argtypes = [p, i64, p, i64, i32]
+        lib.h2s_feeder_release.restype = None
+        lib.h2s_feeder_release.argtypes = [p]
     elif name == "h2_client":
         i32, i64, f64, s = ctypes.c_int32, ctypes.c_int64, ctypes.c_double, ctypes.c_char_p
         # host, port, path, authority, payload, payload_len, seconds,

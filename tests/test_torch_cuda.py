@@ -835,6 +835,65 @@ def test_h2_front_on_the_card_matches_the_cpu(cuda):
         cpu.close()
 
 
+def test_h2_feeder_front_on_the_card_matches_the_cpu(cuda):
+    """The h2 parity stream through an H2FastFront whose columnar feeder
+    serves a card engine and one whose feeder serves a CPU engine, the
+    ledger off so every in-scope RPC rides the feeder ring: grpc-status
+    and response bytes equal RPC by RPC, the feeders' retry_after_ms
+    hints included (every OVER_LIMIT item carries one, reset - now in the
+    engine's clock), the byte window path taken by the out-of-scope and
+    zero-item RPCs only, and state words equal."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
+    from gubernator_tpu_torch.net.h2_fast import H2FastFront
+    from gubernator_tpu_torch.service import V1Instance
+
+    rng = np.random.default_rng(11)
+    ns = 1_760_000_000_000 * 1_000_000
+    gpu = V1Instance(DecisionEngine(1 << 16, clock=Clock().freeze_at(ns), device=cuda),
+                     ledger=False)
+    cpu = V1Instance(DecisionEngine(1 << 16, clock=Clock().freeze_at(ns), device="cpu"),
+                     ledger=False)
+    fronts = [H2FastFront(gpu, window_s=0.001, native_feeder=True),
+              H2FastFront(cpu, window_s=0.001, native_feeder=True)]
+    clients = [cs.H2Unary(f.address) for f in fronts]
+    fs.reset_launches()
+    try:
+        stream = cs.h2_stream(np, rng, n_rpcs=12)
+        hinted = 0
+        for body, step, status, n_items in stream:
+            for inst in (gpu, cpu):
+                inst.engine.clock.advance(ms=step)
+            got, want = clients[0].call(body), clients[1].call(body)
+            assert got == want
+            assert got[0] == status
+            if status == 0 and n_items:
+                hinted += cs.retry_hints(got[1], gpu.engine.clock.now_ms())
+        assert hinted > 0
+        # The C side bumps the counters after the response is sent.
+        st = [cs.settled_stats(f, len(stream)) for f in fronts]
+        n_byte = sum(1 for _b, _s, status, n in stream if status or not n)
+        for x in st:
+            assert x["feeder_front_rpcs"] == len(stream) - n_byte
+            assert x["windows"] == n_byte
+        got, exp = tk.state_to_numpy(gpu.engine.state), tk.state_to_numpy(cpu.engine.state)
+        for f in tk.BucketState._fields:
+            assert np.array_equal(got[f], exp[f]), f
+        k = fs.launches
+        assert (k["fused_step"] + k["collapsed_step"] + k["uniform_step"]
+                == gpu.engine.dispatches_total > 0)
+    finally:
+        for c in clients:
+            c.close()
+        for f in fronts:
+            f.close()
+        gpu.close()
+        cpu.close()
+
+
 def _page_state(rng, cap, dev):
     """Every bit pattern likely: bit 31 set in the `*_lo` columns."""
     return tk.BucketState(*(torch.from_numpy(

@@ -9,18 +9,19 @@ window credit, zero-item and oversized RPCs), `tests/test_h2_event_front.py`
 coalesced frames, short-write back-pressure, idle reaping, teardown
 under live load, the connscale client) and `tests/test_h2_client.py`
 (the native client against a grpc-python server).  A seeded sequential
-stream runs through the reference's front (`Config(ledger=False)`, with
-its columnar feeder off, on with its retry hints off, and on as by
-default, where only the `retry_after_ms` hint it adds on OVER_LIMIT
-answers may differ) and through the port's (a CPU engine), all with
-frozen clocks: every response's grpc-status and message bytes, and the
-state words at the end, must be equal.
+stream runs through the reference's front and through the port's (a CPU
+engine), both with their columnar feeders off, both with them on and
+their retry hints off, and both as by default (feeder and hints on), all
+with frozen clocks: every response's grpc-status and message bytes, the
+`retry_after_ms` metadata the feeder writes on OVER_LIMIT answers
+included, and the state words at the end, must be equal.
 
 Not here, with the ROADMAP A item that brings each: the sharded-engine
 case (`test_fast_front_sharded_engine`, item 9), the cluster ownership
-gate (`test_fast_front_ownership_gate`, item 11), and the feeder, event
-ring and conns-gauge cases of test_h2_event_front.py (item 11; the
-decision plane, item 5).
+gate (`test_fast_front_ownership_gate`, item 11), and the event ring and
+conns-gauge cases of test_h2_event_front.py (item 13).  The feeder's own
+cases, and test_h2_event_front.py's feeder parity, are in
+tests/test_torch_feeder.py.
 """
 
 from __future__ import annotations
@@ -469,15 +470,35 @@ def _port_words_by_key(eng):
     return out
 
 
-def _without_retry_hints(msg: bytes) -> bytes:
-    """The reference's response with its retry_after_ms metadata taken
-    off; the hint may sit on OVER_LIMIT items only."""
+def settled_stats(front, n_rpcs: int, timeout: float = 10.0) -> dict:
+    """A front's stats once it has counted `n_rpcs` answered RPCs: the C
+    side bumps its counters after the response is sent, so a client can
+    read its answer before the counter moves."""
+    deadline = time.monotonic() + timeout
+    st = front.stats()
+    while st["rpcs"] + st["errors"] < n_rpcs and time.monotonic() < deadline:
+        time.sleep(0.005)
+        st = front.stats()
+    return st
+
+
+def _retry_hints(msg: bytes) -> int:
+    """The number of items of a response that carry a retry_after_ms
+    hint; the hint may sit on OVER_LIMIT items only, and every OVER_LIMIT
+    item of a hinted response carries one."""
     resp = pb.GetRateLimitsResp.FromString(msg)
+    hinted = [bool(r.metadata) for r in resp.responses]
     for r in resp.responses:
         if r.metadata:
             assert set(r.metadata) == {"retry_after_ms"} and r.status == pb.OVER_LIMIT
-            r.metadata.clear()
-    return resp.SerializeToString()
+            assert int(r.metadata["retry_after_ms"]) == max(0, r.reset_time - T0_NS // 10**6
+                                                           - _elapsed_ms[0])
+    if any(hinted):
+        assert all(h for h, r in zip(hinted, resp.responses) if r.status == pb.OVER_LIMIT)
+    return sum(hinted)
+
+
+_elapsed_ms = [0]  # the frozen clocks' advance since T0, for _retry_hints
 
 
 # The ledger's knobs when it is on, in each side's spelling: a hot
@@ -498,13 +519,14 @@ def test_stream_equals_the_reference_front(mode, monkeypatch):
     words equal at the end.  512 slots under a 700-key pool, so evictions
     run too.
 
-    The reference takes either ingest path: its byte window path
-    (GUBER_NATIVE_FEEDER=0), the one the port has, or its default, the
-    columnar feeder.  The feeder's encode also writes a retry_after_ms
-    metadata hint on OVER_LIMIT answers (GUBER_RETRY_HINTS, default on),
-    which the byte window path never writes; with the hint off its bytes
-    are the byte path's, and with it on they are equal once the hint is
-    taken off (the hint comes with the feeder, ROADMAP A item 11).
+    Both fronts take the same ingest path: the byte window path
+    (`native_feeder=False`), or the columnar feeder, their default.  The
+    feeder's encode also writes a retry_after_ms metadata hint on
+    OVER_LIMIT answers (GUBER_RETRY_HINTS, default on), which the byte
+    window path never writes: with the feeder on and hints on, the port's
+    bytes must carry the same hints as the reference's, so some
+    responses must carry one.  The fronts' counters of byte windows and
+    of feeder RPCs must be equal too.
 
     Both sides run with the decision ledger off, or (the `ledger-` modes)
     both with it on: answers are the same either way, but state words
@@ -524,7 +546,8 @@ def test_stream_equals_the_reference_front(mode, monkeypatch):
     ref_front = RefFront(ref, window_s=0.001, native_feeder=feeder)
     port = V1Instance(DecisionEngine(512, clock=Clock().freeze_at(T0_NS), device="cpu"),
                       **(_PORT_LEDGER_ON if ledger else dict(ledger=False)))
-    front = H2FastFront(port, window_s=0.001)
+    front = H2FastFront(port, window_s=0.001, native_feeder=feeder)
+    _elapsed_ms[0] = 0
     try:
         ref_ch = grpc.insecure_channel(ref_front.address)
         port_ch = grpc.insecure_channel(front.address)
@@ -533,20 +556,23 @@ def test_stream_equals_the_reference_front(mode, monkeypatch):
         for i, (body, step) in enumerate(_stream_rpcs(seed=7)):
             ref_engine.clock.advance(ms=step)
             port.engine.clock.advance(ms=step)
+            _elapsed_ms[0] += step
             want = _raw_call(ref_ch, body)
             got = _raw_call(port_ch, body)
-            if mode == "feeder_on" and want[1]:
-                stripped = _without_retry_hints(want[1])
-                hinted += stripped != want[1]
-                want = (want[0], stripped)
             assert got == want, i
+            if got[1]:
+                hinted += _retry_hints(got[1]) > 0
             codes.append(got[0])
             if not body:
                 assert got == (0, b"")
         assert codes.count(12) == 5 and codes.count(0) == len(codes) - 5
-        assert (ref_front.stats()["feeder_front_rpcs"] > 0) == feeder
+        st, ref_st = (settled_stats(f, len(codes)) for f in (front, ref_front))
+        assert (st["feeder_front_rpcs"] > 0) == feeder
+        for k in ("rpcs", "windows", "errors", "feeder_front_rpcs", "feeder_front_items"):
+            assert st[k] == ref_st[k], k
+        assert (front.feeder is not None) == feeder
         assert (hinted > 0) == (mode == "feeder_on")
-        assert front.stats()["errors"] == 5
+        assert st["errors"] == 5
         assert ref_front.plane is None and front.plane is None
         assert (port.ledger is not None) == ledger == (ref.ledger is not None)
         if ledger:

@@ -23,7 +23,8 @@ device.  Held bit-equal: answers, and every state word a shard and slot
   tests/test_h2_fast.py:113 (the h2 front over a sharded daemon,
   device_count=8); a seeded stream through `V1Instance` over both sharded
   engines with the ledger on and off, the same stream through both h2
-  fronts (response bytes), a write-through store stream, and a
+  fronts (response bytes; their columnar feeders on, as by default, and
+  off), a write-through store stream, and a
   racing-threads storm with the exact accounting of
   tests/test_sharded_storm.py.
 
@@ -75,7 +76,7 @@ from gubernator_tpu_torch.ops.sharded_step import (
 from gubernator_tpu_torch.parallel.sharded_engine import ShardedDecisionEngine
 from gubernator_tpu_torch.service import COLUMNAR_DISQUALIFIERS, V1Instance
 from gubernator_tpu_torch.types import Algorithm, Behavior, RateLimitReq, Status
-from test_torch_h2_fast import _raw_call, _stream_rpcs
+from test_torch_h2_fast import _raw_call, _stream_rpcs, settled_stats
 from test_torch_persist import _random_words
 
 N_SHARDS = 8  # the reference's virtual CPU mesh (tests/conftest.py)
@@ -745,17 +746,12 @@ def _ref_words_by_shard_slot(eng):
     return {f: np.asarray(getattr(eng._state, f)) for f in eng._state._fields}
 
 
-@pytest.mark.parametrize("ledger", [False, True])
-def test_h2_stream_over_sharded_engines(ledger):
-    """The h2 parity stream (tests/test_torch_h2_fast.py) through the
-    reference's front (its byte window path) over its sharded engine and
-    the port's front over the port's: grpc-status and response bytes RPC
-    by RPC, and the state words at the end; 64 slots a shard under a
-    700-key pool, so evictions run too."""
+def _h2_stream_over_sharded_engines(ledger: bool, feeder: bool):
     port, ref = _instances(ledger)
-    ref_front = RefFront(ref, window_s=0.001, native_feeder=False)
-    front = H2FastFront(port, window_s=0.001)
+    ref_front = RefFront(ref, window_s=0.001, native_feeder=feeder)
+    front = H2FastFront(port, window_s=0.001, native_feeder=feeder)
     try:
+        assert (front.feeder is not None) == feeder
         ref_ch = grpc.insecure_channel(ref_front.address)
         port_ch = grpc.insecure_channel(front.address)
         codes = []
@@ -770,11 +766,34 @@ def test_h2_stream_over_sharded_engines(ledger):
             assert port.ledger.flush_settles() == ref.ledger.flush_settles()
         assert_same_state(port.engine, ref.engine)
         assert sum(t.evictions for t in port.engine.tables) > 0
+        st, ref_st = (settled_stats(f, len(codes)) for f in (front, ref_front))
+        for k in ("rpcs", "windows", "errors", "feeder_front_rpcs"):
+            assert st[k] == ref_st[k], k
+        assert (st["feeder_front_rpcs"] > 0) == feeder
     finally:
         front.close()
         ref_front.close()
         ref.close()
         port.close()
+
+
+@pytest.mark.parametrize("ledger", [False, True])
+def test_h2_stream_over_sharded_engines(ledger):
+    """The h2 parity stream (tests/test_torch_h2_fast.py) through the
+    reference's front over its sharded engine and the port's front over
+    the port's, both serving through their columnar feeders, as by
+    default: grpc-status and response bytes (the feeders' retry hints
+    included) RPC by RPC, the fronts' counters, and the state words at
+    the end; 64 slots a shard under a 700-key pool, so evictions run
+    too."""
+    _h2_stream_over_sharded_engines(ledger, feeder=True)
+
+
+@pytest.mark.parametrize("ledger", [False, True])
+def test_h2_byte_path_over_sharded_engines(ledger):
+    """The same stream through both fronts' byte window paths
+    (GUBER_NATIVE_FEEDER=0)."""
+    _h2_stream_over_sharded_engines(ledger, feeder=False)
 
 
 def test_fast_front_sharded_daemon():
