@@ -132,9 +132,10 @@ torch._foreach_copy_ into them (K10).
 A seventh path, the sharded path (parallel/sharded_engine.py, the
 reference's single-program sharded engine on one card), counts its
 launches from 0 too; K11 (the per-shard round), K12 (the per-shard
-collapsed chunk) and K13 (the sweep window of every shard) are held
-bit-equal to their plain versions first, at 8 shards x 2^16 and 4 x 2.5 x
-10^7 with padding lanes, an empty shard and clears.  (a) Card against
+collapsed chunk) and K13 (the sweep windows of every shard, one window
+and a group of 16 from the end of a pass) are held bit-equal to their
+plain versions first, at 8 shards x 2^16 and 4 x 2.5 x 10^7 with padding
+lanes, an empty shard and clears.  (a) Card against
 CPU at 8 shards x 2^16: a fill of 700,000 keys (evictions), zipf(1.1)
 columnar batches of 8192 (the flat K1 / K3) and get_rate_limits batches
 of 1000 (K11, K12), Gregorian minutes on 1 key in 7, sweeps (K13), and a
@@ -155,8 +156,10 @@ stream's collapsed pins to K3's layout (`check_collapsed`), and times
 every kernel on the shapes the main path gave it, beside its bytes bound
 and its plain version (K3 also on one-key and spread zipf chunks without
 and with clears, K4 also on joined launches of 2 and 16 rounds; K5 per 4096-record restore and
-K6 per 2^17-slot window at 10^8 slots, the wall time of a 16-window
-sweep tick, a save / load round trip at 2^20; K7 per 1000- and
+K6 per 2^17-slot window and per group of 16 windows (one launch, the
+engines' sweep) at 10^8 slots, the wall time of a 16-window sweep tick,
+K13 per window and per group of 16 over 4 x 2.5 x 10^7, a save / load
+round trip at 2^20; K7 per 1000- and
 8192-key batch and K8 on one plane and on both at widths 2^20 and 2^24,
 beside `zero_()` on the same span), apply_columnar's decisions/s on each stream, and the h2 path's
 RPCs/s, p50 and p99 (herd and 1000-item loop, feeder on and off) and
@@ -183,6 +186,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import importlib.util
+import itertools
 import json
 import os
 import statistics
@@ -1093,12 +1097,15 @@ def phase_daemon_binary(has_h2: bool):
         proc.stderr.close()
 
 
-def device_ms(torch, launch, n: int, windows: int = 7) -> float:
+def device_ms(torch, launch, n: int, windows: int = 7, before=None) -> float:
     """Median device time per launch: `n` launches queued behind a spin
     kernel (so host launch overhead does not starve the card), timed
-    with CUDA events; the median over `windows`."""
+    with CUDA events; the median over `windows`.  `before()`, if given,
+    runs ahead of each window's spin, outside the timing."""
     per = []
     for _ in range(windows):
+        if before is not None:
+            before()
         torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning: the queue fills meanwhile
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1393,6 +1400,59 @@ def k6_bound_ms(window: int, freed: int) -> float:
     return (12 * window + 8 * freed + 4) / HBM_BYTES_PER_S * 1e3
 
 
+def has_sweep_groups() -> bool:
+    """Whether the driven port sweeps a group of windows in one launch
+    (`ops.expiry.sweep_windows`); a --tree checkout from before launches
+    one window at a time."""
+    from gubernator_tpu_torch.ops import expiry
+
+    return hasattr(expiry, "sweep_windows")
+
+
+def sweep_group(meta, hi2, expire_lo, now: int, starts, window: int, n_sh: int = 0):
+    """The windows of `starts` swept in order, as the driven port's engines
+    sweep a group: one launch (`sweep_windows`, K13 with n_sh), or on an
+    older port one launch a window.  Returns [window][shard] outputs;
+    n_sh = 0 is the dense state (K6)."""
+    from gubernator_tpu_torch.ops import expiry
+
+    if has_sweep_groups():
+        out = (expiry.shard_sweep_windows(meta, hi2, expire_lo, n_sh, now, starts, window)
+               if n_sh else expiry.sweep_windows(meta, hi2, expire_lo, now, starts, window))
+        return list(out)
+    if n_sh:
+        return [expiry.shard_sweep_window(meta, hi2, expire_lo, n_sh, now, s, window)
+                for s in starts]
+    return [expiry.sweep_window(meta, hi2, expire_lo, now, s, window)[None] for s in starts]
+
+
+def sweep_group_plain(meta, hi2, expire_lo, now: int, starts, window: int, n_sh: int = 0):
+    """`sweep_group`'s plain version: the windows one after another."""
+    from gubernator_tpu_torch.ops import expiry
+
+    return [expiry.shard_sweep_window_reference(meta, hi2, expire_lo, max(n_sh, 1), now, s,
+                                                window) for s in starts]
+
+
+def plain_window_fn():
+    """The plain window function `windowed_sweep` takes on the driven port."""
+    from gubernator_tpu_torch.ops import expiry
+
+    return (expiry.sweep_windows_reference if has_sweep_groups()
+            else expiry.sweep_window_reference)
+
+
+def same_sweep(torch, got, want) -> int:
+    """The largest difference between two `sweep_group` results over each
+    row's count and freed prefix (0: equal)."""
+    err = 0
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            c = int(b[0])
+            err = max(err, int((a[: 1 + c].long() - b[: 1 + c].long()).abs().max().item()))
+    return err
+
+
 def phase_persist_kernels(torch, np, rng, errs):
     """K5 and K6 against their plain versions on the card at 2^20 and 10^8
     slots: restores of 16..4096 lanes with padding and extreme values
@@ -1429,7 +1489,7 @@ def phase_persist_kernels(torch, np, rng, errs):
                                        lambda f, st: fk.append(f + st) or len(f))
             npl = expiry.windowed_sweep(hp, cap, NOW0, max_w,
                                         lambda f, st: fp.append(f + st) or len(f),
-                                        window_fn=expiry.sweep_window_reference)
+                                        window_fn=plain_window_fn())
             ak, ap = np.concatenate(fk), np.concatenate(fp)
             err = max(abs(nk - npl), compare_states(torch, (kern.meta,), (plain.meta,)),
                       0 if np.array_equal(ak, ap) else max(1, abs(len(ak) - len(ap))))
@@ -1695,13 +1755,126 @@ def phase_persist(torch, np, rng, tmp: Path):
     return [g1, g2, fresh, *daemon_engines], out
 
 
+def time_sweep_groups(torch, state, plain, meta0, starts, window: int, n_sh: int, n: int,
+                      card: str):
+    """K6 (n_sh = 0) or K13 on groups of 16 windows, as the engines sweep
+    them (`sweep_group`: one launch a group, or 16 on an older port): the
+    clamped tail's group (its last 16 windows) held against the plain
+    version word for word, then groups of 16 fresh windows timed, `n` a
+    timing window, the state re-armed from `meta0` before each.  Returns
+    (device ms per group, plain ms per group, bound ms per group)."""
+    tag = "K13" if n_sh else "K6"
+    state.meta.copy_(meta0)
+    plain.meta.copy_(meta0)
+    tail = starts[-16:]
+    got = sweep_group(state.meta, state.hi2, state.expire_lo, NOW0, tail, window, n_sh)
+    want = sweep_group_plain(plain.meta, plain.hi2, plain.expire_lo, NOW0, tail, window, n_sh)
+    torch.cuda.synchronize()
+    err = max(same_sweep(torch, got, want), int(not torch.equal(state.meta, plain.meta)))
+    check(err == 0, f"[time] {tag} differs from its plain version on the tail's group: err {err}")
+    groups = [starts[i : i + 16] for i in range(0, len(starts) - 15, 16)]
+    check(len(groups) >= n, f"[time] {tag}: {len(groups)} groups of fresh windows, want {n}")
+    nxt = itertools.count()
+    outs = []
+
+    def launch(_):
+        g = groups[next(nxt) % len(groups)]
+        outs.append(sweep_group(state.meta, state.hi2, state.expire_lo, NOW0, g, window, n_sh))
+
+    def rearm():
+        state.meta.copy_(meta0)
+
+    rearm()
+    ms = device_ms(torch, launch, n, before=rearm)
+    fresh = outs[: len(groups)]  # the first timing windows': every group fresh
+    freed = [sum(int(row[0]) for o in grp for row in o) for grp in fresh]
+    bnd = statistics.median(sum(
+        k13_bound_ms(n_sh, window, sum(int(row[0]) for row in o)) if n_sh
+        else k6_bound_ms(window, int(o[0][0])) for o in grp) for grp in fresh)
+    del outs, fresh
+    pnxt = itertools.count()
+    plain.meta.copy_(meta0)
+    plain_ms = host_ms(torch, lambda i: sweep_group_plain(
+        plain.meta, plain.hi2, plain.expire_lo, NOW0, groups[next(pnxt) % len(groups)], window,
+        n_sh), 2, windows=3)
+    state.meta.copy_(meta0)
+    launches = 1 if has_sweep_groups() else 16
+    log(f"[time] {tag}, groups of 16 windows of 2^17" + (f" of {n_sh} shards" if n_sh else "")
+        + f" (median {statistics.median(freed)} freed a group, {launches} launch"
+        + ("es" if launches > 1 else "") + f" a group): {ms * 1e3:.2f} us/group, bound "
+        f"{bnd * 1e3:.3f} us (bytes), plain {plain_ms * 1e3:.1f} us; the clamped tail's group "
+        f"bit-equal to the plain version (tolerance: exact) | {card}")
+    return ms, plain_ms, bnd
+
+
+def trace_tick(torch, holder, cap: int, card: str, rearm):
+    """torch.profiler over one 16-window sweep tick at `cap` from the
+    cursor at 0, after `rearm()`: the device operations the tick puts on
+    the stream the serving path shares, by name (count, device us).  The
+    second of two traced ticks counts (the first trace drops events while
+    the profiler starts).  Returns (operations, device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gubernator_tpu_torch.ops import expiry
+
+    for _ in range(2):
+        rearm()
+        holder._sweep_cursor = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            expiry.windowed_sweep(holder, cap, NOW0, 16, lambda f, st: len(f))
+            torch.cuda.synchronize()
+    ops = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    n, us = sum(c for _, c, _ in ops), sum(t for _, _, t in ops)
+    log(f"[trace] one 16-window sweep tick at cap 10^8: {n} device operations, {us:.2f} us of "
+        "device time: " + "; ".join(f"{k[:48]} x{c} {t:.2f} us" for k, c, t in
+                                    sorted(ops, key=lambda o: -o[2])) + f" | {card}")
+    return n, us / 1e3
+
+
+def idle_ticks(torch, np, card: str, n_keys: int = 50_000, n_ticks: int = 20):
+    """The daemon's sweep tick (`Daemon.SWEEP_WINDOWS_PER_TICK` windows, 8
+    at this capacity) on a card engine of 2^20 slots that no batch
+    contends for: how long a tick holds the engine lock, the first one
+    freeing `n_keys` expired buckets, the next `n_ticks` finding none.
+    Returns (first ms, median ms, min ms)."""
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.daemon import Daemon
+
+    eng = DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(NOW0 * 10**6))
+    keys = [b"tick_%d" % i for i in range(n_keys)]
+    for i in range(0, n_keys, 5000):
+        n = len(keys[i : i + 5000])
+        eng.apply_columnar(keys[i : i + 5000], np.zeros(n, np.int32), np.zeros(n, np.int32),
+                           np.ones(n, np.int64), np.full(n, 10, np.int64),
+                           np.full(n, 60_000, np.int64), np.zeros(n, np.int64))
+    eng.clock.advance(ms=120_000)
+    holds, freed = [], []
+    for _ in range(1 + n_ticks):
+        torch.cuda.synchronize()
+        with eng._lock:
+            t = time.perf_counter()
+            freed.append(eng.sweep(max_windows=Daemon.SWEEP_WINDOWS_PER_TICK))
+            holds.append(time.perf_counter() - t)
+    eng.close()
+    check(freed[0] == n_keys and not any(freed[1:]),
+          f"[time] the idle ticks freed {freed}, want {n_keys} then none")
+    first, med, low = holds[0] * 1e3, statistics.median(holds[1:]) * 1e3, min(holds[1:]) * 1e3
+    log(f"[time] the daemon's sweep tick at cap 2^20 on an idle engine (8 windows, the lock "
+        f"held): {first:.3f} ms freeing {n_keys}, then {med:.3f} ms median, {low:.3f} ms min "
+        f"of {n_ticks} freeing none | {card}")
+    return first, med, low
+
+
 def phase_persist_timing(torch, np, rng, card):
     """K5 per 4096-record launch and K6 per 2^17 window at 10^8 slots
     (CUDA events), beside their plain versions and bytes bounds; and the
     wall time of a 16-window sweep tick at 10^8 (windows and readback,
-    without the intern table's release)."""
-    import itertools
-
+    without the intern table's release); and K6 per group of 16 windows,
+    the launch the engines make (`time_sweep_groups`)."""
     from gubernator_tpu_torch.ops import bucket_kernel as tk
     from gubernator_tpu_torch.ops import expiry
     from gubernator_tpu_torch.ops import fused_step as fs
@@ -1748,6 +1921,7 @@ def phase_persist_timing(torch, np, rng, card):
         f"window): {k6_ms * 1e3:.2f} us/window, bound {k6_bound * 1e3:.3f} us (bytes), plain "
         f"{k6_plain * 1e3:.1f} us | {card}")
     del outs
+    out["k6_group"] = time_sweep_groups(torch, state, plain, meta0, starts, win, 0, 8, card)
     state.meta.copy_(meta0)
     holder = SweepHolder(state)
     tick = []
@@ -1759,6 +1933,9 @@ def phase_persist_timing(torch, np, rng, card):
     out["tick"] = statistics.median(tick)
     log(f"[time] one 16-window sweep tick at cap 10^8 (K6 + count and freed-index readback, "
         f"without the table's release): {out['tick'] * 1e3:.2f} ms (median of 5) | {card}")
+    out["tick_trace"] = trace_tick(torch, holder, cap, card, lambda: state.meta.copy_(meta0))
+    del holder
+    out["idle_tick"] = idle_ticks(torch, np, card)
     del state, plain, meta0
     torch.cuda.empty_cache()
     return out
@@ -3652,10 +3829,25 @@ def phase_shard_kernels(torch, np, rng, errs):
             errs["shard_sweep"] = max(errs["shard_sweep"], err)
             check(err == 0 and sum(c) > 0, f"K13 differs from its plain version: {n_sh} x "
                   f"{cap}, window at {start}, err {err}")
+        # A group as the engine's cursor gives it at the end of a pass: the
+        # windows before the clamped tail, the tail, then window 0 again.
+        n_win = -(-cap // window)
+        starts = [min(i * window, cap - window) for i in range(n_win)][-15:] + [0]
+        got = sweep_group(kern.meta, kern.hi2, kern.expire_lo, NOW0 + 1, starts, window, n_sh)
+        want = sweep_group_plain(plain.meta, plain.hi2, plain.expire_lo, NOW0 + 1, starts,
+                                 window, n_sh)
+        torch.cuda.synchronize()
+        err = max(same_sweep(torch, got, want),
+                  compare_states(torch, (kern.meta,), (plain.meta,)))
+        errs["shard_sweep"] = max(errs["shard_sweep"], err)
+        check(err == 0, f"K13 differs from its plain version on a group of {len(starts)} "
+              f"windows: {n_sh} x {cap}, err {err}")
         log(f"[shard kernels] {n_sh} x {cap}: K11 (4 rounds of 256 lanes a shard) and K12 (4 "
             "chunks of 1024 lanes a shard, a hot key across tiles), with padding, an empty "
-            f"shard and clears, and K13 (the first and the last window of {window} of every shard) "
-            "bit-equal to their plain versions (tolerance: exact)")
+            f"shard and clears, and K13 (the first and the last window of {window} of every "
+            f"shard, then a group of {len(starts)} from the cursor's end of a pass: the tail, "
+            "the window before it, the wrap) bit-equal to their plain versions (tolerance: "
+            "exact)")
         del kern, plain
         torch.cuda.empty_cache()
 
@@ -3877,15 +4069,25 @@ def phase_sharded_full(torch, np, rng, card_name, tmp: Path):
     fresh.close()
     del fresh
     torch.cuda.empty_cache()
+    counts0 = [sweep_counts([e]) for e in (sharded, dense)]
     t0 = time.perf_counter()
     freed = sharded.sweep(now_ms=now + 3 * 60_000)
     sweep_s = time.perf_counter() - t0
     check(freed == dense.sweep(now_ms=now + 3 * 60_000) == keys,
           f"[sharded b] the sweep pass freed {freed} (dense engine: its own count, keys {keys})")
+    for e, (w0, g0), c in zip((sharded, dense), counts0, (cap, n_sh * cap)):
+        # A full pass: every window once, 16 a launch (one a launch on a
+        # port from before the groups).
+        n_win = -(-c // e.SWEEP_WINDOW)
+        w1, g1 = sweep_counts([e])
+        want = -(-n_win // 16) if has_sweep_groups() else n_win
+        check((w1 - w0, g1 - g0) == (n_win, want), f"[sharded b] a pass over {c} slots swept "
+              f"{w1 - w0} windows in {g1 - g0} launches, want {n_win} in {want}")
     log(f"[sharded b] checkpoint of {keys} keys at 10^8 slots: save {save_s:.1f} s, load "
         f"{load_s:.1f} s (the whole state decoded and encoded on the host, as the reference "
-        f"does), the loaded words equal; one sweep pass of {sharded.sweep_windows_total} K13 "
-        f"windows (2^17 of each shard) freed all {freed} keys in {sweep_s:.2f} s | {card_name}")
+        f"does), the loaded words equal; one sweep pass of {sharded.sweep_windows_total} windows "
+        f"(2^17 of each shard) in {sweep_counts([sharded])[1]} K13 launches freed all {freed} "
+        f"keys in {sweep_s:.2f} s | {card_name}")
     read = {"rates": rates, "busy_us": busy_us, "window_us": window_us, "save_s": save_s,
             "load_s": load_s, "sweep_s": sweep_s, "keys": keys, "routes": routes}
     inst.close()
@@ -3955,7 +4157,8 @@ def phase_sharded(torch, np, rng, card):
 def phase_sharded_timing(torch, np, rng, card, captured):
     """K11 and K12 on (b)'s own inputs (the median launch of each, a 1000-
     item V1Instance batch over 4 shards) and K13 on one 2^17 window of each
-    of 4 shards, all on a random state of 4 x 2.5 x 10^7 slots, each
+    of 4 shards and on groups of 16 (`time_sweep_groups`), all on a random
+    state of 4 x 2.5 x 10^7 slots, each
     checked once against its plain version, then timed (CUDA events
     behind the spin kernel) beside its bytes bound and its plain version.
     No single PyTorch call computes any of them."""
@@ -3966,6 +4169,7 @@ def phase_sharded_timing(torch, np, rng, card, captured):
     n_sh, cap = SHARD_B
     state = random_state(torch, n_sh * cap, NOW0, int(rng.integers(2**31)))
     arm_expiries(torch, state, NOW0, int(rng.integers(2**31)))
+    meta0 = state.meta.clone()
     out = {}
     for name, kern, plain, bound in (
             ("shard_step", shard_step, tk.sharded_fused_step_reference, k11_bound_ms),
@@ -4014,9 +4218,33 @@ def phase_sharded_timing(torch, np, rng, card, captured):
     log(f"[time] shard_sweep (K13), one 2^17 window of each of {n_sh} shards of {cap}: "
         f"{ms * 1e3:.2f} us, bound {bnd * 1e3:.4f} us (bytes, {sum(counts)} freed in the "
         f"checked window), plain {plain_ms * 1e3:.1f} us | {card}")
-    del state
+    plain_state = copy_state(state)
+    n_win = -(-cap // window)
+    starts = [min(i * window, cap - window) for i in range(n_win)]
+    out["shard_sweep_group"] = (*time_sweep_groups(torch, state, plain_state, meta0, starts,
+                                                   window, n_sh, 4, card), None)
+    del state, plain_state
     torch.cuda.empty_cache()
     return out
+
+
+def sweep_counts(engines):
+    """(windows swept, sweep launches) of a path's card engines: the
+    launches are the groups (`sweep_groups_total`), or one a window on a
+    port from before the groups."""
+    windows = sum(e.sweep_windows_total for e in engines)
+    groups = sum(getattr(e, "sweep_groups_total", e.sweep_windows_total) for e in engines)
+    return windows, groups
+
+
+def check_grouped(windows: int, groups: int, path: str, multi: bool = True) -> None:
+    """A port with group sweeps launched no more sweeps than it swept
+    windows, and, on a path whose sweeps cover several windows (`multi`),
+    fewer."""
+    if has_sweep_groups():
+        check(0 < groups <= windows and (groups < windows or not multi),
+              f"the {path} path swept {windows} windows in {groups} launches: one launch must "
+              "sweep a group of windows")
 
 
 def main() -> int:
@@ -4127,11 +4355,14 @@ def main() -> int:
             p_engines, p_times = phase_persist(torch, np, rng, Path(tmp))
         persist_launches = dict(fs.launches)
         p_disp = sum(e.dispatches_total for e in p_engines)
-        p_win = sum(e.sweep_windows_total for e in p_engines)
-        log(f"[persist] launches {persist_launches}; engine launches {p_disp} + sweep windows "
-            f"{p_win}")
-        check(sum(persist_launches.values()) == p_disp + p_win,
-              "every engine launch of the persistence path must be a K1, K2, K5 or K6 launch")
+        p_win, p_groups = sweep_counts(p_engines)
+        log(f"[persist] launches {persist_launches}; engine launches {p_disp} + sweep launches "
+            f"{p_groups} ({p_win} windows)")
+        check(sum(persist_launches.values()) == p_disp + p_groups
+              and persist_launches["sweep_window"] == p_groups,
+              "every engine launch of the persistence path must be a K1, K2, K5 or K6 launch, "
+              "and every K6 launch a sweep group")
+        check_grouped(p_win, p_groups, "persistence")
         for name in ("fused_step", "clear_occupied", "load_slots", "sweep_window"):
             check(persist_launches[name] > 0, f"the persistence path must launch {name}")
         check(persist_launches["collapsed_step"] == persist_launches["uniform_step"] == 0,
@@ -4221,11 +4452,14 @@ def main() -> int:
         pg_engines, pg_per_batch, pg_read = phase_paged(torch, np, paged_rng, card)
         paged_launches = dict(fs.launches)
         pg_disp = sum(e.dispatches_total for e in pg_engines)
-        pg_win = sum(e.sweep_windows_total for e in pg_engines)
-        log(f"[paged] launches {paged_launches}; engine launches {pg_disp} + sweep windows "
-            f"{pg_win} | {card}")
-        check(sum(paged_launches.values()) == pg_disp + pg_win,
-              "every launch of the paged path must be an engine launch or a sweep window")
+        pg_win, pg_groups = sweep_counts(pg_engines)
+        log(f"[paged] launches {paged_launches}; engine launches {pg_disp} + sweep launches "
+            f"{pg_groups} ({pg_win} windows) | {card}")
+        check(sum(paged_launches.values()) == pg_disp + pg_groups
+              and paged_launches["sweep_window"] == pg_groups,
+              "every launch of the paged path must be an engine launch or a sweep group")
+        # The paged sweeps cover one window each (65,536 resident rows).
+        check_grouped(pg_win, pg_groups, "paged", multi=False)
         for name in ("gather_pages", "load_pages", "collapsed_step", "uniform_step",
                      "load_slots", "sweep_window"):
             check(paged_launches[name] > 0, f"the paged path must launch {name}")
@@ -4247,11 +4481,13 @@ def main() -> int:
         sh_engines, sh_captured, sh_read = phase_sharded(torch, np, shard_rng, card)
         shard_launches = dict(fs.launches)
         sh_disp = sum(e.dispatches_total for e in sh_engines)
-        sh_win = sum(e.sweep_windows_total for e in sh_engines)
-        log(f"[sharded] launches {shard_launches}; engine launches {sh_disp} + sweep windows "
-            f"{sh_win} | {card}")
-        check(sum(shard_launches.values()) == sh_disp + sh_win,
-              "every launch of the sharded path must be an engine launch or a sweep window")
+        sh_win, sh_groups = sweep_counts(sh_engines)
+        log(f"[sharded] launches {shard_launches}; engine launches {sh_disp} + sweep launches "
+            f"{sh_groups} ({sh_win} windows) | {card}")
+        check(sum(shard_launches.values()) == sh_disp + sh_groups
+              and shard_launches["sweep_window"] + shard_launches["shard_sweep"] == sh_groups,
+              "every launch of the sharded path must be an engine launch or a sweep group")
+        check_grouped(sh_win, sh_groups, "sharded")
         for name in ("shard_step", "shard_collapsed", "shard_sweep", "fused_step",
                      "collapsed_step", "load_slots"):
             check(shard_launches[name] > 0, f"the sharded path must launch {name}")
@@ -4286,13 +4522,17 @@ def main() -> int:
         ("uniform_step", "fused_step.cu", "gubernator_tpu/ops/bucket_kernel.py:1161",
          times["k4"]),
     ]
+    # K6's and K13's rows: the launch the engines make, a group of 16
+    # windows of 2^17 (on a port from before the groups, one window).
+    grouped = has_persist and has_sweep_groups()
     if has_persist:
-        # K5's row: one 4096-record restore at 10^8 slots; K6's: one 2^17
-        # window at 10^8 slots.
+        # K5's row: one 4096-record restore at 10^8 slots; K6's: a group at
+        # 10^8 slots.
         rows += [
             ("load_slots", "load_slots.cu", "gubernator_tpu/ops/bucket_kernel.py:1526",
              times["p_k5"]),
-            ("sweep_window", "sweep.cu", "gubernator_tpu/ops/expiry.py:40", times["p_k6"]),
+            ("sweep_window", "sweep.cu", "gubernator_tpu/ops/expiry.py:40",
+             times["p_k6_group" if grouped else "p_k6"]),
         ]
     if has_sketch:
         # K7's row: one call on a 1000-key batch at the daemon's default
@@ -4314,15 +4554,15 @@ def main() -> int:
         ]
     if has_sharded:
         # K11's and K12's rows: the median launch of the full-size path's
-        # 1000-item V1Instance batches (4 shards of 2.5 x 10^7); K13's: one
-        # 2^17 window of each of those shards.
+        # 1000-item V1Instance batches (4 shards of 2.5 x 10^7); K13's: a
+        # group over those shards.
         rows += [
             ("shard_step", "sharded_step.cu",
              "gubernator_tpu/parallel/sharded_engine.py:339", times["sh_shard_step"]),
             ("shard_collapsed", "sharded_step.cu",
              "gubernator_tpu/parallel/sharded_engine.py:351", times["sh_shard_collapsed"]),
             ("shard_sweep", "sweep.cu", "gubernator_tpu/parallel/sharded_engine.py:727",
-             times["sh_shard_sweep"]),
+             times["sh_shard_sweep_group" if grouped else "sh_shard_sweep"]),
         ]
     # launches: the main path's run plus the persistence path's, the
     # sketch path's, the h2 path's, the ledger path's, the paged path's and
@@ -4349,8 +4589,11 @@ def main() -> int:
         f"us, R=16 {times['k4_r16'][0] * 1e3:.2f} us; "
         f"launch floor {times['floor'] * 1e3:.2f} us"
         + (f"; K5 {times['p_k5'][0] * 1e3:.2f} us per 4096 records, K6 "
-           f"{times['p_k6'][0] * 1e3:.2f} us per 2^17 window, a 16-window tick at 10^8 "
-           f"{times['p_tick'] * 1e3:.2f} ms" if has_persist else "")
+           f"{times['p_k6'][0] * 1e3:.2f} us per 2^17 window, "
+           f"{times['p_k6_group'][0] * 1e3:.2f} us per group of 16, a 16-window tick at 10^8 "
+           f"{times['p_tick'] * 1e3:.2f} ms ({times['p_tick_trace'][0]} device operations, "
+           f"{times['p_tick_trace'][1] * 1e3:.2f} us), an idle tick at 2^20 "
+           f"{times['p_idle_tick'][1]:.3f} ms" if has_persist else "")
         + (f"; K7 {times[f's_k7_{SKETCH_WIDTH}_{BATCH}'][0] * 1e3:.2f} us per 1000-key batch, "
            f"K8 {times[f's_k8_{SKETCH_WIDTH}'][0] * 1e3:.2f} us per 2^20-wide plane"
            if has_sketch else "")
@@ -4358,7 +4601,8 @@ def main() -> int:
            f"16 pages of 512" if has_paged else "")
         + (f"; K11 / K12 {times['sh_shard_step'][0] * 1e3:.2f} / "
            f"{times['sh_shard_collapsed'][0] * 1e3:.2f} us per 1000-item batch over 4 shards, K13 "
-           f"{times['sh_shard_sweep'][0] * 1e3:.2f} us per 2^17 window of 4 shards"
+           f"{times['sh_shard_sweep'][0] * 1e3:.2f} us per 2^17 window of 4 shards, "
+           f"{times['sh_shard_sweep_group'][0] * 1e3:.2f} us per group of 16"
            if has_sharded else "") + ")")
     print(json.dumps(kernels))
     print(card)

@@ -54,8 +54,9 @@ Persistence and expiry (reference :212, :266, :770-:803, :914,
   whole state on the host, `save` streams it to a loader
   (`checkpoint.NpzFileLoader` is the file form).
 * **Sweep**: `sweep` frees expired slots a `SWEEP_WINDOW` at a time from
-  a cursor (kernel K6, `ops/expiry.py`) and hands them back to the
-  intern table in ascending order, window after window.
+  a cursor, up to 16 windows a launch of kernel K6 (`ops/expiry.py`),
+  and hands them back to the intern table in ascending order, window
+  after window.
 
 Each of them runs what the pump holds first.  `now_ms` flows in from the
 caller or the injected Clock.
@@ -124,7 +125,7 @@ from gubernator_tpu_torch.ops.bucket_kernel import (
     unpack_uniform_out_host,
 )
 from gubernator_tpu_torch.ops.collapsed_step import collapsed_step
-from gubernator_tpu_torch.ops.expiry import windowed_sweep
+from gubernator_tpu_torch.ops.expiry import sweep_windows, windowed_sweep
 from gubernator_tpu_torch.ops.fused_step import (
     clear_occupied,
     load_slots,
@@ -359,8 +360,10 @@ class DecisionEngine:
         # Eviction clears run, inside those launches or as K2's (or, for a
         # cold page, in the host store).
         self.clears_total = 0
-        # Sweep windows run (K6 launches).
+        # Sweep windows run, and the groups of up to 16 they ran in (one
+        # K6 launch each).
         self.sweep_windows_total = 0
+        self.sweep_groups_total = 0
 
     @property
     def state(self) -> BucketState:
@@ -848,6 +851,10 @@ class DecisionEngine:
         if now_ms is None:
             now_ms = self.clock.now_ms()
 
+        def window_fn(meta, hi2, expire_lo, now, starts, window):
+            self.sweep_groups_total += 1
+            return sweep_windows(meta, hi2, expire_lo, now, starts, window)
+
         def release(freed: np.ndarray, start: int) -> int:
             self.sweep_windows_total += 1
             if len(freed):
@@ -860,7 +867,8 @@ class DecisionEngine:
 
         with self._lock:
             self._flush_pump()
-            freed = windowed_sweep(self, self.capacity, now_ms, max_windows, release)
+            freed = windowed_sweep(self, self.capacity, now_ms, max_windows, release,
+                                   window_fn=window_fn)
             if self.paging is not None:
                 # Cold pages never reach the device sweep: their expired
                 # rows free from the host words, with no fault (reference

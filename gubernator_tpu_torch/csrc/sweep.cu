@@ -1,270 +1,306 @@
-// K6 and K13: the expiry sweep of one window, for Hopper (sm_90a); K13
-// sweeps the same window of every shard of a sharded state in one launch
-// pair.
+// K6 and K13: the expiry sweep of a group of windows in one launch, for
+// Hopper (sm_90a).  K6 sweeps one state; K13 the same windows of every
+// shard of a sharded state.  One kernel serves both: K6 is K13 with one
+// shard.
 //
 // Replaces gubernator_tpu/ops/expiry.py:40 `sweep_window_scan` and :78
-// `sweep_window_commit` (and :131 `sweep_expired`, which is one window of
-// the whole capacity).  Over the window [start, start + window) a slot is
-// freed when meta bit 0 (occupied) is set and its expiry, the 64-bit pair
+// `sweep_window_commit`, run window after window by :89 `windowed_sweep`
+// (and :131 `sweep_expired`, which is one window of the whole capacity),
+// and the same two programs over the sharded engine's [n_sh, shard_cap]
+// state (gubernator_tpu/parallel/sharded_engine.py:727 `sweep`), whose
+// scan runs along the last axis, so a window [start, start + window)
+// covers that range of every shard.  Over a window a slot is freed when
+// meta bit 0 (occupied) is set and its expiry, the 64-bit pair
 // (hi2 & 0x7FF, expire_lo), is below `now`; the pair compares as the
 // reference's does, hi word signed, low word UNSIGNED (expire_lo holds a
 // uint32 as its int32 bit pattern, and a signed compare would free the
 // wrong slots whenever bit 31 is set).  Freed slots get meta bit 0 cleared
-// in place.  Output `out`, int32 [window + 1]: out[0] the count, then the
-// window-local indices of the freed slots in ascending order (the stable
-// compaction the reference gets from `argsort(~freed, stable=True)`).
-// The plain PyTorch version is gubernator_tpu_torch/ops/expiry.py
-// `sweep_window_reference`.
+// in place.  Output, int32 [n_windows, n_sh, window + 1]: each row
+// (window w, shard sh) holds the count, then the window-local indices of
+// the freed slots in ascending order (the stable compaction the reference
+// gets from `argsort(~freed, stable=True)`); what follows is unspecified.
+// The result is that of the windows run one after another: a row frees
+// only the slots of its window that no earlier row of the launch covers
+// (`own_lo` / `own_hi`, from the host), since with one `now` an earlier
+// row has already freed every expired occupied slot of the overlap.  The
+// plain PyTorch version is gubernator_tpu_torch/ops/expiry.py
+// `sweep_windows_reference`.
 //
-// Two launches per window (the reference's scan / commit split exists only
-// for XLA's buffer donation; here the commit is fused into the scatter):
+// Bound: bytes.  12 B read per owned slot (meta, hi2, expire_lo), 8 B per
+// freed slot (its index and its meta word) and 4 B a row's count: 1.5 MB
+// for a 2^17-slot window, 0.47 us at 3.35 TB/s, times the windows and
+// shards of the launch.  The old design paid three device operations a
+// window (a memset of ticket counters, a count pass that ended in one
+// block scanning every tile count, a scatter pass) and one launch pair a
+// window; each small launch sits on a floor of 2-3 us.  This design:
 //
-//   count:   one block of 32 warps per tile of kTileSlots slots.  Each warp
-//            reads 32 consecutive slots at a time (coalesced) and keeps
-//            the freed flags as one ballot word; the block writes its
-//            words and its count.  The last block to finish (a ticket
-//            counter, zeroed by the launcher) scans the tile counts into
-//            tile offsets and writes the total to out[0].
-//   scatter: one block per tile again.  A block-wide exclusive scan of
-//            the tile's word popcounts, plus the tile's offset, places
-//            each word; then each warp takes the same words its count
-//            warp took, lane l bit l, and every freed lane writes its
-//            index at its rank (ascending) and clears its meta bit, so the
-//            writes of a word are one coalesced store each.
-//
-// K13 replaces the same two programs over the sharded engine's
-// [n_sh, shard_cap] state (gubernator_tpu/parallel/sharded_engine.py:727
-// `sweep`): the reference's scan runs along the last axis, so one window
-// [start, start + window) covers that range of every shard, and gives
-// each shard's freed count and compacted indices.  The kernels are K6's
-// with the shard as the grid's y index: shard sh reads its columns at
-// sh * shard_cap, writes its output row (int32 [n_sh, window + 1], each
-// row laid out as K6's `out`) and keeps its own ballot words, tile counts
-// and ticket counter, so its last block scans its own tiles only.  K6 is
-// K13 with one shard.  The plain version is `shard_sweep_window_reference`.
-//
-// Bound: bytes.  12 B read per slot of the window (meta, hi2, expire_lo),
-// 8 B per freed slot (its index and its meta word) and the 4 B count;
-// 1.5 MB for a 2^17-slot window, 0.47 us at 3.35 TB/s (times n_sh in
-// K13).  What this design
-// adds: the ballot words (1/8 B per slot, written and read back), the
-// freed slots' meta words read again, and a second launch.  A decoupled
-// look-back scan could make it one launch.
+//   * One launch a group of up to kMaxWindows windows, one pass, no
+//     memset.  The grid is windows x shards x tiles; a tile is kThreads
+//     threads of Q 16-byte quads each (Q = 1, 2, 4 or 8: 512 to 4096
+//     slots), the largest Q that leaves the launch 512 blocks or more
+//     (ops/expiry.py `tile_quads`): a lone 2^17 window gets 256 blocks of
+//     512 slots for the 132 SMs, a group of 16 windows 512 of 4096, and
+//     fewer, larger tiles mean fewer tickets and shorter look-backs.
+//   * Decoupled look-back.  A block takes its tile by a ticket (atomicAdd
+//     on word 0 of `pub`, a buffer the host keeps per device and stream),
+//     so tickets run in row-major order of (window, shard, tile) and a
+//     tile's predecessors hold smaller tickets and are already running.
+//     It publishes its count, then its inclusive prefix, as one 64-bit
+//     word (stamp, inclusive flag, value) that needs no fence; it waits
+//     only on the tiles before it in its own row, reading 32 of them at
+//     once with warp 0.  The ticket counter runs on from launch to launch
+//     and every launch has a stamp its buffer never saw, so nothing is
+//     zeroed between launches.  A wait that times out traps: it is never
+//     read as stale data.
+//   * 16-byte loads (int4) of the three columns, all of a thread's issued
+//     before the first compare, a warp's 512 contiguous bytes a column at
+//     a time, with a scalar head and tail where a row's first slot is not
+//     16-byte aligned (a window start, or a shard stride, not a multiple
+//     of 4).
+//   * The freed slots' meta words are stored from the loaded word (no
+//     second read), and their indices go straight to their ranks.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 1024;                       // 32 warps a block
-constexpr int kWordsPerWarp = 4;                     // ballot words per warp
-constexpr int kTileWords = kThreads / 32 * kWordsPerWarp;  // 128 words
-constexpr int kTileSlots = kTileWords * 32;          // 4096 slots per tile
+constexpr int kThreads = 128;                     // 4 warps a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileSlots = kThreads * 4;          // slots of a tile of one quad a thread
+constexpr int kMaxWindows = 16;                   // windows a launch
 constexpr int32_t kHi11 = 0x7FF;
+// Polls of a predecessor's word before the wait traps (each an L2 round
+// trip and a 32 ns sleep: far longer than any running block takes).
+constexpr int kSpinLimit = 1 << 20;
 
-// The three words are loaded whatever meta says: no load waits on another.
-__device__ __forceinline__ bool expired(const int32_t* __restrict__ meta,
-                                        const int32_t* __restrict__ hi2,
-                                        const int32_t* __restrict__ expire_lo, long long s,
-                                        int32_t now_hi, uint32_t now_lo) {
-  const int32_t m = __ldg(meta + s);
-  const int32_t ehi = __ldg(hi2 + s) & kHi11;
-  const uint32_t elo = static_cast<uint32_t>(__ldg(expire_lo + s));
+// What a launch sweeps: window w is [start[w], start[w] + window) of
+// every shard, of which it owns (frees in) the window-local range
+// [own_lo[w], own_hi[w]).
+struct Windows {
+  long long start[kMaxWindows];
+  int own_lo[kMaxWindows];
+  int own_hi[kMaxWindows];
+};
+
+// A tile's published word: stamp (31 bits), inclusive flag, value.
+__device__ __forceinline__ unsigned long long tile_word(unsigned int stamp, bool inclusive,
+                                                        int value) {
+  return (unsigned long long)(stamp * 2u + (inclusive ? 1u : 0u)) << 32 | (unsigned int)value;
+}
+__device__ __forceinline__ void publish(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ unsigned long long peek(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ bool expired(int32_t m, int32_t h, int32_t e, int32_t now_hi,
+                                        uint32_t now_lo) {
+  const int32_t ehi = h & kHi11;
+  const uint32_t elo = static_cast<uint32_t>(e);
   return (m & 1) && (ehi < now_hi || (ehi == now_hi && elo < now_lo));
 }
 
-// Exclusive prefix of `v` over the block (blockDim.x a multiple of 32, at
-// most 1024); `total` gets the block's sum.  `warp_sums` holds 32 ints.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums, int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += o;
+// Grid: one block a tile, n_windows * n_sh * tiles_per_row of them; a
+// tile is kThreads * 4 * Q slots, warp w's share the Q runs of 128 slots
+// from w * 128 * Q, lane l the quad at 4 * l of each run (so a warp's
+// loads are 512 contiguous bytes a column).  Shard sh's columns start at
+// sh * stride; row (w, sh) of `out` at (w * n_sh + sh) * (window + 1).
+// `vec`: the three columns share their 16-byte alignment, so the int4
+// loads may be used.  `silent_tile`: a ticket that publishes nothing, so
+// that a test can show the wait traps (-1 in every real launch).
+template <int Q>
+__global__ void __launch_bounds__(kThreads)
+sweep_group_kernel(int32_t* meta, const int32_t* __restrict__ hi2,
+                   const int32_t* __restrict__ expire_lo, long long stride, int n_sh,
+                   long long window, long long tiles_per_row, int vec, int32_t now_hi,
+                   uint32_t now_lo, const Windows win, unsigned long long* pub,
+                   unsigned long long tiles_before, unsigned int stamp, long long silent_tile,
+                   int32_t* __restrict__ out) {
+  constexpr int kTile = kThreads * 4 * Q;
+  __shared__ long long s_ticket;
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_before;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    // `tiles_before` tickets were taken from this counter by earlier
+    // launches, so this launch's run from there.
+    const unsigned long long k = atomicAdd(pub, 1ULL) - tiles_before;
+    if (k >= gridDim.x) __trap();
+    s_ticket = static_cast<long long>(k);
   }
-  if (lane == 31) warp_sums[warp] = incl;
   __syncthreads();
-  if (warp == 0) {
-    int w = lane < n_warps ? warp_sums[lane] : 0;
+  const long long k = s_ticket;
+  const long long row = k / tiles_per_row;
+  const long long tile = k - row * tiles_per_row;
+  const int w = static_cast<int>(row / n_sh);
+  const long long base = (row - static_cast<long long>(w) * n_sh) * stride + win.start[w];
+  const int lo = win.own_lo[w], hi = win.own_hi[w];
+  // Slots before the row's first 16-byte boundary: tiles start there.
+  const int head = vec ? static_cast<int>((reinterpret_cast<uintptr_t>(meta) / 4 + base) & 3)
+                       : 0;
+  // Window-local index of this thread's first slot in run 0.
+  const long long i00 = tile * kTile + static_cast<long long>(warp) * 128 * Q + 4 * lane - head;
+
+  // All the loads first, then the compares (bit 4q + j: slot i00 + 128q + j).
+  int32_t m[Q][4], h[Q][4], e[Q][4];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const long long i0 = i00 + 128 * q;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m[q][j] = h[q][j] = e[q][j] = 0;
+    if (i0 >= hi || i0 + 3 < lo) continue;
+    if (vec && i0 >= 0 && i0 + 3 < window) {
+      const int4 mv = *reinterpret_cast<const int4*>(meta + base + i0);
+      const int4 hv = __ldg(reinterpret_cast<const int4*>(hi2 + base + i0));
+      const int4 ev = __ldg(reinterpret_cast<const int4*>(expire_lo + base + i0));
+      m[q][0] = mv.x, m[q][1] = mv.y, m[q][2] = mv.z, m[q][3] = mv.w;
+      h[q][0] = hv.x, h[q][1] = hv.y, h[q][2] = hv.z, h[q][3] = hv.w;
+      e[q][0] = ev.x, e[q][1] = ev.y, e[q][2] = ev.z, e[q][3] = ev.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long i = i0 + j;
+        if (i >= lo && i < hi) {
+          m[q][j] = meta[base + i];
+          h[q][j] = __ldg(hi2 + base + i);
+          e[q][j] = __ldg(expire_lo + base + i);
+        }
+      }
+    }
+  }
+  unsigned int bits = 0;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long i = i00 + 128 * q + j;
+      if (i >= lo && i < hi && expired(m[q][j], h[q][j], e[q][j], now_hi, now_lo)) {
+        bits |= 1u << (4 * q + j);
+        meta[base + i] = m[q][j] & ~1;
+      }
+    }
+  }
+
+  // Ranks within the warp, run by run (slot order is run, lane, j), then
+  // the warps' totals over the block.
+  int rank[Q];
+  int in_warp = 0;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int c = __popc((bits >> (4 * q)) & 0xFu);
+    int incl = c;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const int o = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += o;
+      const int o = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += o;
     }
-    if (lane < n_warps) warp_sums[lane] = w;  // inclusive over warps
+    rank[q] = in_warp + incl - c;
+    in_warp += __shfl_sync(0xffffffffu, incl, 31);
   }
+  if (lane == 0) s_warp[warp] = in_warp;
   __syncthreads();
-  total = warp_sums[n_warps - 1];
-  const int before = warp == 0 ? 0 : warp_sums[warp - 1];
-  __syncthreads();  // warp_sums may be reused by the caller
-  return before + incl - v;
-}
-
-// The scratch of a launch: one ticket counter a shard, then each shard's
-// ballot words and tile counts.
-struct Scratch {
-  unsigned int* done;    // [n_sh]
-  uint32_t* ballots;     // this shard's [tiles * kTileWords]
-  int32_t* tile_counts;  // this shard's [tiles]
-};
-
-__device__ __forceinline__ Scratch shard_scratch(int32_t* scratch, int n_sh, int sh, int tiles) {
-  const size_t per = (size_t)tiles * kTileWords + tiles;
-  uint32_t* ballots = reinterpret_cast<uint32_t*>(scratch + n_sh + (size_t)sh * per);
-  return {reinterpret_cast<unsigned int*>(scratch) + sh, ballots,
-          reinterpret_cast<int32_t*>(ballots + (size_t)tiles * kTileWords)};
-}
-
-// Grid (tiles, n_sh): shard blockIdx.y's columns start at blockIdx.y *
-// stride, its output row at blockIdx.y * (window + 1).
-__global__ void __launch_bounds__(kThreads)
-sweep_count_kernel(const int32_t* __restrict__ meta, const int32_t* __restrict__ hi2,
-                   const int32_t* __restrict__ expire_lo, long long stride, long long start,
-                   long long window, int32_t now_hi, uint32_t now_lo, int32_t* scratch,
-                   int32_t* out) {
-  __shared__ int warp_sums[32];
-  __shared__ bool is_last;
-  const int sh = (int)blockIdx.y;
-  const Scratch sc = shard_scratch(scratch, (int)gridDim.y, sh, (int)gridDim.x);
-  uint32_t* __restrict__ ballots = sc.ballots;
-  int32_t* tile_counts = sc.tile_counts;
-  unsigned int* done = sc.done;
-  meta += sh * stride;
-  hi2 += sh * stride;
-  expire_lo += sh * stride;
-  out += sh * (window + 1);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long word0 = (long long)blockIdx.x * kTileWords + warp * kWordsPerWarp;
-  int count = 0;
+  int total = 0, warp_before = 0;
 #pragma unroll
-  for (int w = 0; w < kWordsPerWarp; ++w) {
-    const long long i = (word0 + w) * 32 + lane;  // window-local slot
-    const bool f = i < window && expired(meta, hi2, expire_lo, start + i, now_hi, now_lo);
-    const unsigned int b = __ballot_sync(0xffffffffu, f);
-    if (lane == 0) ballots[word0 + w] = b;
-    count += __popc(b);
+  for (int v = 0; v < kWarps; ++v) {
+    const int t = s_warp[v];
+    total += t;
+    if (v < warp) warp_before += t;
   }
-  if (lane == 0) warp_sums[warp] = count;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int t = 0;
-    for (int k = 0; k < kThreads / 32; ++k) t += warp_sums[k];
-    tile_counts[blockIdx.x] = t;
-    __threadfence();  // the count is visible before the ticket is taken
-    is_last = atomicAdd(done, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!is_last) return;
 
-  // The last block: tile counts → exclusive tile offsets, in place.
-  __threadfence();
-  const int n_tiles = gridDim.x;
-  const int per = (n_tiles + kThreads - 1) / kThreads;
-  const int lo = min(n_tiles, (int)threadIdx.x * per), hi = min(n_tiles, lo + per);
-  int mine = 0;
-  for (int k = lo; k < hi; ++k) mine += __ldcg(tile_counts + k);
-  int total;
-  int run = block_exclusive_scan(mine, warp_sums, total);
-  for (int k = lo; k < hi; ++k) {
-    const int c = __ldcg(tile_counts + k);
-    tile_counts[k] = run;
-    run += c;
-  }
-  if (threadIdx.x == 0) {
-    out[0] = total;
-    *done = 0;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-sweep_scatter_kernel(int32_t* __restrict__ meta, long long stride, long long start,
-                     long long window, int32_t* scratch, int32_t* __restrict__ out) {
-  const int sh = (int)blockIdx.y;
-  const Scratch sc = shard_scratch(scratch, (int)gridDim.y, sh, (int)gridDim.x);
-  const uint32_t* __restrict__ ballots = sc.ballots;
-  const int32_t* __restrict__ tile_offsets = sc.tile_counts;
-  meta += sh * stride;
-  out += sh * (window + 1);
-  __shared__ int warp_sums[32];
-  __shared__ unsigned int s_bits[kTileWords];
-  __shared__ int s_base[kTileWords];
-  const long long tile_word0 = (long long)blockIdx.x * kTileWords;
-  const int t = threadIdx.x;
-  const unsigned int b = t < kTileWords ? ballots[tile_word0 + t] : 0u;
-  int total;
-  const int excl = block_exclusive_scan(__popc(b), warp_sums, total);
-  if (t < kTileWords) {
-    s_bits[t] = b;
-    s_base[t] = tile_offsets[blockIdx.x] + excl;
-  }
-  __syncthreads();
-  if (total == 0) return;
-  const int lane = t & 31, warp = t >> 5;
-  const unsigned int below = (1u << lane) - 1u;  // lanes under this one
+  // The tiles before this one in its row: warp 0 looks back.
+  if (warp == 0) {
+    unsigned long long* const words = pub + 1;
+    const bool speaks = k != silent_tile;
+    int before = 0;
+    if (tile == 0) {
+      if (lane == 0 && speaks) publish(words + k, tile_word(stamp, true, total));
+    } else {
+      if (lane == 0 && speaks) publish(words + k, tile_word(stamp, false, total));
+      const long long first = k - tile;  // the row's first tile: always inclusive
+      for (long long p0 = k - 1;; p0 -= 32) {
+        const long long p = p0 - lane;
+        const bool in = p >= first;
+        unsigned long long v = 0;
+        if (in) {
+          for (int spin = 0; ((v = peek(words + p)) >> 33) != stamp; ++spin) {
+            if (spin == kSpinLimit) __trap();  // no predecessor published: fail, never guess
+            __nanosleep(32);
+          }
+        }
+        // Sum back to the nearest inclusive prefix (the lowest lane that
+        // has one), or over all 32 and go on.
+        const unsigned int stops = __ballot_sync(0xffffffffu, in && ((v >> 32) & 1));
+        const int last = stops ? __ffs(stops) - 1 : 31;
+        int val = in && lane <= last ? static_cast<int>(static_cast<unsigned int>(v)) : 0;
 #pragma unroll
-  for (int w = 0; w < kWordsPerWarp; ++w) {
-    const int j = warp * kWordsPerWarp + w;
-    const unsigned int bits = s_bits[j];
-    if ((bits >> lane) & 1u) {
-      const long long i = (tile_word0 + j) * 32 + lane;  // window-local slot
-      out[1 + s_base[j] + __popc(bits & below)] = static_cast<int32_t>(i);
-      meta[start + i] &= ~1;
+        for (int d = 16; d; d >>= 1) val += __shfl_xor_sync(0xffffffffu, val, d);
+        before += val;
+        if (stops) break;
+      }
+      if (lane == 0 && speaks) publish(words + k, tile_word(stamp, true, before + total));
     }
+    if (lane == 0) s_before = before;
+  }
+  __syncthreads();
+  const int before = s_before + warp_before;
+  int32_t* const orow = out + row * (window + 1);
+  if (tid == 0 && tile == tiles_per_row - 1) orow[0] = s_before + total;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    int r = 1 + before + rank[q];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if ((bits >> (4 * q + j)) & 1u) orow[r++] = static_cast<int32_t>(i00 + 128 * q + j);
   }
 }
 
 }  // namespace
 
-// The scratch the launcher needs, in int32 words, for a window of
-// `window` slots over n_sh shards: a ticket counter a shard, then each
-// shard's ballot words and tile counts.
-extern "C" long long guber_shard_sweep_scratch_words(int n_sh, long long window) {
-  const long long tiles = (window + kTileSlots - 1) / kTileSlots;
-  return n_sh + n_sh * (tiles * kTileWords + tiles);
-}
-
-extern "C" long long guber_sweep_scratch_words(long long window) {
-  return guber_shard_sweep_scratch_words(1, window);
-}
+// Slots of a tile of one quad a thread; a launch takes 1, 2, 4 or 8.
+extern "C" int guber_sweep_tile_slots() { return kTileSlots; }
 
 // meta, hi2, expire_lo: int32 [n_sh * stride] on the device, shard sh's
-// columns at sh * stride; the window [start, start + window) lies in
-// [0, stride), window >= 1; now_ms the sweep's instant; out: int32
-// [n_sh, window + 1]; scratch: int32
-// [guber_shard_sweep_scratch_words(n_sh, window)].  Returns the first CUDA
-// error of the memset and the two launches.
-extern "C" int guber_shard_sweep_window(void* meta, const void* hi2, const void* expire_lo,
-                                        int n_sh, long long stride, long long start,
-                                        long long window, long long now_ms, void* out,
-                                        void* scratch, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long tiles = (window + kTileSlots - 1) / kTileSlots;
-  if (tiles > 0x7fffffffLL || n_sh < 1 || n_sh > 65535)
+// columns at sh * stride; starts / own_lo / own_hi: host arrays of
+// n_windows (1..kMaxWindows) entries, each window [start, start + window)
+// inside [0, stride), each owned range inside [0, window); out: int32
+// [n_windows, n_sh, window + 1]; pub: the stream's publish buffer, int64
+// [1 + n_windows * n_sh * tiles_per_row] at least, word 0 its ticket
+// counter, from which `tiles_before` tickets were taken; stamp: 1 .. 2^31
+// - 1, never used before with this buffer.  Returns the launch's CUDA
+// error.
+extern "C" int guber_sweep_windows(void* meta, const void* hi2, const void* expire_lo, int n_sh,
+                                   long long stride, int n_windows, const long long* starts,
+                                   const int* own_lo, const int* own_hi, long long window,
+                                   long long tiles_per_row, int quads, int vec, long long now_ms,
+                                   void* pub,
+                                   unsigned long long tiles_before, unsigned int stamp,
+                                   long long silent_tile, void* out, void* stream) {
+  const long long blocks = static_cast<long long>(n_windows) * n_sh * tiles_per_row;
+  if (n_windows < 1 || n_windows > kMaxWindows || n_sh < 1 || tiles_per_row < 1 ||
+      (quads != 1 && quads != 2 && quads != 4 && quads != 8) ||
+      blocks > 0x7fffffffLL || window < 1 || window >= 0x7fffffffLL || stamp == 0 ||
+      stamp >= 0x80000000u)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)n_sh * sizeof(unsigned int), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  Windows win{};
+  for (int w = 0; w < n_windows; ++w) {
+    win.start[w] = starts[w];
+    win.own_lo[w] = own_lo[w];
+    win.own_hi[w] = own_hi[w];
+  }
   const int32_t now_hi = static_cast<int32_t>(now_ms >> 32);
   const uint32_t now_lo = static_cast<uint32_t>(now_ms & 0xFFFFFFFFLL);
-  const dim3 grid((unsigned)tiles, (unsigned)n_sh);
-  sweep_count_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const int32_t*>(meta), static_cast<const int32_t*>(hi2),
-      static_cast<const int32_t*>(expire_lo), stride, start, window, now_hi, now_lo,
-      static_cast<int32_t*>(scratch), static_cast<int32_t*>(out));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sweep_scatter_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<int32_t*>(meta), stride, start, window, static_cast<int32_t*>(scratch),
+  auto kernel = quads == 8   ? sweep_group_kernel<8>
+                : quads == 4 ? sweep_group_kernel<4>
+                : quads == 2 ? sweep_group_kernel<2>
+                             : sweep_group_kernel<1>;
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(meta), static_cast<const int32_t*>(hi2),
+      static_cast<const int32_t*>(expire_lo), stride, n_sh, window, tiles_per_row, vec, now_hi,
+      now_lo, win, static_cast<unsigned long long*>(pub), tiles_before, stamp, silent_tile,
       static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
-}
-
-// K6: one window of one state (meta, hi2, expire_lo int32 [cap]); out
-// int32 [window + 1]; scratch int32 [guber_sweep_scratch_words(window)].
-extern "C" int guber_sweep_window(void* meta, const void* hi2, const void* expire_lo,
-                                  long long start, long long window, long long now_ms,
-                                  void* out, void* scratch, void* stream) {
-  return guber_shard_sweep_window(meta, hi2, expire_lo, 1, 0, start, window, now_ms, out,
-                                  scratch, stream);
 }

@@ -198,16 +198,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.guber_load_slots.restype = i
     elif name == "sweep":
         ll = ctypes.c_longlong
-        lib.guber_sweep_scratch_words.argtypes = [ll]
-        lib.guber_sweep_scratch_words.restype = ll
-        lib.guber_sweep_window.argtypes = [p, p, p, ll, ll, ll, p, p, p]
-        lib.guber_sweep_window.restype = i
-        lib.guber_shard_sweep_scratch_words.argtypes = [i, ll]
-        lib.guber_shard_sweep_scratch_words.restype = ll
-        # meta, hi2, expire_lo, n_sh, stride, start, window, now_ms, out,
-        # scratch, stream
-        lib.guber_shard_sweep_window.argtypes = [p, p, p, i, ll, ll, ll, ll, p, p, p]
-        lib.guber_shard_sweep_window.restype = i
+        lib.guber_sweep_tile_slots.argtypes = []
+        lib.guber_sweep_tile_slots.restype = i
+        # meta, hi2, expire_lo, n_sh, stride, n_windows, starts, own_lo,
+        # own_hi, window, tiles_per_row, quads, vec, now_ms, pub,
+        # tiles_before, stamp, silent_tile, out, stream
+        lib.guber_sweep_windows.argtypes = [
+            p, p, p, i, ll, i, ctypes.POINTER(ll), ctypes.POINTER(i), ctypes.POINTER(i), ll, ll,
+            i, i, ll, p, ctypes.c_ulonglong, ctypes.c_uint, ll, p, p
+        ]
+        lib.guber_sweep_windows.restype = i
     elif name == "sharded_step":
         ll = ctypes.c_longlong
         # cols, shard_cap, n_sh, pin, width, clear_slots, n_clear, pout, stream

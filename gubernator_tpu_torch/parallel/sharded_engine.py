@@ -27,9 +27,9 @@ Device programs, as the reference's single-program engine runs them:
   columns as one K1 launch a round (its clears inside) or one K3 launch
   a collapsed chunk, packed with the whole capacity, so padding lanes are
   out of range everywhere.  Past int32, K11 / K12 per shard.
-* `sweep` (:727): K13 (`ops.expiry.shard_sweep_window`) a window, the
-  same window of every shard; freed slots go back to the tables shard by
-  shard in ascending order, window after window.
+* `sweep` (:727): K13 (`ops.expiry.shard_sweep_windows`) a group of up
+  to 16 windows, each the same window of every shard; freed slots go back
+  to the tables shard by shard in ascending order, window after window.
 
 `load` / `export_items` / `save` (:1653-1777) decode and re-encode the
 whole state on the host, as the reference does; `export_items` yields
@@ -40,7 +40,8 @@ here, and the mesh form needs one card a shard.
 
 Requests, batches, rounds and over-limit answers are counted as the
 reference counts them; `dispatches_total` counts the port's launches
-(K1, K2, K3, K5, K11, K12), `sweep_windows_total` K13's.
+(K1, K2, K3, K5, K11, K12), `sweep_groups_total` K13's, `sweep_windows_total`
+the windows they swept.
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ from gubernator_tpu_torch.ops.bucket_kernel import (
     unpack_state_host,
 )
 from gubernator_tpu_torch.ops.collapsed_step import collapsed_step
-from gubernator_tpu_torch.ops.expiry import shard_sweep_window, windowed_sweep
+from gubernator_tpu_torch.ops.expiry import shard_sweep_windows, windowed_sweep
 from gubernator_tpu_torch.ops.fused_step import (
     clear_occupied,
     load_slots,
@@ -160,7 +161,8 @@ class ShardedDecisionEngine:
         self.rounds_total = 0
         # Kernel launches of the serving, store and load paths.
         self.dispatches_total = 0
-        self.sweep_windows_total = 0  # K13 launches
+        self.sweep_windows_total = 0  # sweep windows run
+        self.sweep_groups_total = 0  # the groups of up to 16 they ran in: K13 launches
         self.readback = ReadbackCombiner()
         self._state: BucketState = make_state(self.capacity, self.device)
         # The flat executors' padding lanes run up to capacity + width;
@@ -395,15 +397,17 @@ class ShardedDecisionEngine:
 
     def sweep(self, now_ms: Optional[int] = None, max_windows: Optional[int] = None) -> int:
         """Reclaim the slots of expired buckets on every shard; returns how
-        many were freed (reference :727).  A window is one K13 launch over
-        the same slot range of every shard; its freed slots go back to the
-        tables shard by shard in ascending order, in compaction order."""
+        many were freed (reference :727).  A window is the same slot range
+        of every shard, up to 16 windows a K13 launch; a window's freed
+        slots go back to the tables shard by shard in ascending order,
+        window after window."""
         if now_ms is None:
             now_ms = self.clock.now_ms()
         n_sh = self.n_shards
 
-        def window_fn(meta, hi2, expire_lo, now, start, window):
-            return shard_sweep_window(meta, hi2, expire_lo, n_sh, now, start, window)
+        def window_fn(meta, hi2, expire_lo, now, starts, window):
+            self.sweep_groups_total += 1
+            return shard_sweep_windows(meta, hi2, expire_lo, n_sh, now, starts, window)
 
         def release(freed, start) -> int:
             self.sweep_windows_total += 1
@@ -416,7 +420,7 @@ class ShardedDecisionEngine:
 
         with self._lock:
             return windowed_sweep(self, self.shard_capacity, now_ms, max_windows, release,
-                                  window_fn=window_fn)
+                                  window_fn=window_fn, per_shard=True)
 
     # ------------------------------------------------------------------
     # Columnar path (reference :936): vectorized routing, the native host

@@ -1128,6 +1128,247 @@ def test_shard_sweep_kernel_bit_equal_to_plain(cuda, n_sh, cap, start, window):
     assert int(again[:, 0].sum()) == 0
 
 
+# Groups of windows (cap, window, [(instant offset, starts)]), as
+# tests/test_torch_sweep_groups.py holds them to the JAX loop: a clamped
+# tail inside a group, a tail that opens its group after an earlier tick,
+# a cursor wrap, caps below two windows, a repeated window, more than 16
+# windows (two launches), unaligned starts and strides (cap 5001, starts
+# not multiples of 4), one slot, and a window below one tile.
+_LATER = 1 << 31
+_GROUPS = {
+    "tail inside": (5000, 1024, [(0, [0, 1024, 2048, 3072, 3976])]),
+    "tail after a tick": (5000, 1024, [(0, [0, 1024, 2048, 3072]), (_LATER, [3976, 0, 1024])]),
+    "cursor wrap": (5000, 1024, [(0, [3072, 3976, 0, 1024, 2048])]),
+    "cap 300, window 256": (300, 256, [(0, [0, 44]), (_LATER, [44, 0])]),
+    "cap 1000, window 256": (1000, 256, [(0, [0, 256, 512, 744]), (_LATER, [744, 0, 256])]),
+    "a window repeated": (1000, 256, [(0, [512, 744, 512, 600])]),
+    "more than 16 windows": (4000, 128, [(0, [i * 128 for i in range(20)] + [3872, 0, 64])]),
+    "unaligned": (5001, 1999, [(0, [0, 1999, 3002, 1, 7]), (_LATER, [3001, 2, 5])]),
+    "one slot": (4097, 1, [(0, [0, 4096, 3, 3]), (_LATER, [4095, 1, 2])]),
+    "below one tile": (4097, 100, [(0, [0, 100, 3997, 3, 3990]), (_LATER, [3995, 0])]),
+}
+
+
+def _group_state(rng, rows, now, fill="mixed"):
+    words = _sweep_state(rng, rows, now)
+    if fill != "mixed":
+        exp = now + (-1 if fill == "all" else 1) * rng.integers(1, 2**31, rows)
+        words["hi2"] = ((exp >> 32) | (words["hi2"] & ~0x7FF)).astype(np.int32)
+        words["expire_lo"] = (exp & 0xFFFFFFFF).astype(np.uint32)
+        words["meta"] = words["meta"] | 1
+    return words
+
+
+def _same_group(got, want):
+    """Counts and the freed prefix of every row equal."""
+    assert got.shape == want.shape
+    counts = want[:, :, 0]
+    assert torch.equal(got[:, :, 0], counts)
+    for g, sh in zip(*torch.nonzero(counts, as_tuple=True)):
+        c = int(counts[g, sh])
+        assert torch.equal(got[g, sh, 1 : 1 + c], want[g, sh, 1 : 1 + c]), (int(g), int(sh))
+    return int(counts.sum())
+
+
+@pytest.mark.parametrize("n_sh", [1, 4, 8])
+@pytest.mark.parametrize("case", list(_GROUPS))
+def test_sweep_windows_kernel_bit_equal_to_plain(cuda, case, n_sh):
+    """The group kernel (K6, K13 with n_sh > 1) against
+    `sweep_windows_reference`: counts, ascending freed indices and every
+    meta word, call after call; one launch a call of up to 16 windows."""
+    from gubernator_tpu_torch.ops import expiry
+
+    cap, window, calls = _GROUPS[case]
+    rng = np.random.default_rng(cap + window + n_sh)
+    now = 1_760_000_000_123 | (1 << 31)
+    words = _group_state(rng, n_sh * cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    freed = 0
+    for dt, starts in calls:
+        got = expiry.sweep_windows(kern.meta, kern.hi2, kern.expire_lo, now + dt, starts,
+                                   window, n_sh)
+        want = expiry.sweep_windows_reference(plain.meta, plain.hi2, plain.expire_lo, now + dt,
+                                              starts, window, n_sh)
+        torch.cuda.synchronize()
+        freed += _same_group(got, want)
+        assert torch.equal(kern.meta, plain.meta)
+    assert freed > 0
+    name = "sweep_window" if n_sh == 1 else "shard_sweep"
+    assert fs.launches[name] == sum(-(-len(st) // expiry.MAX_WINDOWS) for _, st in calls)
+
+
+@pytest.mark.parametrize("quads", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["tail inside", "cursor wrap", "unaligned", "below one tile",
+                                  "more than 16 windows"])
+def test_sweep_windows_kernel_tile_sizes(cuda, case, quads):
+    """Every tile size the wrapper may pick (1, 2, 4 or 8 quads a thread,
+    512 to 4096 slots a tile) bit-equal to the plain version over 4
+    shards, the launches planned as `sweep_windows` plans them."""
+    from gubernator_tpu_torch.ops import expiry
+
+    n_sh, (cap, window, calls) = 4, _GROUPS[case]
+    rng = np.random.default_rng(quads + cap)
+    now = 1_760_000_000_123 | (1 << 31)
+    words = _group_state(rng, n_sh * cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    freed = 0
+    for dt, starts in calls:
+        got = torch.empty((len(starts), n_sh, window + 1), dtype=torch.int32, device=cuda)
+        for first, owned in expiry.plan_launches(starts, window):
+            expiry.launch_group(kern.meta, kern.hi2, kern.expire_lo, n_sh, now + dt,
+                                starts[first : first + len(owned)], owned, window,
+                                got[first : first + len(owned)], quads=quads)
+        want = expiry.sweep_windows_reference(plain.meta, plain.hi2, plain.expire_lo, now + dt,
+                                              starts, window, n_sh)
+        torch.cuda.synchronize()
+        freed += _same_group(got, want)
+        assert torch.equal(kern.meta, plain.meta)
+    assert freed > 0
+
+
+@pytest.mark.parametrize("fill", ["all", "none"])
+def test_sweep_windows_kernel_frees_every_slot_or_none(cuda, fill):
+    from gubernator_tpu_torch.ops import expiry
+
+    n_sh, (cap, window, calls) = 4, _GROUPS["tail inside"]
+    words = _group_state(np.random.default_rng(5), n_sh * cap, 1_760_000_000_123, fill)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    starts = calls[0][1]
+    got = expiry.sweep_windows(kern.meta, kern.hi2, kern.expire_lo, 1_760_000_000_123, starts,
+                               window, n_sh)
+    want = expiry.sweep_windows_reference(plain.meta, plain.hi2, plain.expire_lo,
+                                          1_760_000_000_123, starts, window, n_sh)
+    torch.cuda.synchronize()
+    assert _same_group(got, want) == (n_sh * cap if fill == "all" else 0)
+    assert torch.equal(kern.meta, plain.meta)
+
+
+def test_sweep_kernel_whole_capacity_window(cuda):
+    """One window of the whole capacity at 10^6 (1954 tiles in one row,
+    the look-back's longest walk), and `sweep_expired` over it."""
+    from gubernator_tpu_torch.ops import expiry
+
+    cap, now = 10**6, 1_760_000_000_123 | (1 << 31)
+    words = _group_state(np.random.default_rng(6), cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    got = expiry.sweep_windows(kern.meta, kern.hi2, kern.expire_lo, now, [0], cap)
+    want = expiry.sweep_windows_reference(plain.meta, plain.hi2, plain.expire_lo, now, [0], cap)
+    torch.cuda.synchronize()
+    assert _same_group(got, want) > 0
+    assert torch.equal(kern.meta, plain.meta)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, "cpu")
+    mask = expiry.sweep_expired(kern.meta, kern.hi2, kern.expire_lo, now)
+    want_mask = expiry.sweep_expired(plain.meta, plain.hi2, plain.expire_lo, now)
+    assert torch.equal(mask.cpu(), want_mask)
+    assert torch.equal(kern.meta.cpu(), plain.meta)
+
+
+def test_sweep_kernel_2000_launches_on_one_buffer(cuda):
+    """2000 launches in a row on the stream's one publish buffer, never
+    zeroed: each launch's stamp is new, its tickets run on from the last,
+    and every launch stays bit-equal to the plain version (the state is
+    re-armed every 16 launches so that windows keep freeing)."""
+    from gubernator_tpu_torch.ops import expiry
+
+    cap, window, now = 8192, 1024, 1_760_000_000_123 | (1 << 31)
+    rng = np.random.default_rng(2000)
+    words = _group_state(rng, cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    got = expiry.sweep_windows(kern.meta, kern.hi2, kern.expire_lo, now, [0], window)
+    _same_group(got, expiry.sweep_windows_reference(plain.meta, plain.hi2, plain.expire_lo, now,
+                                                    [0], window))
+    key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    buf, tickets, stamps = expiry._publish[key]
+    for i in range(2000):
+        if i % 16 == 0:
+            arm = torch.from_numpy((rng.random(cap) < 0.5).astype(np.int32)).to(cuda)
+            kern.meta.bitwise_or_(arm)
+            plain.meta.bitwise_or_(arm)
+        starts = [int(s) for s in rng.integers(0, cap - window + 1, int(rng.integers(1, 4)))]
+        got = expiry.sweep_windows(kern.meta, kern.hi2, kern.expire_lo, now, starts, window)
+        want = expiry.sweep_windows_reference(plain.meta, plain.hi2, plain.expire_lo, now,
+                                              starts, window)
+        _same_group(got, want)
+    torch.cuda.synchronize()
+    assert torch.equal(kern.meta, plain.meta)
+    entry = expiry._publish[key]
+    assert entry[0] is buf and entry[2] == stamps + 2000 and entry[1] > tickets
+
+
+def test_sweep_kernel_on_two_streams(cuda):
+    """Launches on two streams at once, each with its own publish buffer,
+    over two states: both bit-equal to the plain version."""
+    from gubernator_tpu_torch.ops import expiry
+
+    cap, window, now = 1 << 16, 1 << 12, 1_760_000_000_123 | (1 << 31)
+    rng = np.random.default_rng(22)
+    pairs = []
+    for _ in range(2):
+        words = _group_state(rng, cap, now)
+        pairs.append((tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for rep in range(8):
+        for k, (st, (kern, _)) in enumerate(zip(streams, pairs)):
+            with torch.cuda.stream(st):
+                starts = [(rep * 2 + j) * window % cap for j in range(2)]
+                outs[k].append((starts, expiry.sweep_windows(kern.meta, kern.hi2,
+                                                             kern.expire_lo, now + rep, starts,
+                                                             window)))
+    torch.cuda.synchronize()
+    for k, (_, plain) in enumerate(pairs):
+        for rep, (starts, got) in enumerate(outs[k]):
+            want = expiry.sweep_windows_reference(plain.meta, plain.hi2, plain.expire_lo,
+                                                  now + rep, starts, window)
+            _same_group(got, want)
+        assert torch.equal(pairs[k][0].meta, plain.meta), k
+    keys = {(torch.cuda.current_device(), s.cuda_stream) for s in streams}
+    assert keys <= set(expiry._publish)
+
+
+_SILENT_TILE = """
+import sys
+import numpy as np
+import torch
+from gubernator_tpu_torch.ops import bucket_kernel as tk
+from gubernator_tpu_torch.ops import expiry
+
+cap, now = 1 << 14, 1_760_000_000_123
+state = tk.make_state(cap, "cuda")
+state.meta.fill_(1)
+window = 4096  # 8 tiles: tile 1 waits on tile 0
+out = torch.empty((1, 1, window + 1), dtype=torch.int32, device="cuda")
+expiry.launch_group(state.meta, state.hi2, state.expire_lo, 1, now, [0], [(0, window)], window,
+                    out)
+torch.cuda.synchronize()
+try:
+    expiry.launch_group(state.meta, state.hi2, state.expire_lo, 1, now, [0], [(0, window)],
+                        window, out, silent_tile=0)
+    out.cpu()
+except RuntimeError as e:  # torch's CUDA errors are RuntimeErrors
+    print("raised:", type(e).__name__, e)
+    sys.exit(0)
+print("answered:", out[0, 0, :4].tolist())
+sys.exit(1)
+"""
+
+
+def test_sweep_kernel_unanswered_wait_fails_loudly(cuda):
+    """A tile whose predecessor publishes nothing (`silent_tile`): its
+    look-back gives up and traps, so the caller gets an error at the next
+    synchronisation and never a prefix from an earlier launch.  In a child
+    process, since the trap ends its CUDA context."""
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", _SILENT_TILE], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=root)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("raised:"), proc.stdout
+
+
 @pytest.mark.parametrize("n_sh", [1, 4, 8])
 def test_sharded_engine_on_the_card_matches_the_cpu(cuda, n_sh, tmp_path):
     """The sharded engine on the card against the same on the CPU: a
