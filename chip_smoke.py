@@ -121,13 +121,16 @@ The full width: pages of 512 (the default), 2^24 resident rows (the zipf
 deployment's device size) and 2^25 logical keys, filled in batches of
 8192, then zipf(1.2) over the keys in a seeded order in batches of 8192,
 each batch answered as a dense card engine at 2^25 answers it: faults
-per batch, the mean fault, spill and refill wall a page, decisions/s,
-K9 / K10 launches and the device's busy and idle share.  (c) K9 and K10
-are held bit-equal to their plain versions at P = 16, 64 and 512 with
-k = 1 and 64 pages, starts at row 0 and at the last frame, on state with
-bit 31 set in the `*_lo` words, and timed at P = 512 beside their bound
-and one PyTorch call each: torch.stack of the pages' column slices (K9),
-torch._foreach_copy_ into them (K10).
+per batch, the mean fault, spill and refill wall a page, the fault wall
+split into victim picks, host copies and bookkeeping, and launch-and-wait,
+decisions/s, K9 / K10 launches and the device's busy and idle share,
+beside the card's pinned-copy rate (64 MiB each way).  (c) K9 and K10 are
+held bit-equal to their plain versions at P = 16, 64 and 512 with k = 1
+and 64 pages, starts at row 0 and at the last frame, on state with bit 31
+set in the `*_lo` words; a fault batch (the staged copy up, K9, the copy
+home, K10) is timed at P = 512 beside its PCIe bound, and K9 and K10
+beside their bound and one PyTorch call each: torch.stack of the pages'
+column slices (K9), torch._foreach_copy_ into them (K10).
 
 A seventh path, the sharded path (parallel/sharded_engine.py, the
 reference's single-program sharded engine on one card), counts its
@@ -3259,6 +3262,31 @@ def has_paging() -> bool:
     return "gather_pages" in fs.launches
 
 
+# 64 MiB copied each way between pinned host memory and the card: the
+# card's own PCIe rate, which bounds a fault batch's words.
+PINNED_COPY_BYTES = 64 << 20
+
+
+def pinned_copy_rates(torch) -> tuple:
+    """(host-to-device, device-to-host) bytes/s of one 64 MiB pinned
+    `copy_` each way, the median of 7 (CUDA events)."""
+    host = torch.empty(PINNED_COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(PINNED_COPY_BYTES, dtype=torch.uint8, device="cuda")
+    up = device_ms(torch, lambda i: dev.copy_(host, non_blocking=True), 4)
+    down = device_ms(torch, lambda i: host.copy_(dev, non_blocking=True), 4)
+    del host, dev
+    return PINNED_COPY_BYTES / (up * 1e-3), PINNED_COPY_BYTES / (down * 1e-3)
+
+
+def pcie_bound_ms(k: int, ks: int, page: int, rates: tuple) -> float:
+    """A fault batch: k pages of 12 x 4 B x page rows up and ks down over
+    PCIe, both directions at once, each at the card's pinned-copy rate;
+    the frames' HBM reads and writes of the same bytes are far below it."""
+    block = 12 * 4 * page
+    return max(k * block / rates[0], ks * block / rates[1],
+               2 * k * block / HBM_BYTES_PER_S) * 1e3
+
+
 @contextlib.contextmanager
 def paged_env(page: int, frames: int):
     """GUBER_PAGED=1 with these knobs while engines are built (an engine
@@ -3488,11 +3516,62 @@ def phase_paged_parity(torch, np, rng, tmp: Path):
     return [card, fresh, dense]
 
 
+@contextlib.contextmanager
+def fault_split(pp):
+    """Split the fault wall of `pp`'s fault batches from outside, so that
+    any tree can be read the same way: the victim picks (`_pick_victim`),
+    the launch and wait (K9 and K10's wrappers as core/paging.py calls
+    them, and the wait for the spill's readback), and the rest, the host
+    copies (the refill words and their staging, the spill's scatter home)
+    and the bookkeeping.  Seconds summed over the batches."""
+    from gubernator_tpu_torch.core import paging as paging_mod
+    from gubernator_tpu_torch.core import readback as rb
+
+    acc = {"wall": 0.0, "picks": 0.0, "launch": 0.0, "pages": 0}
+    in_fault = [False]
+    pick, fault, fetch = pp._pick_victim, pp._fault_batch, rb.Ticket.fetch
+    kernels = {n: getattr(paging_mod, n) for n in ("gather_pages", "load_pages")}
+
+    def timed(fn, key, only_in_fault=False):
+        def call(*a, **kw):
+            if only_in_fault and not in_fault[0]:
+                return fn(*a, **kw)
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t
+        return call
+
+    def timed_fault(engine, missing, pinned):
+        in_fault[0] = True
+        acc["pages"] += len(missing)
+        try:
+            return timed(fault, "wall")(engine, missing, pinned)
+        finally:
+            in_fault[0] = False
+
+    pp._pick_victim = timed(pick, "picks")
+    pp._fault_batch = timed_fault
+    for n, fn in kernels.items():
+        setattr(paging_mod, n, timed(fn, "launch"))
+    rb.Ticket.fetch = timed(fetch, "launch", only_in_fault=True)
+    try:
+        yield acc
+    finally:
+        del pp._pick_victim, pp._fault_batch
+        for n, fn in kernels.items():
+            setattr(paging_mod, n, fn)
+        rb.Ticket.fetch = fetch
+
+
 def phase_paged_full(torch, np, rng, card_name):
     """(b) The full width: pages of 512, 2^24 resident rows, 2^25 keys —
     the fill, then zipf(1.2) over the keys in a seeded order in batches of
-    8192, each batch answered as a dense card engine at 2^25 answers it.
-    Returns (card engines, fault-batch sizes, readings)."""
+    8192, each batch answered as a dense card engine at 2^25 answers it;
+    the zipf batches' fault wall split into victim picks, host copies and
+    launch-and-wait.  Returns (card engines, fault-batch sizes,
+    readings)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3500,6 +3579,7 @@ def phase_paged_full(torch, np, rng, card_name):
     from gubernator_tpu_torch.core.engine import DecisionEngine
     from gubernator_tpu_torch.ops import fused_step as fs
 
+    rates = pinned_copy_rates(torch)
     page, frames, n_keys = PAGED_B
     ns = NOW0 * 10**6
     with paged_env(page, frames):
@@ -3515,11 +3595,13 @@ def phase_paged_full(torch, np, rng, card_name):
     fill_s = time.perf_counter() - t
     fill_faults = paged.paging.faults
     log(f"[paged b] fill of {n_keys} keys in {fill_s:.1f} s (both engines): {fill_faults} "
-        f"faults in {paged.paging.fault_batches} fault batches | {card_name}")
+        f"faults in {paged.paging.fault_batches} fault batches; pinned copies "
+        f"{rates[0] / 1e9:.2f} GB/s up, {rates[1] / 1e9:.2f} GB/s down (64 MiB each) "
+        f"| {card_name}")
     perm = rng.permutation(n_keys)
-    k9_0, k10_0 = fs.launches["gather_pages"], fs.launches["load_pages"]
-    st0 = [(s.count, s.total) for s in (paged.paging.fault_duration,
-                                         paged.paging.spill_duration, paged.paging.refill_wait)]
+    l0 = dict(fs.launches)
+    pp = paged.paging
+    st0 = [(s.count, s.total) for s in (pp.fault_duration, pp.spill_duration, pp.refill_wait)]
     per_batch, walls, batches = [], [], []
     for _ in range(PAGED_B_BATCHES):
         idx = paged_zipf(np, rng, perm, ZIPF_BATCH)
@@ -3528,57 +3610,68 @@ def phase_paged_full(torch, np, rng, card_name):
 
     def paged_batch(b):
         keys, cols = batches[b]
-        f0 = paged.paging.faults
+        f0 = pp.faults
         t = time.perf_counter()
         got = paged.apply_columnar(keys, *cols, now_ms=NOW0 + 7 * (b + 1))
         walls.append(time.perf_counter() - t)
-        per_batch.append(paged.paging.faults - f0)
+        per_batch.append(pp.faults - f0)
         return got
 
     def dense_batch(b):
         keys, cols = batches[b]
         return dense.apply_columnar(keys, *cols, now_ms=NOW0 + 7 * (b + 1))
 
-    for b in range(PAGED_B_BATCHES - n_prof):
-        same_answers(np, paged_batch(b), dense_batch(b), "[paged b] zipf")
-    tail = range(PAGED_B_BATCHES - n_prof, PAGED_B_BATCHES)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        got = [paged_batch(b) for b in tail]
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t) * 1e6
+    with fault_split(pp) as split:
+        for b in range(PAGED_B_BATCHES - n_prof):
+            same_answers(np, paged_batch(b), dense_batch(b), "[paged b] zipf")
+        tail = range(PAGED_B_BATCHES - n_prof, PAGED_B_BATCHES)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = [paged_batch(b) for b in tail]
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t) * 1e6
     busy_us = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
     for b, g in zip(tail, got):
         same_answers(np, g, dense_batch(b), "[paged b] zipf")
-    check(sum(per_batch) > 0, "[paged b] the zipf stream must fault")
-    pp = paged.paging
+    check(sum(per_batch) > 0 and split["pages"] == sum(per_batch),
+          "[paged b] the zipf stream must fault, every fault through a fault batch")
     means = [((s.total - t0) / max(s.count - c0, 1)) * 1e3
              for (c0, t0), s in zip(st0, (pp.fault_duration, pp.spill_duration, pp.refill_wait))]
-    k9, k10 = fs.launches["gather_pages"] - k9_0, fs.launches["load_pages"] - k10_0
+    launched = {k: fs.launches[k] - l0[k] for k in ("gather_pages", "load_pages")}
+    per_page = {k: split[k] / split["pages"] * 1e6 for k in ("wall", "picks", "launch")}
+    per_page["copies"] = per_page["wall"] - per_page["picks"] - per_page["launch"]
     read = {"faults_per_batch": statistics.mean(per_batch), "max_faults": max(per_batch),
             "fault_ms": means[0], "spill_ms": means[1], "refill_ms": means[2],
-            "decisions_per_s": ZIPF_BATCH * len(walls) / sum(walls), "k9": k9, "k10": k10,
-            "busy_us": busy_us, "window_us": window_us, "fill_s": fill_s}
+            "decisions_per_s": ZIPF_BATCH * len(walls) / sum(walls), "launched": launched,
+            "busy_us": busy_us, "window_us": window_us, "fill_s": fill_s, "split": per_page,
+            "rates": rates}
     log(f"[paged b] {PAGED_B_BATCHES} zipf batches of {ZIPF_BATCH} over 2^25 keys: faults per "
         f"batch mean {read['faults_per_batch']:.1f} (max {read['max_faults']}), mean wall a "
         f"faulted page: fault {means[0] * 1e3:.2f} us, spill {means[1] * 1e3:.2f} us, refill "
-        f"{means[2] * 1e3:.2f} us; {read['decisions_per_s']:.0f} decisions/s; K9 / K10 "
-        f"launches {k9} / {k10}; profiled window of {n_prof} batches: wall {window_us:.1f} us, "
-        f"device busy {busy_us:.1f} us, idle share {1 - busy_us / window_us:.4f}; paged = "
-        f"dense at 2^25 | {card_name}")
+        f"{means[2] * 1e3:.2f} us; split a faulted page (timed from outside): wall "
+        f"{per_page['wall']:.2f} us = victim picks {per_page['picks']:.2f} + host copies and "
+        f"bookkeeping {per_page['copies']:.2f} + launch-and-wait {per_page['launch']:.2f}; "
+        f"{read['decisions_per_s']:.0f} decisions/s; launches {launched}; profiled window of "
+        f"{n_prof} batches: wall {window_us:.1f} us, device busy {busy_us:.1f} us, idle share "
+        f"{1 - busy_us / window_us:.4f}; pinned copies {rates[0] / 1e9:.2f} / "
+        f"{rates[1] / 1e9:.2f} GB/s; paged = dense at 2^25 | {card_name}")
     return [paged, dense], per_batch, read
 
 
-def phase_paged_timing(torch, np, rng, card, zipf_k: int):
+def phase_paged_timing(torch, np, rng, card, zipf_k: int, rates: tuple):
     """K9 / K10 at pages of 512 (CUDA events behind the spin kernel) with k
     = 1, k = PAGED_FILL / 512 = 16 (each fill batch's faults on path (b)) and
-    k = `zipf_k` (the median zipf fault batch there), beside their bytes
-    bound, their plain versions and, at k <= 16, each one's library call:
-    torch.stack of the pages' column slices for K9, torch._foreach_copy_
-    into them for K10 (at the zipf's k their thousands of views make the
-    calls host-bound).  The kernels line takes k = 16."""
+    k = `zipf_k` (the median zipf fault batch there): first a fault batch
+    as `_fault_batch` queues it (the staged copy up of the starts and the
+    refill words, K9 on the victims' frames, the copy of K9's block home
+    into pinned memory, K10) beside its PCIe bound, then K9 / K10 alone
+    beside their bytes bound, their plain versions and, at k <= 16, each
+    one's library call: torch.stack of the pages' column slices for K9,
+    torch._foreach_copy_ into them for K10 (at the zipf's k their
+    thousands of views make the calls host-bound).  The kernels line takes
+    k = 16."""
     from gubernator_tpu_torch.ops import bucket_kernel as tk
     from gubernator_tpu_torch.ops.page_words import gather_pages, load_pages
 
@@ -3593,6 +3686,18 @@ def phase_paged_timing(torch, np, rng, card, zipf_k: int):
         host = [s.cpu().tolist() for s in sets]
         words = torch.from_numpy(rng.integers(-(2**31), 2**31, (k, 12, page),
                                               dtype=np.int64).astype(np.int32)).cuda()
+        n_starts = -(-(2 * k) // 4) * 4
+        buf = torch.zeros(n_starts + k * 12 * page, dtype=torch.int32, pin_memory=True)
+        buf[:k] = buf[k : 2 * k] = sets[0].cpu()
+        staged = torch.empty_like(buf, device="cuda")
+        home = torch.empty((k, 12, page), dtype=torch.int32, pin_memory=True)
+
+        def batch(_i):
+            staged.copy_(buf, non_blocking=True)
+            home.copy_(gather_pages(state, staged[:k], page), non_blocking=True)
+            load_pages(state, staged[k : 2 * k], staged[n_starts:].view(k, 12, page))
+
+        fb = device_ms(torch, batch, 200 if k <= 16 else 40)
         k9 = device_ms(torch, lambda i: gather_pages(state, sets[i % 16], page), 200)
         k9_plain = host_ms(torch, lambda i: tk.gather_page_words_reference(
             state, sets[i % 16], page), 20, windows=3)
@@ -3615,10 +3720,14 @@ def phase_paged_timing(torch, np, rng, card, zipf_k: int):
                     and torch.equal(torch.stack(views[0]).view(k, 12, page), block)):
                 raise AssertionError("a library call disagrees with the page block")
         bound = page_bound_ms(k, page)
-        out[k] = ((k9, k9_plain, bound, k9_lib), (k10, k10_plain, bound, k10_lib))
+        pcie = pcie_bound_ms(k, k, page, rates)
+        out[k] = ((k9, k9_plain, bound, k9_lib), (k10, k10_plain, bound, k10_lib), fb)
         lib = "" if k9_lib is None else (
             f", torch.stack of the {12 * k} column slices {k9_lib * 1e3:.2f} us, "
             f"torch._foreach_copy_ into them {k10_lib * 1e3:.2f} us")
+        log(f"[time] fault batch at P=512, k={k}: {fb * 1e3:.2f} us device and copies (copy "
+            f"up, K9, copy home, K10), PCIe bound {pcie * 1e3:.2f} us ({k} pages each way at "
+            f"{rates[0] / 1e9:.2f} / {rates[1] / 1e9:.2f} GB/s) | {card}")
         log(f"[time] K9 / K10 at P=512, k={k}: {k9 * 1e3:.2f} / {k10 * 1e3:.2f} us/launch, "
             f"bound {bound * 1e3:.4f} us (bytes), plain {k9_plain * 1e3:.1f} / "
             f"{k10_plain * 1e3:.1f} us{lib} | {card}")
@@ -4460,11 +4569,18 @@ def main() -> int:
               "every launch of the paged path must be an engine launch or a sweep group")
         # The paged sweeps cover one window each (65,536 resident rows).
         check_grouped(pg_win, pg_groups, "paged", multi=False)
-        for name in ("gather_pages", "load_pages", "collapsed_step", "uniform_step",
-                     "load_slots", "sweep_window"):
+        page_kernels = ("gather_pages", "load_pages")
+        for name in page_kernels + ("collapsed_step", "uniform_step", "load_slots",
+                                    "sweep_window"):
             check(paged_launches[name] > 0, f"the paged path must launch {name}")
-        check(pg_read["k9"] > 0 and pg_read["k10"] > 0,
+        check(all(pg_read["launched"][k] > 0 for k in page_kernels),
               "the full-width zipf stream must spill and refill")
+        batches = sum(e.paging.fault_batches for e in pg_engines if e.paging is not None)
+        check(paged_launches["load_pages"] == batches,
+              f"the paged path must launch one K10 a fault batch ({paged_launches['load_pages']} "
+              f"K10 launches, {batches} fault batches)")
+        log(f"[paged] {batches} fault batches, page launches "
+            f"{ {k: paged_launches[k] for k in page_kernels} } | {card}")
         zipf_k = int(statistics.median([k for k in pg_per_batch if k > 0]))
         for e in pg_engines:
             e.close()
@@ -4503,8 +4619,8 @@ def main() -> int:
     if has_sketch:
         times.update({f"s_{k}": v for k, v in phase_sketch_timing(torch, np, rng, card).items()})
     if has_paged:
-        times.update({f"pg_{k}": v for k, v in phase_paged_timing(torch, np, paged_rng, card,
-                                                                 zipf_k).items()})
+        times.update({f"pg_{k}": v for k, v in phase_paged_timing(
+            torch, np, paged_rng, card, zipf_k, pg_read["rates"]).items()})
     if has_sharded:
         times.update({f"sh_{k}": v for k, v in phase_sharded_timing(torch, np, shard_rng, card,
                                                                    sh_captured).items()})
