@@ -18,7 +18,9 @@ with expiries at now - 1, now and now + 1 whose low words have bit 31
 set; K7, the count-min sketch's step, and K8, its window rotation, at
 depth 4 and widths 2^20 and 2^24 on zipf batches of 1000 and 8192 keys
 with a saturating hot key, negative counts read at frac != 0 and an
-all-padding tail, K8 on one plane and on both), then drives
+all-padding tail, K8 on one plane and on both, and K7 in each form it can
+take (the block form, one launch, and the pair form, two) on pins of 64
+to 16384 lanes), then drives
 the port's main path — the decision engine and the HTTP daemon answering
 GetRateLimits — over five streams, each against the same engine on the
 CPU, answers and state word for word:
@@ -46,11 +48,14 @@ the main path's (K1, K2, K5 and K6 launched, K3 and K4 not).
 A third path, the sketch path, counts its launches from 0 too: one
 V1Instance on the card and one on the CPU answer 40 batches of 1000
 items (about 60 % SKETCH, some of them GLOBAL or MULTI_REGION too, 20 %
-GLOBAL, 20 % plain) with the clock stepping inside a window, by exactly
-one window and by gaps of two or more (answers, both planes, epoch and
-plane index compared), and the daemon, configured by GUBER_SKETCH_*,
-answers the same kind of batches over HTTP (bodies compared).  K7 must
-launch once per apply with sketch items, K8 at least once.
+GLOBAL, 20 % plain) and six small ones (1 to 300 items) with the clock
+stepping inside a window, by exactly one window and by gaps of two or
+more (answers, both planes, epoch and plane index compared), and the
+daemon, configured by GUBER_SKETCH_*, answers the same kind of batches
+over HTTP (bodies compared).  K7 must launch once per apply with sketch
+items, in the block form for the small batches and the pair form for the
+others (its calls by form, on a port that counts them), K8 at least
+once.
 
 A fourth path, the h2 path (the native h2 front, net/h2_fast.py, into
 apply_columnar), counts its launches from 0 as well, once for each of
@@ -158,12 +163,15 @@ at most once per synchronous batch; the pump flushed), holds the zipf
 stream's collapsed pins to K3's layout (`check_collapsed`), and times
 every kernel on the shapes the main path gave it, beside its bytes bound
 and its plain version (K3 also on one-key and spread zipf chunks without
-and with clears, K4 also on joined launches of 2 and 16 rounds; K5 per 4096-record restore and
+and with clears, K4 also on joined launches of 2 and 16 rounds; K5 per 4096-record restore, its
+split (16, 1024 and 4096 random slots at caps 2^20 and 10^8 and 4096
+contiguous ones at 10^8, beside an empty kernel, the launch floor) and
 K6 per 2^17-slot window and per group of 16 windows (one launch, the
 engines' sweep) at 10^8 slots, the wall time of a 16-window sweep tick,
 K13 per window and per group of 16 over 4 x 2.5 x 10^7, a save / load
-round trip at 2^20; K7 per 1000- and
-8192-key batch and K8 on one plane and on both at widths 2^20 and 2^24,
+round trip at 2^20; K7 per batch of 48, 192, 1000, 8192 and 32768 keys
+(the block form's sizes also in the pair form) and K8 on one plane and
+on both at widths 2^20 and 2^24,
 beside `zero_()` on the same span), apply_columnar's decisions/s on each stream, and the h2 path's
 RPCs/s, p50 and p99 (herd and 1000-item loop, feeder on and off) and
 byte windows per RPC.  Any
@@ -179,7 +187,14 @@ with `git archive`), so that two trees are compared in one session on
 one card.  A tree from before `check_collapsed` existed runs without
 that layout check; one without K5 / K6, K7 / K8, the h2 front, K9 /
 K10 or the sharded engine skips the persistence, the sketch, the h2, the
-ledger, the paged or the sharded phases.
+ledger, the paged or the sharded phases; one without K7's plan skips the
+holds and timings of its forms.
+
+    python3 chip_smoke.py [--tree DIR] --readings
+
+runs only K5's and K7's holds and timings (with K6's and K8's holds,
+which share their phases), for the turns of a parent / change comparison
+(parent, change, change, parent), and prints no result lines.
 
 The port imports nothing of JAX; neither does this script.
 """
@@ -1872,9 +1887,92 @@ def idle_ticks(torch, np, card: str, n_keys: int = 50_000, n_ticks: int = 20):
     return first, med, low
 
 
+# The K5 split's readings: (cap, lanes, contiguous slots).
+K5_SPLIT = ((CAP_SERVE, 16, False), (CAP_SERVE, 1024, False), (CAP_SERVE, 4096, False),
+            (CAP_NORTH_STAR, 16, False), (CAP_NORTH_STAR, 1024, False),
+            (CAP_NORTH_STAR, 4096, False), (CAP_NORTH_STAR, 4096, True))
+
+
+def k5_sector_bound_ms(rec, cap: int) -> float:
+    """Least time for one K5 launch counted in the 32-byte sectors the
+    memory moves: the record's rows of the in-range lanes (19 rows) and the
+    slots of the padding lanes, read in whole sectors, and one sector a
+    state word stored (12 an in-range lane: random slots share none)."""
+    s = rec[0].astype("int64")
+    n = int(((s >= 0) & (s < cap)).sum())
+    sectors = 19 * -(-n * 4 // 32) + -(-(len(s) - n) * 4 // 32) + 12 * n
+    return sectors * 32 / HBM_BYTES_PER_S * 1e3
+
+
+def time_k5_split(torch, np, card) -> dict:
+    """K5 per launch (CUDA events behind the spin kernel) at 16, 1024 and
+    4096 random slots at caps 2^20 and 10^8 and at 4096 contiguous slots at
+    10^8, beside an empty kernel launched in the same queue
+    (`torch.cuda._sleep(0)`, the launch floor), with the bytes and sector
+    bounds: what the 4096-record restore's time above the floor is made of
+    (the footprint of the slots: 2^20 against 10^8; their scatter: random
+    against contiguous; the lanes: 16 against 4096).  It restores into
+    zeroed states of its own (the caller's states stay as they were), and
+    its records come from a generator of its own.  Returns {reading: (ms,
+    bytes bound, sector bound)} and the floor under "floor"."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    rng = np.random.default_rng(SEED + 16)
+    states = {cap: tk.BucketState(*(torch.zeros(cap, dtype=torch.int32, device="cuda")
+                                    for _ in tk.BucketState._fields))
+              for cap in (CAP_SERVE, CAP_NORTH_STAR)}
+    out = {"floor": device_ms(torch, lambda i: torch.cuda._sleep(0), 200)}
+    for cap, lanes, contiguous in K5_SPLIT:
+        state = states[cap]
+        host = []
+        for _ in range(16):
+            rec = restore_record(np, rng, cap, lanes, NOW0, n=lanes)
+            if contiguous:
+                start = int(rng.integers(0, cap - lanes))
+                rec[0] = np.arange(start, start + lanes, dtype=np.int32)
+            host.append(rec)
+        recs = [torch.from_numpy(r).cuda() for r in host]
+        fs.load_slots(state, recs[0])
+        ms = device_ms(torch, lambda i: fs.load_slots(state, recs[i % 16]), 200)
+        key = f"{lanes} {'contiguous' if contiguous else 'random'}, cap " + (
+            "2^20" if cap == CAP_SERVE else "10^8")
+        out[key] = (ms, statistics.median(k5_bound_ms(r, cap) for r in host),
+                    statistics.median(k5_sector_bound_ms(r, cap) for r in host))
+    log("[time] K5 split (us/launch; bytes and 32-byte-sector bounds): empty kernel "
+        f"{out['floor'] * 1e3:.2f}; " + "; ".join(
+            f"{k} {v[0] * 1e3:.2f} ({v[0] * 1e3 - out['floor'] * 1e3:+.2f} over the floor; "
+            f"bounds {v[1] * 1e3:.3f}, {v[2] * 1e3:.3f})" for k, v in out.items() if k != "floor")
+        + f" | {card}")
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_k5(torch, np, rng, card, state, plain) -> dict:
+    """K5 per 4096-record restore at 10^8 slots (CUDA events) beside its
+    plain version and bytes bound, and its split (`time_k5_split`);
+    `state` and `plain` are states at 10^8."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    cap = CAP_NORTH_STAR
+    host = [restore_record(np, rng, cap, 4096, NOW0, n=4096) for _ in range(16)]
+    recs = [torch.from_numpy(r).cuda() for r in host]
+    fs.load_slots(state, recs[0])
+    k5_ms = device_ms(torch, lambda i: fs.load_slots(state, recs[i % 16]), 200)
+    k5_plain = host_ms(torch, lambda i: tk.load_slots_reference(plain, recs[i % 16]), 16,
+                       windows=3)
+    k5_bound = statistics.median(k5_bound_ms(r, cap) for r in host)
+    log(f"[time] K5, 4096-record restores at cap 10^8: {k5_ms * 1e3:.2f} us/launch, bound "
+        f"{k5_bound * 1e3:.3f} us (bytes), plain {k5_plain * 1e3:.1f} us | {card}")
+    return {"k5": (k5_ms, k5_plain, k5_bound), "k5_split": time_k5_split(torch, np, card)}
+
+
 def phase_persist_timing(torch, np, rng, card):
-    """K5 per 4096-record launch and K6 per 2^17 window at 10^8 slots
-    (CUDA events), beside their plain versions and bytes bounds; and the
+    """K5 per 4096-record launch and its split (`time_k5`) and K6 per 2^17
+    window at 10^8 slots (CUDA events), beside their plain versions and
+    bytes bounds; and the
     wall time of a 16-window sweep tick at 10^8 (windows and readback,
     without the intern table's release); and K6 per group of 16 windows,
     the launch the engines make (`time_sweep_groups`)."""
@@ -1887,17 +1985,7 @@ def phase_persist_timing(torch, np, rng, card):
     arm_expiries(torch, state, NOW0, int(rng.integers(2**31)))
     meta0 = state.meta.clone()
     plain = copy_state(state)
-    out = {}
-    host = [restore_record(np, rng, cap, 4096, NOW0, n=4096) for _ in range(16)]
-    recs = [torch.from_numpy(r).cuda() for r in host]
-    fs.load_slots(state, recs[0])
-    k5_ms = device_ms(torch, lambda i: fs.load_slots(state, recs[i % 16]), 200)
-    k5_plain = host_ms(torch, lambda i: tk.load_slots_reference(plain, recs[i % 16]), 16,
-                       windows=3)
-    k5_bound = statistics.median(k5_bound_ms(r, cap) for r in host)
-    out["k5"] = (k5_ms, k5_plain, k5_bound)
-    log(f"[time] K5, 4096-record restores at cap 10^8: {k5_ms * 1e3:.2f} us/launch, bound "
-        f"{k5_bound * 1e3:.3f} us (bytes), plain {k5_plain * 1e3:.1f} us | {card}")
+    out = time_k5(torch, np, rng, card, state, plain)
 
     state.meta.copy_(meta0)
     plain.meta.copy_(meta0)
@@ -2058,6 +2146,69 @@ def phase_sketch_kernels(torch, np, rng, errs):
             "(tolerance: exact)")
         del kern, plain
         torch.cuda.empty_cache()
+    if hasattr(ps, "launch_step"):
+        hold_k7_forms(torch, np, errs)
+
+
+# Pin sizes of the every-form hold: around the plan's boundary at depth 4
+# (the block form up to 256 lanes, the pair form past it), the daemon's
+# and the zipf deployment's batches, and one past them.
+K7_FORM_SIZES = (64, 128, 256, 512, 1024, 8192, 16384)
+# Batch sizes K7 is timed at: small batches (the block form on a port that
+# has it), the daemon's batch, the zipf deployment's, and one past it.
+K7_TIMED_KEYS = (48, 192, BATCH, ZIPF_BATCH, 32768)
+
+
+def k7_plans(ps, depth: int, size: int) -> list:
+    """Every form the driven port's K7 can take at (depth, size): its
+    plan's, and the pair form beside a block-form plan."""
+    plan = ps.plan_sketch_step(depth, size)
+    return [plan] + ([ps.PAIR_PLAN] if plan != ps.PAIR_PLAN else [])
+
+
+def hold_k7_forms(torch, np, errs):
+    """K7 in every form it can take (`k7_plans`) against its plain version,
+    planes and output word for word, at depth 4 and widths 2^20 and 2^24,
+    on pins of K7_FORM_SIZES lanes (3/4 of them zipf keys with mixed-sign
+    hits and a hot key of 4 x 2^30 hits, the rest padding) read at frac
+    0.3 over planes with negative counts; and the plan's own form through
+    `sketch_step`.  Draws from a generator of its own, so that the phases
+    after it see the inputs they see on a port without plans."""
+    from gubernator_tpu_torch.ops import sketch as ps
+
+    rng = np.random.default_rng(SEED + 14)
+    n_held = 0
+    for width in (SKETCH_WIDTH, SKETCH_WIDE):
+        base = random_planes(torch, width, int(rng.integers(2**31)))
+        for size in K7_FORM_SIZES:
+            n = size * 3 // 4
+            keys = [b"sk_hot"] * 4 + sketch_keys(np, rng, n - 4)
+            hits = np.concatenate([[2**30] * 4, rng.choice([-7, -1, 0, 1, 2, 5], n - 4)])
+            cur = int(rng.integers(0, 2))
+            pin = torch.from_numpy(sketch_pin(np, rng, width, keys, hits, NOW0 + 300,
+                                              size=size)).cuda()
+            plain = base.clone()
+            want = ps.sketch_step_reference(plain, pin, cur)
+            plans = k7_plans(ps, SKETCH_DEPTH, size)
+            for plan in plans + [None]:
+                kern = base.clone()
+                got = (ps.sketch_step(kern, pin, cur) if plan is None
+                       else ps.launch_step(kern, pin, cur, plan))
+                torch.cuda.synchronize()
+                err = max(int((got.long() - want.long()).abs().max().item()),
+                          int((kern.long() - plain.long()).abs().max().item()))
+                errs["sketch_step"] = max(errs["sketch_step"], err)
+                check(err == 0, f"K7 differs from its plain version: width {width}, size {size}, "
+                      f"{plan or 'the plan of sketch_step'}: err {err}")
+                n_held += 1
+                del kern
+            del plain
+        del base
+        torch.cuda.empty_cache()
+    log(f"[k7 forms] {n_held} K7 calls bit-equal to the plain step, every form at depth 4 on pins "
+        f"of {', '.join(map(str, K7_FORM_SIZES))} lanes at widths 2^20 and 2^24 (plan at each: "
+        + "; ".join(f"{s}: {ps.plan_sketch_step(SKETCH_DEPTH, s)}" for s in K7_FORM_SIZES)
+        + ") (tolerance: exact)")
 
 
 def sketch_stream_batch(np, rng, pool, n: int = BATCH):
@@ -2085,6 +2236,8 @@ def sketch_stream_batch(np, rng, pool, n: int = BATCH):
 # Clock steps of the sketch stream (ms): inside a window, exactly one
 # window, and gaps of two windows or more.
 SKETCH_STEPS = (0, 250, 1000, 333, 2_000, 50, 1000, 5_000, 400)
+# Sizes of the sketch stream's small batches (after its 40 of 1000).
+SKETCH_SMALL_BATCHES = (1, 2, 10, 40, 100, 300)
 
 
 def phase_sketch_stream(torch, np, rng):
@@ -2106,9 +2259,15 @@ def phase_sketch_stream(torch, np, rng):
     cpu = V1Instance(DecisionEngine(CAP_SERVE, clock=Clock().freeze_at(ns), device="cpu"))
     pool = [b"api_g%d" % i for i in range(20_000)]
     applies, engine_batches, kinds = 0, 0, {"one": 0, "gap": 0, "inside": 0}
+    # After the 40 batches of 1000, small ones (single-item and short RPCs,
+    # the common case of a rate limiter's callers), drawn from a generator
+    # of their own so that the phases after this one see the inputs they
+    # saw before these existed.
+    small_rng = np.random.default_rng(SEED + 17)
+    sizes = [BATCH] * 40 + list(SKETCH_SMALL_BATCHES)
     try:
         last_epoch = None
-        for b in range(40):
+        for b, n in enumerate(sizes):
             step = SKETCH_STEPS[b % len(SKETCH_STEPS)]
             gpu.engine.clock.advance(ms=step)
             cpu.engine.clock.advance(ms=step)
@@ -2117,7 +2276,8 @@ def phase_sketch_stream(torch, np, rng):
                 d = epoch - last_epoch
                 kinds["inside" if d == 0 else "one" if d == 1 else "gap"] += 1
             last_epoch = epoch
-            reqs = sketch_stream_batch(np, rng, pool)
+            reqs = (sketch_stream_batch(np, rng, pool) if n == BATCH
+                    else sketch_stream_batch(np, small_rng, pool, n))
             got, want = gpu.get_rate_limits(reqs), cpu.get_rate_limits(reqs)
             check([vars(r) for r in got] == [vars(r) for r in want],
                   f"[sketch] batch {b}: answers differ card vs CPU")
@@ -2134,7 +2294,8 @@ def phase_sketch_stream(torch, np, rng):
         for f in tk.BucketState._fields:
             check(np.array_equal(gw[f], cw[f]), f"[sketch] engine state column {f} differs")
         check(min(kinds.values()) > 0, f"[sketch] the clock must step every way: {kinds}")
-        log(f"[sketch] 40 batches of {BATCH} through V1Instance on the card and on the CPU "
+        log(f"[sketch] 40 batches of {BATCH} and {len(SKETCH_SMALL_BATCHES)} of "
+            f"{', '.join(map(str, SKETCH_SMALL_BATCHES))} through V1Instance on the card and on the CPU "
             f"({gpu.counters['sketch']} sketch items, window steps {kinds}, "
             f"{engine_batches} engine calls): answers, both planes (epoch {a[1]}, cur {a[2]}) "
             f"and the engines' {CAP_SERVE}x12 state words bit-equal card vs CPU")
@@ -2195,8 +2356,9 @@ def phase_sketch_http(torch, np, rng):
 
 
 def phase_sketch_timing(torch, np, rng, card):
-    """K7 per batch of 1000 and 8192 zipf keys and K8 per plane and per
-    pair of planes, at widths 2^20 and 2^24 (CUDA events), beside their
+    """K7 per batch of K7_TIMED_KEYS zipf keys (on a port with K7's plan,
+    the block form's sizes also forced into the pair form) and K8 per plane
+    and per pair of planes, at widths 2^20 and 2^24 (CUDA events), beside their
     bytes bounds, their plain versions and, for K8, `zero_()` on the same
     span (the one PyTorch call that computes it; the port never calls
     it), timed in turns (K8, zero_(), zero_(), K8), each the mean of its
@@ -2204,12 +2366,18 @@ def phase_sketch_timing(torch, np, rng, card):
     from gubernator_tpu_torch.ops import sketch as ps
 
     out = {}
+    planned = hasattr(ps, "launch_step")
+    forms_rng = np.random.default_rng(SEED + 15)
     for width in (SKETCH_WIDTH, SKETCH_WIDE):
         counts = random_planes(torch, width, int(rng.integers(2**31)))
         plain = counts.clone()
-        for n in (BATCH, ZIPF_BATCH):
-            host = [sketch_pin(np, rng, width, sketch_keys(np, rng, n),
-                               rng.choice([-1, 1, 1, 2], n), NOW0 + 250 + i) for i in range(8)]
+        for n in K7_TIMED_KEYS:
+            # The sizes besides BATCH and ZIPF_BATCH draw from a generator of
+            # their own, so that the readings after them see the inputs they
+            # saw before those sizes were timed.
+            g = rng if n in (BATCH, ZIPF_BATCH) else forms_rng
+            host = [sketch_pin(np, g, width, sketch_keys(np, g, n),
+                               g.choice([-1, 1, 1, 2], n), NOW0 + 250 + i) for i in range(8)]
             pins = [torch.from_numpy(p).cuda() for p in host]
             ps.sketch_step(counts, pins[0], 0)
             k_ms = device_ms(torch, lambda i: ps.sketch_step(counts, pins[i % 8], i & 1), 200)
@@ -2217,9 +2385,19 @@ def phase_sketch_timing(torch, np, rng, card):
                            20, windows=3)
             bound = statistics.median(k7_bound_ms(p, width) for p in host)
             out[f"k7_{width}_{n}"] = (k_ms, p_ms, bound)
-            log(f"[time] K7, {n} zipf keys (pin {host[0].shape[1]} lanes) at width {width}: "
-                f"{k_ms * 1e3:.2f} us/call (two launches), bound {bound * 1e3:.3f} us (bytes), "
+            size = host[0].shape[1]
+            form = (ps.plan_sketch_step(SKETCH_DEPTH, size) if planned
+                    else "two launches, the pair form")
+            log(f"[time] K7, {n} zipf keys (pin {size} lanes) at width {width}: "
+                f"{k_ms * 1e3:.2f} us/call ({form}), bound {bound * 1e3:.3f} us (bytes), "
                 f"plain {p_ms * 1e3:.1f} us | {card}")
+            if planned and form.form != "pair":
+                # The pair form on the same pins, beside the plan's block form.
+                pair_ms = device_ms(torch, lambda i: ps.launch_step(
+                    counts, pins[i % 8], i & 1, ps.PAIR_PLAN), 200)
+                out[f"k7_pair_{width}_{n}"] = pair_ms
+                log(f"[time] K7, {n} zipf keys at width {width}, the pair form forced: "
+                    f"{pair_ms * 1e3:.2f} us/call beside the block form's {k_ms * 1e3:.2f} | {card}")
         words = SKETCH_DEPTH * width
         reads = {}
         for span, delta, n_launch in (("one", 1, 50), ("both", 3, 20)):
@@ -4356,11 +4534,32 @@ def check_grouped(windows: int, groups: int, path: str, multi: bool = True) -> N
               "sweep a group of windows")
 
 
+def readings(torch, np, rng, card, errs) -> int:
+    """`--readings`: K5 and K6 held at 2^20 and 10^8, K7 and K8 at widths
+    2^20 and 2^24 (K7 in every form on a port with plans), then K5's
+    timing and split at 10^8 and K7's and K8's timings.  Exits 0 with no
+    result lines."""
+    phase_persist_kernels(torch, np, rng, errs)
+    phase_sketch_kernels(torch, np, rng, errs)
+    state = random_state(torch, CAP_NORTH_STAR, NOW0, int(rng.integers(2**31)))
+    plain = copy_state(state)
+    time_k5(torch, np, rng, card, state, plain)
+    del state, plain
+    torch.cuda.empty_cache()
+    phase_sketch_timing(torch, np, rng, card)
+    log(f"[readings] done in {time.perf_counter() - T_START:.1f} s | {card}")
+    return 0
+
+
 def main() -> int:
     global TREE
     ap = argparse.ArgumentParser(description="Smoke run of gubernator_tpu_torch on one GPU.")
     ap.add_argument("--tree", help="root of another checkout whose port to drive "
                     "(default: this script's own)")
+    ap.add_argument("--readings", action="store_true",
+                    help="only K5's and K7's holds against their plain versions and their "
+                    "timings (the K5 split, K7 at three sizes and two widths, K7's forms), for "
+                    "the turns of a parent / change comparison; prints no result lines")
     args = ap.parse_args()
     if args.tree:
         TREE = Path(args.tree).resolve()
@@ -4397,6 +4596,8 @@ def main() -> int:
     card = phase_device(torch)
     phase_build()
     errs = {k: 0 for k in fs.launches}
+    if args.readings:
+        return readings(torch, np, rng, card, errs)
     phase_kernels(torch, np, rng, errs)
     phase_k2(torch, np, rng, errs)
     # A --tree checkout from before the persistence slice has no K5 / K6.
@@ -4492,6 +4693,17 @@ def main() -> int:
         log(f"[sketch] launches {sketch_launches}; {applies} sketch applies on the card")
         check(sketch_launches["sketch_step"] == applies,
               "the sketch path must launch K7 exactly once per apply with sketch items")
+        sketch_forms = getattr(fs, "forms", {}).get("sketch_step")
+        if sketch_forms is not None:
+            # One device launch a call in the block form, two in the pair form.
+            log(f"[sketch] K7 calls by form {sketch_forms}: "
+                f"{sketch_forms['block'] + 2 * sketch_forms['pair']} device launches for "
+                f"{applies} calls")
+            check(sum(sketch_forms.values()) == applies,
+                  "every K7 call of the sketch path must count under one form")
+            check(sketch_forms["block"] > 0 and sketch_forms["pair"] > 0,
+                  "the sketch path's small and 1000-item batches must take K7's block and pair "
+                  "forms")
         check(sketch_launches["sketch_rotate"] > 0, "the sketch path must launch K8")
         torch.cuda.empty_cache()
 

@@ -23,12 +23,32 @@
 // shared helpers.
 //
 // Bound: bytes.  An in-range lane reads its 76 B of record and writes
-// 48 B of state; a padding lane reads its 4 B slot.  The kernel reads all
-// 19 words of a padding lane too (72 B the bound does not count), so that
-// every load of a lane issues at once.  A 4096-lane restore moves about
-// 0.5 MB, so the launch latency is the cost at every width the engine uses
-// (one launch per restoring round, at most 4096 lanes a launch when
-// loading).
+// 48 B of state; a padding lane reads its 4 B slot: 0.152 us for a
+// 4096-record restore at 3.35 TB/s.  Counted in the 32-byte sectors that
+// the memory really moves (the record's rows, and one sector for each
+// scattered 4-byte store: 49,152 of them at 4096 random slots) it is
+// 0.562 us.  Either way a launch costs more (an empty kernel takes 1.69
+// us on an H100 80GB HBM3 at 700 W) at every width the engine uses: one
+// launch per restoring round, at most 4096 lanes a launch when loading.
+//
+// The design: one thread per lane in blocks of 128, every load of a lane
+// issued at once (the kernel also reads the 72 B of a padding lane's other
+// words, not in the bound, so the range check waits on the slot word
+// only); the 12 stores go column by column.  What the time above the
+// launch floor is made of (CUDA events, the same card): at cap 10^8 a
+// 4096-record restore takes 6.0 us, 4.3 above the floor; 4096 contiguous
+// slots take 2.33 (the lanes' own loads and stores), 4096 random slots at
+// cap 2^20 4.71 (the scatter of the stores over the state); the last 1.3
+// come with the footprint at 10^8, where 4096 random slots touch about
+// 2,300 distinct 2-MiB pages of the 12 columns of 400 MB: address
+// translation, the likely cost (not measured apart), which no block shape
+// tried changed.
+// Tried and not kept (it lost, by 0.01-0.04 us, where the translation or
+// the launch bound it): one warp a block, 128 blocks for 4096 lanes (2.70
+// against 3.76 us at 1024 random slots, 4.34 against 4.71 at 4096 at
+// 2^20); the record tile staged into shared memory by Hopper's bulk
+// asynchronous copy (slower at every size); one block a column.
+// scripts/torch_k5_spread.py builds them and times them beside K5.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -73,11 +73,18 @@ launches = {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0, "uniform_
             "load_slots": 0, "sweep_window": 0, "sketch_step": 0, "sketch_rotate": 0,
             "gather_pages": 0, "load_pages": 0, "shard_step": 0, "shard_collapsed": 0,
             "shard_sweep": 0}
+# Calls of a kernel that has more than one form, by the form each call
+# took (K7: "block", one device launch; "pair", two), since the last
+# reset_launches().
+forms = {"sketch_step": {"block": 0, "pair": 0}}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    for by_form in forms.values():
+        for k in by_form:
+            by_form[k] = 0
 
 
 def resolve_device(device=None) -> torch.device:

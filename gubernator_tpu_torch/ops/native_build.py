@@ -221,8 +221,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.guber_shard_collapsed_threads.restype = i
     elif name == "sketch":
         ll = ctypes.c_longlong
-        # counts, depth, width, pin, size, cur, out, row_est scratch, stream
-        lib.guber_sketch_step.argtypes = [p, i, ll, p, i, i, p, p, p]
+        # counts, depth, width, pin, size, cur, out, row_est scratch, then the
+        # plan: form, threads, shared_bytes; stream
+        lib.guber_sketch_step.argtypes = [p, i, ll, p, i, i, p, p, i, i, i, p]
         lib.guber_sketch_step.restype = i
         lib.guber_sketch_rotate.argtypes = [p, ll, p]
         lib.guber_sketch_rotate.restype = i

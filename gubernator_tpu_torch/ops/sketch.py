@@ -28,17 +28,28 @@ exact int64 sums clamped to int32) into one packed int32 pin
   `min_r (prev · (65536 − frac) // 65536 + new)`, with FLOOR division
   (a negative previous count rounds down, as the reference's `//` does).
   Returns int32 [2, size], the int64 estimate's hi and lo words;
-  `counts` is updated in place.
+  `counts` is updated in place.  `plan_sketch_step(depth, size)` picks
+  its form from (depth, size) alone (`SketchPlan`): the block form, ONE
+  launch of one block that keeps the row estimates in shared memory, while
+  depth·size <= 1024 (256 lanes at depth 4); above that the pair form,
+  two launches (adds into an int64 scratch, then the minimum over rows),
+  the second a programmatic dependent launch of the first.  Bound: bytes
+  (0.02–0.03 µs for 1000 keys at depth 4), so launch floors are the cost;
+  csrc/sketch.cu says what was tried (clusters of 2–16 blocks, kept in
+  scripts/torch_k7_cluster.py).
 * `sketch_rotate(counts, cur, delta)` — kernel K8, the port of `_rotate`
   (:63): the window moved `delta` epochs forward; one step zeroes the
   other plane and makes it current, a gap of two or more zeroes both
   planes and keeps `cur`; `delta <= 0` changes nothing.  Returns the new
   `cur`.
 
-A CUDA tensor goes to the kernel (no fallback); a CPU tensor to the plain
-`sketch_step_reference` / `rotate_reference`.  Launches count in
-`ops.fused_step.launches` ("sketch_step": one per wrapper call, whose two
-kernels run back to back on the current stream; "sketch_rotate").
+A CUDA tensor goes to the kernel (no fallback: a plan the launcher
+refuses, or a refused launch, raises); a CPU
+tensor to the plain `sketch_step_reference` / `rotate_reference`.
+Launches count in `ops.fused_step.launches` ("sketch_step": one per
+wrapper call, whichever its form; "sketch_rotate"), and K7's calls by
+form in `ops.fused_step.forms["sketch_step"]` ("block": one device
+launch; "pair": two).
 """
 
 from __future__ import annotations
@@ -52,7 +63,8 @@ import torch
 from gubernator_tpu_torch.hashing import fnv1a_64_batch, pack_keys
 from gubernator_tpu_torch.ops import native_build
 from gubernator_tpu_torch.ops.bucket_kernel import _low_word
-from gubernator_tpu_torch.ops.fused_step import check_cuda, launches, resolve_device, stream_of
+from gubernator_tpu_torch.ops.fused_step import (check_cuda, forms, launches, resolve_device,
+                                                 stream_of)
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
 Q16 = 65536
@@ -120,6 +132,40 @@ def rotate_reference(counts: torch.Tensor, cur: int, delta: int) -> int:
     return cur
 
 
+# K7's plans (csrc/sketch.cu).
+BLOCK_THREADS_MAX = 1024  # the block form: one thread an entry, one block
+PAIR_THREADS = 256
+_FORM_CODES = {"pair": 0, "block": 1}
+
+
+class SketchPlan(NamedTuple):
+    """How one K7 call runs.  "block": one launch of one block of
+    `threads` threads, thread f taking entry f = (row f // size, lane
+    f % size), with `shared_bytes` = 16·depth·size of row estimates and the
+    estimates the entries read at their lanes' positions.  "pair": two
+    launches of `threads`-thread blocks (no shared memory), one thread an
+    entry, then one a lane."""
+
+    form: str
+    threads: int
+    shared_bytes: int
+
+
+PAIR_PLAN = SketchPlan("pair", PAIR_THREADS, 0)
+
+
+def plan_sketch_step(depth: int, size: int) -> SketchPlan:
+    """K7's plan for a [2 + 3·depth, size] pin: the block form while one
+    block holds every entry (depth·size <= 1024: 256 lanes at depth 4),
+    else the pair form.  The threshold is measured (PERF.md §6): above
+    it one SM's share of the random cell reads costs more than the second
+    launch, which programmatic dependent launch mostly hides."""
+    entries = depth * size
+    if entries > BLOCK_THREADS_MAX:
+        return PAIR_PLAN
+    return SketchPlan("block", max(32, -(-entries // 32) * 32), 16 * entries)
+
+
 def sketch_step(counts: torch.Tensor, pin: torch.Tensor, cur: int) -> torch.Tensor:
     """One count-min step (see the module docstring); `counts` is updated
     in place.  Returns int32 [2, size]."""
@@ -128,18 +174,39 @@ def sketch_step(counts: torch.Tensor, pin: torch.Tensor, cur: int) -> torch.Tens
         return sketch_step_reference(counts, pin, cur)
     if dev.type != "cuda":
         raise ValueError(f"sketch_step: unsupported device {dev}")
+    depth, _, size = check_sketch_pin(counts, pin, cur)
+    return launch_step(counts, pin, cur, plan_sketch_step(depth, size))
+
+
+def launch_step(counts: torch.Tensor, pin: torch.Tensor, cur: int,
+                plan: SketchPlan) -> torch.Tensor:
+    """K7 on the card by `plan` (sketch_step's own, or another form for a
+    test or a timing).  Raises if the launcher refuses the plan or a launch
+    fails; never runs another form."""
+    dev = counts.device
+    if dev.type != "cuda":
+        raise ValueError(f"launch_step: K7 runs on a CUDA device, not {dev}")
     depth, width, size = check_sketch_pin(counts, pin, cur)
     check_cuda(counts, "counts", dev)
     check_cuda(pin, "pin", dev)
+    if plan.form not in _FORM_CODES:
+        raise ValueError(f"sketch_step (K7): the launcher refuses {plan}: no such form")
     lib = native_build.load("sketch")
     out = torch.empty((2, size), dtype=torch.int32, device=dev)
-    row_est = torch.empty((depth, size), dtype=torch.int64, device=dev)
+    row_est = (torch.empty((depth, size), dtype=torch.int64, device=dev)
+               if plan.form == "pair" else None)
     with torch.cuda.device(dev):
-        rc = lib.guber_sketch_step(counts.data_ptr(), depth, width, pin.data_ptr(), size, cur,
-                                   out.data_ptr(), row_est.data_ptr(), stream_of(dev))
+        rc = lib.guber_sketch_step(
+            counts.data_ptr(), depth, width, pin.data_ptr(), size, cur, out.data_ptr(),
+            None if row_est is None else row_est.data_ptr(), _FORM_CODES[plan.form],
+            plan.threads, plan.shared_bytes, stream_of(dev))
+    if rc == -1:
+        raise ValueError(f"sketch_step (K7): the launcher refuses {plan} for depth {depth}, "
+                         f"size {size}")
     if rc != 0:
-        raise RuntimeError(f"sketch_step (K7) launch failed: cudaError {rc}")
+        raise RuntimeError(f"sketch_step (K7) launch failed ({plan}): cudaError {rc}")
     launches["sketch_step"] += 1
+    forms["sketch_step"][plan.form] += 1
     return out
 
 

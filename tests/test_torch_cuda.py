@@ -578,14 +578,38 @@ def _restore_record(rng, cap, n, size, now):
     return tk.pack_restore_host(rec)
 
 
-@pytest.mark.parametrize("n,size", [(0, 16), (16, 16), (100, 128), (4000, 4096), (4096, 4096)])
-def test_load_slots_kernel_bit_equal_to_plain(cuda, n, size):
-    """K5 against `load_slots_reference`: every state word bit-equal."""
-    rng = np.random.default_rng(n + size)
-    cap, now = 1 << 16, 1_760_000_000_000
-    words = _state_words(rng, cap, now)
-    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
-    rec = torch.from_numpy(_restore_record(rng, cap, n, size, now)).to(cuda)
+def _card_state(cap, seed, device):
+    """Random words for a large state, drawn on the card (a numpy state of
+    2^27 slots is slow to make); K5 does not read the state."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return tk.BucketState(*(torch.randint(-(2**31), 2**31, (cap,), generator=gen, device=device,
+                                          dtype=torch.int64).to(torch.int32)
+                            for _ in tk.BucketState._fields))
+
+
+@pytest.mark.parametrize("n,size,cap,slots", [
+    (0, 16, 1 << 16, "random"), (16, 16, 1 << 16, "random"), (100, 128, 1 << 16, "random"),
+    (4000, 4096, 1 << 16, "random"), (4096, 4096, 1 << 16, "random"),
+    (4096, 4096, 100_000_000, "random"), (4000, 4096, 100_000_000, "contiguous"),
+    (4096, 4096, 1 << 20, "contiguous"), (1000, 1024, (1 << 27) + 5, "random")])
+def test_load_slots_kernel_bit_equal_to_plain(cuda, n, size, cap, slots):
+    """K5 against `load_slots_reference`: every state word bit-equal, at
+    caps up to past 2^27 (random slots over a 6 GB state) and on
+    contiguous slots."""
+    rng = np.random.default_rng(n + size + cap)
+    now = 1_760_000_000_000
+    if cap <= 1 << 16:
+        words = _state_words(rng, cap, now)
+        kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    else:
+        kern = _card_state(cap, n + size, cuda)
+        plain = tk.BucketState(*(c.clone() for c in kern))
+    rec = _restore_record(rng, cap, n, size, now)
+    if slots == "contiguous":
+        start = int(rng.integers(0, cap - n + 1))
+        rec[0, :n] = np.arange(start, start + n, dtype=np.int32)
+    rec = torch.from_numpy(rec).to(cuda)
     fs.reset_launches()
     fs.load_slots(kern, rec)
     tk.load_slots_reference(plain, rec)
@@ -704,12 +728,20 @@ def _sketch_batch(rng, depth, width, n, now, layout):
     return pin
 
 
-@pytest.mark.parametrize("width,n", [(1 << 12, 1000), (1 << 20, 1000), (1 << 20, 8192)])
+# Batch sizes on both sides of the boundary of K7's plan at depth 4 (pins
+# of 64 | 128 | 256 lanes take the block form, 512 and up the pair form),
+# the daemon's and the zipf deployment's batches, at width 2^20 and the
+# widths around it.
+@pytest.mark.parametrize("width,n", [(1 << 12, 1000), (1 << 20, 1), (1 << 20, 100),
+                                     (1 << 20, 200), (1 << 20, 400), (1 << 20, 1000),
+                                     (1 << 20, 8192), (1 << 20, 12000), (1 << 24, 200),
+                                     (1 << 24, 400), (1 << 24, 1000), (1 << 24, 8192)])
 def test_sketch_step_kernel_bit_equal_to_plain(cuda, width, n):
     """K7 against `sketch_step_reference` on the card, planes and output
     word for word: zipf batches over planes of random counts (negative
     ones included, read at frac != 0: the floor division), a hot key of
-    4 x 2^30 hits on cells near 2^31 - 1, and an all-padding tail."""
+    4 x 2^30 hits on cells near 2^31 - 1, and an all-padding tail; every
+    call counted under the form its plan gives."""
     from gubernator_tpu_torch.ops import sketch as ps
 
     rng = np.random.default_rng(width + n)
@@ -719,7 +751,7 @@ def test_sketch_step_kernel_bit_equal_to_plain(cuda, width, n):
     kern = torch.from_numpy(planes).to(cuda)
     plain = kern.clone()
     fs.reset_launches()
-    steps = 0
+    steps, by_form = 0, {"block": 0, "pair": 0}
     for layout in ("zipf", "hot", "padding", "zipf"):
         for now in (41_250, 7_300, 9_999):
             cur = int(rng.integers(0, 2))
@@ -730,7 +762,60 @@ def test_sketch_step_kernel_bit_equal_to_plain(cuda, width, n):
             assert torch.equal(got, want), (layout, now)
             assert torch.equal(kern, plain), (layout, now)
             steps += 1
+            by_form[ps.plan_sketch_step(depth, pin.shape[1]).form] += 1
     assert fs.launches["sketch_step"] == steps
+    assert fs.forms["sketch_step"] == by_form
+
+
+@pytest.mark.parametrize("size", [64, 128, 256, 512, 1024])
+def test_sketch_step_every_form_bit_equal_to_plain(cuda, size):
+    """K7 in the form its plan gives and, beside a block-form plan, in the
+    pair form forced through `launch_step`, against the plain step: planes
+    and output word for word, each call counted under its form; at depth 1
+    the block form holds 1024 lanes."""
+    from gubernator_tpu_torch.ops import sketch as ps
+
+    for depth in (4, 1):
+        rng = np.random.default_rng(size + depth)
+        width = 1 << 20
+        planes = torch.from_numpy(
+            rng.integers(-(2**31), 2**31, (2, depth, width)).astype(np.int32)).to(cuda)
+        pin = _sketch_batch(rng, depth, width, size * 3 // 4, 7_300, "hot")
+        pin = torch.from_numpy(pin).to(cuda)
+        assert pin.shape[1] == size
+        plain = planes.clone()
+        want = ps.sketch_step_reference(plain, pin, 1)
+        plan = ps.plan_sketch_step(depth, size)
+        assert plan.form == ("block" if depth * size <= 1024 else "pair")
+        plans = [plan] + ([ps.PAIR_PLAN] if plan.form == "block" else [])
+        fs.reset_launches()
+        for p in plans:
+            kern = planes.clone()
+            got = ps.launch_step(kern, pin, 1, p)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), p
+            assert torch.equal(kern, plain), p
+        assert fs.forms["sketch_step"] == {"block": len(plans) - 1, "pair": 1}
+
+
+def test_sketch_step_refuses_a_plan_it_cannot_launch(cuda):
+    """A plan the launcher does not take raises and launches nothing: no
+    quiet fall back to another form."""
+    from gubernator_tpu_torch.ops import sketch as ps
+
+    counts = torch.zeros((2, 4, 1 << 12), dtype=torch.int32, device=cuda)
+    pin = torch.from_numpy(_sketch_batch(np.random.default_rng(3), 4, 1 << 12, 200, 5, "zipf"))
+    pin = pin.to(cuda)  # 256 lanes: a block-form size
+    good = ps.plan_sketch_step(4, pin.shape[1])
+    assert good.form == "block"
+    fs.reset_launches()
+    for bad in (good._replace(threads=good.threads // 2), good._replace(threads=2048),
+                good._replace(shared_bytes=good.shared_bytes + 8), good._replace(form="cluster"),
+                ps.SketchPlan("block", 1024, 16 * 4 * 1024), ps.PAIR_PLAN._replace(threads=128)):
+        with pytest.raises(ValueError, match="refuses"):
+            ps.launch_step(counts, pin, 0, bad)
+    assert fs.launches["sketch_step"] == 0 and sum(fs.forms["sketch_step"].values()) == 0
+    assert not counts.any()
 
 
 @pytest.mark.parametrize("depth,width", [(4, 1 << 20), (3, 1001)])
