@@ -139,22 +139,27 @@ column slices (K9), torch._foreach_copy_ into them (K10).
 
 A seventh path, the sharded path (parallel/sharded_engine.py, the
 reference's single-program sharded engine on one card), counts its
-launches from 0 too; K11 (the per-shard round), K12 (the per-shard
-collapsed chunk) and K13 (the sweep windows of every shard, one window
-and a group of 16 from the end of a pass) are held bit-equal to their
-plain versions first, at 8 shards x 2^16 and 4 x 2.5 x 10^7 with padding
-lanes, an empty shard and clears.  (a) Card against
+launches from 0 too; K11 (a batch's rounds of every shard in one
+launch, or one round), K12 (the per-shard collapsed chunk) and K13 (the
+sweep windows of every shard, one window and a group of 16 from the end
+of a pass) are held bit-equal to their plain versions first, at 8 shards
+x 2^16 and 4 x 2.5 x 10^7 with padding lanes, an empty shard and clears
+(K11 also over batches of 1, 2, 4 and 8 rounds with clears in every
+round, K12 at 64 to 4096 lanes a shard).  (a) Card against
 CPU at 8 shards x 2^16: a fill of 700,000 keys (evictions), zipf(1.1)
 columnar batches of 8192 (the flat K1 / K3) and get_rate_limits batches
-of 1000 (K11, K12), Gregorian minutes on 1 key in 7, sweeps (K13), and a
-store engine whose swept keys come back from the store (K5): answers and
-state words equal.  (b) The full size, BASELINE.json configs[3] (the
+of 1000 (K11, K12), Gregorian minutes on 1 key in 7, sweeps (K13), a
+store engine whose swept keys
+come back from the store (K5), and one of 2 slots a shard whose keys
+come back in rounds after the first (K11, K2 + K5, K11): answers, state
+words and stores equal.  (b) The full size, BASELINE.json configs[3] (the
 north star's v5e-4, one shard a chip): 4 shards x 2.5 x 10^7 slots,
 10^8 key ranks, half token half leaky, zipf(1.1) and spread batches of
 8192 through apply_columnar and of 1000 through V1Instance, each answered
 as a dense card engine of 10^8 slots answers it; decisions/s a route,
-the launches a route, the device's idle share; a save / load of the whole
-state (timed) and one K13 sweep pass.  (c) The daemon with
+the launches a route (and the rounds and K11 launches of each V1Instance
+batch), the device's idle share; a save / load of the whole state (timed)
+and one K13 sweep pass.  (c) The daemon with
 GUBER_DEVICE_COUNT=4 answers the h2 parity stream byte for byte as the
 same daemon on the CPU.
 
@@ -192,9 +197,12 @@ holds and timings of its forms.
 
     python3 chip_smoke.py [--tree DIR] --readings
 
-runs only K5's and K7's holds and timings (with K6's and K8's holds,
-which share their phases), for the turns of a parent / change comparison
-(parent, change, change, parent), and prints no result lines.
+runs only K11's and K12's holds and timings (K11 over batches of 1, 2,
+4 and 8 rounds at 4 x 2.5 x 10^7 and 8 x 2^16; K12 at 64, 512, 1024 and
+4096 lanes a shard) and sharded path (b)'s dataclass route
+(rounds, K11 / K12 launches and wall time a batch), for the turns of a
+parent / change comparison (parent, change, change, parent), and prints
+no result lines.
 
 The port imports nothing of JAX; neither does this script.
 """
@@ -4047,15 +4055,15 @@ def shard_clears(np, rng, cap: int, slots_of):
     return shard_clear_rows(out, cap)
 
 
-def k11_bound_ms(pin, rows, cap: int) -> float:
-    """Least time for one K11 launch: per shard the 8 B header, per lane
-    rows 1-15 of pin read (60 B) and pout written (20 B), per in-range
-    lane 12 state words read and written (96 B), 12 B per in-range
-    clear, at peak HBM."""
+def k11_bound_ms(pin, rows, cap: int, n_rounds: int = 1) -> float:
+    """Least time for one K11 launch of `n_rounds` rounds: per shard and
+    round the 8 B header, per lane rows 1-15 of pin read (60 B) and pout
+    written (20 B), per in-range lane 12 state words read and written
+    (96 B), 12 B per in-range clear, at peak HBM."""
     n_sh, _, width = pin.shape
     lanes = sum(n_in_range(p[1], cap) for p in pin)
     clears = sum(n_in_range(r, cap) for r in rows)
-    return (n_sh * (8 + width * 80) + lanes * 96 + clears * 12) / HBM_BYTES_PER_S * 1e3
+    return (n_sh * (8 * n_rounds + width * 80) + lanes * 96 + clears * 12) / HBM_BYTES_PER_S * 1e3
 
 
 def k12_bound_ms(pin, rows, cap: int) -> float:
@@ -4102,6 +4110,10 @@ def phase_shard_kernels(torch, np, rng, errs):
                 errs[name] = max(errs[name], err)
                 check(err == 0, f"{name} differs from its plain version: {n_sh} x {cap}, "
                       f"call {it}, err {err}")
+        # K11 over batches of 1, 2, 4 and 8 rounds with clears in every round
+        # and K12 at the readings' widths.
+        hold_k11_rounds(torch, np, rng, errs, kern, plain, n_sh, cap, 512 if n_sh == 4 else 128)
+        hold_k12_widths(torch, np, rng, errs, kern, plain, n_sh, cap)
         window = min(cap, 1 << 17)
         for start in sorted({0, cap - window}):
             got = expiry.shard_sweep_window(kern.meta, kern.hi2, kern.expire_lo, n_sh, NOW0,
@@ -4129,8 +4141,10 @@ def phase_shard_kernels(torch, np, rng, errs):
         errs["shard_sweep"] = max(errs["shard_sweep"], err)
         check(err == 0, f"K13 differs from its plain version on a group of {len(starts)} "
               f"windows: {n_sh} x {cap}, err {err}")
-        log(f"[shard kernels] {n_sh} x {cap}: K11 (4 rounds of 256 lanes a shard) and K12 (4 "
-            "chunks of 1024 lanes a shard, a hot key across tiles), with padding, an empty "
+        log(f"[shard kernels] {n_sh} x {cap}: K11 (4 one-round calls of 256 lanes a shard, "
+            f"then batches of {K11_READ_ROUNDS} rounds with clears in every round) and K12 (4 "
+            f"chunks of 1024 lanes a shard, a hot key across tiles, then {K12_READ_WIDTHS} "
+            "lanes a shard), with padding, an empty "
             f"shard and clears, and K13 (the first and the last window of {window} of every "
             f"shard, then a group of {len(starts)} from the cursor's end of a pass: the tail, "
             "the window before it, the wrap) bit-equal to their plain versions (tolerance: "
@@ -4154,9 +4168,13 @@ def phase_sharded_parity(torch, np, rng):
     slots), then batches of 8192 (zipf ranks over the keys: the flat K3)
     and of 1000 through get_rate_limits (spread: K11 with the clears;
     zipf: K12), Gregorian minutes on 1 key in 7, sweeps (K13) with new
-    keys onto the freed slots; and a store engine (write-through
-    MemoryStore) whose swept keys come back from the store (K2, K5, K11).
-    Answers and every state word equal.  Returns the card engines."""
+    keys onto the freed slots; a store engine
+    (write-through MemoryStore) whose swept keys come back from the store
+    (K2, K5, K11); and a store engine of 2 slots a shard whose keys come
+    back from the store in rounds after the first (K11, then K2 + K5, then
+    K11 again from that round).  Answers, every state word and the stores
+    equal.  Returns the card engines."""
+    from gubernator_tpu_torch.ops import fused_step as fs
     from gubernator_tpu_torch.store import MemoryStore
 
     n_sh, cap = SHARD_A
@@ -4219,9 +4237,51 @@ def phase_sharded_parity(torch, np, rng):
     log(f"[sharded a] store engine, {n_sh} x {cap}: 12 get_rate_limits batches of {BATCH} over "
         f"6000 keys, swept keys restored from the store ({scard.store.get_calls} store reads); "
         f"card = CPU, answers, state words and store items ({time.perf_counter() - t:.1f} s)")
+
+    # Restores in rounds after the first: 2 slots a shard for 64 keys, so a
+    # key evicted earlier in a batch comes back from the store later in it
+    # (K11 for the rounds before, K2 + K5, K11 again from that round).
+    rcard, rcpu = sharded_pair(2, n_sh, ns, store=MemoryStore)
+    seq: list = []
+    if hasattr(rcard, "_launch_packed"):  # a port with one K11 a restore segment
+        launch, restore = rcard._launch_packed, rcard._apply_shard_restores
+
+        def launched(*a, **kw):
+            seq.append("K11")
+            return launch(*a, **kw)
+
+        def restored(*a, **kw):
+            seq.append("K5")
+            return restore(*a, **kw)
+
+        rcard._launch_packed, rcard._apply_shard_restores = launched, restored
+    mid, k11_batches = 0, []
+    now = NOW0
+    for b in range(30):
+        n = int(rng.integers(8, 48))
+        reqs = cfg3_requests(np, rng.integers(0, int(rng.integers(16, 64)), n),
+                             rng.choice([0, 1, 1, 2], n))
+        seq.clear()
+        k0 = fs.launches["shard_step"]
+        got, want = rcard.get_rate_limits(reqs, now_ms=now), rcpu.get_rate_limits(reqs, now_ms=now)
+        check([(r.status, r.remaining, r.reset_time, r.error) for r in got]
+              == [(r.status, r.remaining, r.reset_time, r.error) for r in want],
+              f"[sharded a] restore batch {b}: answers differ")
+        k11_batches.append(fs.launches["shard_step"] - k0)
+        mid += sum(1 for i, e in enumerate(seq) if e == "K5" and "K11" in seq[:i])
+        now += int(rng.choice([0, 40, 400]))
+    check(shard_state_words(torch, np, rcard, rcpu), "[sharded a] restore engine state words")
+    check({k: vars(v) for k, v in rcard.store.data.items()}
+          == {k: vars(v) for k, v in rcpu.store.data.items()}, "[sharded a] restore stores differ")
+    check(mid > 0 or not hasattr(rcard, "_launch_packed"),
+          "[sharded a] no batch restored a key in a round after the first")
+    log(f"[sharded a] restore engine, {n_sh} x 2: 30 get_rate_limits batches over up to 64 keys, "
+        f"{mid} restores in a round after the first; K11 launches a batch {k11_batches}; card = "
+        "CPU, answers, state words and store items")
     cpu.close()
     scpu.close()
-    return [card, scard]
+    rcpu.close()
+    return [card, scard, rcard]
 
 
 def phase_sharded_full(torch, np, rng, card_name, tmp: Path):
@@ -4256,15 +4316,18 @@ def phase_sharded_full(torch, np, rng, card_name, tmp: Path):
     real = {"shard_step": se.shard_step, "shard_collapsed": se.shard_collapsed_step}
 
     def capture(name):
-        def call(state, pin, shard_cap, rows):
+        # (pin, rows, the offsets of a multi-round K11, keywords) a call
+        def call(state, pin, shard_cap, rows, *offsets, **kw):
             if len(captured[name]) < 16:
-                captured[name].append((pin.clone(), rows.clone()))
-            return real[name](state, pin, shard_cap, rows)
+                captured[name].append((pin.clone(), rows.clone(),
+                                       tuple(t.clone() for t in offsets), dict(kw)))
+            return real[name](state, pin, shard_cap, rows, *offsets, **kw)
         return call
 
     se.shard_step, se.shard_collapsed_step = capture("shard_step"), capture("shard_collapsed")
     walls = {"columnar": [], "dataclass": []}
     routes = {"columnar": {}, "dataclass": {}}
+    per_batch = []  # dataclass route: (rounds, K11 launches) a batch
     n_prof = 4  # the last batches run under the profiler, the sharded engine alone
     busy_us = window_us = 0.0
     try:
@@ -4282,13 +4345,16 @@ def phase_sharded_full(torch, np, rng, card_name, tmp: Path):
             out = []
             for route, call in (("columnar", lambda: sharded.apply_columnar(*cols, now_ms=now)),
                                 ("dataclass", lambda: inst.get_rate_limits(reqs))):
-                before = dict(fs.launches)
+                before, rounds0 = dict(fs.launches), sharded.rounds_total
                 t0 = time.perf_counter()
                 out.append(call())
                 walls[route].append(time.perf_counter() - t0)
                 for k, v in fs.launches.items():
                     if v > before[k]:
                         routes[route][k] = routes[route].get(k, 0) + v - before[k]
+                if route == "dataclass":
+                    per_batch.append((sharded.rounds_total - rounds0,
+                                      fs.launches["shard_step"] - before["shard_step"]))
             return out
 
         def check_batch(b, now, got):
@@ -4325,6 +4391,7 @@ def phase_sharded_full(torch, np, rng, card_name, tmp: Path):
         se.shard_step, se.shard_collapsed_step = real["shard_step"], real["shard_collapsed"]
     for route in ("columnar", "dataclass"):
         log(f"[sharded b] {route} route: launches {routes[route]}")
+    log(f"[sharded b] dataclass route, (rounds, K11 launches) a batch: {per_batch} | {card_name}")
     check(routes["columnar"].get("fused_step", 0) > 0 and routes["columnar"].get(
         "collapsed_step", 0) > 0, "[sharded b] the columnar route must launch K1 and K3")
     check(routes["dataclass"].get("shard_step", 0) > 0 and routes["dataclass"].get(
@@ -4464,27 +4531,30 @@ def phase_sharded_timing(torch, np, rng, card, captured):
              k12_bound_ms)):
         calls = captured[name]
         check(len(calls) > 0, f"[time] no {name} launch was captured")
-        pin, rows = sorted(calls, key=lambda c: c[0].shape[2])[len(calls) // 2]
+        pin, rows, offs, kw = sorted(calls, key=lambda c: c[0].shape[2])[len(calls) // 2]
+        n_rounds = offs[0].shape[0] - 1 if offs else 1
+
+        def plain_call(st, pin=pin, rows=rows, offs=offs, plain=plain):
+            if offs:  # a multi-round K11: the rounds, each after its clears
+                return tk.sharded_multi_fused_step_reference(st, pin, cap, *offs, rows)
+            tk.shard_clears_reference(st, rows, cap)
+            return plain(st, pin, cap)
+
         a, b = copy_state(state), copy_state(state)
-        got = kern(a, pin, cap, rows)
-        tk.shard_clears_reference(b, rows, cap)
-        want = plain(b, pin, cap)
+        got = kern(a, pin, cap, rows, *offs, **kw)
+        want = plain_call(b)
         torch.cuda.synchronize()
         check(torch.equal(got, want) and compare_states(torch, a, b) == 0,
               f"[time] {name} differs from its plain version on the path's input")
         del a, b
-        ms = device_ms(torch, lambda i: kern(state, pin, cap, rows), 200)
-
-        def plain_call(i, pin=pin, rows=rows, plain=plain):
-            tk.shard_clears_reference(state, rows, cap)
-            plain(state, pin, cap)
-
-        plain_ms = host_ms(torch, plain_call, 5, windows=3)
-        bnd = bound(pin.cpu().numpy(), rows.cpu().numpy(), cap)
+        ms = device_ms(torch, lambda i: kern(state, pin, cap, rows, *offs, **kw), 200)
+        plain_ms = host_ms(torch, lambda i: plain_call(state), 5, windows=3)
+        bnd = bound(pin.cpu().numpy(), rows.cpu().numpy(), cap, *((n_rounds,) if offs else ()))
         out[name] = (ms, plain_ms, bnd, None)
         log(f"[time] {name} on the path's median input ({n_sh} shards, {pin.shape[2]} lanes a "
-            f"shard, {rows.shape[1]} clear entries a shard): {ms * 1e3:.2f} us/launch, bound "
-            f"{bnd * 1e3:.4f} us (bytes), plain {plain_ms * 1e3:.1f} us | {card}")
+            f"shard in {n_rounds} round(s), {rows.shape[1]} clear entries a shard): "
+            f"{ms * 1e3:.2f} us/launch, bound {bnd * 1e3:.4f} us (bytes), plain "
+            f"{plain_ms * 1e3:.1f} us | {card}")
     window = 1 << 17
     plain_state = copy_state(state)
     got = expiry.shard_sweep_window(state.meta, state.hi2, state.expire_lo, n_sh, NOW0, 0, window)
@@ -4515,6 +4585,253 @@ def phase_sharded_timing(torch, np, rng, card, captured):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K11 over a batch's rounds and K12's forms: holds and readings.  Inputs are
+# built from one-round pieces (`pack_batch_host`, `shard_clear_rows`), which
+# every port with a sharded engine has, so a --tree parent runs the same
+# shapes its own way: one K11 launch a round.
+
+K11_READ_ROUNDS = (1, 2, 4, 8)
+K11_READ = ((4, 25_000_000, 512), (8, 1 << 16, 128))  # (shards, slots a shard, lanes a shard)
+K12_READ_WIDTHS = (64, 512, 1024, 4096)
+READ_BATCHES = 24  # path (b) dataclass batches a kind, after 2 warm-up batches
+
+
+def k11_takes_rounds() -> bool:
+    """The driven port's K11 takes a batch's rounds in one launch (a --tree
+    checkout from before takes one round a call)."""
+    import inspect
+
+    from gubernator_tpu_torch.ops.sharded_step import shard_step
+
+    return "round_off" in inspect.signature(shard_step).parameters
+
+
+def shard_round_pieces(np, rng, n_sh: int, cap: int, n_rounds: int, lanes: int, now: int, *,
+                       later_clears: bool, clears: bool = True, dense: bool = False):
+    """A dataclass batch's R rounds as one-round K11 inputs [(pin [n_sh, 16,
+    lanes], rows [n_sh, C])]: a shard's keys repeat in every round (round k
+    holds each key's k-th hit), shard 0 with `lanes` keys, the others up to
+    32 fewer (padding lanes); cfg3's configurations, hits 0 / 1 / 1 / 2;
+    round 0's clears 4 lane slots and 8 other slots a shard, the later
+    rounds' the same with `later_clears`, else none; no clears at all
+    without `clears`.  Slots are drawn from the whole shard, or with
+    `dense` from its first 2^15 (an engine's fresh tables hand out slots
+    from 0, so path (b)'s 80,000 keys sit in each shard's first ~20,000)."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops.sharded_step import shard_clear_rows
+
+    pool = min(cap, 1 << 15) if dense else cap
+    base = [np.sort(rng.choice(pool, lanes if sh == 0 else int(rng.integers(lanes - 32, lanes + 1)),
+                               replace=False)).astype(np.int32) for sh in range(n_sh)]
+    fields = [cfg3_fields(np, rng.integers(0, 10**6, len(b))) for b in base]
+    out = []
+    for r in range(n_rounds):
+        pins, clears = [], []
+        for sh, slots in enumerate(base):
+            algo, beh, limit, dur, burst = fields[sh]
+            hits = rng.choice([0, 1, 1, 2], len(slots)).astype(np.int64)
+            pins.append(tk.pack_batch_host(lanes, now, cap, slots, algo, beh, hits, limit, dur,
+                                           burst, np.where(beh == 4, 60_000, 0),
+                                           np.where(beh == 4, now + 30_000, 0)))
+            if clears and (r == 0 or later_clears):
+                own = rng.choice(slots, min(4, len(slots)), replace=False)
+                clears.append(sorted({int(x) for x in own} | {int(x) for x in rng.choice(cap, 8)}))
+            else:
+                clears.append([])
+        out.append((np.stack(pins), shard_clear_rows(clears, cap)))
+    return out
+
+
+def join_shard_rounds(np, pieces):
+    """One-round K11 inputs → one multi-round launch's: (pin [n_sh, 16,
+    L], clear_slots [n_sh, C], round_off, clear_off, widest)."""
+    widths = [p.shape[2] for p, _ in pieces]
+    round_off = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
+    clear_off = np.concatenate([[0], np.cumsum([c.shape[1] for _, c in pieces])]).astype(np.int32)
+    return (np.concatenate([p for p, _ in pieces], axis=2),
+            np.concatenate([c for _, c in pieces], axis=1), round_off, clear_off, max(widths))
+
+
+def k11_batch_runner(torch, np, pieces, cap: int, keep: bool = True):
+    """run(state): the rounds as the driven port runs a batch's, one K11
+    launch over all of them, or one a round; with `keep` it returns the
+    batch's pout [n_sh, 5, L] (the per-round outputs joined), without it
+    only the launches run (timings)."""
+    from gubernator_tpu_torch.ops.sharded_step import shard_step
+
+    if k11_takes_rounds():
+        pin, rows, ro, co, widest = join_shard_rounds(np, pieces)
+        dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (pin, rows, ro, co)]
+        return lambda st: shard_step(st, dev[0], cap, dev[1], dev[2], dev[3], widest=widest)
+    dev = [(torch.from_numpy(p).cuda(), torch.from_numpy(c).cuda()) for p, c in pieces]
+    if keep:
+        return lambda st: torch.cat([shard_step(st, p, cap, c) for p, c in dev], dim=2)
+    return lambda st: [shard_step(st, p, cap, c) for p, c in dev]
+
+
+def k11_batch_plain(torch, state, pieces, cap: int):
+    """The plain version of a batch's rounds: each round's clears, then the
+    round (`sharded_fused_step_reference`)."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+
+    outs = []
+    for p, c in pieces:
+        tk.shard_clears_reference(state, torch.from_numpy(c).cuda(), cap)
+        outs.append(tk.sharded_fused_step_reference(state, torch.from_numpy(p).cuda(), cap))
+    return torch.cat(outs, dim=2)
+
+
+def hold_k11_rounds(torch, np, rng, errs, state, plain, n_sh: int, cap: int, lanes: int,
+                    rounds=K11_READ_ROUNDS) -> None:
+    """K11 over batches of R rounds, clears in every round, against the
+    plain rounds: pout and all 12 columns bit-equal (`state` and `plain`
+    advance together)."""
+    for n_rounds in rounds:
+        pieces = shard_round_pieces(np, rng, n_sh, cap, n_rounds, lanes, NOW0 + n_rounds,
+                                    later_clears=True)
+        got = k11_batch_runner(torch, np, pieces, cap)(state)
+        want = k11_batch_plain(torch, plain, pieces, cap)
+        torch.cuda.synchronize()
+        err = max(int((got.long() - want.long()).abs().max().item()),
+                  compare_states(torch, state, plain))
+        errs["shard_step"] = max(errs["shard_step"], err)
+        check(err == 0, f"K11 over {n_rounds} rounds of {lanes} lanes a shard, {n_sh} x {cap}, "
+              f"differs from the plain rounds: err {err}")
+
+
+def hold_k12_widths(torch, np, rng, errs, state, plain, n_sh: int, cap: int,
+                    widths=K12_READ_WIDTHS) -> None:
+    """K12 on zipf chunks (a hot key over half of shard 0) with clears at
+    each width, against the plain version: pout and all 12 columns
+    bit-equal."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops.sharded_step import shard_collapsed_step
+
+    for width in widths:
+        pin_np, slots_of = sharded_pin(np, rng, n_sh, cap, width, NOW0 + width, collapsed=True)
+        rows_np = shard_clears(np, rng, cap, slots_of)
+        pin, rows = torch.from_numpy(pin_np).cuda(), torch.from_numpy(rows_np).cuda()
+        got = shard_collapsed_step(state, pin, cap, rows)
+        tk.shard_clears_reference(plain, rows, cap)
+        want = tk.sharded_collapsed_step_reference(plain, pin, cap)
+        torch.cuda.synchronize()
+        err = max(int((got.long() - want.long()).abs().max().item()),
+                  compare_states(torch, state, plain))
+        errs["shard_collapsed"] = max(errs["shard_collapsed"], err)
+        check(err == 0, f"K12 at {width} lanes a shard, {n_sh} x {cap}, differs from its plain "
+              f"version: err {err}")
+
+
+def read_k11_k12(torch, np, rng, card, errs) -> None:
+    """The device readings: K11 over batches of R = 1, 2, 4, 8 rounds
+    (one launch, or one a round on a port from before), over 4 shards of
+    2.5 x 10^7 at 512 lanes a shard and over 8 shards of 2^16 at 128, and
+    one round with no clears at half and all of those lanes, slots spread
+    over the shard and dense; K12 at 64, 512, 1024 and 4096 lanes a shard
+    over 4 shards of 2.5 x 10^7.
+    Each held against its plain version first; us a batch (CUDA events
+    behind the spin kernel, median of 7 windows of n batches, n small
+    enough that the host queues a window inside the spin) beside the bytes
+    bound."""
+    from gubernator_tpu_torch.ops.sharded_step import shard_collapsed_step
+
+    multi = k11_takes_rounds()
+    for n_sh, cap, lanes in K11_READ:
+        state = random_state(torch, n_sh * cap, NOW0, int(rng.integers(2**31)))
+        plain = copy_state(state)
+        hold_k11_rounds(torch, np, rng, errs, state, plain, n_sh, cap, lanes)
+        if n_sh == 4:
+            hold_k12_widths(torch, np, rng, errs, state, plain, n_sh, cap)
+        del plain
+        for n_rounds in K11_READ_ROUNDS:
+            pieces = shard_round_pieces(np, rng, n_sh, cap, n_rounds, lanes, NOW0,
+                                        later_clears=False)
+            run = k11_batch_runner(torch, np, pieces, cap, keep=False)
+            ms = device_ms(torch, lambda i: run(state), max(5, 40 // n_rounds))
+            pin, rows, *_ = join_shard_rounds(np, pieces)
+            bnd = k11_bound_ms(pin, rows, cap, n_rounds)
+            log(f"[readings] K11 R={n_rounds}, {n_sh} x {cap}, {lanes} lanes a shard a round: "
+                f"{ms * 1e3:.3f} us a batch ({1 if multi else n_rounds} launch(es)), bound "
+                f"{bnd * 1e3:.4f} us | {card}")
+        # One round with no clears, the shape of path (b)'s spread batches,
+        # 200 launches a window as the full run's timing phase takes them;
+        # slots over the whole shard, and dense as an engine's.
+        for dense, width in itertools.product((False, True), (lanes // 2, lanes)):
+            pieces = shard_round_pieces(np, rng, n_sh, cap, 1, width, NOW0, later_clears=False,
+                                        clears=False, dense=dense)
+            run = k11_batch_runner(torch, np, pieces, cap, keep=False)
+            ms = device_ms(torch, lambda i: run(state), 200)
+            pin, rows, *_ = join_shard_rounds(np, pieces)
+            log(f"[readings] K11 R=1 without clears, {n_sh} x {cap}, {width} lanes a shard, "
+                f"slots {'in the first 2^15' if dense else 'over the shard'}: {ms * 1e3:.3f} us "
+                f"a launch, bound {k11_bound_ms(pin, rows, cap) * 1e3:.4f} us | {card}")
+        for width in K12_READ_WIDTHS if n_sh == 4 else ():
+            pin_np, slots_of = sharded_pin(np, rng, n_sh, cap, width, NOW0, collapsed=True)
+            rows_np = shard_clears(np, rng, cap, slots_of)
+            pin, rows = torch.from_numpy(pin_np).cuda(), torch.from_numpy(rows_np).cuda()
+            bnd = k12_bound_ms(pin_np, rows_np, cap)
+            ms = device_ms(torch, lambda i: shard_collapsed_step(state, pin, cap, rows), 40)
+            log(f"[readings] K12 W={width}, {n_sh} x {cap}: {ms * 1e3:.3f} us a launch, bound "
+                f"{bnd * 1e3:.4f} us | {card}")
+        del state
+        torch.cuda.empty_cache()
+
+
+def read_path_b(torch, np, rng, card) -> None:
+    """Sharded path (b)'s dataclass route (V1Instance, 4 shards of 2.5 x
+    10^7, cfg3's keys and configurations): the full run's two kinds of
+    batches (zipf(1.1) with hits 1, which collapse; spread ranks with hits
+    0 / 1 / 1 / 2) and zipf batches with hits 0 / 1 / 1 / 2 (a hot key's
+    hits differ, so they do not collapse and run as rounds).  A batch's
+    rounds (the histogram), its K11 and K12 launches and its wall time,
+    READ_BATCHES batches of each kind after two warm-up batches."""
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.ops import fused_step as fs
+    from gubernator_tpu_torch.parallel.sharded_engine import ShardedDecisionEngine
+    from gubernator_tpu_torch.service import V1Instance
+
+    n_sh, cap = SHARD_B
+    t = time.perf_counter()
+    eng = ShardedDecisionEngine(cap, n_shards=n_sh, clock=Clock().freeze_at(NOW0 * 10**6))
+    inst = V1Instance(eng, ledger=False)
+    log(f"[readings] path (b): {n_sh} x {cap} engine built in {time.perf_counter() - t:.1f} s")
+    kinds = {
+        "zipf, hits 1 (collapses)": lambda: cfg3_requests(
+            np, cfg3_ranks(np, rng, BATCH, True), np.ones(BATCH, np.int64)),
+        "spread, hits 0-2": lambda: cfg3_requests(
+            np, cfg3_ranks(np, rng, BATCH, False), rng.choice([0, 1, 1, 2], BATCH)),
+        "zipf, hits 0-2 (rounds)": lambda: cfg3_requests(
+            np, cfg3_ranks(np, rng, BATCH, True), rng.choice([0, 1, 1, 2], BATCH)),
+    }
+    for kind, make in kinds.items():
+        rows = []
+        for b in range(2 + READ_BATCHES):
+            reqs = make()
+            eng.clock.advance(ms=50)
+            before, r0 = dict(fs.launches), eng.rounds_total
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inst.get_rate_limits(reqs)
+            wall = time.perf_counter() - t0
+            if b >= 2:
+                rows.append((eng.rounds_total - r0,
+                             fs.launches["shard_step"] - before["shard_step"],
+                             fs.launches["shard_collapsed"] - before["shard_collapsed"], wall))
+        hist = {}
+        for r, *_ in rows:
+            hist[r] = hist.get(r, 0) + 1
+        walls = sorted(w * 1e3 for *_, w in rows)
+        log(f"[readings] path (b) dataclass, {kind}: rounds a batch {dict(sorted(hist.items()))} "
+            f"(rounds: batches); K11 launches a batch {[k for _, k, _, _ in rows]}; K12 launches "
+            f"a batch {[k for _, _, k, _ in rows]}; wall a batch median "
+            f"{statistics.median(walls):.3f} ms (range {walls[0]:.3f}-{walls[-1]:.3f}) | {card}")
+    inst.close()
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+
+
 def sweep_counts(engines):
     """(windows swept, sweep launches) of a path's card engines: the
     launches are the groups (`sweep_groups_total`), or one a window on a
@@ -4535,18 +4852,12 @@ def check_grouped(windows: int, groups: int, path: str, multi: bool = True) -> N
 
 
 def readings(torch, np, rng, card, errs) -> int:
-    """`--readings`: K5 and K6 held at 2^20 and 10^8, K7 and K8 at widths
-    2^20 and 2^24 (K7 in every form on a port with plans), then K5's
-    timing and split at 10^8 and K7's and K8's timings.  Exits 0 with no
-    result lines."""
-    phase_persist_kernels(torch, np, rng, errs)
-    phase_sketch_kernels(torch, np, rng, errs)
-    state = random_state(torch, CAP_NORTH_STAR, NOW0, int(rng.integers(2**31)))
-    plain = copy_state(state)
-    time_k5(torch, np, rng, card, state, plain)
-    del state, plain
-    torch.cuda.empty_cache()
-    phase_sketch_timing(torch, np, rng, card)
+    """`--readings`: K11 over batches of 1, 2, 4 and 8 rounds and K12 at
+    four widths, each held against its plain version and timed
+    (`read_k11_k12`), then sharded path (b)'s dataclass route
+    (`read_path_b`).  Exits 0 with no result lines."""
+    read_k11_k12(torch, np, rng, card, errs)
+    read_path_b(torch, np, rng, card)
     log(f"[readings] done in {time.perf_counter() - T_START:.1f} s | {card}")
     return 0
 
@@ -4557,9 +4868,10 @@ def main() -> int:
     ap.add_argument("--tree", help="root of another checkout whose port to drive "
                     "(default: this script's own)")
     ap.add_argument("--readings", action="store_true",
-                    help="only K5's and K7's holds against their plain versions and their "
-                    "timings (the K5 split, K7 at three sizes and two widths, K7's forms), for "
-                    "the turns of a parent / change comparison; prints no result lines")
+                    help="only K11's and K12's holds against their plain versions and their "
+                    "timings (K11 over 1-8 rounds, K12 at four widths) and "
+                    "sharded path (b)'s dataclass route (rounds, launches and wall a batch), "
+                    "for the turns of a parent / change comparison; prints no result lines")
     args = ap.parse_args()
     if args.tree:
         TREE = Path(args.tree).resolve()

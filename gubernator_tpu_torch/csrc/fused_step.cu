@@ -22,7 +22,8 @@
 // broadcast to every lane, and the narrow 2-row output.  Its plain
 // version is `multi_uniform_step_reference`.  The two formats share the
 // lane math (csrc/lane_math.cuh, with K3) and the format structs (the
-// general one, `General`, in csrc/general_lane.cuh, with K11; `Uniform`
+// general one, `General`, in csrc/general_lane.cuh, whose header K11
+// reads too; `Uniform`
 // below);
 // each has a round loop of its own: K1 `rounds_kernel` (a cooperative
 // grid with a grid barrier between rounds), K4 `slot_range_kernel` (a

@@ -1,9 +1,10 @@
-// The general packed format's lane, shared by K1 (fused_step.cu
-// `rounds_kernel<General>`) and K11 (sharded_step.cu
-// `shard_step_kernel`): one lane's request read from its pin column,
+// The general packed format's lane, K1's (fused_step.cu
+// `rounds_kernel<General>`): one lane's request read from its pin column,
 // the slot's 12 words gathered, the bucket updated (csrc/lane_math.cuh),
 // the new words stored where the slot is in range, and the lane's 5
-// pout words written.
+// pout words written.  K11 (sharded_step.cu `shard_lane`) reads the
+// round header with `General::header` and runs the same steps in its own
+// order.
 
 #pragma once
 
@@ -25,21 +26,16 @@ struct General {
     return {combine(__ldg(pin + lo), __ldg(pin + lo + 1))};
   }
   // `req` is the lane's column of pin rows 1-15, `stride` words apart (a
-  // shared-memory tile in K1, the pin itself in K11).  `clear_meta`: the
-  // slot is also one of the launch's eviction clears, so its occupied
-  // bit is dropped from the gathered meta word before the update, as a
-  // clear just before the round would drop it.
+  // shared-memory tile in K1).
   static __device__ __forceinline__ void step(const Cols& st, long long cap, const Header& h,
                                               const int32_t* req, int stride, int lane,
-                                              int32_t* __restrict__ pout, size_t w,
-                                              bool clear_meta = false) {
+                                              int32_t* __restrict__ pout, size_t w) {
     auto row = [&](int r) { return req[(r - 1) * stride]; };
     auto row64 = [&](int hr, int lr) { return combine(row(hr), row(lr)); };
     const int32_t slot = row(1);
     const bool valid = slot >= 0 && (long long)slot < cap;
     int32_t g[kCols];
     gather(st, slot, valid, g);
-    if (clear_meta) g[kMeta] &= ~1;
     const Req q{row(2), row(3), row64(4, 5), row64(6, 7),
                 row64(8, 9), row64(10, 11), row64(12, 13), row64(14, 15)};
     Vals v;

@@ -1186,6 +1186,39 @@ def sharded_fused_step_reference(state: BucketState, pin: torch.Tensor,
     return torch.stack([fused_step_reference(st, pin[sh]) for sh, st in enumerate(shards)])
 
 
+def sharded_multi_fused_step_reference(state: BucketState, pin: torch.Tensor, shard_cap: int,
+                                       round_off: torch.Tensor, clear_off: torch.Tensor,
+                                       clear_slots: torch.Tensor) -> torch.Tensor:
+    """The plain multi-round per-shard step (kernel K11's plain version):
+    pin int32 [n_sh, 16, L] holds R rounds along the lanes, round r at
+    [round_off[r], round_off[r+1]) of every shard; for r in 0..R-1 the
+    shards' clears of round r (`clear_slots[:, clear_off[r]:clear_off[r+1]]`,
+    `shard_clears_reference`), then round r of every shard
+    (`sharded_fused_step_reference`), as the reference runs one
+    `jax.vmap(_clear_occupied_impl)` and one `jax.vmap(_fused_step_core)`
+    a round.  Returns pout int32 [n_sh, 5, L]; `state` updated IN PLACE."""
+    shards = shard_views(state, shard_cap)
+    check_shard_pin(pin, PACKED_IN_ROWS, len(shards))
+    for name, t in (("round_off", round_off), ("clear_off", clear_off)):
+        if t.dtype != _I32 or t.dim() != 1:
+            raise ValueError(f"{name} must be a 1-D int32 tensor")
+    ro, co = round_off.tolist(), clear_off.tolist()
+    width = pin.shape[2]
+    if len(ro) < 2 or len(co) != len(ro):
+        raise ValueError("round_off and clear_off must both be int32 [R+1], R >= 1")
+    if ro[0] != 0 or ro[-1] != width or any(b < a for a, b in zip(ro, ro[1:])):
+        raise ValueError("round_off must rise from 0 to the pin's width")
+    if co[0] != 0 or co[-1] > clear_slots.shape[1] or any(b < a for a, b in zip(co, co[1:])):
+        raise ValueError("clear_off must rise from 0 to at most the clear rows' width")
+    pout = torch.empty((len(shards), PACKED_OUT_ROWS, width), dtype=_I32, device=pin.device)
+    for r in range(len(ro) - 1):
+        shard_clears_reference(state, clear_slots[:, co[r] : co[r + 1]], shard_cap)
+        if ro[r + 1] > ro[r]:
+            pout[:, :, ro[r] : ro[r + 1]] = sharded_fused_step_reference(
+                state, pin[:, :, ro[r] : ro[r + 1]], shard_cap)
+    return pout
+
+
 def sharded_collapsed_step_reference(state: BucketState, pin: torch.Tensor,
                                      shard_cap: int) -> torch.Tensor:
     """The plain per-shard collapsed step: shard sh runs

@@ -210,8 +210,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.guber_sweep_windows.restype = i
     elif name == "sharded_step":
         ll = ctypes.c_longlong
-        # cols, shard_cap, n_sh, pin, width, clear_slots, n_clear, pout, stream
-        lib.guber_shard_step.argtypes = [ctypes.POINTER(p), ll, i, p, i, p, i, p, p]
+        # cols, shard_cap, n_sh, pin, width, round_off, n_rounds, clear_off,
+        # clear_slots, n_clear, widest, pout, stream
+        lib.guber_shard_step.argtypes = [ctypes.POINTER(p), ll, i, p, i, p, i, p, p, i, i, p, p]
         lib.guber_shard_step.restype = i
         # ..., n_clear, pub, pub_tiles, tiles_before, pout, stream
         lib.guber_shard_collapsed.argtypes = [ctypes.POINTER(p), ll, i, p, i, p, i, p, ll, ll,

@@ -12,21 +12,26 @@ stands for the reference mesh's size (:96-97).
 
 Device programs, as the reference's single-program engine runs them:
 
-* The dataclass path (`get_rate_limits`, :462-724): per-shard rounds,
-  one launch a round over every shard — kernel K11 (`ops.sharded_step
-  shard_step`, the reference's `jax.vmap(_fused_step_core)`), with the
-  round's eviction clears inside it.  A round that restores store items
-  runs its clears (K2) and restores (K5) over the flat columns first,
-  each shard's slots made global (`sh * shard_capacity + slot`), then
-  K11 with no clears.  A hot-key batch collapses per shard: one K12 launch
-  a chunk (`shard_collapsed_step`, `jax.vmap(collapsed_fused_one)`).
+* The dataclass path (`get_rate_limits`, :462-724): per-shard rounds
+  (the reference dispatches `jax.vmap(_fused_step_core)` once a round),
+  here every round and `max_kernel_width` chunk of a batch, every shard,
+  in ONE launch of kernel K11 (`ops.sharded_step shard_step`, packed by
+  `pack_shard_rounds`), each round's eviction clears inside it, and one
+  wait for the readback.  A round that restores store items runs its
+  clears (K2) and restores (K5) over the flat columns first, each
+  shard's slots made global (`sh * shard_capacity + slot`), after the
+  rounds before it were launched, and starts the next K11 launch: one
+  launch a restore segment.  A hot-key batch collapses per shard: one
+  K12 launch a chunk (`shard_collapsed_step`,
+  `jax.vmap(collapsed_fused_one)`).
 * The columnar path (`apply_columnar`, :936-1258): the whole host tier in
   one native call (`core.native.multi_schedule`), then, while the global
   slots fit in int32 (`_flat_ok`, :369), the flat executors (:379-412):
   the batch's slots made global and the whole batch run over the flat
   columns as one K1 launch a round (its clears inside) or one K3 launch
   a collapsed chunk, packed with the whole capacity, so padding lanes are
-  out of range everywhere.  Past int32, K11 / K12 per shard.
+  out of range everywhere.  Past int32, K11 per shard (every round and
+  chunk of a batch in one launch) / K12.
 * `sweep` (:727): K13 (`ops.expiry.shard_sweep_windows`) a group of up
   to 16 windows, each the same window of every shard; freed slots go back
   to the tables shard by shard in ascending order, window after window.
@@ -73,11 +78,9 @@ from gubernator_tpu_torch.gregorian import (
 from gubernator_tpu_torch.hashing import fnv1a_64, fnv1a_64_batch, pack_keys
 from gubernator_tpu_torch.ops.bucket_kernel import (
     COLLAPSED_IN_ROWS,
-    PACKED_IN_ROWS,
     BucketState,
     build_restore_record,
     make_state,
-    pack_batch_host,
     pack_collapsed_host,
     pack_restore_host,
     pack_rounds_host,
@@ -96,9 +99,13 @@ from gubernator_tpu_torch.ops.fused_step import (
     resolve_device,
 )
 from gubernator_tpu_torch.ops.sharded_step import (
+    MAX_LAUNCH_ROUNDS,
+    pack_shard_rounds,
     shard_clear_rows,
     shard_collapsed_step,
     shard_step,
+    split_shard_rounds,
+    unpack_shard_rounds,
 )
 from gubernator_tpu_torch.store import (
     LeakyBucketItem,
@@ -121,6 +128,37 @@ _RESET = int(Behavior.RESET_REMAINING)
 _LEAKY = int(Algorithm.LEAKY_BUCKET)
 _OVER_I = int(Status.OVER_LIMIT)
 _STATUS_OF = {int(st): st for st in Status}
+
+
+def _request_columns(reqs, idx, greg_dur, greg_exp, now_ms) -> tuple:
+    """The 8 request columns of dataclass requests `reqs` (batch positions
+    `idx`), algo … greg_expire, and each one's expiry (the TTL mirror's
+    and the store's)."""
+    n = len(reqs)
+    beh = np.fromiter((int(r.behavior) for r in reqs), dtype=_I32, count=n)
+    dur = np.fromiter((r.duration for r in reqs), dtype=_I64, count=n)
+    cols = (np.fromiter((int(r.algorithm) for r in reqs), dtype=_I32, count=n), beh,
+            np.fromiter((r.hits for r in reqs), dtype=_I64, count=n),
+            np.fromiter((r.limit for r in reqs), dtype=_I64, count=n), dur,
+            np.fromiter((r.burst for r in reqs), dtype=_I64, count=n),
+            greg_dur[idx], greg_exp[idx])
+    return cols, np.where((beh & _GREG) != 0, cols[7], now_ms + dur)
+
+
+class _RoundLanes:
+    """A K11 launch's readback read as its requests' answers: `fetch()`
+    gives int32 [5, n], request i's at (shard[i], lanes[i]) of the launch's
+    [n_sh, 5, L] output."""
+
+    __slots__ = ("ticket", "shard", "lanes")
+
+    def __init__(self, ticket, shard: np.ndarray, lanes: np.ndarray):
+        self.ticket = ticket
+        self.shard = shard
+        self.lanes = lanes
+
+    def fetch(self) -> np.ndarray:
+        return np.ascontiguousarray(self.ticket.fetch()[self.shard, :, self.lanes].T)
 
 
 class ShardedDecisionEngine:
@@ -283,7 +321,6 @@ class ShardedDecisionEngine:
                     restore_rounds.setdefault(k, [[] for _ in range(n_sh)])[sh].append(
                         (slot, item))
 
-        expire_of: Dict[int, int] = {}
         if (
             self.store is None
             and len(rounds) > 1
@@ -292,108 +329,107 @@ class ShardedDecisionEngine:
             )
         ):
             return
+        # The rounds in order, wide ones cut into chunks of max_kernel_width
+        # lanes a shard, all in one K11 launch (a launch a segment): a round
+        # that restores store items runs its clears (K2) and restores (K5)
+        # first, after the rounds before it were launched, and starts the
+        # next segment (the reference's order, :592).
+        empty: List[list] = [[] for _ in range(n_sh)]
+        segment: List[tuple] = []  # (members a shard, clears a shard or None) a round
+        launched: List[tuple] = []
         for k in sorted(set(rounds) | set(clear_rounds)):
-            members = rounds.get(k, [[] for _ in range(n_sh)])
-            clears = clear_rounds.get(k, [[] for _ in range(n_sh)])
+            members = rounds.get(k, empty)
+            clears = clear_rounds.get(k)
             restores = restore_rounds.get(k)
-            # Wide rounds are cut into chunks of max_kernel_width lanes.
+            if restores is not None and any(restores):
+                if segment:
+                    launched.append(self._launch_rounds(segment, requests, greg_dur, greg_exp,
+                                                        now_ms))
+                    segment = []
+                self._apply_shard_clears(clears or empty)
+                self._apply_shard_restores(restores)
+                clears = None
             offset = 0
             while True:
                 chunk = [m[offset : offset + self.max_kernel_width] for m in members]
                 if not any(chunk) and offset > 0:
                     break
-                self._run_round(
-                    chunk, clears if offset == 0 else [[] for _ in range(n_sh)],
-                    greg_dur, greg_exp, now_ms, requests, responses,
-                    restores=restores if offset == 0 else None, expire_of=expire_of,
-                )
+                segment.append((chunk, clears if offset == 0 else None))
                 self.rounds_total += 1
+                if len(segment) == MAX_LAUNCH_ROUNDS:
+                    launched.append(self._launch_rounds(segment, requests, greg_dur, greg_exp,
+                                                        now_ms))
+                    segment = []
                 offset += self.max_kernel_width
                 if all(offset >= len(m) for m in members):
                     break
+        if segment:
+            launched.append(self._launch_rounds(segment, requests, greg_dur, greg_exp, now_ms))
 
+        # One wait for every launch's readback; then the answers, and the
+        # host TTL mirror shard by shard in round order (a later round's
+        # expiry wins).
+        over = 0
+        for ticket, idx, shard, lanes, limit, _slot, _exp in launched:
+            st, rem, rst = unpack_shard_rounds(ticket.fetch(), shard, lanes)
+            over += int(np.count_nonzero(st == _OVER_I))
+            for j, i in enumerate(idx.tolist()):
+                responses[i] = RateLimitResp(status=_STATUS_OF[int(st[j])], limit=int(limit[j]),
+                                             remaining=int(rem[j]), reset_time=int(rst[j]))
+        self.over_limit_total += over
+        shard = np.concatenate([x[2] for x in launched])
+        slot = np.concatenate([x[5] for x in launched])
+        exp = np.concatenate([x[6] for x in launched])
+        for sh in range(n_sh):
+            mine = shard == sh
+            if mine.any():
+                self.tables[sh].set_expiry(slot[mine].astype(_I32), exp[mine])
         if self.store is not None:
+            expire_of = dict(zip(np.concatenate([x[1] for x in launched]).tolist(),
+                                 exp.tolist()))
             write_through_store(self.store, requests, valid, greg_dur, now_ms, responses,
                                 expire_of)
 
-    def _run_round(self, members, clears, greg_dur, greg_exp, now_ms, requests, responses,
-                   restores=None, expire_of=None) -> None:
-        """One round of every shard as one K11 launch (reference :592): a
-        [n_sh, 16, width] buffer, each shard's lanes sorted by slot and
-        padded with `shard_capacity + lane`; the round's clears ride in the
-        launch, unless store items restore into it (clears K2, restores K5,
-        then K11 with no clears, the reference's order)."""
+    def _launch_rounds(self, segment, requests, greg_dur, greg_exp, now_ms) -> tuple:
+        """One K11 launch over a segment's rounds of every shard (reference
+        :592 a round): the requests' columns built once, packed by
+        `pack_shard_rounds` into one buffer, staged in one copy, launched,
+        and its readback started.  Returns (ticket, request indices,
+        shards, lanes, limits, slots, expiries), the requests in round
+        order."""
         n_sh = self.n_shards
-        cap = self.shard_capacity
-        width = pad_size(max((len(m) for m in members), default=1))
-        if restores is not None and any(restores):
-            self._apply_shard_clears(clears)
-            self._apply_shard_restores(restores)
-            clears = [[] for _ in range(n_sh)]
-        buf = np.zeros((n_sh, PACKED_IN_ROWS, width), dtype=_I32)
-        order_of: List[np.ndarray] = []
-        limits_of: List[np.ndarray] = []
-        host_expire: List[Tuple[List[int], List[int]]] = [([], []) for _ in range(n_sh)]
-        empty64 = np.empty(0, dtype=_I64)
-        for sh in range(n_sh):
-            m = len(members[sh])
-            if m == 0:
-                buf[sh] = pack_batch_host(width, now_ms, cap, np.empty(0, dtype=_I32),
-                                          *(empty64,) * 8)
-                order_of.append(np.empty(0, dtype=np.int64))
-                limits_of.append(empty64)
-                continue
-            reqs = [requests[i] for i, _ in members[sh]]
-            c_slot = np.fromiter((s for _, s in members[sh]), dtype=_I32, count=m)
-            idx = np.fromiter((i for i, _ in members[sh]), dtype=_I64, count=m)
-            c_beh = np.fromiter((int(r.behavior) for r in reqs), dtype=_I32, count=m)
-            c_dur = np.fromiter((r.duration for r in reqs), dtype=_I64, count=m)
-            c_limit = np.fromiter((r.limit for r in reqs), dtype=_I64, count=m)
-            cols = (np.fromiter((int(r.algorithm) for r in reqs), dtype=_I32, count=m), c_beh,
-                    np.fromiter((r.hits for r in reqs), dtype=_I64, count=m), c_limit, c_dur,
-                    np.fromiter((r.burst for r in reqs), dtype=_I64, count=m),
-                    greg_dur[idx], greg_exp[idx])
-            exp = np.where((c_beh & _GREG) != 0, greg_exp[idx], now_ms + c_dur)
-            host_expire[sh] = (c_slot, exp)
-            if expire_of is not None:
-                expire_of.update(zip(idx.tolist(), exp.tolist()))
-            sort_idx = np.argsort(c_slot, kind="stable")
-            buf[sh] = pack_batch_host(width, now_ms, cap,
-                                      np.ascontiguousarray(c_slot[sort_idx]),
-                                      *(c[sort_idx] for c in cols))
-            order_of.append(sort_idx)
-            limits_of.append(c_limit)
+        idx_l: List[int] = []
+        slot_l: List[int] = []
+        counts = np.zeros((len(segment), n_sh), dtype=np.int64)
+        for r, (chunk, _clears) in enumerate(segment):
+            for sh, m in enumerate(chunk):
+                counts[r, sh] = len(m)
+                idx_l.extend(i for i, _ in m)
+                slot_l.extend(s for _, s in m)
+        idx = np.asarray(idx_l, dtype=_I64)
+        slot = np.asarray(slot_l, dtype=_I64)
+        rnd = np.repeat(np.arange(len(segment)), counts.sum(axis=1))
+        shard = np.repeat(np.tile(np.arange(n_sh), len(segment)), counts.ravel())
+        cols, exp = _request_columns([requests[i] for i in idx_l], idx, greg_dur, greg_exp,
+                                     now_ms)
+        ticket, lanes = self._launch_packed(now_ms, rnd, shard, slot, cols,
+                                            [c for _, c in segment])
+        return ticket, idx, shard, lanes, cols[3], slot, exp
 
-        rows = shard_clear_rows(clears, cap)
-        flat = self._stage(np.concatenate([buf.ravel(), rows.ravel()]))
-        pout = shard_step(self._state, flat[: buf.size].view(buf.shape), cap,
-                          flat[buf.size :].view(rows.shape))
+    def _launch_packed(self, now_ms, rnd, shard, slot, cols, clears) -> tuple:
+        """Pack (`pack_shard_rounds`), stage and launch one K11 over
+        len(clears) rounds of every shard; returns (its readback ticket, the
+        lane of each request)."""
+        n_sh = self.n_shards
+        n_rounds = len(clears)
+        packed = pack_shard_rounds(now_ms, self.shard_capacity, n_sh, n_rounds, rnd, shard, slot,
+                                   cols, clears)
+        pin, round_off, clear_off, clear_slots = split_shard_rounds(
+            self._stage(packed.buf), n_sh, packed.pin.shape[2], n_rounds)
+        pout = shard_step(self._state, pin, self.shard_capacity, clear_slots, round_off,
+                          clear_off, widest=packed.widest)
         self.dispatches_total += 1
-
-        arr = self.readback.register(pout).fetch()
-        for sh in range(n_sh):
-            mm = len(members[sh])
-            if mm == 0:
-                continue
-            o_status, o_rem, o_reset = unpack_out_host(arr[sh], mm)
-            sort_idx = order_of[sh]
-            c_limit = limits_of[sh]
-            over = 0
-            for pos in range(mm):
-                sj = int(sort_idx[pos])
-                i = members[sh][sj][0]
-                st = int(o_status[pos])
-                if st == _OVER_I:
-                    over += 1
-                responses[i] = RateLimitResp(
-                    status=_STATUS_OF[st], limit=int(c_limit[sj]), remaining=int(o_rem[pos]),
-                    reset_time=int(o_reset[pos]),
-                )
-            self.over_limit_total += over
-        for sh, (e_slots, e_exps) in enumerate(host_expire):
-            if len(e_slots):
-                self.tables[sh].set_expiry(np.asarray(e_slots, dtype=_I32),
-                                           np.asarray(e_exps, dtype=_I64))
+        return self.readback.register(pout), packed.lanes
 
     def sweep(self, now_ms: Optional[int] = None, max_windows: Optional[int] = None) -> int:
         """Reclaim the slots of expired buckets on every shard; returns how
@@ -528,14 +564,15 @@ class ShardedDecisionEngine:
             )
         if pieces is None:
             pieces = []
+            chunks: List[tuple] = []
             for k in range(max_round + 1):
                 members = [shard_idx[sh][shard_rounds[sh] == k] for sh in range(n_sh)]
                 m_slots = [shard_slots[sh][shard_rounds[sh] == k] for sh in range(n_sh)]
                 if not any(len(m) for m in members) and k not in clear_by_round:
                     continue
-                self._dispatch_round(members, m_slots, clear_by_round.get(k), pieces, algo,
-                                     behavior, hits, limit, duration, burst, greg_dur,
-                                     greg_exp, now_ms, presorted=False, flat=False)
+                chunks += self._round_chunks(members, m_slots, clear_by_round.get(k))
+            self._dispatch_shard_rounds(chunks, pieces, algo, behavior, hits, limit, duration,
+                                        burst, greg_dur, greg_exp, now_ms)
         # TTL mirror, per shard.
         for sh in range(n_sh):
             if len(shard_idx[sh]):
@@ -580,6 +617,8 @@ class ShardedDecisionEngine:
                 return PendingColumnar(self, pieces, limit, n)
 
         pieces = []
+        chunks: List[tuple] = []
+        cols = (algo, behavior, hits, limit, duration, burst, greg_dur, greg_exp)
         for k in range(max_round + 1):
             if max_round == 0:
                 members = segs
@@ -588,86 +627,79 @@ class ShardedDecisionEngine:
                 members = [seg[rounds[seg] == k] for seg in segs]
             if not any(len(m) for m in members) and k not in clear_by_round:
                 continue
-            self._dispatch_round(members, [seg_slots[m] for m in members], clear_by_round.get(k),
-                                 pieces, algo, behavior, hits, limit, duration, burst, greg_dur,
-                                 greg_exp, now_ms, presorted=True, flat=flat)
+            for chunk in self._round_chunks(members, [seg_slots[m] for m in members],
+                                            clear_by_round.get(k)):
+                if flat:
+                    piece = self._dispatch_flat_chunk(*chunk, cols, now_ms)
+                    if piece is not None:
+                        pieces.append(piece)
+                else:
+                    chunks.append(chunk)
+        if not flat:
+            self._dispatch_shard_rounds(chunks, pieces, *cols, now_ms)
         return PendingColumnar(self, pieces, limit, n)
 
-    def _dispatch_round(self, members, m_slots, clears, pieces, *cols, presorted, flat) -> None:
-        """One round of a columnar batch, cut into chunks of at most
-        max_kernel_width lanes a shard, its clears in the first chunk's
-        launch (reference :1222-1257)."""
+    def _round_chunks(self, members, m_slots, clears) -> List[tuple]:
+        """One round of a columnar batch cut into chunks of at most
+        max_kernel_width lanes a shard, each (request indices a shard, slots
+        a shard, clears a shard or None), its clears in the first
+        (reference :1222-1257); each chunk counts as a round."""
+        out = []
         offset = 0
         while True:
             chunk_members = [m[offset : offset + self.max_kernel_width] for m in members]
-            chunk_slots = [s[offset : offset + self.max_kernel_width] for s in m_slots]
             if offset > 0 and not any(len(m) for m in chunk_members):
                 break
-            piece = self._dispatch_sorted_chunk(
-                chunk_members, chunk_slots, *cols, presorted=presorted, flat=flat,
-                clears=clears if offset == 0 else None,
-            )
-            if piece is not None:
-                pieces.append(piece)
+            out.append((chunk_members,
+                        [s[offset : offset + self.max_kernel_width] for s in m_slots],
+                        clears if offset == 0 else None))
             self.rounds_total += 1
             offset += self.max_kernel_width
             if all(offset >= len(m) for m in members):
                 break
+        return out
 
-    def _dispatch_sorted_chunk(self, members, m_slots, algo, behavior, hits, limit, duration,
-                               burst, greg_dur, greg_exp, now_ms, presorted=False, flat=False,
-                               clears=None):
-        """Pack one chunk, launch it and start its readback (reference
-        :1544); returns a PendingColumnar piece, or None for a chunk with
-        no lane.  flat: `members` is one pseudo-shard of global slots, run
-        as one K1 round over the flat columns with `clears` (per-shard
-        lists) made global; otherwise one K11 launch over [n_sh, 16,
-        width], each shard packed with its own capacity and its clears in
-        its row."""
-        cols = (algo, behavior, hits, limit, duration, burst, greg_dur, greg_exp)
-        sorted_members = []
-        for m, s in zip(members, m_slots):
-            if presorted or len(m) == 0:
-                sorted_members.append((m, s))
-            else:
-                o = np.argsort(s, kind="stable")
-                sorted_members.append((m[o], s[o]))
-        if flat:
-            idx, slots = sorted_members[0]
-            g = self._global(clears) if clears is not None else np.zeros(0, dtype=_I32)
-            if len(idx) == 0:
-                if len(g):
-                    self._apply_shard_clears(clears)
-                return None
-            packed = pack_rounds_host(now_ms, self.capacity, [len(idx)],
-                                      np.ascontiguousarray(slots, dtype=_I32),
-                                      [c[idx] for c in cols], [g])
-            dev = self._stage(packed.buf)
-            pout = multi_fused_step(self._state, *split_rounds(dev, packed.pin.shape[1], 1),
-                                    widest=packed.widest)
-            self.dispatches_total += 1
-            return (self.readback.register(pout), idx, packed.lanes, unpack_out_host)
-
-        n_sh = self.n_shards
-        cap = self.shard_capacity
-        width = pad_size(max((len(m) for m, _ in sorted_members), default=1))
-        buf = np.zeros((n_sh, PACKED_IN_ROWS, width), dtype=_I32)
-        empty = np.empty(0, dtype=_I64)
-        for sh, (idx, slots) in enumerate(sorted_members):
-            if len(idx) == 0:
-                buf[sh] = pack_batch_host(width, now_ms, cap, np.empty(0, dtype=_I32),
-                                          *(empty,) * 8)
-            else:
-                buf[sh] = pack_batch_host(width, now_ms, cap,
-                                          np.ascontiguousarray(slots, dtype=_I32),
-                                          *(c[idx] for c in cols))
-        rows = shard_clear_rows(clears if clears is not None else [[]] * n_sh, cap)
-        dev = self._stage(np.concatenate([buf.ravel(), rows.ravel()]))
-        pout = shard_step(self._state, dev[: buf.size].view(buf.shape), cap,
-                          dev[buf.size :].view(rows.shape))
+    def _dispatch_flat_chunk(self, members, m_slots, clears, cols, now_ms):
+        """One chunk of global slots (`members` one pseudo-shard, slot
+        order) as one K1 round over the flat columns, with `clears` (per
+        shard lists) made global (reference :1544); returns a
+        PendingColumnar piece, or None for a chunk with no lane."""
+        idx, slots = members[0], m_slots[0]
+        g = self._global(clears) if clears is not None else np.zeros(0, dtype=_I32)
+        if len(idx) == 0:
+            if len(g):
+                self._apply_shard_clears(clears)
+            return None
+        packed = pack_rounds_host(now_ms, self.capacity, [len(idx)],
+                                  np.ascontiguousarray(slots, dtype=_I32),
+                                  [c[idx] for c in cols], [g])
+        dev = self._stage(packed.buf)
+        pout = multi_fused_step(self._state, *split_rounds(dev, packed.pin.shape[1], 1),
+                                widest=packed.widest)
         self.dispatches_total += 1
-        return (self.readback.register(pout), [m for m, _ in sorted_members],
-                [len(m) for m, _ in sorted_members], unpack_out_host)
+        return (self.readback.register(pout), idx, packed.lanes, unpack_out_host)
+
+    def _dispatch_shard_rounds(self, chunks, pieces, algo, behavior, hits, limit, duration,
+                               burst, greg_dur, greg_exp, now_ms) -> None:
+        """Every chunk of a columnar batch, every shard, as one K11 launch
+        (the per-shard path, past int32; a launch a MAX_LAUNCH_ROUNDS
+        chunks), its readback started; adds a PendingColumnar piece a
+        launch."""
+        n_sh = self.n_shards
+        for lo in range(0, len(chunks), MAX_LAUNCH_ROUNDS):
+            group = chunks[lo : lo + MAX_LAUNCH_ROUNDS]
+            idx = np.concatenate([m for members, _s, _c in group for m in members]).astype(_I64)
+            slot = np.concatenate([s for _m, slots, _c in group for s in slots])
+            counts = np.asarray([[len(m) for m in members] for members, _s, _c in group],
+                                dtype=np.int64)
+            rnd = np.repeat(np.arange(len(group)), counts.sum(axis=1))
+            shard = np.repeat(np.tile(np.arange(n_sh), len(group)), counts.ravel())
+            cols = tuple(c[idx] for c in (algo, behavior, hits, limit, duration, burst,
+                                          greg_dur, greg_exp))
+            ticket, lanes = self._launch_packed(now_ms, rnd, shard, slot, cols,
+                                                [c for _m, _s, c in group])
+            pieces.append((_RoundLanes(ticket, shard, lanes), idx, np.arange(len(idx)),
+                           unpack_out_host))
 
     # ------------------------------------------------------------------
     # Hot keys: the per-shard collapse (reference :1260-1511).
@@ -679,18 +711,11 @@ class ShardedDecisionEngine:
         if any(k > 0 for k in clear_rounds):
             return False
         n_sh = self.n_shards
-        nv = len(valid)
         pos_of = {i: j for j, i in enumerate(valid)}
-        reqs = [requests[i] for i in valid]
-        vidx = np.asarray(valid, dtype=np.int64)
-        c_beh = np.fromiter((int(r.behavior) for r in reqs), dtype=_I32, count=nv)
-        c_dur = np.fromiter((r.duration for r in reqs), dtype=_I64, count=nv)
-        c_limit = np.fromiter((r.limit for r in reqs), dtype=_I64, count=nv)
-        cols = (np.fromiter((int(r.algorithm) for r in reqs), dtype=_I32, count=nv), c_beh,
-                np.fromiter((r.hits for r in reqs), dtype=_I64, count=nv), c_limit, c_dur,
-                np.fromiter((r.burst for r in reqs), dtype=_I64, count=nv),
-                greg_dur[vidx], greg_exp[vidx])
-        expire = np.where((c_beh & _GREG) != 0, cols[7], now_ms + c_dur)
+        cols, expire = _request_columns([requests[i] for i in valid],
+                                        np.asarray(valid, dtype=np.int64), greg_dur, greg_exp,
+                                        now_ms)
+        c_limit = cols[3]
 
         # Per-shard (column positions, slots) in arrival order.
         shard_idx: List[np.ndarray] = []

@@ -1182,6 +1182,63 @@ def test_shard_collapsed_kernel_bit_equal_to_plain(cuda, n_sh):
     assert fs.launches["shard_collapsed"] == 6
 
 
+def _shard_rounds(rng, n_sh, cap, n_rounds, now, width=300):
+    """A batch's rounds for one K11 launch (`pack_shard_rounds`): up to
+    `width` lanes a shard a round, an empty shard in some rounds, three
+    slots of shard 0 in every round, clears of lane slots and of other
+    slots in the rounds after the first (one shard with none)."""
+    from gubernator_tpu_torch.ops.sharded_step import pack_shard_rounds
+
+    hot = rng.choice(cap, 3, replace=False)
+    rnd, shard, slot, clears = [], [], [], []
+    for r in range(n_rounds):
+        per_round = []
+        for sh in range(n_sh):
+            m = 0 if (r + sh) % 4 == 3 else int(rng.integers(1, width))
+            s = set(rng.choice(cap, m, replace=False).tolist())
+            if sh == 0:
+                s |= set(hot.tolist())
+            s = sorted(s)
+            rnd += [r] * len(s)
+            shard += [sh] * len(s)
+            slot += s
+            own = [int(x) for x in rng.choice(s, min(3, len(s)), replace=False)] if s else []
+            other = [int(x) for x in rng.choice(cap, 5, replace=False)]
+            per_round.append([] if sh == 1 or r == 0 else sorted(set(own) | set(other)))
+        clears.append(per_round)
+    cols = _rand_cols(rng, len(rnd), now)
+    return pack_shard_rounds(now, cap, n_sh, n_rounds, rnd, shard, slot, cols, clears)
+
+
+@pytest.mark.parametrize("n_rounds", [1, 3, 8])
+@pytest.mark.parametrize("n_sh", [1, 4, 8])
+def test_shard_rounds_kernel_bit_equal_to_plain(cuda, n_sh, n_rounds):
+    """K11 over R rounds in one launch against
+    `sharded_multi_fused_step_reference`: slots recurring in every round,
+    clears in rounds after the first (of slots that a later round's lanes
+    use too), padding lanes and empty shards; pout and all 12 columns,
+    one launch a call."""
+    from gubernator_tpu_torch.ops.sharded_step import shard_step, split_shard_rounds
+
+    rng = np.random.default_rng(140 + 10 * n_sh + n_rounds)
+    cap, now = 1 << 12, 1_760_000_000_000
+    words = _state_words(rng, n_sh * cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    for it in range(4):
+        now += int(rng.integers(0, 300))
+        packed = _shard_rounds(rng, n_sh, cap, n_rounds, now)
+        pin, ro, co, rows = split_shard_rounds(torch.from_numpy(packed.buf).to(cuda), n_sh,
+                                               packed.pin.shape[2], n_rounds)
+        got = shard_step(kern, pin, cap, rows, ro, co, widest=packed.widest)
+        want = tk.sharded_multi_fused_step_reference(plain, pin, cap, ro, co, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), it
+        for name, a, b in zip(tk.BucketState._fields, kern, plain):
+            assert torch.equal(a, b), (it, name)
+    assert fs.launches["shard_step"] == 4
+
+
 @pytest.mark.parametrize("n_sh,cap,start,window", [(1, 1 << 17, 0, 1 << 17),
                                                    (4, 300_000, 300_000 - 131_072, 131_072),
                                                    (8, 5000, 1234, 777)])
