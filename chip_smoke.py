@@ -4,15 +4,19 @@
     python3 chip_smoke.py
 
 Builds the port's native code from gubernator_tpu_torch/csrc (the CUDA
-kernels K1-K13 and the host libraries, one compiler each, in
+kernels K1-K16 and the host libraries, one compiler each, in
 parallel), holds each kernel against its plain PyTorch version on the
 card at 2^20 and 10^8 slots (K1 over one round and over R ragged rounds
 with eviction clears; K3, the collapsed hot-key step, on a zipf batch, a
 one-key batch, the extreme-value batch, chunks with clears of segment
 slots and of other slots, and a mostly-padding chunk; K4, the uniform
 format, over 1, R and 16 ragged rounds with clears and a round that one
-block's slot range holds whole; K2; K5, the restore, on 16..4096-lane
-records with padding and extreme values; K6, the expiry sweep, on one
+block's slot range holds whole; K2 alone, and K2 then K5 as a
+restoring round launches them (clears {16, 1000} x records {16, 4096},
+half the clears on slots the record restores, clears alone and records
+alone); K5, the restore, on 16..4096-lane records with padding and
+extreme values; K14, K15 and K16, the split arm's compute and scatter
+kernels, on mixed batches of 1000 and zipf chunks of 8192; K6, the expiry sweep, on one
 16-window tick and, at 10^8, a full pass ending in a clamped window,
 with expiries at now - 1, now and now + 1 whose low words have bit 31
 set; K7, the count-min sketch's step, and K8, its window rotation, at
@@ -38,7 +42,7 @@ A second path, the persistence and expiry path, is driven the same way,
 card against CPU: `get_rate_limits` with a write-through MemoryStore on
 the mixed stream at 2^20 slots and on a 4096-slot variant whose evicted
 keys come back from the store at rounds k > 0 (clear, restore, apply:
-K2, K5, K1); a checkpoint saved through NpzFileLoader and loaded into a
+K2, K5, K1; one K5 and at most one K2 a restoring round is checked); a checkpoint saved through NpzFileLoader and loaded into a
 fresh card engine that continues as the engine that never stopped; a
 sweep (K6) with new keys onto the freed slots; and the daemon with a
 loader, a store and a 0.2 s sweep interval over HTTP, closed and
@@ -163,6 +167,17 @@ and one K13 sweep pass.  (c) The daemon with
 GUBER_DEVICE_COUNT=4 answers the h2 parity stream byte for byte as the
 same daemon on the CPU.
 
+An eighth path, the split path (GUBER_FUSED=split, the reference's A/B
+control), counts its launches from 0 too: a split engine on the card and
+one on the CPU answer the mixed (2^20 slots), evict (4096), zipf (2^24,
+batches of 8192: K16), store (4096 slots with a MemoryStore: restores)
+and paged (pages of 64, 32 frames, 65,536 keys) streams, answers, state
+words, stores and page tables equal; every launch is a round's clear
+launch, K14, K15 or K16 (or K2 + K5, K9, K10), at least two a round.
+After the count the card's fused engine answers the same streams with the
+same answers and words, and the split and fused engines' decisions/s and
+launches a round on the mixed stream are printed.
+
 It checks the launch counts of the main path (K1, K3 and K4 all launched; K1
 at most once per synchronous batch; the pump flushed), holds the zipf
 stream's collapsed pins to K3's layout (`check_collapsed`), and times
@@ -195,14 +210,19 @@ K10 or the sharded engine skips the persistence, the sketch, the h2, the
 ledger, the paged or the sharded phases; one without K7's plan skips the
 holds and timings of its forms.
 
-    python3 chip_smoke.py [--tree DIR] --readings
+    python3 chip_smoke.py [--tree DIR] --readings [k2k5|k11]
 
-runs only K11's and K12's holds and timings (K11 over batches of 1, 2,
-4 and 8 rounds at 4 x 2.5 x 10^7 and 8 x 2^16; K12 at 64, 512, 1024 and
-4096 lanes a shard) and sharded path (b)'s dataclass route
-(rounds, K11 / K12 launches and wall time a batch), for the turns of a
-parent / change comparison (parent, change, change, parent), and prints
-no result lines.
+runs only the readings of a parent / change comparison (turns parent,
+change, change, parent), and prints no result lines.  k2k5 (the
+default): a restoring round's clears and restores held against clear
+then restore and timed as the driven port runs them (K2 then K5) at
+clears {16, 1000} x records {16, 4096}, clears alone {16, 1000} and
+records alone {16, 4096}, at caps 2^20 and 10^8; K1 (R = 1, W 1024 and 8192) and K3
+(one-key and spread zipf chunks) timed; and the walls of the
+persistence path's restoring batches and of the sharded restore stream.
+k11: K11's and K12's holds and timings (K11 over batches of 1, 2, 4 and
+8 rounds at 4 x 2.5 x 10^7 and 8 x 2^16; K12 at 64, 512, 1024 and 4096
+lanes a shard) and sharded path (b)'s dataclass route.
 
 The port imports nothing of JAX; neither does this script.
 """
@@ -737,6 +757,9 @@ def phase_kernels(torch, np, rng, errs):
 
 
 def phase_k2(torch, np, rng, errs):
+    """K2 alone (clears of width 16 / 128 / 1024 on the meta column), then
+    K2 then K5 as a restoring round launches them (`hold_clear_restore`),
+    at 2^20 and 10^8 slots."""
     from gubernator_tpu_torch.ops import bucket_kernel as tk
     from gubernator_tpu_torch.ops import fused_step as fs
 
@@ -760,6 +783,12 @@ def phase_k2(torch, np, rng, errs):
         torch.cuda.empty_cache()
         log(f"[k2] cap {cap}: clears of width 16/128/1024 bit-equal to the plain clear "
             "(tolerance: exact)")
+        if "load_slots" in fs.launches:
+            kern = random_state(torch, cap, NOW0, int(rng.integers(2**31)))
+            plain = copy_state(kern)
+            hold_clear_restore(torch, np, rng, errs, kern, plain, cap)
+            del kern, plain
+            torch.cuda.empty_cache()
 
 
 def stream_columns(np, rng, keys_pool, hot, n, *, greg_share=0.05):
@@ -1534,11 +1563,15 @@ def phase_persist_kernels(torch, np, rng, errs):
 class StoreTrace:
     """Counts, on a card engine, the restores of a slot that was cleared
     just before them in a batch whose earlier rounds were already
-    submitted: the clear → restore → apply order at a round k > 0."""
+    submitted (the clear → restore → apply order at a round k > 0), and
+    the (K2, K5) launches each restoring round made (`per_round`)."""
 
     def __init__(self, eng):
-        self.events, self.hits = [], 0
+        from gubernator_tpu_torch.ops import fused_step as fs
+
+        self.events, self.hits, self.per_round = [], 0, []
         submit, clears, restores = eng._pump.submit, eng._apply_clears, eng._apply_restores
+        mark = [0]
 
         def on_submit(packed):
             self.events.append(("submit", set()))
@@ -1546,14 +1579,18 @@ class StoreTrace:
 
         def on_clears(c):
             self.events.append(("clear", {int(x) for x in c}))
+            mark[0] = k2_k5(fs)
             clears(c)
 
         def on_restores(r):
             ev = self.events[-2:]
             if [e[0] for e in ev] == ["submit", "clear"] and ev[1][1] & {s for s, _ in r}:
                 self.hits += 1
+            start = mark[0] if self.events and self.events[-1][0] == "clear" else k2_k5(fs)
             self.events.append(("restore", set()))
             restores(r)
+            end = k2_k5(fs)
+            self.per_round.append((end[0] - start[0], end[1] - start[1]))
 
         eng._pump.submit, eng._apply_clears, eng._apply_restores = on_submit, on_clears, on_restores
 
@@ -1609,10 +1646,14 @@ def store_stream(torch, np, rng, cap, batches, tag):
     same_engines(np, gpu, cpu, tag, slots=True)
     check(gpu.store.data == cpu.store.data, f"[{tag}] the stores differ card vs CPU")
     check(gpu.table.evictions == cpu.table.evictions, f"[{tag}] eviction counts differ")
+    by_n = {n: trace.per_round.count(n) for n in sorted(set(trace.per_round))}
     log(f"[{tag}] {len(batches)} get_rate_limits batches of {len(batches[0][0])} with a store "
         f"(cap {cap}, {gpu.table.evictions} evictions, {gpu.store.get_calls} store reads, "
-        f"{trace.hits} restores onto a slot cleared in the same later round): answers, "
-        f"state words and stores ({len(gpu.store.data)} items) bit-equal card vs CPU")
+        f"{trace.hits} restores onto a slot cleared in the same later round; restoring rounds "
+        f"by (K2, K5) launches {by_n}): answers, state words and stores "
+        f"({len(gpu.store.data)} items) bit-equal card vs CPU")
+    check(set(trace.per_round) <= {(0, 1), (1, 1)}, f"[{tag}] restoring rounds by (K2, K5) "
+          f"launches {by_n}: each must launch one K5 and at most one K2")
     return gpu, cpu, trace
 
 
@@ -3474,13 +3515,16 @@ def pcie_bound_ms(k: int, ks: int, page: int, rates: tuple) -> float:
 
 
 @contextlib.contextmanager
-def paged_env(page: int, frames: int):
-    """GUBER_PAGED=1 with these knobs while engines are built (an engine
-    reads them at construction), the environment as it was afterwards."""
-    names = ("GUBER_PAGED", "GUBER_PAGE_SIZE", "GUBER_PAGED_RESIDENT")
-    old = {k: os.environ.get(k) for k in names}
-    os.environ.update(GUBER_PAGED="1", GUBER_PAGE_SIZE=str(page),
-                      GUBER_PAGED_RESIDENT=str(frames))
+def engine_env(**values):
+    """These GUBER_* variables (None: unset) while engines are built (an
+    engine reads them at construction), the environment as it was
+    afterwards."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -3489,6 +3533,12 @@ def paged_env(page: int, frames: int):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def paged_env(page: int, frames: int):
+    """GUBER_PAGED=1 with these knobs while engines are built."""
+    return engine_env(GUBER_PAGED="1", GUBER_PAGE_SIZE=str(page),
+                      GUBER_PAGED_RESIDENT=str(frames))
 
 
 def paged_keys(np, idx):
@@ -4243,6 +4293,7 @@ def phase_sharded_parity(torch, np, rng):
     # (K11 for the rounds before, K2 + K5, K11 again from that round).
     rcard, rcpu = sharded_pair(2, n_sh, ns, store=MemoryStore)
     seq: list = []
+    seq_total = [0]
     if hasattr(rcard, "_launch_packed"):  # a port with one K11 a restore segment
         launch, restore = rcard._launch_packed, rcard._apply_shard_restores
 
@@ -4256,11 +4307,13 @@ def phase_sharded_parity(torch, np, rng):
 
         rcard._launch_packed, rcard._apply_shard_restores = launched, restored
     mid, k11_batches = 0, []
+    k2k5 = k2_k5(fs)
     now = NOW0
     for b in range(30):
         n = int(rng.integers(8, 48))
         reqs = cfg3_requests(np, rng.integers(0, int(rng.integers(16, 64)), n),
                              rng.choice([0, 1, 1, 2], n))
+        seq_total[0] += seq.count("K5")
         seq.clear()
         k0 = fs.launches["shard_step"]
         got, want = rcard.get_rate_limits(reqs, now_ms=now), rcpu.get_rate_limits(reqs, now_ms=now)
@@ -4275,9 +4328,15 @@ def phase_sharded_parity(torch, np, rng):
           == {k: vars(v) for k, v in rcpu.store.data.items()}, "[sharded a] restore stores differ")
     check(mid > 0 or not hasattr(rcard, "_launch_packed"),
           "[sharded a] no batch restored a key in a round after the first")
+    k2k5 = tuple(b - a for a, b in zip(k2k5, k2_k5(fs)))
+    n_restoring = seq_total[0] + seq.count("K5")
+    check(k2k5[1] == n_restoring and k2k5[0] <= n_restoring,
+          f"[sharded a] (K2, K5) launches {k2k5} for {n_restoring} restoring rounds: each must "
+          "launch one K5 and at most one K2")
     log(f"[sharded a] restore engine, {n_sh} x 2: 30 get_rate_limits batches over up to 64 keys, "
-        f"{mid} restores in a round after the first; K11 launches a batch {k11_batches}; card = "
-        "CPU, answers, state words and store items")
+        f"{mid} restores in a round after the first, {n_restoring} restoring rounds in "
+        f"{k2k5[0]} K2 and {k2k5[1]} K5 launches; K11 launches a batch {k11_batches}; card = CPU, "
+        "answers, state words and store items")
     cpu.close()
     scpu.close()
     rcpu.close()
@@ -4832,6 +4891,554 @@ def read_path_b(torch, np, rng, card) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# A restoring round's K2 then K5, and the split arm (K14-K16)
+
+
+def has_split() -> bool:
+    """Whether the driven port has the split arm (K14-K16, GUBER_FUSED)."""
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    return hasattr(fs, "split_launches")
+
+
+def restore_launches(fs) -> int:
+    """K2 and K5 launches so far."""
+    return sum(k2_k5(fs))
+
+
+def k2_k5(fs) -> tuple:
+    """(K2 launches, K5 launches) so far."""
+    return fs.launches["clear_occupied"], fs.launches["load_slots"]
+
+
+# A restoring round's readings: (cap, clears, records); records 0 is clears alone,
+# clears 0 records alone.
+CR_READINGS = ([(cap, c, r) for cap in (CAP_SERVE, CAP_NORTH_STAR) for c in (16, 1000)
+                for r in (16, 4096)]
+               + [(cap, c, 0) for cap in (CAP_SERVE, CAP_NORTH_STAR) for c in (16, 1000)]
+               + [(cap, 0, r) for cap in (CAP_SERVE, CAP_NORTH_STAR) for r in (16, 4096)])
+
+
+def clear_restore_case(np, rng, cap: int, n_clear: int, n_rec: int, now: int):
+    """A restoring round's clears and record: `n_rec` records on random
+    slots (padded as `build_restore_record` pads them) and `n_clear`
+    unique clears, half of them (at most every record) slots the record
+    restores, as evictions whose slot a restored key takes.  Returns
+    (clears int64 [n_clear], record int32 [19, size] or None)."""
+    from gubernator_tpu_torch.ops.bucket_kernel import pad_size
+
+    rec = None
+    restored = np.zeros(0, np.int64)
+    if n_rec:
+        rec = restore_record(np, rng, cap, pad_size(n_rec, floor=16), now, n=n_rec)
+        restored = rec[0, :n_rec].astype(np.int64)
+    k = min(n_clear // 2, len(restored)) if n_rec else 0
+    other = rng.choice(cap, 2 * n_clear + 64, replace=False)
+    other = other[~np.isin(other, restored)][: n_clear - k]
+    clears = np.concatenate([rng.choice(restored, k, replace=False), other]).astype(np.int64)
+    rng.shuffle(clears)
+    return clears, rec
+
+
+def clear_restore_runner(torch, np, cap: int, clears, rec):
+    """The driven port's launches for one restoring round, each input
+    staged once: K2 over the clears padded as the engine pads them, then
+    K5 over the record.  Returns a function of the state."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    c = np.arange(cap, cap + tk.pad_size(len(clears), floor=16), dtype=np.int64)
+    c[: len(clears)] = clears
+    cd = torch.from_numpy(c.astype(np.int32)).cuda()
+    rd = torch.from_numpy(rec).cuda() if rec is not None else None
+
+    def pair(state):
+        if len(clears):
+            fs.clear_occupied(state.meta, cd)
+        if rd is not None:
+            fs.load_slots(state, rd)
+
+    return pair
+
+
+def clear_restore_plain(torch, np, state, clears, rec) -> None:
+    """The plain version: the clear at every slot, then the restore."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+
+    tk.clear_occupied_reference(state.meta, torch.from_numpy(
+        np.unique(clears).astype(np.int32)).cuda())
+    if rec is not None:
+        tk.load_slots_reference(state, torch.from_numpy(rec).cuda())
+
+
+def k2k5_bound_ms(np, clears, rec, cap: int) -> float:
+    """Least time for a restoring round's clears and restores: 12 B a
+    clear that the record does not overwrite (its slot read, one meta word
+    read and written) and K5's bytes (`k5_bound_ms`)."""
+    restored = rec[0].astype(np.int64) if rec is not None else np.zeros(0, np.int64)
+    n = int((~np.isin(np.unique(clears), restored)).sum())
+    return n * 12 / HBM_BYTES_PER_S * 1e3 + (k5_bound_ms(rec, cap) if rec is not None else 0.0)
+
+
+def hold_clear_restore(torch, np, rng, errs, kern, plain, cap: int) -> None:
+    """K2 then K5 against the plain clear then restore at every reading of
+    `cap` (the clears half on restored slots), every state word."""
+    for c_cap, n_clear, n_rec in CR_READINGS:
+        if c_cap != cap:
+            continue
+        for _ in range(2):
+            clears, rec = clear_restore_case(np, rng, cap, n_clear, n_rec, NOW0)
+            clear_restore_runner(torch, np, cap, clears, rec)(kern)
+            clear_restore_plain(torch, np, plain, clears, rec)
+            torch.cuda.synchronize()
+            err = compare_states(torch, kern, plain)
+            for name in ("clear_occupied",) * (n_clear > 0) + ("load_slots",) * (n_rec > 0):
+                errs[name] = max(errs[name], err)
+            check(err == 0, f"K2 then K5 differ from the plain clear then restore: cap {cap}, "
+                  f"{n_clear} clears, {n_rec} records, err {err}")
+    log(f"[k2+k5] cap {cap}: clears {{16, 1000}} x records {{16, 4096}} (half the clears on "
+        "restored slots), clears alone {16, 1000} and records alone {16, 4096}, K2 then K5, "
+        "bit-equal to clear then restore (tolerance: exact)")
+
+
+def time_clear_restore(torch, np, rng, card) -> dict:
+    """Each restoring-round reading timed as the driven port runs it (K2
+    then K5 in one timed sequence), 16 cases a reading behind the spin
+    kernel, on a random state, beside its bytes bound."""
+    out = {}
+    for cap in (CAP_SERVE, CAP_NORTH_STAR):
+        state = random_state(torch, cap, NOW0, int(rng.integers(2**31)))
+        for c_cap, n_clear, n_rec in CR_READINGS:
+            if c_cap != cap:
+                continue
+            cases = [clear_restore_case(np, rng, cap, n_clear, n_rec, NOW0) for _ in range(16)]
+            runs = [clear_restore_runner(torch, np, cap, c, r) for c, r in cases]
+            runs[0](state)
+            ms = device_ms(torch, lambda i: runs[i % 16](state), 160)
+            bound = statistics.median(k2k5_bound_ms(np, c, r, cap) for c, r in cases)
+            key = f"{n_clear} clears, {n_rec} records, cap " + (
+                "2^20" if cap == CAP_SERVE else "10^8")
+            out[key] = (ms, bound)
+        del state
+        torch.cuda.empty_cache()
+    log(f"[time] restoring round (K2 then K5), us a round (bytes bound): " + "; ".join(
+        f"{k} {v[0] * 1e3:.3f} ({v[1] * 1e3:.4f})" for k, v in out.items()) + f" | {card}")
+    return out
+
+
+WALL_REPLAYS = 3  # replays of each restore stream in `store_walls`
+
+
+def store_walls(torch, np, rng, card) -> dict:
+    """The restore streams' walls: the wall time of a get_rate_limits
+    batch with restores on the persistence path's evicting store engine
+    (4096 slots, 24 batches of 1000; the batches with a restoring round),
+    and of a batch of the sharded restore stream (8 shards of 2 slots, 30
+    batches, keys back from the store in later rounds), each after 2
+    untimed batches.  Each stream is replayed WALL_REPLAYS times on fresh
+    engines (the same batches and clock steps), a batch's wall is its
+    least over the replays (host hiccups drop out), and a stream's reading
+    is the median over its batches.  Also the K2 / K5 launches a restoring
+    round, and the wall inside the restore calls a restoring round (the
+    host and launch work the change touches, with a synchronisation)."""
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.ops import fused_step as fs
+    from gubernator_tpu_torch.store import MemoryStore
+
+    ns = NOW0 * 1_000_000
+    small = [b"api_e%d" % i for i in range(3 * 4096)]
+    hot = [b"api_hot%d" % i for i in range(50)]
+    dense = [(as_requests(*stream_columns(np, rng, small, hot, BATCH)),
+              int(rng.integers(0, 2_000))) for _ in range(26)]
+    sharded = []
+    for _ in range(32):
+        n = int(rng.integers(8, 48))
+        sharded.append((cfg3_requests(np, rng.integers(0, int(rng.integers(16, 64)), n),
+                                      rng.choice([0, 1, 1, 2], n)), int(rng.choice([0, 40, 400]))))
+
+    def replay(make, method, batches, dataclass_now):
+        eng = make()
+        real = getattr(eng, method)
+        inside = []
+
+        def counted(r):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            real(r)
+            torch.cuda.synchronize()
+            inside.append(time.perf_counter() - t)
+
+        setattr(eng, method, counted)
+        walls, per_round, in_round = [], [], []
+        now = NOW0
+        for b, (reqs, dt) in enumerate(batches):
+            inside.clear()
+            l0 = restore_launches(fs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if dataclass_now:
+                eng.get_rate_limits(reqs, now_ms=now)
+                now += dt
+            else:
+                eng.get_rate_limits(reqs)
+                eng.clock.advance(ms=dt)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t, bool(inside)) if b >= 2 else None)
+            if b >= 2 and inside:
+                per_round.append((restore_launches(fs) - l0) / len(inside))
+                in_round.extend(inside)
+        eng.close()
+        return walls, per_round, in_round
+
+    def reading(make, method, batches, dataclass_now, only_restoring):
+        runs = [replay(make, method, batches, dataclass_now) for _ in range(WALL_REPLAYS)]
+        walls = [min(r[0][b][0] for r in runs) for b in range(2, len(batches))
+                 if runs[0][0][b][1] or not only_restoring]
+        check(len(walls) > 0, "[walls] no batch of the stream restored an item")
+        per_round = [x for r in runs for x in r[1]]
+        in_round = [x for r in runs for x in r[2]]
+        return (statistics.median(walls), min(walls), max(walls), len(walls),
+                statistics.mean(per_round) if per_round else 0.0,
+                statistics.median(in_round) if in_round else 0.0)
+
+    out = {
+        "persist": reading(lambda: DecisionEngine(4096, clock=Clock().freeze_at(ns), device="cuda",
+                                                  store=MemoryStore()),
+                           "_apply_restores", dense, False, True),
+        "sharded": reading(lambda: sharded_pair(2, SHARD_A[0], ns, store=MemoryStore)[0],
+                           "_apply_shard_restores", sharded, True, False),
+    }
+    for k, v in out.items():
+        log(f"[walls] {k} restore stream: {v[0] * 1e3:.3f} ms a batch median ({v[1] * 1e3:.3f}"
+            f"-{v[2] * 1e3:.3f}) over {v[3]} batches, each its least of {WALL_REPLAYS} replays; "
+            f"{v[4]:.2f} K2 / K5 launches a restoring round; {v[5] * 1e6:.1f} us inside the "
+            f"restore call a restoring round (median) | {card}")
+    return out
+
+
+def split_bound_ms(np, kind: str, pin, cap: int) -> float:
+    """Least time for one K14, K15 or K16 launch (bytes): K14 per lane 60 B
+    of pin, 20 B of pout and 48 B of words, per in-range lane 48 B of state
+    read, and the 8 B header; K15 per lane its 4 B slot, per in-range lane
+    48 B of words read and 48 B of state written; K16 the 8 B header, per
+    lane 8 B of rows 17-18 and 20 B of pout, per in-range segment 64 B of
+    pin, 48 B of state read and 48 B of words written."""
+    w = pin.shape[1]
+    slot = pin[1].astype(np.int64)
+    n = int(((slot >= 0) & (slot < cap)).sum())
+    if kind == "k14":
+        b = 8 + w * (60 + 20 + 48) + n * 48
+    elif kind == "k15":
+        b = w * 4 + n * 96
+    else:
+        b = 8 + w * 28 + n * (64 + 96)
+    return b / HBM_BYTES_PER_S * 1e3
+
+
+def phase_split_kernels(torch, np, rng, errs):
+    """K14, K15 and K16 against their plain versions on the card at caps
+    2^20 and 10^8, on K1's inputs (mixed batches of 1000 in pins of 1024)
+    and K3's (zipf chunks of 8192): pout, the words of every in-range lane
+    or segment, the state untouched by K14 / K16, and every state word
+    after K15."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import split_step as ss
+
+    def hold(name, got, want, what):
+        torch.cuda.synchronize()
+        err = 0 if torch.equal(got, want) else int((got.long() - want.long()).abs().max().item())
+        errs[name] = max(errs[name], err)
+        check(err == 0, f"{name} differs from its plain version: {what} err {err}")
+
+    for cap in (CAP_SERVE, CAP_NORTH_STAR):
+        kern = random_state(torch, cap, NOW0, int(rng.integers(2**31)))
+        plain = copy_state(kern)
+        now = NOW0
+        for kind in ("k1", "k1", "k1", "k3", "k3"):
+            now += int(rng.integers(0, 3_000))
+            if kind == "k1":
+                host = random_pin(np, rng, cap, 1024, BATCH, now)
+                pin = torch.from_numpy(host).cuda()
+                slot, w, pout = ss.packed_compute(kern, pin)
+                pslot, pw, ppout = tk.packed_compute_reference(plain, pin)
+                name = "packed_compute"
+            else:
+                host, _clears = collapsed_case(np, rng, cap, "zipf", now)
+                pin = torch.from_numpy(host).cuda()
+                slot, w, pout = ss.collapsed_compute(kern, pin)
+                pslot, pw, ppout = tk.collapsed_compute_reference(plain, pin)
+                name = "collapsed_compute"
+            live = torch.from_numpy((host[1] >= 0) & (host[1].astype(np.int64) < cap)).cuda()
+            hold(name, pout, ppout, f"cap {cap} {kind} pout")
+            hold(name, w[:, live], pw[:, live], f"cap {cap} {kind} words")
+            torch.cuda.synchronize()
+            err = compare_states(torch, kern, plain)
+            check(err == 0, f"{name} wrote the state at cap {cap}")
+            ss.scatter_store(kern, slot, w)
+            tk.scatter_store_reference(plain, pslot, pw)
+            torch.cuda.synchronize()
+            err = compare_states(torch, kern, plain)
+            errs["scatter_store"] = max(errs["scatter_store"], err)
+            check(err == 0, f"scatter_store differs from its plain version at cap {cap}: err {err}")
+        log(f"[k14-k16] cap {cap}: K14 on 3 mixed batches of {BATCH} (W 1024) and K16 on 2 zipf "
+            f"chunks of {ZIPF_BATCH}, each then K15: pout, in-range words and every state word "
+            "bit-equal to the plain versions (tolerance: exact)")
+        del kern, plain
+        torch.cuda.empty_cache()
+
+
+# The split path's streams: (tag, cap, batches of (keys, cols), entry,
+# store, paging (page, frames) or None).
+SPLIT_PAGED = (64, 32)  # pages of 64, 32 frames: 2048 rows over 65,536 keys
+
+
+def split_streams(np, rng):
+    pool = [b"api_k%d" % i for i in range(200_000)]
+    hot = [b"api_hot%d" % i for i in range(50)]
+    small = [b"api_e%d" % i for i in range(3 * 4096)]
+    perm = rng.permutation(1 << 16)
+
+    def paged_batch(b):  # spread and zipf batches in turn: pages fault in and out
+        idx = paged_zipf(np, rng, perm, BATCH) if b % 2 else rng.integers(0, len(perm), BATCH)
+        return [b"pg_%d" % i for i in idx.tolist()], paged_cols(np, idx)
+
+    return [
+        ("mixed", CAP_SERVE, [stream_columns(np, rng, pool, hot, BATCH) for _ in range(8)],
+         "both", False, None),
+        ("evict", 4096, [stream_columns(np, rng, small, hot, BATCH) for _ in range(6)],
+         "both", False, None),
+        ("zipf", ZIPF_CAP, [zipf_columns(np, rng) for _ in range(3)], "columnar", False, None),
+        ("store", 4096, [stream_columns(np, rng, small, hot, BATCH) for _ in range(8)],
+         "dataclass", True, None),
+        ("paged", 1 << 16, [paged_batch(b) for b in range(8)], "both", False, SPLIT_PAGED),
+    ]
+
+
+def split_engines(cap, store, paging, arm, devices):
+    """Engines of the arm `arm` ("split" or None, the default fused arm) on
+    `devices`, frozen at NOW0, with a MemoryStore each when `store`."""
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.core.engine import DecisionEngine
+    from gubernator_tpu_torch.store import MemoryStore
+
+    ctx = paged_env(*paging) if paging else contextlib.nullcontext()
+    with ctx, engine_env(GUBER_FUSED=arm):
+        return [DecisionEngine(cap, clock=Clock().freeze_at(NOW0 * 1_000_000), device=d,
+                               max_kernel_width=ZIPF_BATCH,
+                               store=MemoryStore() if store else None) for d in devices]
+
+
+def drive(engines, np, keys, cols, b, entry):
+    """One batch through each engine by the stream's entry point; returns
+    the answers as tuples."""
+    out = []
+    use_dc = entry == "dataclass" or (entry == "both" and b % 2 == 1)
+    for e in engines:
+        if use_dc:
+            out.append([(int(r.status), r.limit, r.remaining, r.reset_time, r.error)
+                        for r in e.get_rate_limits(as_requests(keys, cols))])
+        else:
+            out.append([np.asarray(a).tolist() for a in e.apply_columnar(keys, *cols)])
+    return out
+
+
+def phase_split(torch, np, rng, card):
+    """The split path (GUBER_FUSED=split, the reference's A/B control): a
+    split engine on the card and one on the CPU over five streams —
+    mixed (2^20 slots, batches of 1000, every other batch through
+    get_rate_limits), evict (4096 slots), zipf (2^24 slots, batches of
+    8192: collapse), store (4096 slots with a MemoryStore: restores in
+    later rounds) and paged (pages of 64, 32 frames, 65,536 keys, spread
+    and zipf batches in turn) —
+    answers, every state word, stores and page tables equal.  Returns
+    (card engines, the streams' batches and answers, for `split_vs_fused`)."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+
+    engines, record = [], []
+    for tag, cap, batches, entry, store, paging in split_streams(np, rng):
+        gpu, cpu = split_engines(cap, store, paging, "split", ("cuda", "cpu"))
+        check(gpu.fused_mode == cpu.fused_mode == "split", f"[split {tag}] not the split arm")
+        answers = []
+        for b, (keys, cols) in enumerate(batches):
+            got, want = drive((gpu, cpu), np, keys, cols, b, entry)
+            check(got == want, f"[split {tag}] batch {b}: answers differ card vs CPU")
+            answers.append(got)
+            for e in (gpu, cpu):
+                e.clock.advance(ms=137 * (b + 1))
+        gw, cw = tk.state_to_numpy(gpu.state), tk.state_to_numpy(cpu.state)
+        for f in tk.BucketState._fields:
+            check(np.array_equal(gw[f], cw[f]), f"[split {tag}] state column {f} differs")
+        if store:
+            check({k: vars(v) for k, v in gpu.store.data.items()}
+                  == {k: vars(v) for k, v in cpu.store.data.items()},
+                  f"[split {tag}] the stores differ")
+            check(gpu.store.get_calls > 0, f"[split {tag}] no store read")
+        if paging:
+            same_paging(np, tk, gpu, cpu, f"[split {tag}]", words=True)
+            check(gpu.paging.faults > 0, f"[split {tag}] no fault")
+        check(gpu.dispatches_total == cpu.dispatches_total
+              and gpu.rounds_total == cpu.rounds_total,
+              f"[split {tag}] launches or rounds differ card vs CPU")
+        check(gpu.dispatches_total >= 2 * gpu.rounds_total,
+              f"[split {tag}] fewer than two launches a round")
+        log(f"[split {tag}] {len(batches)} batches: {gpu.rounds_total} rounds in "
+            f"{gpu.dispatches_total} launches ({gpu.dispatches_total / gpu.rounds_total:.2f} a "
+            f"round), {gpu.clears_total} clears, {gpu.table.evictions} evictions; card = CPU, "
+            "answers and every state word")
+        record.append((tag, cap, batches, entry, store, paging, answers, gw))
+        cpu.close()
+        engines.append(gpu)
+    return engines, record
+
+
+def split_vs_fused(torch, np, record, card) -> None:
+    """The card's fused engine on the split path's streams: the same
+    answers and state words as the split engine."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+
+    for tag, cap, batches, entry, store, paging, answers, words in record:
+        (eng,) = split_engines(cap, store, paging, None, ("cuda",))
+        check(eng.fused_mode == "cuda", f"[split {tag}] the fused engine is not the fused arm")
+        for b, (keys, cols) in enumerate(batches):
+            (got,) = drive((eng,), np, keys, cols, b, entry)
+            check(got == answers[b], f"[split {tag}] batch {b}: the fused engine answers "
+                  "otherwise")
+            eng.clock.advance(ms=137 * (b + 1))
+        fw = tk.state_to_numpy(eng.state)
+        for f in tk.BucketState._fields:
+            check(np.array_equal(fw[f], words[f]), f"[split {tag}] the fused engine's column "
+                  f"{f} differs")
+        eng.close()
+    log(f"[split] the card's fused engine gave the split engine's answers and state words on "
+        f"all {len(record)} streams | {card}")
+
+
+def split_rates(torch, np, rng, card) -> dict:
+    """decisions/s and launches a round of the split and the fused engine
+    on the card, the mixed stream through apply_columnar (24 batches of
+    1000 at 2^20, the first 4 untimed)."""
+    pool = [b"api_k%d" % i for i in range(200_000)]
+    hot = [b"api_hot%d" % i for i in range(50)]
+    batches = [stream_columns(np, rng, pool, hot, BATCH) for _ in range(24)]
+    out = {}
+    for arm in ("split", None):
+        (eng,) = split_engines(CAP_SERVE, False, None, arm, ("cuda",))
+        t = n = d0 = r0 = 0
+        for b, (keys, cols) in enumerate(batches):
+            if b == 4:
+                torch.cuda.synchronize()
+                t, d0, r0 = time.perf_counter(), eng.dispatches_total, eng.rounds_total
+            eng.apply_columnar(keys, *cols)
+            n += len(keys) if b >= 4 else 0
+            eng.clock.advance(ms=int(rng.integers(0, 2_000)))
+        torch.cuda.synchronize()
+        out[arm or "fused"] = (n / (time.perf_counter() - t),
+                               (eng.dispatches_total - d0) / max(1, eng.rounds_total - r0))
+        eng.close()
+    log("[split rates] mixed stream, apply_columnar on the card: " + "; ".join(
+        f"{k} {v[0]:.0f} decisions/s, {v[1]:.2f} launches a round" for k, v in out.items())
+        + f" | {card}")
+    return out
+
+
+def time_split(torch, np, rng, card) -> dict:
+    """K14 and K15 on mixed batches of 1000 (pins of 1024 lanes, cap 2^20)
+    and K16 on zipf chunks of 8192 (cap 2^24), each then K15 as the split
+    engine runs them (CUDA events behind the spin kernel), beside the plain
+    versions and the bytes bounds.  No single PyTorch call computes any of
+    the three (K15 would need one indexed copy over twelve separate
+    columns): library_ms is null."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import split_step as ss
+
+    out = {}
+    for cap, kind in ((CAP_SERVE, "k14"), (ZIPF_CAP, "k16")):
+        state = random_state(torch, cap, NOW0, int(rng.integers(2**31)))
+        plain = copy_state(state)
+        if kind == "k14":
+            host = [random_pin(np, rng, cap, 1024, BATCH, NOW0 + i) for i in range(16)]
+            compute, ref = ss.packed_compute, tk.packed_compute_reference
+        else:
+            host = [collapsed_case(np, rng, cap, "zipf", NOW0 + i)[0] for i in range(16)]
+            compute, ref = ss.collapsed_compute, tk.collapsed_compute_reference
+        pins = [torch.from_numpy(p).cuda() for p in host]
+        outs = [compute(state, p) for p in pins]
+        c_ms = device_ms(torch, lambda i: compute(state, pins[i % 16]), 160)
+        s_ms = device_ms(torch, lambda i: ss.scatter_store(state, outs[i % 16][0],
+                                                           outs[i % 16][1]), 160)
+        c_plain = host_ms(torch, lambda i: ref(plain, pins[i % 16]), 16, windows=3)
+        pouts = [ref(plain, p) for p in pins]
+        s_plain = host_ms(torch, lambda i: tk.scatter_store_reference(
+            plain, pouts[i % 16][0], pouts[i % 16][1]), 16, windows=3)
+        c_bound = statistics.median(split_bound_ms(np, kind, p, cap) for p in host)
+        s_bound = statistics.median(split_bound_ms(np, "k15", p, cap) for p in host)
+        out[kind] = (c_ms, c_plain, c_bound)
+        out[f"k15_{kind}"] = (s_ms, s_plain, s_bound)
+        log(f"[time] {kind.upper()} on {'mixed batches of 1000 (W 1024), cap 2^20' if kind == 'k14' else 'zipf chunks of 8192, cap 2^24'}: "
+            f"{c_ms * 1e3:.2f} us/launch, bound {c_bound * 1e3:.3f} us (bytes), plain "
+            f"{c_plain * 1e3:.1f} us; K15 on its words {s_ms * 1e3:.2f} us/launch, bound "
+            f"{s_bound * 1e3:.3f} us, plain {s_plain * 1e3:.1f} us | {card}")
+        del state, plain, outs, pouts
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_k1_k3(torch, np, rng, card) -> dict:
+    """K1 at R = 1 (W 1024 and 8192, cap 2^20) and K3 on one-key and spread
+    zipf chunks (cap 2^24), as `phase_timing` times them: the kernels whose
+    lane and tile the split arm's store policy touched, for a parent /
+    change comparison."""
+    from gubernator_tpu_torch.ops import fused_step as fs
+    from gubernator_tpu_torch.ops.collapsed_step import collapsed_step
+
+    out = {}
+    state = random_state(torch, CAP_SERVE, NOW0, int(rng.integers(2**31)))
+    for width, m in ((1024, BATCH), (8192, 8192)):
+        pins = [torch.from_numpy(random_pin(np, rng, CAP_SERVE, width, m, NOW0 + i)).cuda()
+                for i in range(16)]
+        # fused_step's R = 1 call, with its offsets made once (as phase_timing)
+        one = (torch.tensor([0, width], dtype=torch.int32, device="cuda"),
+               torch.zeros(2, dtype=torch.int32, device="cuda"),
+               torch.tensor([CAP_SERVE], dtype=torch.int32, device="cuda"))
+        for i in range(20):
+            fs.multi_fused_step(state, pins[i % 16], *one, widest=width)
+        out[f"K1 W={width}"] = device_ms(torch, lambda i: fs.multi_fused_step(
+            state, pins[i % 16], *one, widest=width), 200)
+    del state
+    zstate = random_state(torch, ZIPF_CAP, NOW0, int(rng.integers(2**31)))
+    for kind in ("one", "zipf"):
+        cases = [collapsed_case(np, rng, ZIPF_CAP, kind, NOW0 + i) for i in range(8)]
+        dev = [(torch.from_numpy(p).cuda(), torch.from_numpy(c[:0]).cuda()) for p, c in cases]
+        collapsed_step(zstate, *dev[0])
+        out[f"K3 {kind}"] = device_ms(torch, lambda i: collapsed_step(zstate, *dev[i % 8]), 40)
+    del zstate
+    torch.cuda.empty_cache()
+    log("[time] K1 / K3 (us a launch): " + "; ".join(f"{k} {v * 1e3:.3f}" for k, v in out.items())
+        + f" | {card}")
+    return out
+
+
+def readings_k2k5(torch, np, rng, card, errs) -> int:
+    """`--readings` (default): a restoring round's readings for a parent /
+    change comparison — K2 then K5 held against the plain clear then
+    restore and timed at every reading (`time_clear_restore`), K1 and K3
+    timed (`time_k1_k3`), and the restore streams' walls (`store_walls`).
+    Exits 0 with no result lines."""
+    for cap in (CAP_SERVE, CAP_NORTH_STAR):
+        kern = random_state(torch, cap, NOW0, int(rng.integers(2**31)))
+        plain = copy_state(kern)
+        hold_clear_restore(torch, np, rng, errs, kern, plain, cap)
+        del kern, plain
+        torch.cuda.empty_cache()
+    time_clear_restore(torch, np, rng, card)
+    time_k1_k3(torch, np, rng, card)
+    store_walls(torch, np, rng, card)
+    log(f"[readings] done in {time.perf_counter() - T_START:.1f} s | {card}")
+    return 0
+
+
 def sweep_counts(engines):
     """(windows swept, sweep launches) of a path's card engines: the
     launches are the groups (`sweep_groups_total`), or one a window on a
@@ -4867,11 +5474,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of gubernator_tpu_torch on one GPU.")
     ap.add_argument("--tree", help="root of another checkout whose port to drive "
                     "(default: this script's own)")
-    ap.add_argument("--readings", action="store_true",
-                    help="only K11's and K12's holds against their plain versions and their "
-                    "timings (K11 over 1-8 rounds, K12 at four widths) and "
-                    "sharded path (b)'s dataclass route (rounds, launches and wall a batch), "
-                    "for the turns of a parent / change comparison; prints no result lines")
+    ap.add_argument("--readings", nargs="?", const="k2k5", choices=("k2k5", "k11"),
+                    help="only the readings of a parent / change comparison, and no result "
+                    "lines: k2k5 (the default) holds and times a restoring round's clears and "
+                    "restores at every reading, times K1 and K3, and the restore streams' "
+                    "walls; k11 holds and times K11 over 1-8 rounds and K12 at four widths, "
+                    "and sharded path (b)'s dataclass route")
     args = ap.parse_args()
     if args.tree:
         TREE = Path(args.tree).resolve()
@@ -4905,9 +5513,12 @@ def main() -> int:
     # (--tree A/B).
     paged_rng = np.random.default_rng(SEED + 9)
     shard_rng = np.random.default_rng(SEED + 10)
+    split_rng = np.random.default_rng(SEED + 11)
     card = phase_device(torch)
     phase_build()
-    errs = {k: 0 for k in fs.launches}
+    errs = {k: 0 for k in (*fs.launches, *getattr(fs, "split_launches", {}))}
+    if args.readings == "k2k5":
+        return readings_k2k5(torch, np, rng, card, errs)
     if args.readings:
         return readings(torch, np, rng, card, errs)
     phase_kernels(torch, np, rng, errs)
@@ -4942,6 +5553,13 @@ def main() -> int:
     else:
         check(TREE is not None, "the port has no sharded engine")
         log(f"[sharded] {TREE} has no sharded engine: the sharded phases are skipped")
+    # ... and one from before the split arm has no K14-K16.
+    split = has_split()
+    if split:
+        phase_split_kernels(torch, np, split_rng, errs)
+    else:
+        check(TREE is not None, "the port has no split arm")
+        log(f"[split] {TREE} has no split arm: the split phases are skipped")
 
     # ---- the main path: counts from 0 just before, read just after.
     fs.reset_launches()
@@ -5136,6 +5754,38 @@ def main() -> int:
         del sh_engines
         torch.cuda.empty_cache()
 
+    # ---- the split path (GUBER_FUSED=split: a round's clears, K14, K15; a
+    # collapsed chunk's K16, K15): counts from 0 just before, read just
+    # after; the fused engines it is compared with run after the reading.
+    split_path = {k: 0 for k in fs.launches}
+    split_counts = {}
+    if split:
+        fs.reset_launches()
+        sp_engines, sp_record = phase_split(torch, np, split_rng, card)
+        split_path, split_counts = dict(fs.launches), dict(fs.split_launches)
+        sp_disp = sum(e.dispatches_total for e in sp_engines)
+        sp_rounds = sum(e.rounds_total for e in sp_engines)
+        log(f"[split] launches {split_counts} and {split_path}; engine launches {sp_disp} for "
+            f"{sp_rounds} rounds ({sp_disp / sp_rounds:.2f} a round) | {card}")
+        check(sum(split_counts.values()) + sum(split_path.values()) == sp_disp,
+              "every launch of the split path must be an engine launch")
+        check(split_path["fused_step"] == split_path["collapsed_step"]
+              == split_path["uniform_step"] == 0, "the split path must launch no fused kernel")
+        for name in split_counts:
+            check(split_counts[name] > 0, f"the split path must launch {name}")
+        check(split_counts["scatter_store"]
+              == split_counts["packed_compute"] + split_counts["collapsed_compute"],
+              "every K14 and K16 launch of the split path must be followed by one K15")
+        for name in ("clear_occupied", "load_slots", "gather_pages", "load_pages"):
+            check(split_path[name] > 0, f"the split path must launch {name}")
+        for e in sp_engines:
+            e.close()
+        del sp_engines
+        torch.cuda.empty_cache()
+        split_vs_fused(torch, np, sp_record, card)
+        del sp_record
+        split_rates(torch, np, split_rng, card)
+
     phase_daemon_binary(has_h2)
     times = phase_timing(torch, np, rng, card, k3_calls, k4_calls)
     if has_persist:
@@ -5148,6 +5798,9 @@ def main() -> int:
     if has_sharded:
         times.update({f"sh_{k}": v for k, v in phase_sharded_timing(torch, np, shard_rng, card,
                                                                    sh_captured).items()})
+    if split:
+        times.update({f"sp_{k}": v for k, v in time_split(torch, np, split_rng, card).items()})
+        times["cr"] = time_clear_restore(torch, np, split_rng, card)
     log(f"[time] HTTP GetRateLimits on the card: {http_rate:.0f} decisions/s | {card}")
     phase_rates(torch, np, rng, card)
 
@@ -5155,8 +5808,8 @@ def main() -> int:
     # launch); the R = 1 figures are in the [done] line.
     rows = [
         ("fused_step", "fused_step.cu", "gubernator_tpu/ops/pallas_step.py:67", times["r5"]),
-        ("clear_occupied", "clear_occupied.cu", "gubernator_tpu/ops/bucket_kernel.py:329",
-         times["k2"]),
+        ("clear_occupied", "clear_occupied.cu",
+         "gubernator_tpu/ops/bucket_kernel.py:329", times["k2"]),
         ("collapsed_step", "collapsed_step.cu", "gubernator_tpu/ops/bucket_kernel.py:1417",
          times["k3"]),
         ("uniform_step", "fused_step.cu", "gubernator_tpu/ops/bucket_kernel.py:1161",
@@ -5204,18 +5857,31 @@ def main() -> int:
             ("shard_sweep", "sweep.cu", "gubernator_tpu/parallel/sharded_engine.py:727",
              times["sh_shard_sweep_group" if grouped else "sh_shard_sweep"]),
         ]
+    if split:
+        # K14's row: one launch on a mixed batch of 1000 at 2^20; K15's: one
+        # on K14's words; K16's: one on a zipf chunk of 8192 at 2^24.
+        rows += [
+            ("packed_compute", "split_step.cu", "gubernator_tpu/ops/bucket_kernel.py:1246",
+             times["sp_k14"] + (None,)),
+            ("scatter_store", "split_step.cu", "gubernator_tpu/ops/bucket_kernel.py:815",
+             times["sp_k15_k14"] + (None,)),
+            ("collapsed_compute", "split_step.cu", "gubernator_tpu/ops/bucket_kernel.py:1425",
+             times["sp_k16"] + (None,)),
+        ]
+    paths = (main_launches, persist_launches, sketch_launches, h2_launches, ledger_launches,
+             paged_launches, shard_launches, split_path, split_counts)
+
     # launches: the main path's run plus the persistence path's, the
-    # sketch path's, the h2 path's, the ledger path's, the paged path's and
-    # the sharded path's, each counted from 0 (K2 launches on the second
-    # only, K5 on the second, the paged and the sharded, K6 on the second
-    # and the paged, K7 and K8 on the third only, K9 and K10 on the paged
-    # only, K11-K13 on the sharded only).
+    # sketch path's, the h2 path's, the ledger path's, the paged path's,
+    # the sharded path's and the split path's, each counted from 0 (K2 and
+    # K5 on the persistence, the paged, the sharded and the split paths,
+    # K6 on the second and the paged, K7 and K8 on the third only, K9 and
+    # K10 on the paged and the split, K11-K13 on the sharded only, K14-K16
+    # on the split only).
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": f"gubernator_tpu_torch/csrc/{src}",
          "replaces": replaces,
-         "launches": (main_launches[name] + persist_launches[name] + sketch_launches[name]
-                      + h2_launches[name] + ledger_launches[name] + paged_launches[name]
-                      + shard_launches[name]),
+         "launches": sum(path.get(name, 0) for path in paths),
          "max_abs_err": errs[name],
          "ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": "bytes",
          "library_ms": t[3] if len(t) > 3 else None}
@@ -5243,7 +5909,12 @@ def main() -> int:
            f"{times['sh_shard_collapsed'][0] * 1e3:.2f} us per 1000-item batch over 4 shards, K13 "
            f"{times['sh_shard_sweep'][0] * 1e3:.2f} us per 2^17 window of 4 shards, "
            f"{times['sh_shard_sweep_group'][0] * 1e3:.2f} us per group of 16"
-           if has_sharded else "") + ")")
+           if has_sharded else "")
+        + (f"; K14 / K15 / K16 {times['sp_k14'][0] * 1e3:.2f} / "
+           f"{times['sp_k15_k14'][0] * 1e3:.2f} / {times['sp_k16'][0] * 1e3:.2f} us; a restoring "
+           f"round of 1000 clears and 4096 records at 10^8 "
+           f"{times['cr']['1000 clears, 4096 records, cap 10^8'][0] * 1e3:.2f} us"
+           if split else "") + ")")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

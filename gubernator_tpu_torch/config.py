@@ -23,7 +23,8 @@ GUBER_LEDGER_SETTLE_INTERVAL, its background settle period, default
 decision plane in the h2 front (GUBER_NATIVE_LEDGER, on by default;
 reference :544-549, :741), and the engine's knobs, which the engine reads
 itself: GUBER_PUMP (the step pump's queueing: "1" on, "0" off, unset =
-on the card only) and paged device state (core/paging.py; reference
+on the card only), GUBER_FUSED (the device step's arm, `env_fused`) and
+paged device state (core/paging.py; reference
 config.py:280-309): GUBER_PAGED (only "1" turns it on), GUBER_PAGE_SIZE
 (rows a page, a power of two >= 16, default 512) and
 GUBER_PAGED_RESIDENT (device frames, default 0 = every page resident).
@@ -182,6 +183,22 @@ def env_pump(device_type: str) -> bool:
     (reference: core/engine.py, the `want_pump` rule)."""
     v = os.environ.get("GUBER_PUMP", "")
     return v == "1" or (v != "0" and device_type == "cuda")
+
+
+FUSED_KNOBS = ("auto", "pallas", "interpret", "xla", "split")
+
+
+def env_fused() -> str:
+    """GUBER_FUSED, the device step's arm (reference core/engine.py:398-450):
+    "split" is the unfused compute + scatter pair, the A/B control; "auto"
+    (also unset or empty), "pallas", "interpret" and "xla" all select the
+    fused kernels, since the port has one fused form where the reference
+    has a Pallas kernel and an XLA program.  Any other value raises
+    ValueError."""
+    v = os.environ.get("GUBER_FUSED", "auto").strip().lower() or "auto"
+    if v not in FUSED_KNOBS:
+        raise ValueError(f"GUBER_FUSED={v!r}: expected {'|'.join(FUSED_KNOBS)}")
+    return v
 
 
 def env_paged() -> bool:

@@ -61,6 +61,15 @@ Persistence and expiry (reference :212, :266, :770-:803, :914,
 Each of them runs what the pump holds first.  `now_ms` flows in from the
 caller or the injected Clock.
 
+The split arm (GUBER_FUSED=split, reference :398-450, its A/B control):
+no pump and no uniform format; each round runs as its clears (one K2
+launch, then K5 for a restoring round), then a launch of K14
+(`ops.split_step.packed_compute`, the update with no state write)
+and one of K15 (`scatter_store`, its words written at the slots) a
+`max_kernel_width` chunk; a collapsed batch as its clears' launch, then
+K16 (`collapsed_compute`) and K15 a chunk.  Both entry points, the store
+path and paged state take it alike.
+
 Paged state (GUBER_PAGED; core/paging.py; reference :349-372): the
 engine's `capacity` argument becomes `logical_capacity`, the intern
 table's size, and `capacity` the device's, the resident frames' rows:
@@ -94,6 +103,7 @@ import torch
 
 from gubernator_tpu_torch.clock import SYSTEM_CLOCK, Clock
 from gubernator_tpu_torch.config import (
+    env_fused,
     env_page_size,
     env_paged,
     env_paged_resident,
@@ -133,6 +143,7 @@ from gubernator_tpu_torch.ops.fused_step import (
     multi_uniform_step,
     resolve_device,
 )
+from gubernator_tpu_torch.ops.split_step import collapsed_compute, packed_compute, scatter_store
 from gubernator_tpu_torch.store import (
     CacheItem,
     LeakyBucketItem,
@@ -343,10 +354,21 @@ class DecisionEngine:
         # RLock: a pump ticket's fetch may flush from a thread already
         # inside the engine.
         self._lock = threading.RLock()
-        # "cuda": batches run kernels K1 / K3 / K4; "torch-cpu": their
-        # plain PyTorch versions.
-        self.fused_mode = "cuda" if self.device.type == "cuda" else "torch-cpu"
-        self._pump = StepPump(self, queueing=env_pump(self.device.type))
+        # GUBER_FUSED (reference :398-450).  "split", the reference's A/B
+        # control: each round runs as its clears (a K2 launch, then K5 for
+        # a restoring round), then K14 and K15, a collapsed chunk as K16
+        # and K15, with no pump and no uniform format.  Every other value
+        # selects the fused kernels: the port has one fused form where the reference
+        # has a Pallas kernel and an XLA program, so "pallas", "interpret"
+        # and "xla" name no arm of their own here, and `fused_mode` is
+        # "cuda" (kernels K1 / K3 / K4) or "torch-cpu" (their plain PyTorch
+        # versions) for them.
+        self._split = env_fused() == "split"
+        if self._split:
+            self.fused_mode = "split"
+        else:
+            self.fused_mode = "cuda" if self.device.type == "cuda" else "torch-cpu"
+        self._pump = StepPump(self, queueing=env_pump(self.device.type) and not self._split)
         self.readback = ReadbackCombiner()
         self.requests_total = 0
         self.over_limit_total = 0
@@ -355,7 +377,8 @@ class DecisionEngine:
         self.rounds_total = 0
         # Every kernel launch the serving, store and load paths make (K1,
         # K3, K4; K2 and K5 where a round restores or a load runs; K9 and
-        # K10 where paged state faults).
+        # K10 where paged state faults; under split, a round's clear launch,
+        # K14 and K15, and K16 and K15 a collapsed chunk).
         self.dispatches_total = 0
         # Eviction clears run, inside those launches or as K2's (or, for a
         # cold page, in the host store).
@@ -657,32 +680,22 @@ class DecisionEngine:
             return None
         return (a0, b0, h0, l0, d0, u0)
 
-    def _dispatch_rounds(self, slots, rounds_arr, cols, now_ms, clear_by_round, uniform_ok,
-                         restore_by_round=None):
-        """Pack the rounds of a batch (sorted by slot, wide rounds split
-        into sub-rounds of at most max_kernel_width lanes, each round's
-        clears before it) into one buffer and submit it to the pump.  A
-        round with store restores (`restore_by_round`) closes the buffer
-        before it: its clears (K2) and restores (K5) run on their own, then
-        it opens the next buffer with no clears.  Returns one piece per
-        buffer."""
+    def _round_chunks(self, slots, rounds_arr, clear_by_round, restore_by_round, on_restore):
+        """Walk a batch's rounds in order: yields (chunk, cleared) for each
+        chunk of at most max_kernel_width of a round's lanes (member
+        indexes sorted by slot), `cleared` the round's clears on its first
+        chunk, else [].  A round with store restores (`restore_by_round`)
+        first calls `on_restore()`, then runs its clears and restores
+        (`_apply_clears`, `_apply_restores`: K2, then K5) and yields no
+        clears (reference :632-646, :1185-1190)."""
         order = np.argsort(rounds_arr, kind="stable")
         uniq, starts = np.unique(rounds_arr[order], return_index=True)
         bounds = list(starts) + [len(slots)]
-        uni = self._uniform_params(*cols[:6]) if uniform_ok else None
-        pieces = []
-        counts: List[int] = []
-        clears: List[List[int]] = []
-        parts: List[np.ndarray] = []
         for r, k in enumerate(uniq.tolist()):
             cleared = clear_by_round.get(k, [])
             restores = restore_by_round.get(k) if restore_by_round else None
             if restores:
-                # Clear, then restore, then apply (reference :632-646).
-                if parts:
-                    pieces.append(self._submit_rounds(slots, cols, now_ms, counts, clears,
-                                                      parts, uni))
-                    counts, clears, parts = [], [], []
+                on_restore()
                 if cleared:
                     self._apply_clears(np.asarray(cleared, dtype=_I32))
                 self._apply_restores(restores)
@@ -690,10 +703,56 @@ class DecisionEngine:
             members = order[bounds[r] : bounds[r + 1]]
             for lo in range(0, len(members), self.max_kernel_width):
                 chunk = members[lo : lo + self.max_kernel_width]
-                parts.append(chunk[np.argsort(slots[chunk], kind="stable")])
-                counts.append(len(chunk))
-                clears.append(cleared if lo == 0 else [])
-        pieces.append(self._submit_rounds(slots, cols, now_ms, counts, clears, parts, uni))
+                yield chunk[np.argsort(slots[chunk], kind="stable")], cleared if lo == 0 else []
+
+    def _dispatch_rounds(self, slots, rounds_arr, cols, now_ms, clear_by_round, uniform_ok,
+                         restore_by_round=None):
+        """Pack the rounds of a batch (`_round_chunks`, each round's clears
+        before it) into one buffer and submit it to the pump.  A round with
+        store restores closes the buffer before it: its clears and restores
+        run on their own (K2 and K5), then it opens the next buffer with no
+        clears.  Returns one piece per buffer.  Under split, `_split_rounds`."""
+        if self._split:
+            return self._split_rounds(slots, rounds_arr, cols, now_ms, clear_by_round,
+                                      restore_by_round)
+        uni = self._uniform_params(*cols[:6]) if uniform_ok else None
+        pieces = []
+        counts: List[int] = []
+        clears: List[List[int]] = []
+        parts: List[np.ndarray] = []
+
+        def close():
+            nonlocal counts, clears, parts
+            if parts:
+                pieces.append(self._submit_rounds(slots, cols, now_ms, counts, clears, parts, uni))
+                counts, clears, parts = [], [], []
+
+        for chunk, cleared in self._round_chunks(slots, rounds_arr, clear_by_round,
+                                                 restore_by_round, close):
+            parts.append(chunk)
+            counts.append(len(chunk))
+            clears.append(cleared)
+        close()
+        return pieces
+
+    def _split_rounds(self, slots, rounds_arr, cols, now_ms, clear_by_round,
+                      restore_by_round=None):
+        """The split arm's rounds (reference :1181-1240 with no pump): each
+        chunk of `_round_chunks` as its round's clears (K2 alone, on the
+        round's first chunk), then K14 and K15.  Returns one piece a
+        chunk."""
+        pieces = []
+        for chunk, cleared in self._round_chunks(slots, rounds_arr, clear_by_round,
+                                                 restore_by_round, lambda: None):
+            if len(cleared):
+                self._launch_clears(np.asarray(cleared, dtype=_I64))
+            packed = pack_rounds_host(now_ms, self.capacity, [len(chunk)], slots[chunk],
+                                      [a[chunk] for a in cols], [[]])
+            slot, words, pout = packed_compute(self._state, self._stage(packed.pin))
+            scatter_store(self._state, slot, words)
+            self.dispatches_total += 2
+            self.rounds_total += 1
+            pieces.append((self.readback.register(pout), chunk, packed.lanes, unpack_out_host))
         return pieces
 
     def _submit_rounds(self, slots, cols, now_ms, counts, clears, parts, uni):
@@ -718,7 +777,8 @@ class DecisionEngine:
     def _try_collapse(self, slots, algo, behavior, hits, limit, duration, burst,
                       greg_dur, greg_exp, now_ms, evicted, evict_rounds):
         """Collapse a hot-key batch into one K3 launch per chunk (reference
-        :1313); returns its pieces, or None when the batch needs rounds
+        :1313; under split, its clears' launch, then K16 and K15 a chunk);
+        returns its pieces, or None when the batch needs rounds
         (non-uniform duplicate fields, RESET_REMAINING on a duplicate,
         leaky negative hits on a duplicate, or a slot reused within the
         batch)."""
@@ -750,8 +810,13 @@ class DecisionEngine:
         sorted_cols = tuple(col[order] for col in cols)
         pieces = []
         # All clears are round 0 here: the first chunk's launch runs them,
-        # sorted (K3's blocks then find theirs side by side).
+        # sorted (K3's blocks then find theirs side by side).  Under split
+        # they are a launch of their own first, as the reference's
+        # `_apply_clears` (:1359-1361).
         clear_slots = np.sort(np.asarray(evicted, dtype=_I32))
+        if self._split and len(clear_slots):
+            self._launch_clears(clear_slots)
+            clear_slots = clear_slots[:0]
         for lo in range(0, n, self.max_kernel_width):
             hi = min(lo + self.max_kernel_width, n)
             m = hi - lo
@@ -766,10 +831,15 @@ class DecisionEngine:
                 c_counts.astype(np.int64), tuple(c[lo:hi][c_start] for c in sorted_cols),
                 c_seg_of.astype(_I32), c_pos.astype(_I32),
             )
-            flat = self._stage(np.concatenate([buf.ravel(), clear_slots]))
-            pout = collapsed_step(self._state, flat[: buf.size].view(buf.shape),
-                                  flat[buf.size :])
-            self.dispatches_total += 1
+            if self._split:
+                slot, words, pout = collapsed_compute(self._state, self._stage(buf))
+                scatter_store(self._state, slot, words)
+                self.dispatches_total += 2
+            else:
+                flat = self._stage(np.concatenate([buf.ravel(), clear_slots]))
+                pout = collapsed_step(self._state, flat[: buf.size].view(buf.shape),
+                                      flat[buf.size :])
+                self.dispatches_total += 1
             self.rounds_total += 1
             self.clears_total += len(clear_slots)
             clear_slots = clear_slots[:0]
@@ -803,21 +873,29 @@ class DecisionEngine:
         self._pump.flush_locked()
 
     def _apply_clears(self, cleared: np.ndarray) -> None:
-        """Eviction clears as one K2 launch of their own (reference :730),
-        padded to the pow2 ladder from 16 with `capacity + lane`.  The slots
-        are logical: with paged state a cold page's slots clear in the host
-        store, the resident ones at their device rows (:740-757)."""
+        """Eviction clears as one K2 launch of their own (reference :730).
+        The slots are logical: with paged state a cold page's slots clear
+        in the host store, the resident ones at their device rows
+        (:740-757)."""
         if self.paging is not None:
             cleared = self._device_clears(cleared)[0]
-            if len(cleared) == 0:
-                return
+        self._launch_clears(cleared)
+
+    def _launch_clears(self, rows: np.ndarray) -> None:
+        """One K2 launch over eviction clears at device rows, padded to the
+        pow2 ladder from 16 with `capacity + lane`: a restoring round's
+        (mapped by `_apply_clears`), and under split every round's and
+        collapsed batch's (reference :1185-1187, :1359-1361).  Nothing to
+        clear launches nothing."""
+        if len(rows) == 0:
+            return
         self._flush_pump()
-        c = np.arange(self.capacity, self.capacity + pad_size(len(cleared), floor=16),
+        c = np.arange(self.capacity, self.capacity + pad_size(len(rows), floor=16),
                       dtype=np.int64).astype(_I32)
-        c[: len(cleared)] = cleared
+        c[: len(rows)] = rows
         clear_occupied(self._state.meta, self._stage(c))
         self.dispatches_total += 1
-        self.clears_total += len(cleared)
+        self.clears_total += len(rows)
 
     def _apply_restores(self, restores: List[tuple]) -> None:
         """Hydrate items into fresh slots, `restores` = [(slot, CacheItem)]

@@ -3,7 +3,10 @@
 // chunk a shard): the design is in the note at the top of
 // collapsed_step.cu.  A launch is ceil(W / kThreads) blocks of kThreads
 // threads (a 2-D grid in K12, one row a shard); `pub` is the launch's
-// publish buffer (one a shard in K12).
+// publish buffer (one a shard in K12).  K16 (split_step.cu
+// `collapsed_compute_kernel`) runs the same tile with no clears and the
+// `ToWords` store policy: each segment's final words go to a words
+// buffer at the segment's column instead of the state.
 
 #pragma once
 
@@ -57,12 +60,15 @@ __device__ __forceinline__ int64_t load_acquire(const int64_t* p) {
 // One block's tile of a collapsed launch over the state `st` of `cap`
 // slots: K3's whole kernel body (see the note at the top of
 // collapsed_step.cu), and K12's for one shard.  Called by every thread of
-// a block of kThreads.
+// a block of kThreads.  `out_words` is where a segment's final words go
+// (lane_math.cuh's store policies; the column passed is the segment's).
+template <class Out = ToState>
 __device__ __forceinline__ void collapsed_tile(Cols st, long long cap,
                                                const int32_t* __restrict__ pin, int width,
                                                const int32_t* __restrict__ clear_slots,
                                                int n_clear, int64_t* pub, int64_t tiles_before,
-                                               int32_t* __restrict__ pout) {
+                                               int32_t* __restrict__ pout,
+                                               const Out& out_words = Out{}) {
   constexpr int T = kThreads;
   __shared__ Extra ext[T];        // owner index -> its segment's extras terms
   __shared__ int64_t rem1[T], rst1[T];  // owner index -> the first application's answer
@@ -251,7 +257,7 @@ __device__ __forceinline__ void collapsed_tile(Cols st, long long cap,
       }
       int32_t words[kCols];
       encode_vals(v, words);
-      store(st, slot, words);
+      out_words.put(st, slot, sg, words);
     }
   }
   __syncthreads();

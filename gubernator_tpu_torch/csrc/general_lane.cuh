@@ -2,9 +2,12 @@
 // `rounds_kernel<General>`): one lane's request read from its pin column,
 // the slot's 12 words gathered, the bucket updated (csrc/lane_math.cuh),
 // the new words stored where the slot is in range, and the lane's 5
-// pout words written.  K11 (sharded_step.cu `shard_lane`) reads the
-// round header with `General::header` and runs the same steps in its own
-// order.
+// pout words written.  Where the words go is the store policy `out`
+// (csrc/lane_math.cuh): the state at the slot for K1, a words buffer at
+// the lane for K14 (split_step.cu `packed_compute_kernel`), so both
+// compute from this one source.  K11 (sharded_step.cu `shard_lane`) reads
+// the round header with `General::header` and runs the same steps in its
+// own order.
 
 #pragma once
 
@@ -26,10 +29,12 @@ struct General {
     return {combine(__ldg(pin + lo), __ldg(pin + lo + 1))};
   }
   // `req` is the lane's column of pin rows 1-15, `stride` words apart (a
-  // shared-memory tile in K1).
+  // shared-memory tile in K1, the pin itself in K14).
+  template <class Out = ToState>
   static __device__ __forceinline__ void step(const Cols& st, long long cap, const Header& h,
                                               const int32_t* req, int stride, int lane,
-                                              int32_t* __restrict__ pout, size_t w) {
+                                              int32_t* __restrict__ pout, size_t w,
+                                              const Out& out_words = Out{}) {
     auto row = [&](int r) { return req[(r - 1) * stride]; };
     auto row64 = [&](int hr, int lr) { return combine(row(hr), row(lr)); };
     const int32_t slot = row(1);
@@ -45,7 +50,7 @@ struct General {
     if (valid) {
       int32_t words[kCols];
       encode_vals(v, words);
-      store(st, slot, words);
+      out_words.put(st, slot, lane, words);
     }
     pout[lane] = out.status;
     pout[w + lane] = hi_word(out.rem);

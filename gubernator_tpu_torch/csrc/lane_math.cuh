@@ -1,6 +1,7 @@
 // The bucket update of one lane, shared by the port's kernels: K1 and K4
 // (fused_step.cu, the general and uniform formats), K3
-// (collapsed_step.cu), and K11 and K12 (sharded_step.cu).  One copy of the f64 chain, as the reference keeps
+// (collapsed_step.cu), K11 and K12 (sharded_step.cu), and K14 and K16
+// (split_step.cu).  One copy of the f64 chain, as the reference keeps
 // one `update_lanes` for its Pallas kernel and its XLA programs.
 //
 // `update_lane` transcribes gubernator_tpu/ops/bucket_kernel.py:514
@@ -295,5 +296,29 @@ __device__ __forceinline__ void store(const Cols& st, int32_t slot, const int32_
 #pragma unroll
   for (int c = 0; c < kCols; ++c) st.p[c][slot] = w[c];
 }
+
+// Where an update's new words go: the store policy of a lane.  The fused
+// kernels (K1 and K4, fused_step.cu; K3, collapsed_step.cu; K12,
+// sharded_step.cu) store them in the state at the slot (`ToState`); the
+// split arm's compute kernels (K14 and K16, split_step.cu) write them to
+// an int32 [12, W] words buffer at the lane, or at the segment's column,
+// and leave the state alone (`ToWords`), and K15 scatters that buffer.
+// A policy is called only for a slot in [0, cap).
+struct ToState {
+  __device__ __forceinline__ void put(const Cols& st, int32_t slot, int /*lane*/,
+                                      const int32_t (&w)[kCols]) const {
+    store(st, slot, w);
+  }
+};
+
+struct ToWords {
+  int32_t* __restrict__ words;  // [kCols, width]
+  size_t width;
+  __device__ __forceinline__ void put(const Cols& /*st*/, int32_t /*slot*/, int lane,
+                                      const int32_t (&w)[kCols]) const {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) words[c * width + lane] = w[c];
+  }
+};
 
 }  // namespace lane

@@ -883,11 +883,12 @@ def fused_step_reference(state: BucketState, pin: torch.Tensor) -> torch.Tensor:
     return _step_lanes(state, pin, _combine(pin[0, 0], pin[0, 1]))
 
 
-def _step_fields(state: BucketState, slot: torch.Tensor, fields, now: torch.Tensor):
-    """Gather → update → store over lanes with request `fields` (algo,
-    behavior, hits, limit, duration, burst, greg_dur, greg_exp; int64)
-    at `now`: the reference's `_apply_core`.  Returns (status,
-    remaining, reset) per lane."""
+def _compute_fields(state: BucketState, slot: torch.Tensor, fields, now: torch.Tensor):
+    """Gather → update over lanes with request `fields` (algo, behavior,
+    hits, limit, duration, burst, greg_dur, greg_exp; int64) at `now`, with
+    no state write: the reference's `_compute_update` with
+    `encode_slot_values` applied.  Returns (the lanes' words to store,
+    int32 [12, W] in BucketState order, status, remaining, reset)."""
     cap = state.meta.shape[0]
     slot = slot.to(_I64)
     valid = (slot >= 0) & (slot < cap)
@@ -896,9 +897,32 @@ def _step_fields(state: BucketState, slot: torch.Tensor, fields, now: torch.Tens
         *(torch.where(valid, col[idx], torch.zeros_like(col[idx])) for col in state)
     )
     vals, status, rem, reset = _update_lanes(g, valid, *fields, now)
+    return _words_of(vals), status, rem, reset
+
+
+def _words_of(vals: SlotValues) -> torch.Tensor:
+    """The stored words of `vals`, int32 [12, W] (bit patterns)."""
+    return torch.stack([_low_word(w) for w in _encode_values(vals)])
+
+
+def _store_words(state: BucketState, slot: torch.Tensor, words: torch.Tensor) -> None:
+    """Write each lane's 12 words (int32 [12, W]) at its slot, in place;
+    lanes whose slot lies outside [0, cap) are dropped (the reference's
+    `mode="drop"` scatter)."""
+    cap = state.meta.shape[0]
+    slot = slot.to(_I64)
+    valid = (slot >= 0) & (slot < cap)
     dst = slot[valid]
-    for col, w in zip(state, _encode_values(vals)):
-        col[dst] = _low_word(w[valid])
+    for col, w in zip(state, words):
+        col[dst] = w[valid]
+
+
+def _step_fields(state: BucketState, slot: torch.Tensor, fields, now: torch.Tensor):
+    """Gather → update → store over lanes with request `fields` at `now`:
+    the reference's `_apply_core`.  Returns (status, remaining, reset)
+    per lane."""
+    words, status, rem, reset = _compute_fields(state, slot, fields, now)
+    _store_words(state, slot, words)
     return status, rem, reset
 
 
@@ -909,13 +933,56 @@ def _pack_out(status, rem, reset) -> torch.Tensor:
     )
 
 
+def _pin_fields(pin: torch.Tensor):
+    """The 8 request fields (int64) of a general-format pin's lanes."""
+    return (pin[2].to(_I64), pin[3].to(_I64)) + tuple(
+        _row64(pin, r, r + 1) for r in range(4, PACKED_IN_ROWS, 2)
+    )
+
+
 def _step_lanes(state: BucketState, pin: torch.Tensor, now: torch.Tensor) -> torch.Tensor:
     """The fused step over the lanes of `pin` (rows 1-15 read; row 0 is
     not) at `now` (int64 scalar tensor)."""
-    fields = (pin[2].to(_I64), pin[3].to(_I64)) + tuple(
-        _row64(pin, r, r + 1) for r in range(4, PACKED_IN_ROWS, 2)
-    )
-    return _pack_out(*_step_fields(state, pin[1], fields, now))
+    return _pack_out(*_step_fields(state, pin[1], _pin_fields(pin), now))
+
+
+# ---------------------------------------------------------------------------
+# The split arm (GUBER_FUSED=split; reference core/engine.py:674-696): a
+# round's update computed with no state write, then scattered.  The
+# reference passes `SlotValues` between the halves and encodes in the
+# scatter; the port passes the twelve encoded words, int32 [12, W], which
+# give the same state (`_words_of` is `encode_slot_values`).
+
+
+def packed_compute_reference(state: BucketState, pin: torch.Tensor):
+    """The plain compute half of a packed round (reference
+    `_packed_compute_core` :1246 with `encode_slot_values` :781 applied to
+    its values): (state, pin int32 [16, W]) → (slot int32 [W], a view of
+    pin row 1; words int32 [12, W], every lane's; pout int32 [5, W]).  The
+    state is not written."""
+    check_pin(pin)
+    check_state(state)
+    words, status, rem, reset = _compute_fields(state, pin[1], _pin_fields(pin),
+                                                _combine(pin[0, 0], pin[0, 1]))
+    return pin[1], words, _pack_out(status, rem, reset)
+
+
+def check_words(slot: torch.Tensor, words: torch.Tensor) -> None:
+    if slot.dtype != _I32 or slot.dim() != 1:
+        raise ValueError("slot must be int32 [W]")
+    if words.dtype != _I32 or words.dim() != 2 or tuple(words.shape) != (N_COLS, slot.shape[0]):
+        raise ValueError(f"words must be int32 [{N_COLS}, {slot.shape[0]}]; got "
+                         f"{words.dtype} {list(words.shape)}")
+
+
+def scatter_store_reference(state: BucketState, slot: torch.Tensor, words: torch.Tensor) -> None:
+    """The plain scatter half (reference `_scatter_values` :815, whose
+    encode the compute half already did): write each lane's 12 words at
+    its slot in place, dropping lanes outside [0, cap).  In-range slots
+    are unique."""
+    check_words(slot, words)
+    check_state(state)
+    _store_words(state, slot, words)
 
 
 def clear_occupied_reference(meta: torch.Tensor, slots: torch.Tensor) -> None:
@@ -1060,9 +1127,21 @@ def collapsed_step_reference(state: BucketState, pin: torch.Tensor) -> torch.Ten
     """The plain collapsed step (reference `_collapsed_values` :1314 +
     `_scatter_values`): pin int32 [19, W] as `pack_collapsed_host` lays it
     out → pout int32 [5, W] in lane order; `state` is updated IN PLACE
-    with each segment's final words.  One full application per segment
-    lane, the closed form for its m-1 extras, lane answers gathered by
-    segment index (clamped into [0, W))."""
+    with each segment's final words."""
+    slot, words, pout = collapsed_compute_reference(state, pin)
+    _store_words(state, slot, words)
+    return pout
+
+
+def collapsed_compute_reference(state: BucketState, pin: torch.Tensor):
+    """The plain collapsed compute (reference `collapsed_compute` :1425,
+    `_collapsed_values` :1314, with `encode_slot_values` applied to its
+    values): (state, pin int32 [19, W]) → (slot int32 [W], a view of pin
+    row 1, the segment slots; words int32 [12, W], each segment column's
+    final words; pout int32 [5, W] in lane order).  The state is not
+    written.  One full application per segment column, the closed form
+    for its m-1 extras, lane answers gathered by segment index (clamped
+    into [0, W))."""
     check_pin(pin, COLLAPSED_IN_ROWS)
     cap = check_state(state)
     now = _combine(pin[0, 0], pin[0, 1])
@@ -1144,10 +1223,7 @@ def collapsed_step_reference(state: BucketState, pin: torch.Tensor) -> torch.Ten
     o_rem = torch.where(first, gs(rem1), torch.where(l_tok, rem_tok, rem_lk))
     o_reset = torch.where(first, gs(rst1), torch.where(l_tok, rst_tok, rst_lk))
 
-    dst = slot[valid]
-    for col, w in zip(state, _encode_values(vals2)):
-        col[dst] = _low_word(w[valid])
-    return _pack_out(o_status, o_rem, o_reset)
+    return pin[1], _words_of(vals2), _pack_out(o_status, o_rem, o_reset)
 
 
 # ---------------------------------------------------------------------------

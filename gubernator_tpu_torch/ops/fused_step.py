@@ -22,7 +22,8 @@ _clear_occupied_impl`):
   clear the occupied bit at evicted slots, in place.  The serving path
   runs its clears inside K1, K3 and K4; the engine launches K2 where a
   clear must run on its own: before a store restore in the same round,
-  and for the evictions of `load`.
+  for the evictions of `load`, and for each round's clears under the
+  split arm.
 * `load_slots(state, rec)` — kernel K5 (csrc/load_slots.cu), the port
   of `bucket_kernel.py:1526 _load_slots_impl`: write the state words of
   restored items (record layout `ops.bucket_kernel.RESTORE_FIELDS`) at
@@ -31,17 +32,18 @@ _clear_occupied_impl`):
 K3, the collapsed step, has its wrapper in `ops.collapsed_step`, K6 and
 K13, the expiry sweep of one state and of every shard, in `ops.expiry`,
 K7 / K8, the count-min sketch's step and rotation, in `ops.sketch`,
-K9 / K10, the page spill and refill, in `ops.page_words`, and K11 / K12,
-the sharded engine's per-shard steps, in `ops.sharded_step`; their
-launches count here too.
+K9 / K10, the page spill and refill, in `ops.page_words`, K11 / K12,
+the sharded engine's per-shard steps, in `ops.sharded_step`, and K14-K16,
+the split arm's compute and scatter kernels, in `ops.split_step`; their
+launches count here too (K14-K16's in `split_launches`).
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
 PyTorch version in `ops.bucket_kernel`; any other device raises.  There
 is no fallback from a failed launch: the wrapper checks device, dtype,
 shape and contiguity, launches on the current stream, and raises if the
 launcher reports a CUDA error (a refused launch included).
-`launches[name]` counts kernel launches (and only those), so a run can
-show that its path went through them.
+`launches[name]` and `split_launches[name]` count kernel launches (and
+only those), so a run can show that its path went through them.
 """
 
 from __future__ import annotations
@@ -73,6 +75,10 @@ launches = {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0, "uniform_
             "load_slots": 0, "sweep_window": 0, "sketch_step": 0, "sketch_rotate": 0,
             "gather_pages": 0, "load_pages": 0, "shard_step": 0, "shard_collapsed": 0,
             "shard_sweep": 0}
+# Launches of the split arm's kernels (K14-K16, `ops.split_step`), counted
+# apart from `launches`, whose sum on a path of the fused arm is that
+# path's engine and sweep launches.
+split_launches = {"packed_compute": 0, "scatter_store": 0, "collapsed_compute": 0}
 # Calls of a kernel that has more than one form, by the form each call
 # took (K7: "block", one device launch; "pair", two), since the last
 # reset_launches().
@@ -80,8 +86,9 @@ forms = {"sketch_step": {"block": 0, "pair": 0}}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, split_launches):
+        for k in counts:
+            counts[k] = 0
     for by_form in forms.values():
         for k in by_form:
             by_form[k] = 0

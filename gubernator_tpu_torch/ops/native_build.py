@@ -1,8 +1,8 @@
 """Build and load the port's native code: the CUDA kernels (csrc/*.cu:
 K1 and K4 in fused_step.cu, K2 clear_occupied.cu, K3 collapsed_step.cu,
 K5 load_slots.cu, K6 and K13 sweep.cu, K7 and K8 sketch.cu, K9 and K10
-page_words.cu, K11 and K12 sharded_step.cu), the host intern
-table (csrc/intern_table.cpp), the wire codec (csrc/wire_codec.cpp), the
+page_words.cu, K11 and K12 sharded_step.cu, K14-K16 split_step.cu), the
+host intern table (csrc/intern_table.cpp), the wire codec (csrc/wire_codec.cpp), the
 h2 front (csrc/h2_server.cpp, linked with the wire codec, the native
 decision plane, csrc/decision_plane.cpp, and the columnar feeder,
 csrc/columnar_feeder.cpp, into one library, as the reference's
@@ -47,6 +47,7 @@ SOURCES = {
     "sketch": ("sketch.cu",),
     "page_words": ("page_words.cu",),
     "sharded_step": ("sharded_step.cu",),
+    "split_step": ("split_step.cu",),
     "intern_table": ("intern_table.cpp",),
     "wire_codec": ("wire_codec.cpp",),
     # The wire codec, the decision plane and the columnar feeder link into
@@ -196,6 +197,19 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "load_slots":
         lib.guber_load_slots.argtypes = [ctypes.POINTER(p), ctypes.c_longlong, p, i, p]
         lib.guber_load_slots.restype = i
+    elif name == "split_step":
+        ll = ctypes.c_longlong
+        # cols, cap, pin, width, words, pout, stream
+        lib.guber_packed_compute.argtypes = [ctypes.POINTER(p), ll, p, i, p, p, p]
+        lib.guber_packed_compute.restype = i
+        # cols, cap, slot, words, width, stream
+        lib.guber_scatter_store.argtypes = [ctypes.POINTER(p), ll, p, p, i, p]
+        lib.guber_scatter_store.restype = i
+        # cols, cap, pin, width, pub, pub_tiles, tiles_before, words, pout, stream
+        lib.guber_collapsed_compute.argtypes = [ctypes.POINTER(p), ll, p, i, p, ll, ll, p, p, p]
+        lib.guber_collapsed_compute.restype = i
+        lib.guber_collapsed_compute_threads.argtypes = []
+        lib.guber_collapsed_compute_threads.restype = i
     elif name == "sweep":
         ll = ctypes.c_longlong
         lib.guber_sweep_tile_slots.argtypes = []

@@ -1593,3 +1593,156 @@ def test_sharded_engine_on_the_card_matches_the_cpu(cuda, n_sh, tmp_path):
     for name in ("shard_step", "shard_collapsed", "shard_sweep", "fused_step",
                  "collapsed_step", "clear_occupied", "load_slots"):
         assert fs.launches[name] > 0, name
+
+
+# ---------------------------------------------------------------------------
+# K2 then K5 as a restoring round launches them, and the split arm's
+# kernels K14-K16.
+
+
+@pytest.mark.parametrize("cap", [1 << 16, 100_000_000])
+@pytest.mark.parametrize("case", ["overlap", "no_record", "no_clear", "wide"])
+def test_clear_restore_kernel_bit_equal_to_plain(cuda, cap, case):
+    """K2 then K5 (`clear_occupied`, `load_slots`) against
+    `clear_occupied_reference` then `load_slots_reference`, every state
+    word: half of the clears on slots the record restores, clears with no
+    record, a record with no clear."""
+    rng = np.random.default_rng(cap % 1000 + len(case))
+    now = 1_760_000_000_000
+    if cap <= 1 << 16:
+        words = _state_words(rng, cap, now)
+        kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    else:
+        kern = _card_state(cap, len(case), cuda)
+        plain = tk.BucketState(*(c.clone() for c in kern))
+    n, size = (4000, 4096) if case == "wide" else (40, 64)
+    rec = None if case == "no_record" else _restore_record(rng, cap, n, size, now)
+    restored = rec[0, :n].astype(np.int64) if rec is not None else np.zeros(0, np.int64)
+    others = np.setdiff1d(rng.choice(cap, 2 * n + 8, replace=False), restored)[: n + 8]
+    clears = (np.zeros(0, np.int64) if case == "no_clear" else
+              np.concatenate([rng.choice(restored, n // 2, replace=False), others[: n // 2]])
+              if rec is not None else others)
+    c = torch.from_numpy(clears.astype(np.int32)).to(cuda)
+    r = torch.from_numpy(rec).to(cuda) if rec is not None else None
+    fs.reset_launches()
+    if len(clears):
+        fs.clear_occupied(kern.meta, c)
+        tk.clear_occupied_reference(plain.meta, c)
+    if r is not None:
+        fs.load_slots(kern, r)
+        tk.load_slots_reference(plain, r)
+    torch.cuda.synchronize()
+    for name, a, b in zip(tk.BucketState._fields, kern, plain):
+        assert torch.equal(a, b), name
+    assert fs.launches["clear_occupied"] == int(case != "no_clear")
+    assert fs.launches["load_slots"] == int(rec is not None)
+    assert sum(fs.launches.values()) == 1 + (case not in ("no_clear", "no_record"))
+
+
+@pytest.mark.parametrize("width", [64, 1000, 8192])
+def test_split_kernels_bit_equal_to_plain(cuda, width):
+    """K14 then K15 against `packed_compute_reference` then
+    `scatter_store_reference`: pout, the words of every in-range lane, the
+    state untouched by K14 and equal after K15; K16 then K15 likewise on
+    collapsed chunks."""
+    from gubernator_tpu_torch.ops import split_step as ss
+
+    rng = np.random.default_rng(70 + width)
+    cap, now = 1 << 16, 1_760_000_000_000
+    words = _state_words(rng, cap, now)
+    kern, plain = tk.state_from_numpy(words, cuda), tk.state_from_numpy(words, cuda)
+    fs.reset_launches()
+    for call in range(4):
+        now += int(rng.integers(0, 3_000))
+        m = width - int(rng.integers(0, width // 4 + 1))
+        slots = np.sort(rng.choice(cap, m, replace=False)).astype(np.int32)
+        pin = torch.from_numpy(tk.pack_batch_host(width, now, cap, slots,
+                                                  *_rand_cols(rng, m, now))).to(cuda)
+        slot, w, pout = ss.packed_compute(kern, pin)
+        pslot, pw, ppout = tk.packed_compute_reference(plain, pin)
+        torch.cuda.synchronize()
+        assert torch.equal(pout, ppout) and torch.equal(slot, pslot), call
+        assert torch.equal(w[:, :m], pw[:, :m]), call
+        for name, a, b in zip(tk.BucketState._fields, kern, plain):
+            assert torch.equal(a, b), (call, name)
+        ss.scatter_store(kern, slot, w)
+        tk.scatter_store_reference(plain, pslot, pw)
+        uniq, counts, fields, seg, pos = _segments(rng, cap, max(1, width // 4), now)
+        size = 32 * -(-len(seg) // 32)
+        cpin = torch.from_numpy(tk.pack_collapsed_host(size, now, cap, uniq, counts, fields,
+                                                       seg, pos)).to(cuda)
+        slot, w, pout = ss.collapsed_compute(kern, cpin)
+        pslot, pw, ppout = tk.collapsed_compute_reference(plain, cpin)
+        torch.cuda.synchronize()
+        n_seg = len(uniq)
+        assert torch.equal(pout, ppout) and torch.equal(w[:, :n_seg], pw[:, :n_seg]), call
+        ss.scatter_store(kern, slot, w)
+        tk.scatter_store_reference(plain, pslot, pw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(tk.BucketState._fields, kern, plain):
+            assert torch.equal(a, b), (call, name)
+    assert fs.split_launches == {"packed_compute": 4, "scatter_store": 8,
+                                 "collapsed_compute": 4}
+
+
+def test_split_engine_on_the_card_matches_the_cpu_and_the_fused_arm(cuda, monkeypatch):
+    """GUBER_FUSED=split on the card against the same arm on the CPU and
+    against the fused arm on the card: rounds with evictions, a hot-key
+    batch that collapses, a store with restores in later rounds; answers
+    and every state word equal, two launches a round plus a clear launch
+    a round with clears."""
+    from gubernator_tpu_torch.store import MemoryStore
+    from gubernator_tpu_torch.types import RateLimitReq
+
+    rng = np.random.default_rng(71)
+    ns = 1_760_000_000_000 * 1_000_000
+    monkeypatch.setenv("GUBER_FUSED", "split")
+    split = DecisionEngine(512, clock=Clock().freeze_at(ns), device=cuda)
+    cpu = DecisionEngine(512, clock=Clock().freeze_at(ns), device="cpu")
+    monkeypatch.setenv("GUBER_FUSED", "auto")
+    fused = DecisionEngine(512, clock=Clock().freeze_at(ns), device=cuda)
+    assert split.fused_mode == cpu.fused_mode == "split" and fused.fused_mode == "cuda"
+    fs.reset_launches()
+    keys = [b"k%d" % i for i in range(1500)]
+    for b in range(10):
+        n = 300
+        if b % 3 == 2:  # one hot key's batch: collapses
+            batch = [b"hot"] * n
+            cols = (np.zeros(n, np.int32), np.zeros(n, np.int32), np.ones(n, np.int64),
+                    np.full(n, 100, np.int64), np.full(n, 60_000, np.int64),
+                    np.zeros(n, np.int64))
+        else:
+            batch = [keys[int(i)] for i in rng.integers(0, len(keys), n)]
+            cols = (rng.integers(0, 2, n).astype(np.int32), rng.choice([0, 8], n).astype(np.int32),
+                    rng.choice([0, 1, 2, 5], n).astype(np.int64),
+                    rng.choice([5, 100], n).astype(np.int64),
+                    rng.choice([1000, 60_000], n).astype(np.int64),
+                    rng.choice([0, 20], n).astype(np.int64))
+        got = [e.apply_columnar(batch, *cols) for e in (split, cpu, fused)]
+        for g, w, f in zip(*got):
+            assert np.array_equal(g, w) and np.array_equal(g, f)
+        for e in (split, cpu, fused):
+            e.clock.advance(ms=100)
+    states = [tk.state_to_numpy(e.state) for e in (split, cpu, fused)]
+    for f in tk.BucketState._fields:
+        assert np.array_equal(states[0][f], states[1][f]) and np.array_equal(
+            states[0][f], states[2][f]), f
+    assert split.table.evictions > 0 and split.clears_total > 0
+    assert fs.split_launches["collapsed_compute"] > 0
+    assert (fs.split_launches["packed_compute"] + fs.split_launches["collapsed_compute"]
+            == fs.split_launches["scatter_store"])
+    assert split.dispatches_total == cpu.dispatches_total == (
+        sum(fs.split_launches.values()) + fs.launches["clear_occupied"])
+    monkeypatch.setenv("GUBER_FUSED", "split")
+    gs = DecisionEngine(8, clock=Clock().freeze_at(ns), device=cuda, store=MemoryStore())
+    cs = DecisionEngine(8, clock=Clock().freeze_at(ns), device="cpu", store=MemoryStore())
+    for b in range(20):
+        reqs = [RateLimitReq(name="s", unique_key=f"u{int(rng.integers(24))}",
+                             hits=int(rng.choice([0, 1, 2])), limit=20, duration=60_000,
+                             algorithm=int(rng.integers(0, 2))) for _ in range(12)]
+        assert [(r.status, r.remaining, r.reset_time) for r in gs.get_rate_limits(reqs)] == [
+            (r.status, r.remaining, r.reset_time) for r in cs.get_rate_limits(reqs)]
+    got, want = tk.state_to_numpy(gs.state), tk.state_to_numpy(cs.state)
+    for f in tk.BucketState._fields:
+        assert np.array_equal(got[f], want[f]), f
+    assert fs.launches["load_slots"] > 0
