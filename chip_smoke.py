@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's native code from gubernator_tpu_torch/csrc (the CUDA
-kernels K1-K16 and the host libraries, one compiler each, in
+kernels K1-K17 and the host libraries, one compiler each, in
 parallel), holds each kernel against its plain PyTorch version on the
 card at 2^20 and 10^8 slots (K1 over one round and over R ragged rounds
 with eviction clears; K3, the collapsed hot-key step, on a zipf batch, a
@@ -16,7 +16,11 @@ restoring round launches them (clears {16, 1000} x records {16, 4096},
 half the clears on slots the record restores, clears alone and records
 alone); K5, the restore, on 16..4096-lane records with padding and
 extreme values; K14, K15 and K16, the split arm's compute and scatter
-kernels, on mixed batches of 1000 and zipf chunks of 8192; K6, the expiry sweep, on one
+kernels, on mixed batches of 1000 and zipf chunks of 8192; K17, the
+dataclass step, on unsorted batches of 64, 1000 (padded to 1024) and
+8192 lanes with clears of their own slots and of others, a
+mostly-padding batch and the extreme values, also against K1 on the
+same lanes sorted (state words equal); K6, the expiry sweep, on one
 16-window tick and, at 10^8, a full pass ending in a clamped window,
 with expiries at now - 1, now and now + 1 whose low words have bit 31
 set; K7, the count-min sketch's step, and K8, its window rotation, at
@@ -177,6 +181,29 @@ launch, K14, K15 or K16 (or K2 + K5, K9, K10), at least two a round.
 After the count the card's fused engine answers the same streams with the
 same answers and words, and the split and fused engines' decisions/s and
 launches a round on the mixed stream are printed.
+
+A ninth path, the apply_batch path, counts its launches from 0 too: the
+public dataclass step `gubernator_tpu_torch.ops.apply_batch` on a 2^20
+state on the card and one on the CPU, 24 batches of 1000 (padded to
+1024, lanes unsorted, evicted slots cleared and reused in the same
+batch): answers and state words equal, one K17 launch a batch and no
+other.
+
+A tenth path, the obs path, counts its launches from 0 too: with
+GUBER_TRACING=memory (the tail recorder at threshold 0), the native event
+ring, the hot-key sketch and the SLO watchdog on, a card daemon and its
+CPU twin answer the mixed stream (2^20 slots, batches of 1000) and the
+zipf stream (2^24 slots, batches of 8192, in RPCs of 1000: the fronts'
+cap) over the h2 front and HTTP:
+answers equal, span trees equal trace by trace (names, nesting,
+attributes), state words equal; then the card's /debug/vars must show
+engine_serve, device.step and device.readback counted with quantiles and
+the ring's reactor and feeder stages, /debug/trace trees under
+service.get_rate_limits with engine.* children, /debug/hotkeys the zipf
+stream's hot keys and /debug/slo its status.  Every launch is K1, K3 or
+K4.  After the count, the card daemon's h2 decisions/s on the mixed
+stream with each of GUBER_TRACING, GUBER_NATIVE_EVENTS, GUBER_HOTKEYS and
+GUBER_OBS off and on (turns off, on, on, off) are printed.
 
 It checks the launch counts of the main path (K1, K3 and K4 all launched; K1
 at most once per synchronous batch; the pump flushed), holds the zipf
@@ -5469,6 +5496,489 @@ def readings(torch, np, rng, card, errs) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# K17, the dataclass step (ops.apply_batch), and its path
+
+
+APPLY_WIDTHS = ((64, 58), (1024, 1000), (8192, 7372))  # (lanes, real lanes): 1000 padded to 1024
+APPLY_BATCHES = 24  # the apply_batch path's batches of 1000
+APPLY_POOL = 200_000  # its keys, on 2^20 slots
+
+
+def has_apply_batch() -> bool:
+    """The driven port has K17 (a --tree checkout from before its slice
+    has not)."""
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    return "apply_batch" in fs.launches
+
+
+def apply_batch_case(np, rng, cap: int, width: int, m: int, now: int, *, extreme=False):
+    """A dataclass batch of `width` lanes, `m` of them real: unique slots
+    of [0, cap) in random lane order (the reference's contract: no sort
+    needed), padding lanes at cap + lane; its clears: an eighth of its own
+    slots, 64 slots of no lane and 5 out of range, in random order.  With
+    `extreme`, `extreme_cols`' values on the first lanes.  Returns
+    (columns in BatchInput order, clears), numpy."""
+    slot = np.full(width, -1, np.int64)
+    slot[:m] = rng.choice(cap, m, replace=False)
+    slot = slot[rng.permutation(width)]
+    pad = slot < 0
+    slot[pad] = cap + np.nonzero(pad)[0]
+    cols = [
+        rng.integers(0, 3, width).astype(np.int32),
+        rng.choice(np.array([0, 0, 4, 8, 12]), width).astype(np.int32),
+        rng.choice(np.array([-3, 0, 1, 1, 2, 5, 100, 2**40]), width).astype(np.int64),
+        rng.choice(np.array([-1, 0, 1, 5, 100, 10**12, 2**62]), width).astype(np.int64),
+        rng.choice(np.array([0, 1, 40, 1000, 30_000, -5]), width).astype(np.int64),
+        rng.choice(np.array([0, 0, 5, 20, -7]), width).astype(np.int64),
+        rng.choice(np.array([60_000, 3_600_000, 86_400_000]), width).astype(np.int64),
+        (now + rng.integers(0, 100_000, width)).astype(np.int64),
+    ]
+    if extreme:
+        _s, ext = extreme_cols(np, cap, min(48, width), now)
+        for c, e in zip(cols, ext):
+            c[: len(e)] = e
+    own = slot[~pad]
+    clears = np.concatenate([rng.choice(own, max(1, len(own) // 8), replace=False),
+                             np.setdiff1d(rng.choice(cap, 64, replace=False), own),
+                             cap + width + np.arange(5)]).astype(np.int32)
+    return [slot.astype(np.int32)] + cols, clears[rng.permutation(len(clears))]
+
+
+def apply_batch_bound_ms(np, cols, clears, cap: int) -> float:
+    """Least time for one K17 launch: per lane its 60 B of fields read and
+    28 B of answers written; per in-range lane 48 B of state read and 48 B
+    written; per clear its slot read, per in-range clear a meta word read
+    and written (12 B)."""
+    slot = cols[0].astype(np.int64)
+    n = int(((slot >= 0) & (slot < cap)).sum())
+    c = clears.astype(np.int64)
+    n_clear = int(((c >= 0) & (c < cap)).sum())
+    return (len(slot) * 88 + n * 96 + len(c) * 4 + n_clear * 8) / HBM_BYTES_PER_S * 1e3
+
+
+def batch_on(torch, cols, dev):
+    from gubernator_tpu_torch.ops import BatchInput
+
+    return BatchInput(*(torch.from_numpy(np_c).to(dev) for np_c in cols))
+
+
+def hold_apply_batch(torch, np, errs, kern, plain, k1, cap: int, cols, clears, now: int,
+                     what: str) -> None:
+    """K17 on `kern` against its plain version on `plain` (answers and the
+    12 columns equal), and the same lanes packed, sorted by slot, through
+    K1 on `k1` (the clears in its round): its answers for the in-range
+    lanes and every state word equal K17's."""
+    from gubernator_tpu_torch.ops import apply_batch
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    batch = batch_on(torch, cols, "cuda")
+    dcl = torch.from_numpy(clears).cuda()
+    got = apply_batch(kern, batch, dcl, now)
+    want = tk.apply_batch_reference(plain, batch, dcl, now)
+    torch.cuda.synchronize()
+    err = compare_states(torch, kern, plain)
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            err = max(err, int((a.long() - b.long()).abs().max().item()))
+    errs["apply_batch"] = max(errs["apply_batch"], err)
+    check(err == 0, f"[k17] {what}: K17 differs from its plain version, err {err}")
+    slot = cols[0]
+    live = np.nonzero(slot < cap)[0]
+    order = live[np.argsort(slot[live], kind="stable")]
+    packed = tk.pack_rounds_host(now, cap, [len(order)], slot[order], [c[order] for c in cols[1:]],
+                                 [clears[(clears >= 0) & (clears < cap)]])
+    pout = fs.multi_fused_step(k1, *on_device(torch, packed), widest=packed.widest)
+    st, rem, rst = tk.unpack_out_host(pout.cpu().numpy(), len(order))
+    g = [t.cpu().numpy()[order] for t in (got.status, got.remaining, got.reset_time)]
+    check(np.array_equal(st, g[0]) and np.array_equal(rem, g[1]) and np.array_equal(rst, g[2]),
+          f"[k17] {what}: K1 on the same lanes, sorted, answers otherwise")
+    check(compare_states(torch, kern, k1) == 0, f"[k17] {what}: K1's state words differ")
+
+
+def phase_apply_batch_kernels(torch, np, rng, errs):
+    """K17 against its plain version and against K1 on the card, at caps
+    2^20 and 10^8 (one random state a cap): batches of 64, 1000 (padded to
+    1024) and 8192 lanes in random order with clears on their own slots
+    and on others, a mostly-padding batch, and the extreme values; then
+    the extreme batch on saturating buckets."""
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+
+    for cap in (CAP_SERVE, CAP_NORTH_STAR):
+        kern = random_state(torch, cap, NOW0, int(rng.integers(2**31)))
+        plain, k1 = copy_state(kern), copy_state(kern)
+        now = NOW0
+        cases = [(w, m, False) for w, m in APPLY_WIDTHS] + [(1024, 102, False), (1024, 1000, True)]
+        for width, m, extreme in cases:
+            now += int(rng.integers(0, 3_000))
+            cols, clears = apply_batch_case(np, rng, cap, width, m, now, extreme=extreme)
+            hold_apply_batch(torch, np, errs, kern, plain, k1, cap, cols, clears, now,
+                             f"cap {cap}, {m} of {width} lanes{' (extreme)' if extreme else ''}")
+        log(f"[k17] cap {cap}: unsorted batches of 58/64, 1000/1024 and 7372/8192 lanes, a "
+            "mostly-padding batch (102 of 1024) and the extreme values, with clears of their own "
+            "slots and of others: bit-equal to apply_batch_reference and to K1 on the same lanes "
+            "sorted (tolerance: exact)")
+        del kern, plain, k1
+        torch.cuda.empty_cache()
+    cap = 4096
+    words = extreme_state_words(np, cap, NOW0)
+    kern, plain, k1 = (tk.state_from_numpy(words, "cuda") for _ in range(3))
+    for step in range(3):
+        now = NOW0 + 997 * step
+        cols, clears = apply_batch_case(np, rng, cap, 64, 48, now, extreme=True)
+        hold_apply_batch(torch, np, errs, kern, plain, k1, cap, cols, clears, now,
+                         f"extreme batch on saturating buckets, step {step}")
+    log("[k17] the extreme batch on saturating buckets, three steps: bit-equal")
+
+
+def apply_batch_stream(np, rng, n: int, now: int):
+    """The apply_batch path's batches: 1000 distinct keys of a
+    200,000-key pool a batch (padded to 1024), each key on its own slot of
+    2^20, and from the fifth batch on a few keys of each batch evicted:
+    their slots cleared in the batch that reuses them for new keys.
+    Yields (columns, clears, now)."""
+    slot_of: dict = {}
+    free = list(range(CAP_SERVE - 1, -1, -1))
+    for b in range(n):
+        keys = rng.choice(APPLY_POOL, BATCH, replace=False).tolist()
+        clears = []
+        if b >= 4:
+            olds = [k for k in list(slot_of)[:200] if k not in keys][:40]
+            for k in olds:
+                s = slot_of.pop(k)
+                clears.append(s)
+                free.append(s)
+        slots = []
+        for k in keys:
+            if k not in slot_of:
+                slot_of[k] = free.pop()
+            slots.append(slot_of[k])
+        cols, _c = apply_batch_case(np, rng, CAP_SERVE, 1024, BATCH, now)
+        slot = np.full(1024, 0, np.int64)
+        real = np.nonzero(cols[0] < CAP_SERVE)[0]
+        slot[real] = slots
+        pad = np.setdiff1d(np.arange(1024), real)
+        slot[pad] = CAP_SERVE + pad
+        cols[0] = slot.astype(np.int32)
+        yield cols, np.asarray(clears + [CAP_SERVE + 9], np.int32), now
+        now += int(rng.integers(0, 2_000))
+
+
+def phase_apply_batch_path(torch, np, rng):
+    """The public dataclass step, `gubernator_tpu_torch.ops.apply_batch`,
+    on a 2^20-slot state on the card and one on the CPU: the same
+    APPLY_BATCHES batches of 1000 (padded to 1024, lanes unsorted, each
+    from the fifth on clearing evicted slots that the batch reuses):
+    answers equal batch by batch, state words equal at the end.  Returns
+    the card state's batches run."""
+    from gubernator_tpu_torch import ops
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+
+    card, cpu = ops.make_state(CAP_SERVE, "cuda"), ops.make_state(CAP_SERVE, "cpu")
+    n = 0
+    for b, (cols, clears, now) in enumerate(apply_batch_stream(np, rng, APPLY_BATCHES, NOW0)):
+        got = ops.apply_batch(card, batch_on(torch, cols, "cuda"),
+                              torch.from_numpy(clears).cuda(), now)
+        want = ops.apply_batch(cpu, batch_on(torch, cols, "cpu"), torch.from_numpy(clears), now)
+        for name, a, w in zip(ops.BatchOutput._fields, got, want):
+            check(torch.equal(a.cpu(), w), f"[apply_batch] batch {b}: {name} differs")
+        n += 1
+    wa, wb = tk.state_to_numpy(card), tk.state_to_numpy(cpu)
+    for f in wa:
+        check(np.array_equal(wa[f], wb[f]), f"[apply_batch] state column {f} differs")
+    log(f"[apply_batch] {n} batches of {BATCH} (padded to 1024, unsorted, evicted slots cleared "
+        f"and reused in the same batch) through ops.apply_batch on {CAP_SERVE} slots, card and "
+        "CPU: answers and state words equal")
+    return n
+
+
+def time_apply_batch(torch, np, rng, card) -> tuple:
+    """K17 on the path's shape (cap 2^20, 1000 lanes padded to 1024, 41
+    clears) beside its plain version and its bound: (ms, plain ms, bound
+    ms)."""
+    from gubernator_tpu_torch.ops import apply_batch
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+
+    state = random_state(torch, CAP_SERVE, NOW0, int(rng.integers(2**31)))
+    cases = []
+    for k in range(8):
+        cols, clears = apply_batch_case(np, rng, CAP_SERVE, 1024, BATCH, NOW0 + k)
+        cases.append((batch_on(torch, cols, "cuda"), torch.from_numpy(clears[:41]).cuda(),
+                      NOW0 + k, apply_batch_bound_ms(np, cols, clears[:41], CAP_SERVE)))
+    ms = device_ms(torch, lambda i: apply_batch(state, *cases[i % 8][:3]), 200)
+    plain = host_ms(torch, lambda i: tk.apply_batch_reference(state, *cases[i % 8][:3]), 5)
+    bound = statistics.median(c[3] for c in cases)
+    log(f"[time] K17 on 1000 lanes (padded to 1024) with 41 clears at 2^20: {ms * 1e3:.2f} us, "
+        f"plain {plain:.3f} ms, bound {bound * 1e3:.4f} us | {card}")
+    del state
+    torch.cuda.empty_cache()
+    return ms, plain, bound
+
+
+# ---------------------------------------------------------------------------
+# The obs path: single-node observability on the card
+
+
+OBS_MIXED_RPCS = 16  # the mixed stream's RPCs of 1000, each way
+OBS_ZIPF_RPCS = 4  # the zipf stream's RPCs of 8192
+OBS_RATE_RPCS = 200  # timed RPCs a reading of the off / on rates, after 5 untimed
+OBS_KNOBS = ("GUBER_TRACING", "GUBER_NATIVE_EVENTS", "GUBER_HOTKEYS", "GUBER_OBS")
+
+
+def has_obs() -> bool:
+    """The driven port has the debug routes and tracing (a --tree
+    checkout from before their slice has not)."""
+    return importlib.util.find_spec("gubernator_tpu_torch.utils.tracing") is not None
+
+
+def span_trees(spans) -> list:
+    """Finished spans grouped by trace, in order of each trace's first
+    span: [[(name, parent name, attributes)] a trace]."""
+    order, by = [], {}
+    for s in spans:
+        if s.trace_id not in by:
+            order.append(s.trace_id)
+            by[s.trace_id] = []
+        by[s.trace_id].append((s.name, s.parent, dict(s.attributes)))
+    return [by[t] for t in order]
+
+
+def obs_items(np, rng, tag: str, n: int) -> list:
+    """One batch of the main path's streams as h2 / HTTP items: mixed
+    (`stream_columns` over a 200,000-key pool with hot keys, Gregorian
+    durations left out: the h2 front declines them) or zipf
+    (`zipf_columns`)."""
+    if tag == "zipf":
+        keys, cols = zipf_columns(np, rng, n)
+    else:
+        pool = [b"api_k%d" % i for i in range(0, 200_000, 7)]
+        hot = [b"api_hot%d" % i for i in range(50)]
+        keys, cols = stream_columns(np, rng, pool, hot, n, greg_share=0.0)
+    algo, beh, hits, limit, dur, burst = cols
+    out = []
+    for j, k in enumerate(keys):
+        name, _, uk = k.decode().partition("_")
+        out.append((name, uk, int(hits[j]), int(limit[j]), int(dur[j]), int(algo[j]),
+                    int(beh[j]), int(burst[j])))
+    return out
+
+
+def http_json(url: str, items=None):
+    """GET (items None) or POST /v1/GetRateLimits; the body's bytes."""
+    if items is None:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.read()
+    body = json.dumps({"requests": [dict(zip(
+        ("name", "unique_key", "hits", "limit", "duration", "algorithm", "behavior", "burst"),
+        it)) for it in items]}).encode()
+    with urllib.request.urlopen(urllib.request.Request(url, data=body, method="POST"),
+                                timeout=60) as r:
+        return r.read()
+
+
+def obs_daemon(cap: int, device: str):
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+
+    return spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=cap,
+                                     sweep_interval=0.0, h2_fast_address="127.0.0.1:0",
+                                     **ledger_kw(ledger_settle_interval=0.0)),
+                        clock=Clock().freeze_at(NOW0 * 1_000_000), device=device)
+
+
+def obs_parity(torch, np, rng, tag: str, cap: int, n_rpcs: int, width: int, tracer):
+    """A card daemon and its CPU twin (both with the in-memory tracer,
+    the tail recorder at threshold 0, the event ring, the hot-key sketch
+    and the SLO watchdog; frozen clocks; the ledger without its settle
+    thread) answer the same stream: each batch's 1000-item slices over
+    the h2 front and over HTTP (the dataclass path).  Answers
+    equal, span trees equal trace by trace, state words equal after both
+    settle.  Returns (card daemon, still serving; its stream's items)."""
+    d, twin = obs_daemon(cap, "cuda"), obs_daemon(cap, "cpu")
+    card_c = twin_c = None
+    sent = []
+    try:
+        card_c, twin_c = H2Unary(d.h2_fast_address), H2Unary(twin.h2_fast_address)
+        n_traces = 0
+        for r in range(n_rpcs):
+            items = obs_items(np, rng, tag, width)
+            # The fronts take at most 1000 items an RPC (the reference's
+            # cap): a batch goes as its 1000-item slices, each over both.
+            for lo in range(0, width, BATCH):
+                part = items[lo : lo + BATCH]
+                body = encode_get_rate_limits(part)
+                sent.extend(part + part)
+                for route in ("h2", "HTTP"):
+                    outs, trees = [], []
+                    for client, daemon in ((card_c, d), (twin_c, twin)):
+                        mark = len(tracer.finished)
+                        if route == "h2":
+                            outs.append(client.call(body))
+                        else:
+                            outs.append(http_json(
+                                f"http://{daemon.http_address}/v1/GetRateLimits", part))
+                        trees.append(span_trees(list(tracer.finished)[mark:]))
+                    check(outs[0] == outs[1] and (route == "HTTP" or outs[0][0] == 0),
+                          f"[obs {tag}] batch {r}, items {lo}- over {route}: the card's answer "
+                          "differs from the CPU twin's, or is not OK")
+                    check(trees[0] == trees[1], f"[obs {tag}] batch {r}, items {lo}- over "
+                          f"{route}: span trees differ: card {trees[0]}, CPU {trees[1]}")
+                    check(route == "h2" or trees[0], f"[obs {tag}] batch {r}: no HTTP trace")
+                    n_traces += len(trees[0])
+            step = int(rng.choice([0, 250, 1000]))
+            for x in (d, twin):
+                x.clock.advance(ms=step)
+        if has_ledger():
+            check(d.instance.ledger.flush_settles() == twin.instance.ledger.flush_settles(),
+                  f"[obs {tag}] the ledgers settled different row counts")
+        same_engines(np, d.instance.engine, twin.instance.engine, "card vs CPU twin",
+                     slots=True, path=f"obs {tag}")
+        log(f"[obs {tag}] {n_rpcs} batches of {width} (RPCs of {BATCH}) over h2 and HTTP to the "
+            f"card daemon and its CPU twin: answers equal, {n_traces} traces with equal span "
+            f"trees (names, nesting, attributes), state words of {cap} slots equal")
+        return d, sent
+    except BaseException:
+        d.close()
+        raise
+    finally:
+        for c in (card_c, twin_c):
+            if c is not None:
+                c.close()
+        twin.close()
+
+
+def check_debug_routes(d, tag: str, items, card) -> dict:
+    """The card daemon's routes: /debug/vars with the stage budget
+    (engine_serve, device.step, device.readback counted, with quantiles)
+    and the event ring's reactor and feeder stages; /debug/trace with
+    trees under service.get_rate_limits with engine.* children;
+    /debug/hotkeys, whose top 5 hold the zipf stream's 3 hottest keys (by
+    the hits sent); /debug/slo's status."""
+    url = f"http://{d.http_address}"
+    want_stages = ("reactor_wake", "reactor_read", "feeder_pack", "feeder_ring_wait",
+                   "feeder_serve")
+    deadline = time.perf_counter() + 10
+    while True:
+        v = json.loads(http_json(url + "/debug/vars"))
+        ev = v.get("native_events", {}).get("stages", {})
+        if all(ev.get(s, {}).get("count", 0) > 0 for s in want_stages) \
+                or time.perf_counter() > deadline:
+            break
+        time.sleep(0.05)
+    budget = v["stage_budget"]
+    for stage in ("engine_serve", "device.step", "device.readback"):
+        q = budget[stage]
+        check(q["count"] >= 1 and {"p50_ms", "p99_ms", "max_ms", "mean_ms"} <= set(q),
+              f"[obs {tag}] /debug/vars stage {stage}: {q}")
+    for s in want_stages:
+        check(ev.get(s, {}).get("count", 0) > 0, f"[obs {tag}] the event ring's {s}: {ev}")
+    tr = json.loads(http_json(url + "/debug/trace"))
+    trees = [t for t in tr["traces"] if t["root"] == "service.get_rate_limits"
+             and any(s["name"].startswith("engine.") for s in t["spans"])]
+    check(tr["enabled"] and trees, f"[obs {tag}] /debug/trace has no service tree")
+    hk = json.loads(http_json(url + "/debug/hotkeys"))
+    counts: dict = {}
+    for it in items:
+        k = f"{it[0]}_{it[1]}"
+        counts[k] = counts.get(k, 0) + max(it[2], 1)
+    hottest = sorted(counts, key=counts.get, reverse=True)[:3]
+    top = [r["key"] for r in hk["top"][:5]]
+    check(hk["enabled"] and (tag != "zipf" or set(hottest) <= set(top)),
+          f"[obs {tag}] /debug/hotkeys: top {top}, the stream's hottest {hottest}")
+    slo = json.loads(http_json(url + "/debug/slo"))
+    check(slo["enabled"] and {"pairs", "slis", "burn", "headroom", "breaches", "samples"}
+          <= set(slo), f"[obs {tag}] /debug/slo: {sorted(slo)}")
+    log(f"[obs {tag}] /debug/vars: " + "; ".join(
+        f"{s} n={budget[s]['count']} p50 {budget[s]['p50_ms']} ms p99 {budget[s]['p99_ms']} ms"
+        for s in ("engine_serve", "device.step", "device.readback", "device.window_wait"))
+        + "; ring " + ", ".join(f"{s} n={ev[s]['count']} p99 {ev[s]['p99_ms']} ms"
+                                for s in want_stages)
+        + f" | /debug/trace {tr['recorded']} recorded, {len(trees)} service trees kept; "
+        f"/debug/hotkeys top {hk['top'][0]}; /debug/slo {slo['samples']} samples, "
+        f"{len(slo['breaches'])} breaches | {card}")
+    return v
+
+
+def phase_obs(torch, np, rng, card):
+    """The obs path: GUBER_TRACING=memory with a tail threshold of 0, the
+    event ring, the hot-key sketch and the SLO watchdog on; the mixed
+    stream (2^20 slots, batches of 1000) and the zipf stream (2^24 slots,
+    batches of 8192, in RPCs of 1000) through the daemon's HTTP gateway and
+    h2 front, each against a CPU twin; then the debug routes read from the
+    card.
+    Returns the card engines."""
+    from gubernator_tpu_torch.utils import tracing
+
+    engines = []
+    with engine_env(GUBER_TRACING="memory", GUBER_TRACE_TAIL_FACTOR="0",
+                    GUBER_TRACE_TAIL_MIN_MS="0", GUBER_TRACE_TAIL_CAP="4096",
+                    GUBER_NATIVE_EVENTS="1", GUBER_HOTKEYS="1", GUBER_OBS="1",
+                    GUBER_SLO_INTERVAL="0.2", GUBER_NATIVE_FEEDER="1"):
+        tracing.shutdown_tracing()
+        check(tracing.init_tracing(), "[obs] GUBER_TRACING=memory did not start a tracer")
+        tracer = tracing.current_tracer()
+        try:
+            for tag, cap, n, width in (("mixed", CAP_SERVE, OBS_MIXED_RPCS, BATCH),
+                                       ("zipf", ZIPF_CAP, OBS_ZIPF_RPCS, ZIPF_BATCH)):
+                d, items = obs_parity(torch, np, rng, tag, cap, n, width, tracer)
+                try:
+                    check_debug_routes(d, tag, items, card)
+                    engines.append(d.instance.engine)
+                finally:
+                    d.close()
+        finally:
+            tracing.shutdown_tracing()
+    return engines
+
+
+def obs_rates(torch, np, rng, card) -> dict:
+    """Decisions/s of the card daemon's h2 front on the mixed stream (RPCs
+    of 1000, frozen clock, the ledger on) with each knob off and on, the
+    others at the daemon's defaults (tracing off; the ring, the sketch and
+    the watchdog on): a fresh daemon a reading, 5 RPCs untimed, then
+    OBS_RATE_RPCS timed; turns off, on, on, off.  Tracing on is
+    GUBER_TRACING=memory with the recorder's default tail thresholds."""
+    from gubernator_tpu_torch.utils import tracing
+
+    stream = [encode_get_rate_limits(obs_items(np, rng, "mixed", BATCH))
+              for _ in range(OBS_RATE_RPCS + 5)]
+    out = {}
+    for knob in OBS_KNOBS:
+        vals = {"off": "0", "on": "1"} if knob != "GUBER_TRACING" else {"off": None,
+                                                                      "on": "memory"}
+        rates = {"off": [], "on": []}
+        for turn in ("off", "on", "on", "off"):
+            with engine_env(**{knob: vals[turn]}):
+                tracing.shutdown_tracing()
+                tracing.init_tracing()
+                d = obs_daemon(CAP_SERVE, "cuda")
+                c = None
+                try:
+                    c = H2Unary(d.h2_fast_address)
+                    for r, body in enumerate(stream):
+                        if r == 5:
+                            torch.cuda.synchronize()
+                            t = time.perf_counter()
+                        st, _msg = c.call(body)
+                        check(st == 0, f"[obs rates] {knob} {turn}: RPC {r} status {st}")
+                        d.clock.advance(ms=250)
+                    rates[turn].append(OBS_RATE_RPCS * BATCH / (time.perf_counter() - t))
+                finally:
+                    if c is not None:
+                        c.close()
+                    d.close()
+                    tracing.shutdown_tracing()
+        out[knob] = rates
+        log(f"[obs rates] {knob} off / on: "
+            f"{' '.join(f'{x:.0f}' for x in rates['off'])} / "
+            f"{' '.join(f'{x:.0f}' for x in rates['on'])} decisions/s "
+            f"(h2, {OBS_RATE_RPCS} RPCs of {BATCH}, turns off, on, on, off) | {card}")
+    return out
+
+
 def main() -> int:
     global TREE
     ap = argparse.ArgumentParser(description="Smoke run of gubernator_tpu_torch on one GPU.")
@@ -5514,6 +6024,8 @@ def main() -> int:
     paged_rng = np.random.default_rng(SEED + 9)
     shard_rng = np.random.default_rng(SEED + 10)
     split_rng = np.random.default_rng(SEED + 11)
+    ab_rng = np.random.default_rng(SEED + 12)
+    obs_rng = np.random.default_rng(SEED + 13)
     card = phase_device(torch)
     phase_build()
     errs = {k: 0 for k in (*fs.launches, *getattr(fs, "split_launches", {}))}
@@ -5560,6 +6072,14 @@ def main() -> int:
     else:
         check(TREE is not None, "the port has no split arm")
         log(f"[split] {TREE} has no split arm: the split phases are skipped")
+    # ... and one from before K17 has no dataclass step, nor the obs path.
+    has_ab, obs = has_apply_batch(), has_obs()
+    if has_ab:
+        phase_apply_batch_kernels(torch, np, ab_rng, errs)
+    else:
+        check(TREE is not None, "the port has no dataclass step (K17)")
+        log(f"[k17] {TREE} has no K17: the apply_batch phases are skipped")
+    check(obs or TREE is not None, "the port has no observability path")
 
     # ---- the main path: counts from 0 just before, read just after.
     fs.reset_launches()
@@ -5786,6 +6306,38 @@ def main() -> int:
         del sp_record
         split_rates(torch, np, split_rng, card)
 
+    # ---- the apply_batch path (the public dataclass step, K17): counts
+    # from 0 just before, read just after.
+    ab_path = {k: 0 for k in fs.launches}
+    if has_ab:
+        fs.reset_launches()
+        n_ab = phase_apply_batch_path(torch, np, ab_rng)
+        ab_path = dict(fs.launches)
+        log(f"[apply_batch] launches {ab_path} | {card}")
+        check(ab_path["apply_batch"] == n_ab == sum(ab_path.values()),
+              "the apply_batch path must launch K17 once a batch, and nothing else")
+        torch.cuda.empty_cache()
+
+    # ---- the obs path (tracing, the tail recorder, the event ring, the
+    # hot-key sketch, the SLO watchdog and the debug routes on the daemon's
+    # HTTP and h2 fronts): counts from 0 just before, read just after; the
+    # off / on rates after the reading.
+    obs_path = {k: 0 for k in fs.launches}
+    if obs:
+        fs.reset_launches()
+        o_engines = phase_obs(torch, np, obs_rng, card)
+        obs_path = dict(fs.launches)
+        o_disp = sum(e.dispatches_total for e in o_engines)
+        log(f"[obs] launches {obs_path}; engine launches {o_disp} | {card}")
+        check(obs_path["fused_step"] + obs_path["collapsed_step"] + obs_path["uniform_step"]
+              == o_disp == sum(obs_path.values()),
+              "every engine launch of the obs path must be a K1, K3 or K4 launch")
+        for name in ("fused_step", "collapsed_step"):
+            check(obs_path[name] > 0, f"the obs path must launch {name}")
+        del o_engines
+        torch.cuda.empty_cache()
+        obs_rates(torch, np, obs_rng, card)
+
     phase_daemon_binary(has_h2)
     times = phase_timing(torch, np, rng, card, k3_calls, k4_calls)
     if has_persist:
@@ -5801,6 +6353,8 @@ def main() -> int:
     if split:
         times.update({f"sp_{k}": v for k, v in time_split(torch, np, split_rng, card).items()})
         times["cr"] = time_clear_restore(torch, np, split_rng, card)
+    if has_ab:
+        times["ab_k17"] = time_apply_batch(torch, np, ab_rng, card)
     log(f"[time] HTTP GetRateLimits on the card: {http_rate:.0f} decisions/s | {card}")
     phase_rates(torch, np, rng, card)
 
@@ -5868,8 +6422,14 @@ def main() -> int:
             ("collapsed_compute", "split_step.cu", "gubernator_tpu/ops/bucket_kernel.py:1425",
              times["sp_k16"] + (None,)),
         ]
+    if has_ab:
+        # K17's row: one launch on the apply_batch path's shape, 1000 lanes
+        # padded to 1024 with 41 clears at 2^20; no single PyTorch call
+        # computes the step.
+        rows.append(("apply_batch", "apply_batch.cu", "gubernator_tpu/ops/bucket_kernel.py:356",
+                     times["ab_k17"] + (None,)))
     paths = (main_launches, persist_launches, sketch_launches, h2_launches, ledger_launches,
-             paged_launches, shard_launches, split_path, split_counts)
+             paged_launches, shard_launches, split_path, split_counts, ab_path, obs_path)
 
     # launches: the main path's run plus the persistence path's, the
     # sketch path's, the h2 path's, the ledger path's, the paged path's,
@@ -5877,7 +6437,8 @@ def main() -> int:
     # K5 on the persistence, the paged, the sharded and the split paths,
     # K6 on the second and the paged, K7 and K8 on the third only, K9 and
     # K10 on the paged and the split, K11-K13 on the sharded only, K14-K16
-    # on the split only).
+    # on the split only, K17 on the apply_batch path only; the obs path
+    # launches K1, K3 and K4).
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": f"gubernator_tpu_torch/csrc/{src}",
          "replaces": replaces,
@@ -5914,7 +6475,9 @@ def main() -> int:
            f"{times['sp_k15_k14'][0] * 1e3:.2f} / {times['sp_k16'][0] * 1e3:.2f} us; a restoring "
            f"round of 1000 clears and 4096 records at 10^8 "
            f"{times['cr']['1000 clears, 4096 records, cap 10^8'][0] * 1e3:.2f} us"
-           if split else "") + ")")
+           if split else "")
+        + (f"; K17 {times['ab_k17'][0] * 1e3:.2f} us per 1000-lane batch with 41 clears"
+           if has_ab else "") + ")")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

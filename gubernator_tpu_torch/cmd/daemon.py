@@ -12,7 +12,15 @@ Env:  GUBER_HTTP_ADDRESS (default localhost:80), GUBER_CACHE_SIZE,
       GUBER_NATIVE_LEDGER (default on), GUBER_NATIVE_FEEDER (the h2
       front's columnar feeder, default on), GUBER_FEEDER_RING_SLOTS (4),
       GUBER_FEEDER_RING_ROWS (8192), GUBER_FEEDER_RING_KEYBYTES (2^20),
-      GUBER_RETRY_HINTS (default on).
+      GUBER_RETRY_HINTS (default on), GUBER_LOG_LEVEL (trace|debug|info|
+      warn|error), GUBER_LOG_FORMAT (text|json: JSON lines carry the trace
+      id), GUBER_TRACING=memory (the in-memory tracer; OTEL_* for OTLP
+      where its packages exist), GUBER_TRACE_TAIL_FACTOR (4),
+      GUBER_TRACE_TAIL_MIN_MS (5), GUBER_TRACE_TAIL_CAP (64),
+      GUBER_METRICS_EXEMPLARS (on), GUBER_HOTKEYS (on), GUBER_NATIVE_EVENTS
+      (on), GUBER_NATIVE_EVENTS_CAP (65536), GUBER_NATIVE_EVENTS_INTERVAL
+      (50ms), GUBER_OBS (on), GUBER_SLO_INTERVAL (5s), GUBER_SLO_FLEET,
+      GUBER_SLO_FAST_WINDOWS / GUBER_SLO_SLOW_WINDOWS, GUBER_SLO_WATCH_KEYS.
 
 Serves GetRateLimits over HTTP/JSON, and over cleartext HTTP/2 gRPC at
 /pb.gubernator.V1/GetRateLimits when the h2 front is on, until SIGINT or
@@ -33,13 +41,15 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("-debug", "--debug", action="store_true", help="debug logging")
     args = parser.parse_args(argv)
-    logging.basicConfig(
-        level=logging.DEBUG if args.debug else logging.INFO,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-    )
+    from gubernator_tpu_torch.utils.logging_setup import configure_logging
+
+    configure_logging(debug=args.debug)
 
     from gubernator_tpu_torch.config import setup_daemon_config
     from gubernator_tpu_torch.daemon import spawn_daemon
+    from gubernator_tpu_torch.utils.tracing import init_tracing, shutdown_tracing
+
+    init_tracing()
 
     stop = threading.Event()
 
@@ -59,6 +69,7 @@ def main(argv=None) -> int:
         stop.wait()
     finally:
         daemon.close()
+        shutdown_tracing()
     return 0
 
 

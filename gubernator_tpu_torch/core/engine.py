@@ -95,7 +95,9 @@ the serving one).
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -150,6 +152,8 @@ from gubernator_tpu_torch.store import (
     TokenBucketItem,
     item_from_record,
 )
+from gubernator_tpu_torch.utils.metrics import DurationStat
+from gubernator_tpu_torch.utils.tracing import span
 from gubernator_tpu_torch.types import (
     Algorithm,
     Behavior,
@@ -387,6 +391,10 @@ class DecisionEngine:
         # K6 launch each).
         self.sweep_windows_total = 0
         self.sweep_groups_total = 0
+        # Host wall time of each round or batch launch: its staging copy
+        # and the launch, as enqueued (the service's device.step stage;
+        # reference :491).
+        self.round_duration = DurationStat()
 
     @property
     def state(self) -> BucketState:
@@ -522,14 +530,15 @@ class DecisionEngine:
             for i in greg_idx:
                 greg_dur[i] = gregorian_duration(now_dt, int(duration[i]))
                 greg_exp[i] = gregorian_expiration(now_dt, int(duration[i]))
-        pending = self._apply(
-            keys, (algo, behavior, hits, limit, duration, burst, greg_dur, greg_exp), now_ms,
-            uniform_ok=True,
-        )
-        if count_decisions:
-            with self._lock:
-                self.requests_total += n
-                self.batches_total += 1
+        with span("engine.columnar", batch=n):
+            pending = self._apply(
+                keys, (algo, behavior, hits, limit, duration, burst, greg_dur, greg_exp), now_ms,
+                uniform_ok=True,
+            )
+            if count_decisions:
+                with self._lock:
+                    self.requests_total += n
+                    self.batches_total += 1
         return pending if want_async else pending.get()
 
     def _apply(self, keys, cols, now_ms: int, *, uniform_ok: bool) -> PendingColumnar:
@@ -538,7 +547,10 @@ class DecisionEngine:
         (algo, behavior, hits, limit, duration, burst, greg_duration,
         greg_expire).  Schedules the batch with one native call, then
         collapses it or packs its rounds (uniform format only when
-        `uniform_ok`), and returns the pending result."""
+        `uniform_ok`), and returns the pending result.  The dataclass path
+        (`uniform_ok` false) traces the batch as the reference's does:
+        `engine.batch` (batch, rounds), `engine.collapsed` where it tries
+        the collapse, `engine.round` a chunk."""
         n = len(keys)
         limit = cols[3]
         if n == 0:
@@ -560,17 +572,21 @@ class DecisionEngine:
                 slots = self.paging.translate(self, lslots)
                 evicted, res = self._device_clears(evicted)
                 evict_rounds = evict_rounds[res]
-            pieces = None
-            if int(rounds_arr.max()) > 0:
-                # Hot keys: one collapsed launch instead of a round per
-                # repeat, when the duplicates allow it.
-                pieces = self._try_collapse(slots, *cols, now_ms, evicted, evict_rounds)
-            if pieces is None:
-                clear_by_round: dict[int, List[int]] = {}
-                for es, k in zip(evicted.tolist(), evict_rounds.tolist()):
-                    clear_by_round.setdefault(k, []).append(es)
-                pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms, clear_by_round,
-                                               uniform_ok)
+            n_rounds = int(rounds_arr.max()) + 1
+            with (contextlib.nullcontext() if uniform_ok
+                  else span("engine.batch", batch=n, rounds=n_rounds)):
+                pieces = None
+                if n_rounds > 1:
+                    # Hot keys: one collapsed launch instead of a round per
+                    # repeat, when the duplicates allow it.
+                    collapse = self._try_collapse if uniform_ok else self._collapse_dataclass
+                    pieces = collapse(slots, *cols, now_ms, evicted, evict_rounds)
+                if pieces is None:
+                    clear_by_round: dict[int, List[int]] = {}
+                    for es, k in zip(evicted.tolist(), evict_rounds.tolist()):
+                        clear_by_round.setdefault(k, []).append(es)
+                    pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms,
+                                                   clear_by_round, uniform_ok)
             # Host TTL mirror for eviction accounting (device is authoritative).
             self.table.set_expiry(lslots, self._expiry(cols, now_ms))
         return PendingColumnar(self, pieces, limit, n)
@@ -651,8 +667,9 @@ class DecisionEngine:
                 # `_apply_clears`, which maps them.
                 if k not in restore_by_round:
                     clear_by_round[k] = self._device_clears(cleared)[0].tolist()
-        pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms, clear_by_round, False,
-                                       restore_by_round)
+        with span("engine.batch", batch=n, rounds=int(rounds_arr.max()) + 1 if n else 0):
+            pieces = self._dispatch_rounds(slots, rounds_arr, cols, now_ms, clear_by_round,
+                                           False, restore_by_round)
         self.table.set_expiry(lslots, self._expiry(cols, now_ms))
         return PendingColumnar(self, pieces, cols[3], n)
 
@@ -681,8 +698,8 @@ class DecisionEngine:
         return (a0, b0, h0, l0, d0, u0)
 
     def _round_chunks(self, slots, rounds_arr, clear_by_round, restore_by_round, on_restore):
-        """Walk a batch's rounds in order: yields (chunk, cleared) for each
-        chunk of at most max_kernel_width of a round's lanes (member
+        """Walk a batch's rounds in order: yields (k, chunk, cleared) for
+        each chunk of at most max_kernel_width of round k's lanes (member
         indexes sorted by slot), `cleared` the round's clears on its first
         chunk, else [].  A round with store restores (`restore_by_round`)
         first calls `on_restore()`, then runs its clears and restores
@@ -703,7 +720,7 @@ class DecisionEngine:
             members = order[bounds[r] : bounds[r + 1]]
             for lo in range(0, len(members), self.max_kernel_width):
                 chunk = members[lo : lo + self.max_kernel_width]
-                yield chunk[np.argsort(slots[chunk], kind="stable")], cleared if lo == 0 else []
+                yield k, chunk[np.argsort(slots[chunk], kind="stable")], cleared if lo == 0 else []
 
     def _dispatch_rounds(self, slots, rounds_arr, cols, now_ms, clear_by_round, uniform_ok,
                          restore_by_round=None):
@@ -711,10 +728,13 @@ class DecisionEngine:
         before it) into one buffer and submit it to the pump.  A round with
         store restores closes the buffer before it: its clears and restores
         run on their own (K2 and K5), then it opens the next buffer with no
-        clears.  Returns one piece per buffer.  Under split, `_split_rounds`."""
+        clears.  Returns one piece per buffer.  Under split, `_split_rounds`.
+        The dataclass path (`uniform_ok` false) opens an `engine.round`
+        span a chunk, as the reference's does; since the chunks of a batch
+        launch together, a round's span covers its place in the buffer."""
         if self._split:
             return self._split_rounds(slots, rounds_arr, cols, now_ms, clear_by_round,
-                                      restore_by_round)
+                                      restore_by_round, traced=not uniform_ok)
         uni = self._uniform_params(*cols[:6]) if uniform_ok else None
         pieces = []
         counts: List[int] = []
@@ -727,32 +747,39 @@ class DecisionEngine:
                 pieces.append(self._submit_rounds(slots, cols, now_ms, counts, clears, parts, uni))
                 counts, clears, parts = [], [], []
 
-        for chunk, cleared in self._round_chunks(slots, rounds_arr, clear_by_round,
-                                                 restore_by_round, close):
-            parts.append(chunk)
-            counts.append(len(chunk))
-            clears.append(cleared)
+        for k, chunk, cleared in self._round_chunks(slots, rounds_arr, clear_by_round,
+                                                    restore_by_round, close):
+            with (contextlib.nullcontext() if uniform_ok
+                  else span("engine.round", round=k, width=len(chunk))):
+                parts.append(chunk)
+                counts.append(len(chunk))
+                clears.append(cleared)
         close()
         return pieces
 
     def _split_rounds(self, slots, rounds_arr, cols, now_ms, clear_by_round,
-                      restore_by_round=None):
+                      restore_by_round=None, traced=False):
         """The split arm's rounds (reference :1181-1240 with no pump): each
         chunk of `_round_chunks` as its round's clears (K2 alone, on the
-        round's first chunk), then K14 and K15.  Returns one piece a
-        chunk."""
+        round's first chunk), then K14 and K15, in an `engine.round` span
+        when `traced`.  Returns one piece a chunk."""
         pieces = []
-        for chunk, cleared in self._round_chunks(slots, rounds_arr, clear_by_round,
-                                                 restore_by_round, lambda: None):
-            if len(cleared):
-                self._launch_clears(np.asarray(cleared, dtype=_I64))
-            packed = pack_rounds_host(now_ms, self.capacity, [len(chunk)], slots[chunk],
-                                      [a[chunk] for a in cols], [[]])
-            slot, words, pout = packed_compute(self._state, self._stage(packed.pin))
-            scatter_store(self._state, slot, words)
-            self.dispatches_total += 2
-            self.rounds_total += 1
-            pieces.append((self.readback.register(pout), chunk, packed.lanes, unpack_out_host))
+        for k, chunk, cleared in self._round_chunks(slots, rounds_arr, clear_by_round,
+                                                    restore_by_round, lambda: None):
+            with (span("engine.round", round=k, width=len(chunk)) if traced
+                  else contextlib.nullcontext()):
+                if len(cleared):
+                    self._launch_clears(np.asarray(cleared, dtype=_I64))
+                packed = pack_rounds_host(now_ms, self.capacity, [len(chunk)], slots[chunk],
+                                          [a[chunk] for a in cols], [[]])
+                t0 = time.monotonic()
+                slot, words, pout = packed_compute(self._state, self._stage(packed.pin))
+                scatter_store(self._state, slot, words)
+                self.round_duration.observe(time.monotonic() - t0)
+                self.dispatches_total += 2
+                self.rounds_total += 1
+                pieces.append((self.readback.register(pout), chunk, packed.lanes,
+                               unpack_out_host))
         return pieces
 
     def _submit_rounds(self, slots, cols, now_ms, counts, clears, parts, uni):
@@ -773,6 +800,16 @@ class DecisionEngine:
         self.rounds_total += len(counts)
         self.clears_total += sum(len(c) for c in clears)
         return (ticket, order, packed.lanes, unpack)
+
+    def _collapse_dataclass(self, slots, *cols_now_clears):
+        """The dataclass path's collapse (reference :1244): none when a
+        clear falls in a round after the first, else `_try_collapse` in an
+        `engine.collapsed` span."""
+        evict_rounds = cols_now_clears[-1]
+        if len(evict_rounds) and int(evict_rounds.max()) > 0:
+            return None
+        with span("engine.collapsed", width=len(slots)):
+            return self._try_collapse(slots, *cols_now_clears)
 
     def _try_collapse(self, slots, algo, behavior, hits, limit, duration, burst,
                       greg_dur, greg_exp, now_ms, evicted, evict_rounds):
@@ -831,6 +868,7 @@ class DecisionEngine:
                 c_counts.astype(np.int64), tuple(c[lo:hi][c_start] for c in sorted_cols),
                 c_seg_of.astype(_I32), c_pos.astype(_I32),
             )
+            t0 = time.monotonic()
             if self._split:
                 slot, words, pout = collapsed_compute(self._state, self._stage(buf))
                 scatter_store(self._state, slot, words)
@@ -840,6 +878,7 @@ class DecisionEngine:
                 pout = collapsed_step(self._state, flat[: buf.size].view(buf.shape),
                                       flat[buf.size :])
                 self.dispatches_total += 1
+            self.round_duration.observe(time.monotonic() - t0)
             self.rounds_total += 1
             self.clears_total += len(clear_slots)
             clear_slots = clear_slots[:0]
@@ -943,7 +982,7 @@ class DecisionEngine:
                 self.table.release_slots(slots)
             return len(freed)
 
-        with self._lock:
+        with self._lock, span("engine.sweep") as sp:
             self._flush_pump()
             freed = windowed_sweep(self, self.capacity, now_ms, max_windows, release,
                                    window_fn=window_fn)
@@ -955,6 +994,8 @@ class DecisionEngine:
                 if len(host_freed):
                     self.table.release_slots(host_freed)
                     freed += len(host_freed)
+            if sp is not None:
+                sp.set_attribute("freed", freed)
             return freed
 
     # ------------------------------------------------------------------

@@ -1217,6 +1217,14 @@ class DecisionLedger:
                 out.update(self._native.stats())
         return out
 
+    def native_answered(self) -> int:
+        """Decisions the native plane answered (0 while none is attached;
+        reference :1302), the rollup's `ledger_native_answered`."""
+        with self._lock:
+            if self._native is None:
+                return 0
+            return self._native.stats()["native_answered"]
+
     def close(self) -> None:
         self._stop.set()
         if self._flusher is not None:

@@ -252,6 +252,11 @@ class NativeColumnarFeeder:
 
     # ------------------------------------------------------------------
 
+    def attach_ring(self, ring) -> None:
+        """Publish the pack, ring-wait and serve stages into an event
+        ring (csrc/event_ring.cpp; None detaches)."""
+        self._lib.cf_attach_ring(self._handle, ring)
+
     def stats(self) -> dict:
         out = _out(16)
         self._lib.cf_stats(self._handle, out.ctypes.data)

@@ -33,12 +33,14 @@ copy from pinned memory, queued on the stream ahead of the launch.
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from gubernator_tpu_torch.ops.bucket_kernel import PackedRounds, split_rounds
+from gubernator_tpu_torch.utils.metrics import DurationStat
 
 MAX_GROUP = 16
 
@@ -46,10 +48,11 @@ MAX_GROUP = 16
 class PumpTicket:
     """One queued submission.  `fetch()` → its host output [rows, L]."""
 
-    __slots__ = ("pump", "packed", "rows", "group", "lo", "hi", "error")
+    __slots__ = ("pump", "packed", "rows", "group", "lo", "hi", "error", "t_submit")
 
     def __init__(self, pump: "StepPump", packed: PackedRounds) -> None:
         self.pump = pump
+        self.t_submit = time.monotonic()
         self.packed: Optional[PackedRounds] = packed  # until launched
         self.rows = packed.pin.shape[0]  # the format: 16 rows general, 2 uniform
         self.group = None  # the launch's readback Ticket, set last
@@ -77,6 +80,9 @@ class StepPump:
         self.submitted = 0
         self.flushes = 0
         self.fused_rounds = 0
+        # Submit → launch wait of each submission (the service's
+        # device.window_wait stage; reference :147).
+        self.window_wait = DurationStat()
 
     # -- engine-lock-held API --------------------------------------------
 
@@ -113,6 +119,9 @@ class StepPump:
 
     def _flush_group(self, group: List[PumpTicket]) -> None:
         eng = self.engine
+        t0 = time.monotonic()
+        for t in group:
+            self.window_wait.observe(max(t0 - t.t_submit, 0.0))
         packs = [t.packed for t in group]
         rows = packs[0].pin.shape[0]
         widths = [p.pin.shape[1] for p in packs]
@@ -131,6 +140,7 @@ class StepPump:
             round_off, clear_off, clear_slots = self._join_offsets(packs, widths)
         pout = eng._launch_rounds(pin, round_off, clear_off, clear_slots,
                                   max(p.widest for p in packs))
+        eng.round_duration.observe(time.monotonic() - t0)
         ticket = eng.readback.register(pout)
         self.flushes += 1
         self.fused_rounds += n_rounds

@@ -28,27 +28,35 @@ stale or partial data.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from gubernator_tpu_torch.utils.metrics import DurationStat
+
 
 class Ticket:
     """One registered output.  `fetch()` returns the host ndarray."""
 
-    __slots__ = ("host", "event", "_array")
+    __slots__ = ("host", "event", "_array", "_stat")
 
-    def __init__(self, host: torch.Tensor, event=None) -> None:
+    def __init__(self, host: torch.Tensor, stat: DurationStat, event=None) -> None:
         self.host = host  # the pinned copy, or the CPU tensor itself
         self.event = event  # torch.cuda.Event recorded after the copy (card only)
         self._array: Optional[np.ndarray] = None
+        self._stat = stat
 
     def fetch(self) -> np.ndarray:
+        """The output as numpy; the first fetch waits for the copy and is
+        timed into the combiner's `transfer_duration`."""
         if self._array is None:
+            t0 = time.monotonic()
             if self.event is not None:
                 self.event.synchronize()
             self._array = self.host.numpy()
+            self._stat.observe(time.monotonic() - t0)
         return self._array
 
 
@@ -59,6 +67,9 @@ class ReadbackCombiner:
         self._lock = threading.Lock()
         self.registered = 0  # tickets made
         self.transfers = 0  # device-to-host copies started
+        # Each ticket's wait for its output on the host, first fetch only
+        # (the service's device.readback stage; reference :97).
+        self.transfer_duration = DurationStat()
 
     def register(self, handle: torch.Tensor) -> Ticket:
         """Start bringing `handle` home (call right after its launch,
@@ -66,11 +77,11 @@ class ReadbackCombiner:
         with self._lock:
             self.registered += 1
         if handle.device.type != "cuda":
-            return Ticket(handle)
+            return Ticket(handle, self.transfer_duration)
         host = torch.empty(handle.shape, dtype=handle.dtype, pin_memory=True)
         host.copy_(handle, non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(handle.device))
         with self._lock:
             self.transfers += 1
-        return Ticket(host, event)
+        return Ticket(host, self.transfer_duration, event)

@@ -59,11 +59,10 @@
 // (core/native_plane.py NativeColumnarFeeder); linked into the h2 server
 // library (ops/native_build.py SOURCES["h2_server"]) so the response
 // bridge (h2s_feeder_respond / h2s_feeder_release) is an ordinary
-// in-image call.  Left out, with the plane it serves (it comes back with
-// its ROADMAP A item): the event ring's per-stage latency records
-// (`cf_attach_ring`, the `evr_record` calls of the pack, the ring wait
-// and the serve, and each RPC's enqueue stamp, which the port's
-// h2_server.cpp passes as 0) — item 13, the observability planes.
+// in-image call.  The event ring's stages (event_ring.cpp, attached with
+// `cf_attach_ring`) are the reference's too: the pack in the connection
+// thread, each RPC's wait from its enqueue stamp (which h2_server.cpp
+// passes to `cf_pack`) to the window callback, and the callback's wall.
 
 #include <atomic>
 #include <chrono>
@@ -88,6 +87,17 @@ extern "C" int64_t wire_encode_resps_hint(
     const int32_t* status, const int64_t* limit, const int64_t* remaining,
     const int64_t* reset_time, int64_t n, int32_t over_status,
     int64_t now_ms, uint8_t* out, int64_t out_cap);
+// From event_ring.cpp (same library).
+extern "C" int64_t evr_record(void* handle, int64_t kind, int64_t t_end_ns,
+                              int64_t dur_ns, int64_t items);
+extern "C" int64_t evr_now_ns();
+
+// Event kinds (gubernator_tpu_torch/utils/native_events.py names them;
+// 1-3 and 7-9 are the h2 front's).
+constexpr int64_t kEvFeederPack = 4;      // conn thread: decode+pack
+constexpr int64_t kEvFeederRingWait = 5;  // pack → window callback
+constexpr int64_t kEvFeederServe = 6;     // columnar callback wall
+
 // From h2_server.cpp (same library): the response scatter bridge.  A
 // conn_token is opaque to this file; respond consumes it, release
 // frees it without sending (teardown).  Both tolerate nullptr tokens
@@ -169,6 +179,7 @@ struct Feeder {
   // read it to find the current claim target.
   std::atomic<int64_t> open{0};
   std::atomic<bool> closing{false};
+  std::atomic<void*> ring{nullptr};  // optional event ring
   // Python window callback; cf_stop nulls it (drain windows answer
   // UNAVAILABLE), so reads and the write serialize on mu.
   ColumnarCallback callback = nullptr;  // guarded by mu
@@ -332,6 +343,7 @@ void serve_window(Feeder* f, int64_t idx) {
   // gap between claim and commit is a bounded memcpy, so a spin-yield
   // wait is the right tool (no condvar on the pack path).
   while (w.committed_rows.load() != rows) std::this_thread::yield();
+  void* ring = f->ring.load();
   const int64_t n_rpcs = static_cast<int64_t>(cur_rpcs(sealed));
   ColumnarCallback cb;
   {
@@ -340,7 +352,18 @@ void serve_window(Feeder* f, int64_t idx) {
   }
   int64_t rc = 0;
   if (cb != nullptr) {
+    const int64_t t_cb = ring ? evr_now_ns() : 0;
+    if (ring) {
+      for (int64_t r = 0; r < n_rpcs; ++r)
+        if (w.rpc_enq_ns[r])
+          evr_record(ring, kEvFeederRingWait, t_cb,
+                     t_cb - w.rpc_enq_ns[r], w.rpc_items[r]);
+    }
     rc = cb(idx, rows, n_rpcs, static_cast<int64_t>(cur_bytes(sealed)));
+    if (ring) {
+      const int64_t t1 = evr_now_ns();
+      evr_record(ring, kEvFeederServe, t1, t1 - t_cb, rows);
+    }
     f->served_rows.fetch_add(rows);
   } else {
     rc = 14;  // sink mode (bench) / teardown: UNAVAILABLE
@@ -479,6 +502,10 @@ void* cf_create(int64_t n_slots, int64_t max_rows, int64_t key_cap,
   return f;
 }
 
+void cf_attach_ring(void* handle, void* ring) {
+  static_cast<Feeder*>(handle)->ring.store(ring);
+}
+
 // retry_after_ms metadata on native OVER_LIMIT answers (the
 // herd-backoff hint; "When Two is Worse Than One").
 void cf_set_hints(void* handle, int64_t on) {
@@ -527,6 +554,8 @@ int64_t cf_pack(void* handle, const uint8_t* body, int64_t len,
                 int64_t t_enq_ns) {
   auto* f = static_cast<Feeder*>(handle);
   if (f->closing.load()) return -2;
+  void* ring = f->ring.load();
+  const int64_t t0 = ring ? evr_now_ns() : 0;
   PackScratch& s = tls_scratch;
   if (max_items > f->max_rows) max_items = f->max_rows;
   s.ensure(max_items, len);
@@ -583,6 +612,10 @@ int64_t cf_pack(void* handle, const uint8_t* body, int64_t len,
         w.committed_rows.fetch_add(n);
         if (full) w.cursor.fetch_or(kClosedBit);
         if (first || full) wake_serve(f);
+        if (ring) {
+          const int64_t t1 = evr_now_ns();
+          evr_record(ring, kEvFeederPack, t1, t1 - t0, n);
+        }
         // Stat RMWs LAST: every cf_pack exit path ends in a seq_cst
         // RMW on a feeder counter, which is what lets cf_free's
         // quiesce loads order the delete after every producer access

@@ -56,13 +56,11 @@
 // feeder's serve thread through `h2s_feeder_respond`; only an RPC the
 // feeder declines (slow-path rows, ring pressure, no feeder attached)
 // takes the byte window queue.  `h2s_stats` slots 5 / 6 count the
-// feeder's RPCs and items, as the reference's do.  Left out, with the
-// plane it serves (it comes back with its ROADMAP A item):
-//
-// - the event ring's per-stage latency records (`evr_record`,
-//   `h2s_attach_ring`; event_ring.cpp) — item 13, the observability
-//   planes.  Its clock, `evr_now_ns`, stays as `now_ns` below: the
-//   reactors' idle sweep and accept back-off read it.
+// feeder's RPCs and items, as the reference's do.  So are the event
+// ring's per-stage latency records (event_ring.cpp, linked into the same
+// library; attached with `h2s_attach_ring`): the native serve, each RPC's
+// window wait, the window callback's wall, and the event front's wake,
+// read and write stages, recorded at the reference's sites.
 //
 // Concatenation trick: protobuf repeated-field semantics mean the
 // byte-concatenation of N serialized GetRateLimitsReq messages IS one
@@ -105,6 +103,12 @@ extern "C" int64_t dp_try_serve(void* handle, const uint8_t* body,
                                 int64_t len, int64_t max_items,
                                 int64_t now_ms, uint8_t* out,
                                 int64_t out_cap);
+// Event ring (event_ring.cpp, same library): lock-free per-stage latency
+// tap the connection, reactor and dispatch threads publish into — no
+// mutex, no allocation, no Python.
+extern "C" int64_t evr_record(void* handle, int64_t kind, int64_t t_end_ns,
+                              int64_t dur_ns, int64_t items);
+extern "C" int64_t evr_now_ns();
 // Columnar feeder plane (columnar_feeder.cpp, same library): wire bytes →
 // device-ready columns inside the CALLING thread (a connection thread on
 // the threaded plane, a reactor on the event plane — the pack scratch is
@@ -123,6 +127,15 @@ constexpr uint8_t kData = 0x0, kHeaders = 0x1, kRst = 0x3, kSettings = 0x4,
 constexpr uint8_t kFlagEndStream = 0x1, kFlagAck = 0x1, kFlagEndHeaders = 0x4,
                   kFlagPadded = 0x8;
 
+// Event kinds (gubernator_tpu_torch/utils/native_events.py names them).
+constexpr int64_t kEvNativeServe = 1;  // conn/reactor: decode→probe→send
+constexpr int64_t kEvWindowWait = 2;   // enqueue → dispatch pickup
+constexpr int64_t kEvWindowServe = 3;  // window callback (Python) wall
+// 4..6 are the columnar feeder's (columnar_feeder.cpp).
+constexpr int64_t kEvReactorWake = 7;   // one epoll wake's processing wall
+constexpr int64_t kEvReactorRead = 8;   // one conn's read drain (items=bytes)
+constexpr int64_t kEvReactorWrite = 9;  // one writev flush (items=bytes)
+
 // Event-front tuning.  kReadBudget bounds one connection's read drain
 // per epoll wake (a firehose client yields the reactor to its lane
 // mates and resumes next iteration); kMaxOutBytes bounds the egress
@@ -132,14 +145,6 @@ constexpr uint8_t kFlagEndStream = 0x1, kFlagAck = 0x1, kFlagEndHeaders = 0x4,
 constexpr size_t kReadBudget = 256 * 1024;
 constexpr size_t kMaxOutBytes = 8u << 20;
 constexpr int kMaxIov = 64;
-
-// Monotonic nanoseconds (the reference's event_ring.cpp evr_now_ns):
-// the reactors' idle clock and accept back-off deadline.
-int64_t now_ns() {
-  return std::chrono::duration_cast<std::chrono::nanoseconds>(
-             std::chrono::steady_clock::now().time_since_epoch())
-      .count();
-}
 
 void put_u24(uint8_t* p, uint32_t v) {
   p[0] = (v >> 16) & 0xff;
@@ -248,6 +253,7 @@ struct PendingRpc {
   uint32_t stream;
   std::string body;       // grpc-deframed protobuf payload
   int64_t items;
+  int64_t t_enq_ns;       // event-ring window-wait anchor (0 = no ring)
 };
 
 struct Reactor;
@@ -291,6 +297,10 @@ struct Server {
   // side attaches and detaches it; connection threads load it per RPC,
   // so a detach takes effect at the next request.
   std::atomic<void*> plane{nullptr};
+  // Optional event ring (event_ring.cpp), attached like the plane;
+  // nullptr = observability off, and the serve paths skip even the
+  // clock reads.
+  std::atomic<void*> ring{nullptr};
   // Optional columnar feeder plane (columnar_feeder.cpp), attached like
   // the plane; connection threads re-read it per RPC, so a detach takes
   // effect at the next request.
@@ -739,6 +749,8 @@ void serve_rpc(Server* srv, const std::shared_ptr<Conn>& conn,
   // Native decision plane: hot-key RPCs answer right here, in this
   // thread — no queue, no window wait, no Python.  Any decline (cold
   // key, fall-through row, out-of-scope behavior) goes on to the feeder.
+  void* ring = srv->ring.load();
+  const int64_t t0 = ring ? evr_now_ns() : 0;
   void* plane = srv->plane.load();
   if (plane != nullptr && items > 0) {
     std::string resp;
@@ -762,6 +774,10 @@ void serve_rpc(Server* srv, const std::shared_ptr<Conn>& conn,
       srv->rpcs.fetch_add(1);
       srv->native_rpcs.fetch_add(1);
       srv->native_items.fetch_add(items);
+      if (ring) {
+        const int64_t t1 = evr_now_ns();
+        evr_record(ring, kEvNativeServe, t1, t1 - t0, items);
+      }
       return;
     }
   }
@@ -776,7 +792,8 @@ void serve_rpc(Server* srv, const std::shared_ptr<Conn>& conn,
       auto* token = new FeederToken{conn, srv};
       const int64_t fr = cf_pack(
           feeder, reinterpret_cast<const uint8_t*>(body.data()),
-          static_cast<int64_t>(body.size()), items, token, stream, 0);
+          static_cast<int64_t>(body.size()), items, token, stream,
+          ring ? (t0 ? t0 : evr_now_ns()) : 0);
       if (fr > 0) {
         srv->feeder_items.fetch_add(fr);
         return;  // the feeder's serve thread answers it
@@ -785,7 +802,7 @@ void serve_rpc(Server* srv, const std::shared_ptr<Conn>& conn,
     }
   }
   std::lock_guard<std::mutex> lock(srv->q_mu);
-  srv->queue.push_back(PendingRpc{conn, stream, std::move(body), items});
+  srv->queue.push_back(PendingRpc{conn, stream, std::move(body), items, t0});
   srv->queued_items += items;
   srv->q_cv.notify_one();
 }
@@ -1054,11 +1071,25 @@ void dispatch_loop(Server* srv) {
     body_lens.reserve(batch.size());
     for (auto& rpc : batch)
       body_lens.push_back(static_cast<int64_t>(rpc.body.size()));
+    void* ring = srv->ring.load();
+    const int64_t t_cb = ring ? evr_now_ns() : 0;
+    if (ring) {
+      // One window-wait event per RPC: enqueue → dispatch pickup is the
+      // group-commit wait a fall-through decision pays.
+      for (auto& rpc : batch)
+        if (rpc.t_enq_ns)
+          evr_record(ring, kEvWindowWait, t_cb, t_cb - rpc.t_enq_ns,
+                     rpc.items);
+    }
     const int64_t rc = srv->callback(
         reinterpret_cast<const uint8_t*>(concat.data()),
         static_cast<int64_t>(concat.size()), counts.data(),
         body_lens.data(), static_cast<int64_t>(batch.size()), total,
         cols.data(), rpc_status.data());
+    if (ring) {
+      const int64_t t1 = evr_now_ns();
+      evr_record(ring, kEvWindowServe, t1, t1 - t_cb, total);
+    }
     srv->windows.fetch_add(1);
     int64_t offset = 0;
     size_t ridx = 0;
@@ -1204,7 +1235,7 @@ void reactor_accept(Server* srv, Reactor* rx) {
         // reactor at exactly the moment the box is out of fds.
         // Pause: deregister and retry after a beat.
         epoll_ctl(rx->epfd, EPOLL_CTL_DEL, rx->listen_fd, nullptr);
-        rx->accept_paused_until_ns = now_ns() + 100000000;
+        rx->accept_paused_until_ns = evr_now_ns() + 100000000;
       }
       return;  // EAGAIN (drained) or closing
     }
@@ -1213,7 +1244,7 @@ void reactor_accept(Server* srv, Reactor* rx) {
     auto conn = std::make_shared<Conn>(fd);
     conn->epfd = rx->epfd;
     conn->rx = rx;
-    conn->last_activity_ns.store(now_ns());
+    conn->last_activity_ns.store(evr_now_ns());
     // Small initial parse buffer: C100K idle connections must not
     // cost 64KB each (the threaded plane's sizing); it grows on
     // demand and shrinks when drained.
@@ -1255,6 +1286,8 @@ void reactor_accept(Server* srv, Reactor* rx) {
 // the lane (or, transitively, the serve plane).
 void reactor_read(Server* srv, Reactor* rx,
                   const std::shared_ptr<Conn>& conn) {
+  void* ring = srv->ring.load();
+  const int64_t t0 = ring ? evr_now_ns() : 0;
   ReadState& rs = conn->rs;
   size_t budget = kReadBudget;
   int64_t got = 0;
@@ -1284,7 +1317,11 @@ void reactor_read(Server* srv, Reactor* rx,
     break;  // EAGAIN: drained
   }
   if (got > 0) {
-    conn->last_activity_ns.store(now_ns());
+    conn->last_activity_ns.store(evr_now_ns());
+    if (ring) {
+      const int64_t t1 = evr_now_ns();
+      evr_record(ring, kEvReactorRead, t1, t1 - t0, got);
+    }
     // Shrink a drained burst buffer: idle connections must not pin
     // the high-water mark.
     if (rs.len == 0 && rs.buf.size() > (64u << 10)) {
@@ -1297,9 +1334,23 @@ void reactor_read(Server* srv, Reactor* rx,
 
 // EPOLLOUT: resume the writev flush a short write parked, then let
 // flow control queue whatever the freed socket room now admits.
-void reactor_flush(const std::shared_ptr<Conn>& conn) {
-  std::lock_guard<std::mutex> lock(conn->write_mu);
-  if (conn->flush_out_locked()) conn->pump_locked();
+// Recorded as the reactor.write stage (items = bytes moved this
+// resumption) — the backpressure path, not the common inline flush.
+void reactor_flush(Server* srv, const std::shared_ptr<Conn>& conn) {
+  void* ring = srv->ring.load();
+  const int64_t t0 = ring ? evr_now_ns() : 0;
+  int64_t moved = 0;
+  {
+    std::lock_guard<std::mutex> lock(conn->write_mu);
+    const size_t before = conn->outq_bytes;
+    if (conn->flush_out_locked()) conn->pump_locked();
+    moved = static_cast<int64_t>(before) -
+            static_cast<int64_t>(conn->outq_bytes);
+  }
+  if (ring) {
+    const int64_t t1 = evr_now_ns();
+    evr_record(ring, kEvReactorWrite, t1, t1 - t0, moved);
+  }
 }
 
 // Idle reaping: connections silent past idle_timeout_ms get a GOAWAY
@@ -1342,6 +1393,8 @@ void reactor_loop(Server* srv, Reactor* rx) {
       if (errno == EINTR) continue;
       break;
     }
+    void* ring = srv->ring.load();
+    const int64_t t0 = ring ? evr_now_ns() : 0;
     for (int i = 0; i < n; ++i) {
       const int fd = evs[i].data.fd;
       if (fd == rx->listen_fd) {
@@ -1359,7 +1412,7 @@ void reactor_loop(Server* srv, Reactor* rx) {
       std::shared_ptr<Conn> conn = it->second;
       if (evs[i].events & (EPOLLHUP | EPOLLERR)) conn->dead.store(true);
       if (!conn->dead.load() && (evs[i].events & EPOLLOUT))
-        reactor_flush(conn);
+        reactor_flush(srv, conn);
       if (!conn->dead.load() &&
           (evs[i].events & (EPOLLIN | EPOLLRDHUP)))
         reactor_read(srv, rx, conn);
@@ -1384,7 +1437,7 @@ void reactor_loop(Server* srv, Reactor* rx) {
       }
       for (int fd : doomed) reactor_drop(srv, rx, fd);
     }
-    const int64_t t_now = now_ns();
+    const int64_t t_now = evr_now_ns();
     if (rx->accept_paused_until_ns != 0 &&
         t_now >= rx->accept_paused_until_ns) {
       rx->accept_paused_until_ns = 0;
@@ -1400,6 +1453,10 @@ void reactor_loop(Server* srv, Reactor* rx) {
                               1000000000)) {
       rx->last_sweep_ns = t_now;
       reactor_sweep_idle(srv, rx, t_now);
+    }
+    if (ring && n > 0) {
+      const int64_t t1 = evr_now_ns();
+      evr_record(ring, kEvReactorWake, t1, t1 - t0, n);
     }
   }
   // Teardown: this thread owns every conn it accepted — drop them
@@ -1593,6 +1650,14 @@ void h2s_attach_plane(void* handle, void* plane) {
   static_cast<Server*>(handle)->plane.store(plane);
 }
 
+// Attach (or detach with nullptr) an event ring created by evr_create.
+// Same lifetime contract as the plane: the ring must outlive the
+// server's threads; the Python side detaches before h2s_stop and frees
+// after it.
+void h2s_attach_ring(void* handle, void* ring) {
+  static_cast<Server*>(handle)->ring.store(ring);
+}
+
 // Attach (or detach with nullptr) a columnar feeder created by
 // cf_create.  Lifetime contract: detach here FIRST, then cf_stop
 // (drains in-flight windows, releasing their conn tokens), then
@@ -1648,6 +1713,7 @@ void h2s_stop(void* handle) {
   auto* srv = static_cast<Server*>(handle);
   srv->closing.store(true);
   srv->plane.store(nullptr);
+  srv->ring.store(nullptr);
   srv->feeder.store(nullptr);
   for (int fd : srv->listen_fds) {
     ::shutdown(fd, SHUT_RDWR);

@@ -24,13 +24,27 @@ sketch need nothing here: the engine reads GUBER_PAGED, GUBER_PAGE_SIZE
 and GUBER_PAGED_RESIDENT itself, and the service GUBER_HOTKEYS*, as the
 reference's do; with paging on, `conf.cache_size` is the logical key
 space and the store, the loader and the sweep thread reach cold pages
-through the host store.  The gRPC front, peer discovery and the cluster
-planes are not in this slice.
+through the host store.
+
+Observability (reference daemon.py:228-248, :333-377): when the in-memory
+tracer runs (GUBER_TRACING=memory, or a tracer a harness set), the tail
+flight recorder (utils/flight_recorder.py; GUBER_TRACE_TAIL_FACTOR /
+_MIN_MS / _CAP) hooks it, one recorder a tracer, and /debug/trace serves
+its dump; the h2 front's event ring (GUBER_NATIVE_EVENTS) gets a
+collector thread (utils/native_events.py; GUBER_NATIVE_EVENTS_INTERVAL)
+whose stages /debug/vars serves; and unless GUBER_OBS=0 the local rollup
+(obs/fleet.py) and the SLO watchdog (obs/slo.py; GUBER_SLO_INTERVAL,
+GUBER_SLO_FLEET, GUBER_SLO_FAST_WINDOWS / _SLOW_WINDOWS,
+GUBER_SLO_WATCH_KEYS) run, behind /debug/slo.  `close` stops the watchdog
+and the collector (whose thread must end before the ring is freed)
+before the front.  The gRPC front, peer discovery and the cluster
+planes, /debug/fleet among them, are not in this slice.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 
 from gubernator_tpu_torch.clock import SYSTEM_CLOCK, Clock
@@ -63,6 +77,8 @@ class Daemon:
         self.http_address = conf.http_listen_address
         self.h2_fast = None
         self.h2_fast_address = ""
+        self.obs = None
+        self.slo = None
         self._sweep_stop: threading.Event | None = None
         self._sweeper: threading.Thread | None = None
         self._serving = False  # start() ran to its end
@@ -80,6 +96,7 @@ class Daemon:
             # gubernator.go:146-152).
             n = engine.load(self._loader)
             log.info("restored %d buckets from the loader", n)
+        self._attach_flight_recorder()
         self.gateway = Gateway(self.instance, self.conf.http_listen_address)
         self.http_address = self.gateway.address
         self.gateway.start()
@@ -96,6 +113,12 @@ class Daemon:
                 native_ledger=self.conf.native_ledger,
             )
             self.h2_fast_address = self.h2_fast.address
+            self.instance.h2_front = self.h2_fast
+            if self.h2_fast._ring is not None:
+                from gubernator_tpu_torch.utils.native_events import NativeEventCollector
+
+                self.instance.native_events = NativeEventCollector.from_env(self.h2_fast)
+        self._start_obs()
         if self.conf.sweep_interval > 0:
             self._sweep_stop = threading.Event()
             self._sweeper = threading.Thread(target=self._sweep_loop, name="guber-sweep",
@@ -107,6 +130,36 @@ class Daemon:
             self.http_address, self.h2_fast_address or "off", engine.device, engine.capacity,
             engine.logical_capacity,
         )
+
+    def _attach_flight_recorder(self) -> None:
+        """Hook the tail flight recorder to the in-memory tracer, if one
+        runs: one recorder a tracer, so daemons sharing a process share
+        it (reference daemon.py:228-248)."""
+        from gubernator_tpu_torch.utils import tracing
+
+        tracer = tracing.current_tracer()
+        if isinstance(tracer, tracing.InMemoryTracer):
+            from gubernator_tpu_torch.utils.flight_recorder import FlightRecorder
+
+            fr = getattr(tracer, "_flight_recorder", None)
+            if fr is None:
+                fr = FlightRecorder.from_env(tracer)
+                tracer._flight_recorder = fr
+            self.instance.flight_recorder = fr
+
+    def _start_obs(self) -> None:
+        """The local rollup and the SLO watchdog, unless GUBER_OBS is off
+        (reference daemon.py:351-377)."""
+        if os.environ.get("GUBER_OBS", "1").strip().lower() in ("0", "false", "no", "off"):
+            return
+        from gubernator_tpu_torch.obs.fleet import FleetCollector
+        from gubernator_tpu_torch.obs.slo import SLOWatchdog, watch_keys_from_env
+
+        self.obs = FleetCollector(self.instance, addr=self.http_address)
+        self.instance.obs = self.obs
+        watch_keys_from_env(self.instance.admission_watch)
+        self.slo = SLOWatchdog.from_env(self.obs, self.instance.admission_watch)
+        self.instance.slo_watchdog = self.slo
 
     def _build_engine(self):
         """The engine (reference daemon.py:124-147): with `device_count` n
@@ -142,6 +195,14 @@ class Daemon:
         if self._sweep_stop is not None:
             self._sweep_stop.set()
             self._sweeper.join(timeout=5.0)
+        if self.slo is not None:
+            self.slo.close()
+        if self.instance is not None and self.instance.native_events is not None:
+            # The drain thread ends before the front frees the ring (one
+            # consumer, never a drain of a freed ring); if it outlived its
+            # join, the ring is leaked instead of freed.
+            if not self.instance.native_events.close() and self.h2_fast is not None:
+                self.h2_fast.abandon_ring()
         if self.h2_fast is not None:
             self.h2_fast.close()
         if self.gateway is not None:

@@ -15,6 +15,26 @@ string, enums as name or number.
 Errors keep the grpc-gateway shape `{"code": …, "message": …}`: a body
 that does not parse is HTTP 400 / code 3 (INVALID_ARGUMENT), a
 ServiceError (an oversized batch) HTTP 400 / code 11 (OUT_OF_RANGE).
+
+The debug routes (reference net/gateway.py:71-80, :139-215), each in the
+reference's shape, live and disabled:
+
+* `GET /debug/trace` — the tail flight recorder's dump
+  (utils/flight_recorder.py; the daemon attaches one when the in-memory
+  tracer runs, GUBER_TRACING=memory), else `{"enabled": false,
+  "traces": []}`;
+* `GET /debug/hotkeys` — the hot-key sketch's stats and top 50, else
+  `{"enabled": false, "top": []}` (GUBER_HOTKEYS=0);
+* `GET /debug/vars` — counters, the stage budget (real quantiles), the
+  ledger's and the native event ring's stats, and the sections of the
+  planes the port lacks (peer health, membership, handoff, replication,
+  multi-region, GLOBAL queues), answered as the reference's daemon with
+  no peers answers them: idle;
+* `GET /debug/slo` — the SLO watchdog's status (obs/slo.py; GUBER_OBS),
+  else `{"enabled": false}`.
+
+`/metrics` stays with the gRPC front (prometheus_client), and
+`/debug/fleet` with the peer planes.
 """
 
 from __future__ import annotations
@@ -25,6 +45,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from gubernator_tpu_torch.service import ServiceError, V1Instance
+from gubernator_tpu_torch.utils.metrics import DurationStat
 from gubernator_tpu_torch.types import (
     Algorithm,
     Behavior,
@@ -197,6 +218,89 @@ def health_check_resp_json(h: HealthCheckResp) -> bytes:
     ).encode()
 
 
+def _idle_planes(inst: V1Instance) -> dict:
+    """The /debug/vars sections of the planes a node with no peers runs
+    idle (reference net/gateway.py:180-215 over its daemon with one
+    member): no peer to report, one stable membership epoch, no handoff,
+    no replica lease (the reference's daemon starts its replication plane
+    only with the hot-key sketch), no region, no GLOBAL queue."""
+    handoff = {"shipped": 0, "forfeited": 0, "received": 0}
+    idle = DurationStat().snapshot_ms()
+    out = {
+        "peer_health": {},
+        "membership": {"epoch": 1, "phase": "stable", "peers": 1,
+                       "dual_window_seconds": 0.0, "handoff": dict(handoff)},
+        "handoff": dict(handoff),
+        "multiregion": {"windows": 0, "region_sends": 0, "region_sends_by": {},
+                        "hits_requeued": 0, "hits_dropped": 0, "region_attempts": {},
+                        "pending": 0, "pending_retry": 0, "backlog_age_s": 0.0,
+                        "region_states": {}, "window_wait": dict(idle),
+                        "region_rpc": dict(idle)},
+        "global": {"hits_pending": 0, "broadcasts_pending": 0, "async_sends": 0,
+                   "broadcasts": 0},
+    }
+    if inst.hotkeys is not None:
+        out["replication"] = {k: 0 for k in (
+            "promoted", "demoted", "grants_sent", "grants_failed", "grants_received",
+            "revokes_received", "stale_dropped", "expired", "answered", "credit_granted",
+            "credit_returned", "credit_forfeited", "promoted_keys", "replica_leases")}
+    return out
+
+
+def debug_trace(inst: V1Instance) -> dict:
+    """/debug/trace: the flight recorder's retained tail trees."""
+    fr = inst.flight_recorder
+    if fr is None:
+        return {"enabled": False, "traces": []}
+    out = fr.dump()
+    out["enabled"] = True
+    return out
+
+
+def debug_hotkeys(inst: V1Instance) -> dict:
+    """/debug/hotkeys: the sketch's stats and its top 50 keys."""
+    hk = inst.hotkeys
+    if hk is None:
+        return {"enabled": False, "top": []}
+    out = hk.stats()
+    out["enabled"] = True
+    out["top"] = [{"key": key.decode(errors="replace"), "count": count, "err": err}
+                  for key, count, err in hk.top(50)]
+    return out
+
+
+def debug_vars(inst: V1Instance) -> dict:
+    """/debug/vars: one snapshot of the node's live internals."""
+    out: dict = {"counters": dict(inst.counters),
+                 "stage_budget": {stage: stat.snapshot_ms()
+                                  for stage, stat in inst.stage_timers.items()}}
+    if inst.ledger is not None:
+        # The ledger's read-only tier caches GLOBAL broadcasts from peers:
+        # empty on a node with no peers, as the reference reports it.
+        out["ledger"] = {**inst.ledger.stats(), "readonly_entries": 0}
+    if inst.native_events is not None:
+        out["native_events"] = inst.native_events.stats()
+    out.update(_idle_planes(inst))
+    out["cache_size"] = inst.engine.cache_size()
+    return out
+
+
+def debug_slo(inst: V1Instance) -> dict:
+    """/debug/slo: the watchdog's SLIs, burns, headroom and breaches."""
+    wd = inst.slo_watchdog
+    if wd is None:
+        return {"enabled": False}
+    return wd.status()
+
+
+_DEBUG_ROUTES = {
+    "/debug/trace": debug_trace,
+    "/debug/hotkeys": debug_hotkeys,
+    "/debug/vars": debug_vars,
+    "/debug/slo": debug_slo,
+}
+
+
 class _Handler(BaseHTTPRequestHandler):
     instance: V1Instance  # set by Gateway
     protocol_version = "HTTP/1.1"
@@ -218,6 +322,8 @@ class _Handler(BaseHTTPRequestHandler):
         path = self.path.split("?", 1)[0]
         if path in ("/v1/HealthCheck", "/healthz"):
             self._reply(200, health_check_resp_json(self.instance.health_check()))
+        elif path in _DEBUG_ROUTES:
+            self._reply(200, json.dumps(_DEBUG_ROUTES[path](self.instance)).encode())
         else:
             self._reply_error(404, 5, "not found")
 

@@ -70,10 +70,16 @@ close).  GUBER_H2_EVENT_FRONT=0 restores the thread-per-connection
 plane, where GUBER_H2_LANES (default: CPU count) shards the listener
 across SO_REUSEPORT accept lanes.
 
-Not in this slice (the reference has it): the event ring
-(GUBER_NATIVE_EVENTS; ROADMAP A item 13).  tests/test_torch_h2_fast.py
-holds the front to the reference's, feeder on and off, with the ledger
-off and on, byte for byte.
+Event ring (GUBER_NATIVE_EVENTS, default on; GUBER_NATIVE_EVENTS_CAP
+records, default 65536): the front creates a lock-free ring
+(csrc/event_ring.cpp) and attaches it to the C server and the feeder;
+their threads publish each stage's latency into it (the native serve,
+each RPC's window wait, the window callback, the feeder's pack, ring
+wait and serve, the reactors' wake, read and write), and the daemon's
+`utils/native_events.NativeEventCollector` drains it (`drain_events`,
+`ring_stats`).  tests/test_torch_h2_fast.py holds the front to the
+reference's, feeder on and off, with the ledger off and on, byte for
+byte.
 
 Threads: the byte window callback runs on the C server's dispatch
 thread, the feeder's window callback on the feeder's serve thread, each
@@ -159,6 +165,15 @@ def _feeder_ring_params() -> dict:
     }
 
 
+def native_events_capacity() -> int:
+    """GUBER_NATIVE_EVENTS / GUBER_NATIVE_EVENTS_CAP: 0 disables the
+    event ring; otherwise the ring's record capacity (rounded up to a
+    power of two by the C side; default 65536)."""
+    if _off(os.environ.get("GUBER_NATIVE_EVENTS", "1")):
+        return 0
+    return _int_knob("GUBER_NATIVE_EVENTS_CAP", 65536)
+
+
 def event_front_enabled() -> bool:
     """GUBER_H2_EVENT_FRONT (default on): epoll reactors instead of a
     thread per connection."""
@@ -241,13 +256,33 @@ class H2FastFront:
         self.event_front = bool(event_front)
         self.plane = None
         self.feeder = None
+        self._ring = None
         try:
             self._attach_plane(native_ledger)
             self._attach_feeder(native_feeder_enabled() if native_feeder is None
                                 else native_feeder, window_s, flush_items)
+            self._attach_ring()
         except BaseException:
             self.close()
             raise
+
+    def _attach_ring(self) -> None:
+        """Create the event ring and attach it to the server and the
+        feeder (reference net/h2_fast.py:323-338), unless
+        GUBER_NATIVE_EVENTS is off.  A ring that cannot be allocated
+        leaves the front without one (the reference's rule: the tap is
+        optional, serving is not)."""
+        cap = native_events_capacity()
+        if cap <= 0:
+            return
+        ring = self._lib.evr_create(cap)
+        if not ring:
+            log.warning("event ring of %d records could not be allocated", cap)
+            return
+        self._ring = ctypes.c_void_p(ring)
+        self._lib.h2s_attach_ring(self._handle, self._ring)
+        if self.feeder is not None:
+            self.feeder.attach_ring(self._ring)
 
     def _attach_feeder(self, native_feeder: bool, window_s: float, flush_items: int) -> None:
         """Create and attach the columnar feeder (reference
@@ -414,6 +449,35 @@ class H2FastFront:
                 slot.rpc_status[r] = 0
         return 0
 
+    # -- the event ring (csrc/event_ring.cpp) ---------------------------
+
+    def drain_events(self, out: np.ndarray) -> int:
+        """Drain ring records into `out` (int64, 4 slots a record: kind,
+        t_end_ns, dur_ns, items); returns the records read.  One consumer
+        by contract: the NativeEventCollector's thread."""
+        if self._ring is None:
+            return 0
+        return int(self._lib.evr_drain(self._ring, out.ctypes.data, len(out) // 4))
+
+    def ring_stats(self) -> dict:
+        if self._ring is None:
+            return {"written": 0, "dropped": 0, "enabled": False}
+        out = np.zeros(2, dtype=np.int64)
+        self._lib.evr_stats(self._ring, out.ctypes.data)
+        return {"written": int(out[0]), "dropped": int(out[1]), "enabled": True}
+
+    def abandon_ring(self) -> None:
+        """Detach the ring and forget it WITHOUT freeing: the collector's
+        drain thread outlived its join, and a ring freed under a live
+        consumer is a native use-after-free (leak over use-after-free)."""
+        if self._ring is not None:
+            with self._teardown_mu:
+                if self._handle:
+                    self._lib.h2s_attach_ring(self._handle, None)
+            if self.feeder is not None:
+                self.feeder.attach_ring(None)
+            self._ring = None
+
     # -- lifecycle ------------------------------------------------------
 
     def _raw_stats(self) -> np.ndarray:
@@ -459,9 +523,10 @@ class H2FastFront:
         reactors, the accept threads and the dispatch thread (so no byte
         window is inside Python once it returns) and frees the handle.
         The feeder is detached and stopped before it (its serve thread
-        drains every claimed window, then joins) and freed after it.  The
-        handle is taken under `_teardown_mu` first, so a concurrent stats
-        call sees None."""
+        drains every claimed window, then joins) and freed after it; the
+        event ring is detached before it and freed last (the daemon stops
+        the ring's collector first).  The handle is taken under
+        `_teardown_mu` first, so a concurrent stats call sees None."""
         with self._teardown_mu:
             handle, self._handle = self._handle, None
         if not handle:
@@ -480,6 +545,10 @@ class H2FastFront:
             # joined the connection threads too.
             self._lib.h2s_attach_feeder(handle, None)
             self.feeder.stop()
+        if self._ring is not None:
+            # Detach first, as the plane; free only after h2s_stop has
+            # joined the writer threads (and the feeder is closed).
+            self._lib.h2s_attach_ring(handle, None)
         self._lib.h2s_stop(handle)
         if self.feeder is not None:
             with self._teardown_mu:
@@ -492,3 +561,6 @@ class H2FastFront:
             with self._teardown_mu:
                 plane, self.plane = self.plane, None
             plane.close()
+        if self._ring is not None:
+            self._lib.evr_free(self._ring)
+            self._ring = None

@@ -994,6 +994,71 @@ def clear_occupied_reference(meta: torch.Tensor, slots: torch.Tensor) -> None:
     meta[s] = meta[s] & ~1
 
 
+class BatchInput(NamedTuple):
+    """One request batch of the dataclass step, one [B] tensor a field
+    (the reference's `BatchInput`, :98): slot, algo, behavior int32;
+    hits, limit, duration, burst, greg_duration, greg_expire int64.
+    In-range slots are unique; padding lanes hold out-of-range slots
+    (capacity + lane).  `greg_*` are the host-computed Gregorian duration
+    and expiry of DURATION_IS_GREGORIAN lanes."""
+
+    slot: torch.Tensor
+    algo: torch.Tensor
+    behavior: torch.Tensor
+    hits: torch.Tensor
+    limit: torch.Tensor
+    duration: torch.Tensor
+    burst: torch.Tensor
+    greg_duration: torch.Tensor
+    greg_expire: torch.Tensor
+
+
+class BatchOutput(NamedTuple):
+    """The answers of the dataclass step in request order (the
+    reference's `BatchOutput`, :121): status int32; limit (the request's,
+    echoed), remaining, reset_time int64."""
+
+    status: torch.Tensor
+    limit: torch.Tensor
+    remaining: torch.Tensor
+    reset_time: torch.Tensor
+
+
+_BATCH_DTYPES = (_I32,) * 3 + (_I64,) * 6
+
+
+def check_batch(batch: BatchInput, clear_slots: torch.Tensor) -> int:
+    """Shapes, dtypes and devices of a dataclass-step call; returns B."""
+    b = batch.slot.shape[0]
+    for name, t, dt in zip(BatchInput._fields, batch, _BATCH_DTYPES):
+        if t.dtype != dt or t.dim() != 1 or t.shape[0] != b:
+            raise ValueError(f"batch.{name} must be {dt} [{b}]; got {t.dtype} {list(t.shape)}")
+        if t.device != batch.slot.device:
+            raise ValueError(f"batch.{name} is on {t.device}, batch.slot on {batch.slot.device}")
+    if clear_slots.dtype != _I32 or clear_slots.dim() != 1:
+        raise ValueError("clear_slots must be int32 [C]")
+    if clear_slots.device != batch.slot.device:
+        raise ValueError(f"clear_slots is on {clear_slots.device}, the batch on "
+                         f"{batch.slot.device}")
+    return b
+
+
+def apply_batch_reference(state: BucketState, batch: BatchInput, clear_slots: torch.Tensor,
+                          now_ms: int) -> BatchOutput:
+    """The plain dataclass step (reference `_apply_batch_impl` :356):
+    clear meta bit 0 at the in-range `clear_slots`, then gather → update →
+    store every lane at `now_ms`, the state updated IN PLACE; the answers
+    in request order.  With the in-range slots unique no lane touches
+    another's slot, so the reference's two sorts change nothing here."""
+    check_state(state)
+    check_batch(batch, clear_slots)
+    clear_occupied_reference(state.meta, clear_slots)
+    now = torch.tensor(int(now_ms), dtype=_I64, device=batch.slot.device)
+    fields = tuple(t.to(_I64) for t in batch[1:])
+    status, rem, reset = _step_fields(state, batch.slot, fields, now)
+    return BatchOutput(status.to(_I32), batch.limit.clone(), rem, reset)
+
+
 def check_rounds(pin, round_off, clear_off, clear_slots, rows: int = PACKED_IN_ROWS) -> int:
     """Shapes and dtypes of a multi-round call; returns R."""
     check_pin(pin, rows)

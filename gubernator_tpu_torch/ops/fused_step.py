@@ -34,7 +34,8 @@ K13, the expiry sweep of one state and of every shard, in `ops.expiry`,
 K7 / K8, the count-min sketch's step and rotation, in `ops.sketch`,
 K9 / K10, the page spill and refill, in `ops.page_words`, K11 / K12,
 the sharded engine's per-shard steps, in `ops.sharded_step`, and K14-K16,
-the split arm's compute and scatter kernels, in `ops.split_step`; their
+the split arm's compute and scatter kernels, in `ops.split_step`, and
+K17, the dataclass step, in `ops.apply_batch`; their
 launches count here too (K14-K16's in `split_launches`).
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
@@ -74,7 +75,7 @@ from gubernator_tpu_torch.ops.bucket_kernel import (
 launches = {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0, "uniform_step": 0,
             "load_slots": 0, "sweep_window": 0, "sketch_step": 0, "sketch_rotate": 0,
             "gather_pages": 0, "load_pages": 0, "shard_step": 0, "shard_collapsed": 0,
-            "shard_sweep": 0}
+            "shard_sweep": 0, "apply_batch": 0}
 # Launches of the split arm's kernels (K14-K16, `ops.split_step`), counted
 # apart from `launches`, whose sum on a path of the fused arm is that
 # path's engine and sweep launches.

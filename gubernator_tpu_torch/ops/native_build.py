@@ -1,12 +1,14 @@
 """Build and load the port's native code: the CUDA kernels (csrc/*.cu:
 K1 and K4 in fused_step.cu, K2 clear_occupied.cu, K3 collapsed_step.cu,
 K5 load_slots.cu, K6 and K13 sweep.cu, K7 and K8 sketch.cu, K9 and K10
-page_words.cu, K11 and K12 sharded_step.cu, K14-K16 split_step.cu), the
+page_words.cu, K11 and K12 sharded_step.cu, K14-K16 split_step.cu, K17
+apply_batch.cu), the
 host intern table (csrc/intern_table.cpp), the wire codec (csrc/wire_codec.cpp), the
 h2 front (csrc/h2_server.cpp, linked with the wire codec, the native
-decision plane, csrc/decision_plane.cpp, and the columnar feeder,
-csrc/columnar_feeder.cpp, into one library, as the reference's
-`_EXTRA_SOURCES` does) and the h2 load client
+decision plane, csrc/decision_plane.cpp, the columnar feeder,
+csrc/columnar_feeder.cpp, and the event ring, csrc/event_ring.cpp, into
+one library, as the reference's `_EXTRA_SOURCES` does) and the h2 load
+client
 (csrc/h2_client.cpp).
 
 Each library has a plain C interface, loaded through `ctypes` (no
@@ -48,14 +50,16 @@ SOURCES = {
     "page_words": ("page_words.cu",),
     "sharded_step": ("sharded_step.cu",),
     "split_step": ("split_step.cu",),
+    "apply_batch": ("apply_batch.cu",),
     "intern_table": ("intern_table.cpp",),
     "wire_codec": ("wire_codec.cpp",),
-    # The wire codec, the decision plane and the columnar feeder link into
-    # the h2 server, as the reference's do: the plane answers hot-key RPCs
-    # and the feeder packs the others into column windows, both in the
-    # server's own threads.
+    # The wire codec, the decision plane, the columnar feeder and the event
+    # ring link into the h2 server, as the reference's do: the plane
+    # answers hot-key RPCs and the feeder packs the others into column
+    # windows, both in the server's own threads, which publish their
+    # stages' latencies into the ring.
     "h2_server": ("h2_server.cpp", "wire_codec.cpp", "decision_plane.cpp",
-                  "columnar_feeder.cpp"),
+                  "columnar_feeder.cpp", "event_ring.cpp"),
     "h2_client": ("h2_client.cpp",),
 }
 # Sources a .cu includes: an edit to one rebuilds every kernel.
@@ -210,6 +214,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.guber_collapsed_compute.restype = i
         lib.guber_collapsed_compute_threads.argtypes = []
         lib.guber_collapsed_compute_threads.restype = i
+    elif name == "apply_batch":
+        # cols, cap, in_cols[9], width, clear_slots, n_clear, now_ms, out_cols[4], stream
+        lib.guber_apply_batch.argtypes = [ctypes.POINTER(p), ctypes.c_longlong, ctypes.POINTER(p),
+                                          i, p, i, ctypes.c_longlong, ctypes.POINTER(p), p]
+        lib.guber_apply_batch.restype = i
     elif name == "sweep":
         ll = ctypes.c_longlong
         lib.guber_sweep_tile_slots.argtypes = []
@@ -360,6 +369,24 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.h2s_feeder_respond.argtypes = [p, i64, p, i64, i32]
         lib.h2s_feeder_release.restype = None
         lib.h2s_feeder_release.argtypes = [p]
+        # The event ring (csrc/event_ring.cpp) and its attach points.
+        for fn in (lib.h2s_attach_ring, lib.cf_attach_ring):
+            fn.restype = None
+            fn.argtypes = [p, p]
+        lib.evr_create.restype = p
+        lib.evr_create.argtypes = [i64]
+        lib.evr_free.restype = None
+        lib.evr_free.argtypes = [p]
+        # ring, out (4 int64 a record), max_records
+        lib.evr_drain.restype = i64
+        lib.evr_drain.argtypes = [p, p, i64]
+        lib.evr_stats.restype = None  # ring, out2
+        lib.evr_stats.argtypes = [p, p]
+        # ring, kind, t_end_ns, dur_ns, items
+        lib.evr_record.restype = i64
+        lib.evr_record.argtypes = [p, i64, i64, i64, i64]
+        lib.evr_now_ns.restype = i64
+        lib.evr_now_ns.argtypes = []
     elif name == "h2_client":
         i32, i64, f64, s = ctypes.c_int32, ctypes.c_int64, ctypes.c_double, ctypes.c_char_p
         # host, port, path, authority, payload, payload_len, seconds,

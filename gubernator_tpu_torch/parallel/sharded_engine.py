@@ -52,6 +52,7 @@ the windows they swept.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -113,6 +114,8 @@ from gubernator_tpu_torch.store import (
     item_from_record,
     words_from_float,
 )
+from gubernator_tpu_torch.utils.metrics import DurationStat
+from gubernator_tpu_torch.utils.tracing import span
 from gubernator_tpu_torch.types import (
     Algorithm,
     Behavior,
@@ -202,6 +205,10 @@ class ShardedDecisionEngine:
         self.sweep_windows_total = 0  # sweep windows run
         self.sweep_groups_total = 0  # the groups of up to 16 they ran in: K13 launches
         self.readback = ReadbackCombiner()
+        # Host wall time of each launch of a batch's rounds or chunks, its
+        # staging copy included (the service's device.step; reference
+        # :152).
+        self.round_duration = DurationStat()
         self._state: BucketState = make_state(self.capacity, self.device)
         # The flat executors' padding lanes run up to capacity + width;
         # the int32 slot row caps the flat layout at 2^31 (reference :369).
@@ -321,14 +328,52 @@ class ShardedDecisionEngine:
                     restore_rounds.setdefault(k, [[] for _ in range(n_sh)])[sh].append(
                         (slot, item))
 
-        if (
-            self.store is None
-            and len(rounds) > 1
-            and self._collapse_dataclass_sharded(
-                requests, valid, rounds, clear_rounds, greg_dur, greg_exp, now_ms, responses,
-            )
-        ):
-            return
+        with span("engine.batch", batch=len(valid), rounds=len(rounds)):
+            if (
+                self.store is None
+                and len(rounds) > 1
+                and self._collapse_dataclass_sharded(
+                    requests, valid, rounds, clear_rounds, greg_dur, greg_exp, now_ms,
+                    responses,
+                )
+            ):
+                return
+            launched = self._run_rounds(requests, rounds, clear_rounds, restore_rounds,
+                                        greg_dur, greg_exp, now_ms)
+            self._answer_rounds(launched, requests, valid, greg_dur, now_ms, responses)
+
+    def _answer_rounds(self, launched, requests, valid, greg_dur, now_ms, responses) -> None:
+        """One wait for every launch's readback; then the answers, and the
+        host TTL mirror shard by shard in round order (a later round's
+        expiry wins); then the write-through."""
+        over = 0
+        for ticket, idx, shard, lanes, limit, _slot, _exp in launched:
+            st, rem, rst = unpack_shard_rounds(ticket.fetch(), shard, lanes)
+            over += int(np.count_nonzero(st == _OVER_I))
+            for j, i in enumerate(idx.tolist()):
+                responses[i] = RateLimitResp(status=_STATUS_OF[int(st[j])], limit=int(limit[j]),
+                                             remaining=int(rem[j]), reset_time=int(rst[j]))
+        self.over_limit_total += over
+        shard = np.concatenate([x[2] for x in launched])
+        slot = np.concatenate([x[5] for x in launched])
+        exp = np.concatenate([x[6] for x in launched])
+        for sh in range(self.n_shards):
+            mine = shard == sh
+            if mine.any():
+                self.tables[sh].set_expiry(slot[mine].astype(_I32), exp[mine])
+        if self.store is not None:
+            expire_of = dict(zip(np.concatenate([x[1] for x in launched]).tolist(),
+                                 exp.tolist()))
+            write_through_store(self.store, requests, valid, greg_dur, now_ms, responses,
+                                expire_of)
+
+    def _run_rounds(self, requests, rounds, clear_rounds, restore_rounds, greg_dur, greg_exp,
+                    now_ms) -> List[tuple]:
+        """Launch the dataclass path's rounds; returns the launches'
+        results (`_launch_rounds`), in order.  An `engine.round` span a
+        chunk, as the reference's; the chunks of a segment launch
+        together, so a span covers the chunk's place in its launch."""
+        n_sh = self.n_shards
         # The rounds in order, wide ones cut into chunks of max_kernel_width
         # lanes a shard, all in one K11 launch (a launch a segment): a round
         # that restores store items runs its clears (K2) and restores (K5)
@@ -354,41 +399,19 @@ class ShardedDecisionEngine:
                 chunk = [m[offset : offset + self.max_kernel_width] for m in members]
                 if not any(chunk) and offset > 0:
                     break
-                segment.append((chunk, clears if offset == 0 else None))
-                self.rounds_total += 1
-                if len(segment) == MAX_LAUNCH_ROUNDS:
-                    launched.append(self._launch_rounds(segment, requests, greg_dur, greg_exp,
-                                                        now_ms))
-                    segment = []
+                with span("engine.round", round=k, width=max(len(c) for c in chunk)):
+                    segment.append((chunk, clears if offset == 0 else None))
+                    self.rounds_total += 1
+                    if len(segment) == MAX_LAUNCH_ROUNDS:
+                        launched.append(self._launch_rounds(segment, requests, greg_dur,
+                                                            greg_exp, now_ms))
+                        segment = []
                 offset += self.max_kernel_width
                 if all(offset >= len(m) for m in members):
                     break
         if segment:
             launched.append(self._launch_rounds(segment, requests, greg_dur, greg_exp, now_ms))
-
-        # One wait for every launch's readback; then the answers, and the
-        # host TTL mirror shard by shard in round order (a later round's
-        # expiry wins).
-        over = 0
-        for ticket, idx, shard, lanes, limit, _slot, _exp in launched:
-            st, rem, rst = unpack_shard_rounds(ticket.fetch(), shard, lanes)
-            over += int(np.count_nonzero(st == _OVER_I))
-            for j, i in enumerate(idx.tolist()):
-                responses[i] = RateLimitResp(status=_STATUS_OF[int(st[j])], limit=int(limit[j]),
-                                             remaining=int(rem[j]), reset_time=int(rst[j]))
-        self.over_limit_total += over
-        shard = np.concatenate([x[2] for x in launched])
-        slot = np.concatenate([x[5] for x in launched])
-        exp = np.concatenate([x[6] for x in launched])
-        for sh in range(n_sh):
-            mine = shard == sh
-            if mine.any():
-                self.tables[sh].set_expiry(slot[mine].astype(_I32), exp[mine])
-        if self.store is not None:
-            expire_of = dict(zip(np.concatenate([x[1] for x in launched]).tolist(),
-                                 exp.tolist()))
-            write_through_store(self.store, requests, valid, greg_dur, now_ms, responses,
-                                expire_of)
+        return launched
 
     def _launch_rounds(self, segment, requests, greg_dur, greg_exp, now_ms) -> tuple:
         """One K11 launch over a segment's rounds of every shard (reference
@@ -424,10 +447,12 @@ class ShardedDecisionEngine:
         n_rounds = len(clears)
         packed = pack_shard_rounds(now_ms, self.shard_capacity, n_sh, n_rounds, rnd, shard, slot,
                                    cols, clears)
+        t0 = time.monotonic()
         pin, round_off, clear_off, clear_slots = split_shard_rounds(
             self._stage(packed.buf), n_sh, packed.pin.shape[2], n_rounds)
         pout = shard_step(self._state, pin, self.shard_capacity, clear_slots, round_off,
                           clear_off, widest=packed.widest)
+        self.round_duration.observe(time.monotonic() - t0)
         self.dispatches_total += 1
         return self.readback.register(pout), packed.lanes
 
@@ -496,7 +521,7 @@ class ShardedDecisionEngine:
             for i in np.nonzero(greg_mask)[0]:
                 greg_dur[i] = gregorian_duration(now_dt, int(duration[i]))
                 greg_exp[i] = gregorian_expiration(now_dt, int(duration[i]))
-        with self._lock:
+        with self._lock, span("engine.columnar", batch=n):
             pending = self._apply_columnar_locked(
                 keys, algo, behavior, hits, limit, duration, burst, greg_dur, greg_exp,
                 greg_mask, now_ms, route_hashes,
@@ -673,9 +698,11 @@ class ShardedDecisionEngine:
         packed = pack_rounds_host(now_ms, self.capacity, [len(idx)],
                                   np.ascontiguousarray(slots, dtype=_I32),
                                   [c[idx] for c in cols], [g])
+        t0 = time.monotonic()
         dev = self._stage(packed.buf)
         pout = multi_fused_step(self._state, *split_rounds(dev, packed.pin.shape[1], 1),
                                 widest=packed.widest)
+        self.round_duration.observe(time.monotonic() - t0)
         self.dispatches_total += 1
         return (self.readback.register(pout), idx, packed.lanes, unpack_out_host)
 
@@ -731,7 +758,9 @@ class ShardedDecisionEngine:
             shard_idx.append(np.asarray([pos_of[i] for i, _ in items], dtype=np.int64))
             shard_slots.append(np.asarray([s for _, s in items], dtype=_I32))
 
-        pieces = self._try_collapse_sharded(shard_idx, shard_slots, clear_rounds, *cols, now_ms)
+        with span("engine.collapsed", width=len(valid)):
+            pieces = self._try_collapse_sharded(shard_idx, shard_slots, clear_rounds, *cols,
+                                                now_ms)
         if pieces is None:
             return False
         over = 0
@@ -833,6 +862,7 @@ class ShardedDecisionEngine:
                 )
                 dst_rows.append(c_src)
 
+            t0 = time.monotonic()
             if flat:
                 g = self._global(clears) if clears is not None else np.zeros(0, dtype=_I32)
                 dev = self._stage(np.concatenate([buf.ravel(), g]))
@@ -846,6 +876,7 @@ class ShardedDecisionEngine:
                 pout = shard_collapsed_step(self._state, dev[: buf.size].view(buf.shape), cap,
                                             dev[buf.size :].view(rows.shape))
                 piece = (self.readback.register(pout), dst_rows, chunk_m, unpack_out_host)
+            self.round_duration.observe(time.monotonic() - t0)
             clears = None
             self.dispatches_total += 1
             self.rounds_total += 1

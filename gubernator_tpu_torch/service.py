@@ -24,26 +24,48 @@ in the port yet: with no peers there is no GLOBAL broadcast cache for
 the ledger's read-only tier.
 
 The hot-key sketch (utils/hotkeys.py `SpaceSaving`, GUBER_HOTKEYS, on by
-default; reference :465-509) counts the decision keys of both entry
-points: the dataclass path's items before the engine call (:604-620) and
-the columnar rows before the ledger (`_offer_hotkeys`, :1009); the ledger
+default; reference :465-509) is built on every instance, as the
+reference builds it, and counts the decision keys of both entry points:
+the dataclass path's items before the engine call (:604-620) and the
+columnar rows before the ledger (`_offer_hotkeys`, :1009); the ledger
 credits what its native plane answered when it pulls a lease back.  Its
-one reader in the port is paged state's eviction clock (`_hot_slots`):
-pages that hold the top keys get a grace pass of the clock hand, as in
-the reference, whose victims, and so device words, the port must match.
-So the sketch is built only over a paged engine; the reference's other
-readers (`/debug/hotkeys`, the replication plane) are not ported yet.
+readers are the gateway's /debug/hotkeys and, over a paged engine, the
+eviction clock (`_hot_slots`): pages that hold the top keys get a grace
+pass of the clock hand, as in the reference, whose victims, and so
+device words, the port must match.
+
+Observability (reference :380-430, :510-526, :572, :751): `get_rate_limits`
+runs in a `service.get_rate_limits` span; `stage_timers` holds the
+reference's stage budget — `engine_serve` (observed on the columnar
+route, `serve_decoded_local`, where the reference's columnar wire route
+observes it), `device.step` (the engine's `round_duration`),
+`device.readback` (its readback's `transfer_duration`),
+`device.window_wait` (its pump's), `device.page_fault` (paging's fault
+time) and the stages of the planes a node with no peers never enters
+(`wire_window_wait`, `hits_window_wait`, `owner_rpc`, `broadcast_age`,
+`multiregion.window_wait`, `multiregion.region_rpc`), which stay at 0
+as on the reference's node with no peers.  `admission_watch`
+(obs/slo.py) counts the admitted hits of watched keys from
+`get_rate_limits`' answers; the daemon attaches `flight_recorder`,
+`native_events`, `obs` and `slo_watchdog`.  `counters` has the
+reference's keys; the port moves `check_errors`, `local` and `sketch`,
+where the reference's node with no peers moves them (its native fronts'
+columnar route counts none).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import replace
 from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 
+from gubernator_tpu_torch.obs.slo import AdmissionWatch
 from gubernator_tpu_torch.utils import hotkeys as _hotkeys
+from gubernator_tpu_torch.utils.metrics import DurationStat
+from gubernator_tpu_torch.utils.tracing import span
 from gubernator_tpu_torch.types import (
     MAX_BATCH_SIZE,
     Algorithm,
@@ -122,17 +144,42 @@ class V1Instance:
         self.sketch_width = sketch_width
         self._sketch = None
         self._sketch_lock = threading.Lock()
-        self.counters = {"sketch": 0}  # items decided by the approximate limiter
-        # Hot-key attribution: None when GUBER_HOTKEYS is off or no
-        # paged state reads it.
+        # The reference's counters (:334); "sketch" counts the items the
+        # approximate limiter decided, "columnar" the columnar route's.
+        self.counters = {k: 0 for k in (
+            "local", "columnar", "forward", "global", "sketch", "global_miss_local",
+            "check_errors", "async_retries", "backoff_retries", "degraded_answers",
+            "replicated_local", "degraded_region_answers")}
+        self.stage_timers = {name: DurationStat() for name in (
+            "wire_window_wait", "engine_serve", "hits_window_wait", "owner_rpc",
+            "broadcast_age", "multiregion.window_wait", "multiregion.region_rpc")}
+        self.stage_timers["device.step"] = engine.round_duration
+        self.stage_timers["device.readback"] = engine.readback.transfer_duration
+        pump = getattr(engine, "_pump", None)
+        if pump is not None:
+            self.stage_timers["device.window_wait"] = pump.window_wait
         paging = getattr(engine, "paging", None)
-        self.hotkeys = _hotkeys.from_env() if paging is not None else None
-        if self.hotkeys is not None:
+        if paging is not None:
+            self.stage_timers["device.page_fault"] = paging.fault_duration
+        # Hot-key attribution: None when GUBER_HOTKEYS is off.
+        self.hotkeys = _hotkeys.from_env()
+        if self.hotkeys is not None and paging is not None:
             paging.hot_slots_provider = self._hot_slots_provider(engine, self.hotkeys)
         if self.ledger is not None and self.hotkeys is not None:
             # Native drains surface their per-key counts only when the
             # ledger pulls a lease back: it credits them there.
             self.ledger.hotkeys = self.hotkeys
+        # Attached by the daemon (None for a bare instance): the tail
+        # flight recorder, the native event collector, the rollup and the
+        # SLO watchdog, and the h2 front the rollup's gauge reads.
+        self.flight_recorder = None
+        self.native_events = None
+        self.obs = None
+        self.slo_watchdog = None
+        self.h2_front = None
+        # Always present: one attribute peek a batch while nothing is
+        # watched.
+        self.admission_watch = AdmissionWatch()
 
     @staticmethod
     def _hot_slots_provider(engine, sketch):
@@ -189,7 +236,12 @@ class V1Instance:
 
     def get_rate_limits(self, requests: Sequence[RateLimitReq]) -> List[RateLimitResp]:
         """reference: gubernator.go:197-317 (GetRateLimits)."""
+        with span("service.get_rate_limits", batch=len(requests)):
+            return self._get_rate_limits(requests)
+
+    def _get_rate_limits(self, requests: Sequence[RateLimitReq]) -> List[RateLimitResp]:
         if len(requests) > MAX_BATCH_SIZE:
+            self.counters["check_errors"] += 1
             raise ServiceError(
                 f"Requests.RateLimits list too large; max size is '{MAX_BATCH_SIZE}'"
             )
@@ -199,8 +251,10 @@ class V1Instance:
         sketch: List[int] = []
         for i, r in enumerate(requests):
             if not r.unique_key:
+                self.counters["check_errors"] += 1
                 responses[i] = RateLimitResp(error="field 'unique_key' cannot be empty")
             elif not r.name:
+                self.counters["check_errors"] += 1
                 responses[i] = RateLimitResp(error="field 'namespace' cannot be empty")
             elif int(r.behavior) & _SKETCH:
                 sketch.append(i)
@@ -211,6 +265,9 @@ class V1Instance:
                 responses[i] = resp
         if local:
             reqs = [requests[i] for i in local]
+            # With no peers this node owns every key: all of them count as
+            # local, GLOBAL ones included (reference :725).
+            self.counters["local"] += len(reqs)
             if self.hotkeys is not None:
                 # Lease-sizing aux: only rows the lease algebra could cover
                 # stamp their limit (reference :604-620).
@@ -230,6 +287,11 @@ class V1Instance:
             answers = self.engine.get_rate_limits(batch, now_ms=now_ms)
             for i, resp in zip(local, answers):
                 responses[i] = resp
+        aw = self.admission_watch
+        if aw.active:
+            # The admission-bound feed (obs/slo.py): watched keys count the
+            # hits their client-facing answers admitted.
+            aw.observe_batch(requests, responses)
         return responses  # type: ignore[return-value]
 
     def serve_decoded_local(self, dec):
@@ -249,10 +311,14 @@ class V1Instance:
         self._offer_hotkeys(dec)
         if self.ledger is not None:
             return self._serve_decoded_ledger(dec)
-        return engine.apply_columnar(
-            PackedKeys(dec.key_buf, dec.key_offsets, dec.n), dec.algo, dec.behavior, dec.hits,
-            dec.limit, dec.duration, dec.burst, **self._routes(dec.fnv1a),
-        )
+        t_serve = time.monotonic()
+        try:
+            return engine.apply_columnar(
+                PackedKeys(dec.key_buf, dec.key_offsets, dec.n), dec.algo, dec.behavior,
+                dec.hits, dec.limit, dec.duration, dec.burst, **self._routes(dec.fnv1a),
+            )
+        finally:
+            self.stage_timers["engine_serve"].observe(time.monotonic() - t_serve)
 
     def _routes(self, fnv1a) -> dict:
         """The sharded engine's shard routes (reference :1055-1062): the
@@ -285,6 +351,7 @@ class V1Instance:
         if plan.full:
             return plan.dense_cols()
         lane = plan.build_engine_lane()
+        t_serve = time.monotonic()
         try:
             out = engine.apply_columnar(
                 PackedKeys(lane.key_buf, lane.key_offsets, lane.n), lane.algo, lane.behavior,
@@ -293,6 +360,8 @@ class V1Instance:
         except Exception:
             plan.rollback()
             raise
+        finally:
+            self.stage_timers["engine_serve"].observe(time.monotonic() - t_serve)
         st, lim, rem, rst = out
         plan.learn(st, lim, rem, rst)
         if not plan.answered_rows and lane is dec:

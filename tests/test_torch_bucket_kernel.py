@@ -412,11 +412,17 @@ def test_wrappers_route_cpu_tensors_to_the_plain_version():
                     * 2)
     assert ss.shard_collapsed_step(state, torch.from_numpy(scol), 64, rows).shape == (2, 5, 32)
     assert shard_sweep_window(state.meta, state.hi2, state.expire_lo, 2, 0, 0, 64).shape == (2, 65)
+    from gubernator_tpu_torch import ops
+
+    batch = ops.BatchInput(*(torch.tensor([9, 64], dtype=dt) for dt in
+                             (torch.int32,) * 3 + (torch.int64,) * 6))
+    assert ops.apply_batch(state, batch, torch.tensor([9], dtype=torch.int32),
+                           1000).status.shape == (2,)
     assert fs.launches == {"fused_step": 0, "clear_occupied": 0, "collapsed_step": 0,
                            "uniform_step": 0, "load_slots": 0, "sweep_window": 0,
                            "sketch_step": 0, "sketch_rotate": 0, "gather_pages": 0,
                            "load_pages": 0, "shard_step": 0, "shard_collapsed": 0,
-                           "shard_sweep": 0}
+                           "shard_sweep": 0, "apply_batch": 0}
     meta_state = tk.BucketState(*(torch.empty(8, dtype=torch.int32, device="meta") for _ in range(12)))
     with pytest.raises(ValueError):
         fs.fused_step(meta_state, torch.empty((16, 64), dtype=torch.int32, device="meta"))

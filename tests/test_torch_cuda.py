@@ -1746,3 +1746,84 @@ def test_split_engine_on_the_card_matches_the_cpu_and_the_fused_arm(cuda, monkey
     for f in tk.BucketState._fields:
         assert np.array_equal(got[f], want[f]), f
     assert fs.launches["load_slots"] > 0
+
+
+def _apply_batch_case(rng, pool, cap, width, now, *, padding_share=0.1):
+    """An unsorted dataclass batch: unique slots of [0, pool) in random
+    lane order, padding at cap + lane; clears on some of its own slots, on
+    other slots and out of range."""
+    from gubernator_tpu_torch.ops import BatchInput
+
+    m = width - int(width * padding_share)
+    slot = np.empty(width, np.int32)
+    slot[:m] = rng.choice(pool, m, replace=False)
+    slot = slot[rng.permutation(width)] if m == width else slot
+    if m < width:
+        slot[m:] = -1
+        slot = slot[rng.permutation(width)]
+        pad = slot < 0
+        slot[pad] = cap + np.nonzero(pad)[0]
+    own = slot[slot < cap]
+    clears = np.concatenate([rng.choice(own, max(1, len(own) // 8), replace=False),
+                             np.setdiff1d(rng.choice(pool, 64, replace=False), own),
+                             cap + 9000 + np.arange(5)]).astype(np.int32)
+    cols = dict(
+        slot=slot,
+        algo=rng.integers(0, 3, width).astype(np.int32),
+        behavior=rng.choice([0, 4, 8, 12], width).astype(np.int32),
+        hits=rng.choice([-3, 0, 1, 2, 5, 2**62, -(2**63)], width).astype(np.int64),
+        limit=rng.choice([-1, 0, 5, 100, 2**62, 2**63 - 1], width).astype(np.int64),
+        duration=rng.choice([0, 1, 40, 30_000, -5, 2**63 - 1], width).astype(np.int64),
+        burst=rng.choice([0, 0, 5, -7, 2**62], width).astype(np.int64),
+        greg_duration=rng.choice([60_000, 86_400_000], width).astype(np.int64),
+        greg_expire=(now + rng.integers(0, 100_000, width)).astype(np.int64),
+    )
+    return BatchInput(**{k: torch.from_numpy(v) for k, v in cols.items()}), \
+        torch.from_numpy(clears[rng.permutation(len(clears))])
+
+
+@pytest.mark.parametrize("cap", [1 << 20, 100_000_000])
+@pytest.mark.parametrize("width", [64, 1000, 8192])
+def test_apply_batch_kernel_bit_equal_to_plain_and_k1(cuda, cap, width):
+    """K17 against its plain version on unsorted batches with clears on
+    the batch's own slots, and the same lanes packed, sorted and run
+    through K1 on a copy of the state: the same words."""
+    from gubernator_tpu_torch.ops import apply_batch
+
+    rng = np.random.default_rng(width + cap % 977)
+    now = 1_760_000_000_000
+    words = _state_words(rng, 1 << 16, now)
+    kern = tk.make_state(cap, cuda)
+    for col, w in zip(kern, tk.state_from_numpy(words, cuda)):
+        col[: 1 << 16] = w
+    plain = tk.BucketState(*(c.clone() for c in kern))
+    k1 = tk.BucketState(*(c.clone() for c in kern))
+    fs.reset_launches()
+    for it, share in enumerate((0.1, 0.0, 0.9)):
+        now += 250
+        batch, clears = _apply_batch_case(rng, 1 << 16, cap, width, now, padding_share=share)
+        batch = tk.BatchInput(*(t.to(cuda) for t in batch))
+        clears = clears.to(cuda)
+        got = apply_batch(kern, batch, clears, now)
+        want = tk.apply_batch_reference(plain, batch, clears, now)
+        # K1: the in-range lanes sorted by slot, the clears in round 0.
+        slot = batch.slot.cpu().numpy()
+        live = np.nonzero(slot < cap)[0]
+        order = live[np.argsort(slot[live], kind="stable")]
+        cols = [t.cpu().numpy()[order] for t in batch[1:]]
+        packed = tk.pack_rounds_host(now, cap, [len(order)], slot[order], cols,
+                                     [clears.cpu().numpy()[clears.cpu().numpy() < cap]])
+        pout = fs.multi_fused_step(k1, *(torch.from_numpy(a).to(cuda) for a in (
+            packed.pin, packed.round_off, packed.clear_off, packed.clear_slots)),
+            widest=packed.widest)
+        torch.cuda.synchronize()
+        for name, a, b in zip(tk.BatchOutput._fields, got, want):
+            assert torch.equal(a, b), (it, name)
+        st, rem, rst = tk.unpack_out_host(pout.cpu().numpy(), len(order))
+        assert np.array_equal(st, got.status.cpu().numpy()[order]), it
+        assert np.array_equal(rem, got.remaining.cpu().numpy()[order]), it
+        assert np.array_equal(rst, got.reset_time.cpu().numpy()[order]), it
+        for name, a, b, c in zip(tk.BucketState._fields, kern, plain, k1):
+            assert torch.equal(a, b), (it, name)
+            assert torch.equal(a, c), (it, name)
+    assert fs.launches["apply_batch"] == 3

@@ -260,17 +260,26 @@ def test_serve_decoded_local_feed_matches_the_reference(instances):
 
 
 def test_a_dense_instance_builds_no_sketch(monkeypatch):
-    """Only paged state reads the sketch in the port: over a dense engine
-    none is built, the provider stays unset and the ledger credits none."""
+    """Over a dense engine the sketch is built as the reference builds it
+    (/debug/hotkeys reads it) and the ledger credits it, but no paging
+    provider is set: there is no page table to feed.  With GUBER_HOTKEYS=0
+    none is built."""
     monkeypatch.delenv("GUBER_PAGED", raising=False)
     monkeypatch.setenv("GUBER_HOTKEYS", "1")
     port = V1Instance(DecisionEngine(64, device="cpu"), ledger_opts=dict(settle_interval=0))
     try:
         assert port.engine.paging is None
-        assert port.hotkeys is None and port.ledger.hotkeys is None
+        assert port.hotkeys is not None and port.ledger.hotkeys is port.hotkeys
         got = port.get_rate_limits([RateLimitReq(name="a", unique_key="k", hits=1, limit=5,
                                                  duration=60_000)])
         assert got[0].remaining == 4
+        assert [k for k, _c, _e in port.hotkeys.top(5)] == [b"a_k"]
+    finally:
+        port.close()
+    monkeypatch.setenv("GUBER_HOTKEYS", "0")
+    port = V1Instance(DecisionEngine(64, device="cpu"), ledger_opts=dict(settle_interval=0))
+    try:
+        assert port.hotkeys is None and port.ledger.hotkeys is None
     finally:
         port.close()
 

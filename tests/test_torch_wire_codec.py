@@ -164,7 +164,8 @@ def test_decode_and_encode_equal_the_reference(seed):
 
 def test_codec_symbols_load_in_both_libraries():
     """The codec is a library of its own and is linked into the h2
-    server's, with the decision plane and the columnar feeder; both load
+    server's, with the decision plane, the columnar feeder and the event
+    ring; both load
     (a missing symbol shows at CDLL load) with every export declared."""
     for name in ("wire_codec", "h2_server"):
         lib = native_build.load(name)
@@ -173,10 +174,12 @@ def test_codec_symbols_load_in_both_libraries():
     lib = native_build.load("h2_server")
     for fn in ("cf_create", "cf_set_hints", "cf_slot_ptrs", "cf_pack", "cf_flush", "cf_stats",
                "cf_stop", "cf_free", "cf_bench_pack", "h2s_attach_feeder", "h2s_feeder_respond",
-               "h2s_feeder_release"):
+               "h2s_feeder_release", "h2s_attach_ring", "cf_attach_ring", "evr_create",
+               "evr_free", "evr_drain", "evr_stats", "evr_record"):
         assert getattr(lib, fn).argtypes, fn
     assert native_build.SOURCES["h2_server"] == ("h2_server.cpp", "wire_codec.cpp",
-                                                 "decision_plane.cpp", "columnar_feeder.cpp")
+                                                 "decision_plane.cpp", "columnar_feeder.cpp",
+                                                 "event_ring.cpp")
     assert "-pthread" in native_build.GXX_FLAGS
 
 
