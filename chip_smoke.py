@@ -205,6 +205,27 @@ K4.  After the count, the card daemon's h2 decisions/s on the mixed
 stream with each of GUBER_TRACING, GUBER_NATIVE_EVENTS, GUBER_HOTKEYS and
 GUBER_OBS off and on (turns off, on, on, off) are printed.
 
+After the paths, the san phase runs the port's own native code under
+sanitizers.  (a) The host C++ (csrc/*.cpp), built with GUBER_NATIVE_SAN's
+flags, in child processes that have the sanitizer's runtime in
+LD_PRELOAD, never touch CUDA and never fork once their C threads run,
+while this process drives them: under ThreadSanitizer the h2 front on
+the thread-per-connection plane and on the reactor plane (a flat window
+callback, the columnar feeder with windows of 8 rows, the decision
+plane's lease pulled and re-granted, the event ring drained throughout,
+loaded for a few seconds by the port's native client over churning
+connections), the feeder alone (C and Python producers), the decision
+plane alone (serves, grants, pulls, peeks) and git_multi_schedule's
+pool against its serial run; under AddressSanitizer the front, the codec
+and the plane on malformed bodies (truncated varints, lengths past the
+end, huge counts, empty and huge keys, seeded random bytes), each
+answered and decoded as this process's plain front and codec do.  Any
+report fails the phase.  (b) compute-sanitizer's four tools over K1-K17
+at small shapes (`--san kernels`) are left out of the full run: on the
+card's machine the tool answers "Error: Device not supported" even for a
+plain CUDA program; the kernel cases it would run are held to their
+plain versions without it.
+
 It checks the launch counts of the main path (K1, K3 and K4 all launched; K1
 at most once per synchronous batch; the pump flushed), holds the zipf
 stream's collapsed pins to K3's layout (`check_collapsed`), and times
@@ -250,6 +271,14 @@ persistence path's restoring batches and of the sharded restore stream.
 k11: K11's and K12's holds and timings (K11 over batches of 1, 2, 4 and
 8 rounds at 4 x 2.5 x 10^7 and 8 x 2^16; K12 at 64, 512, 1024 and 4096
 lanes a shard) and sharded path (b)'s dataclass route.
+
+    python3 chip_smoke.py --san [host|kernels]
+
+runs only the build and one half of the san phase, and prints no result
+lines: host (the default) the host stresses, kernels the four
+compute-sanitizer tools, each over a child (`--san-kernels`) that
+launches K1-K17 at small shapes between marker lines, and counts the
+tool's error records between each kernel's markers.
 
 The port imports nothing of JAX; neither does this script.
 """
@@ -3381,17 +3410,28 @@ def phase_ledger_live(torch, np):
         d.close()
 
 
+# The conservation herd: 32 connections of CONSERVE_RPCS single-item RPCs
+# each, twice CONSERVE_LIMIT in all, within CONSERVE_DEADLINE_S (at about
+# 1,000 RPCs/s, the slowest an H100 host has given, it takes about 6 s).
+CONSERVE_LIMIT = 3000
+CONSERVE_RPCS = -(-2 * CONSERVE_LIMIT // 32)
+CONSERVE_DEADLINE_S = 60.0
+
+
 def phase_ledger_conserve(torch, np):
     """(c) The herd on a key whose limit is below the hits sent: 32
-    connections (Python clients, one thread each) of single-item RPCs for
-    2 s on the default daemon (plane attached).  UNDER answers never
-    exceed the limit, and once the front is stopped (its plane's leases
-    pulled back) and `invalidate_keys` has returned the unused credit,
-    the bucket's remaining on the device is exactly limit - UNDER.
-    Returns the daemon's engine."""
+    connections (Python clients, one thread each) of single-item RPCs on
+    the default daemon (plane attached), CONSERVE_RPCS each, twice the
+    limit in all.  The herd is counted, not timed: the Python clients'
+    rate follows the host's load (2,047 to 7,036 RPCs in 2 s beside one
+    H100), and a timed herd can fall short of the limit.  UNDER answers
+    never exceed the limit, and once the front is stopped (its plane's
+    leases pulled back) and `invalidate_keys` has returned the unused
+    credit, the bucket's remaining on the device is exactly limit -
+    UNDER.  Returns the daemon's engine."""
     import threading
 
-    limit = 3000
+    limit, each = CONSERVE_LIMIT, CONSERVE_RPCS
     d = live_daemon()
     body = encode_get_rate_limits([("cons", "hot", 1, limit, 3_600_000, 0, 0, 0)])
     under = [0] * 32
@@ -3403,8 +3443,8 @@ def phase_ledger_conserve(torch, np):
         c = H2Unary(d.h2_fast_address)
         try:
             start.wait()
-            end = time.perf_counter() + 2.0
-            while time.perf_counter() < end:
+            end = time.perf_counter() + CONSERVE_DEADLINE_S
+            while total[i] < each and time.perf_counter() < end:
                 status, msg = c.call(body)
                 if status != 0:
                     errors.append(status)
@@ -3419,8 +3459,10 @@ def phase_ledger_conserve(torch, np):
         for t in threads:
             t.start()
         start.wait()
+        t0 = time.perf_counter()
         for t in threads:
             t.join(timeout=120)
+        seconds = time.perf_counter() - t0
         check(not any(t.is_alive() for t in threads) and not errors,
               f"[ledger conserve] clients failed: {errors[:5]}")
         admitted, sent = sum(under), sum(total)
@@ -3435,9 +3477,10 @@ def phase_ledger_conserve(torch, np):
         check(int(rem[0]) == limit - admitted,
               f"[ledger conserve] remaining {int(rem[0])} on the device, limit - admitted = "
               f"{limit - admitted}")
-        log(f"[ledger conserve] 32 connections x single-item RPCs on a limit-{limit} key, 2 s: "
-            f"{sent} RPCs ({native} answered in C), {admitted} UNDER (<= limit); after the plane "
-            f"was pulled and the key settled, remaining {int(rem[0])} = limit - admitted")
+        log(f"[ledger conserve] 32 connections x {each} single-item RPCs on a limit-{limit} key, "
+            f"{seconds:.2f} s: {sent} RPCs ({native} answered in C), {admitted} UNDER "
+            f"(<= limit); after the plane was pulled and the key settled, remaining "
+            f"{int(rem[0])} = limit - admitted")
         return d.instance.engine
     finally:
         d.close()
@@ -5979,6 +6022,1015 @@ def obs_rates(torch, np, rng, card) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# The san phase: sanitizer runs of the port's own native code.
+#
+# (a) The host C++ (csrc/*.cpp) built with GUBER_NATIVE_SAN's flags and
+# stressed in child processes that have the sanitizer's runtime in
+# LD_PRELOAD (`python3 chip_smoke.py --san-host STRESS`): a runtime cannot
+# start inside a Python that already runs, so the child is the one that
+# loads the sanitized library, and it never forks once its C threads run;
+# its parent, unsanitized, builds the libraries and drives the load.
+# (b) compute-sanitizer's four tools over every kernel, each run a child
+# (`python3 chip_smoke.py --san-kernels`) that launches K1-K17 at small
+# shapes and holds each against its plain version.
+
+SAN_SCRIPT = Path(__file__).resolve()
+SAN_HOST_LIBS = ("intern_table", "wire_codec", "h2_server", "h2_client")  # the g++ libraries
+SAN_STRESSES = ("h2-threaded", "h2-reactor", "feeder", "plane", "multi-schedule")
+SAN_HOST_SECONDS = 3.0  # the load a stress runs under, in the san phase
+SAN_REPORT = {"thread": "ThreadSanitizer", "address": "AddressSanitizer"}
+SAN_HOT_KEY = b"san_hot"  # the key the decision plane holds a lease for
+SAN_SUPPRESSIONS = Path("gubernator_tpu_torch") / "csrc" / "tsan_suppressions.txt"
+
+
+def san_port_root() -> Path:
+    import gubernator_tpu_torch
+
+    return Path(gubernator_tpu_torch.__file__).resolve().parent.parent
+
+
+def san_child_env(mode: str, preload: str) -> dict:
+    """A sanitized child's environment: the runtime preloaded, the port's
+    libraries sanitized (GUBER_NATIVE_SAN), no CUDA (TSan's shadow memory
+    and the CUDA driver's address reservations collide), Python's own
+    allocator off (pymalloc recycles ctypes buffers out of the
+    sanitizer's sight), and the reference's sanitizer options."""
+    env = dict(os.environ, GUBER_NATIVE_SAN=mode, LD_PRELOAD=preload, PYTHONMALLOC="malloc",
+               CUDA_VISIBLE_DEVICES="")
+    if mode == "thread":
+        supp = san_port_root() / SAN_SUPPRESSIONS
+        env["TSAN_OPTIONS"] = ("halt_on_error=1 exitcode=66 report_thread_leaks=0 "
+                               f"report_mutex_bugs=0 detect_deadlocks=0 suppressions={supp}")
+    else:
+        # CPython frees nothing at exit: leaks are not reported.
+        env["ASAN_OPTIONS"] = "halt_on_error=1 detect_leaks=0"
+    return env
+
+
+def san_item(name: str, key: str, hits: int = 1, limit: int = 100, behavior: int = 0) -> tuple:
+    return (name, key, hits, limit, 60_000, 0, behavior, 0)
+
+
+def san_payloads() -> dict:
+    """The front stresses' RPCs: 8 plain items (the feeder packs them), 8
+    GLOBAL items (the feeder declines them: the byte window) and one item
+    on the leased hot key (the decision plane answers it in C)."""
+    return {
+        "feeder": encode_get_rate_limits([san_item("san", f"k{i}") for i in range(8)]),
+        "byte window": encode_get_rate_limits([san_item("san", f"g{i}", behavior=2)
+                                               for i in range(8)]),
+        "plane": encode_get_rate_limits([san_item("san", "hot", limit=1 << 40)]),
+    }
+
+
+class SanFront:
+    """The h2 server as the host stresses run it: a flat window callback
+    (every item UNDER_LIMIT, limit 100, remaining 99), the columnar feeder
+    with windows of 8 rows (so windows seal and rotate constantly) and a
+    flat handler, the decision plane, and optionally the event ring.  `lib`
+    is an h2 server library, `plane_mod` the module of its
+    NativeDecisionPlane / NativeColumnarFeeder and `callback_type` its
+    window callback's ctypes type, so that the same front is built over
+    the port's library (sanitized in a child, or plain) or another
+    implementation of the same C interface."""
+
+    def __init__(self, lib, plane_mod, callback_type, disqualify: int, *, event_front: bool,
+                 ring: bool):
+        import ctypes
+
+        self.lib = lib
+        self._cb = callback_type(self._window)
+        self.handle = lib.h2s_start(0, 500, 16384, 4096, 2, int(event_front), 2, 0, self._cb)
+        check(bool(self.handle), "[san] the h2 server failed to bind")
+        self.port = int(lib.h2s_port(self.handle))
+        self.plane = plane_mod.NativeDecisionPlane(disqualify_mask=disqualify)
+        lib.h2s_attach_plane(self.handle, self.plane.handle)
+        self.feeder = plane_mod.NativeColumnarFeeder(
+            n_slots=3, max_rows=256, max_rpcs=64, flush_rows=8, window_s=0.0005,
+            disqualify_mask=disqualify, window_handler=self._feeder_window)
+        lib.h2s_attach_feeder(self.handle, self.feeder.handle)
+        self.ring = None
+        if ring:
+            self.ring = ctypes.c_void_p(lib.evr_create(1024))
+            lib.h2s_attach_ring(self.handle, self.ring)
+            self.feeder.attach_ring(self.ring)
+
+    @staticmethod
+    def _window(buf, length, counts_ptr, lens_ptr, n_rpcs, total, out_ptr, status_ptr):
+        import ctypes
+
+        import numpy as np
+
+        n, nr = int(total), int(n_rpcs)
+        if nr > 0 and status_ptr:
+            np.ctypeslib.as_array(ctypes.cast(status_ptr, ctypes.POINTER(ctypes.c_int64)),
+                                  shape=(nr,))[:] = 0
+        if n > 0 and out_ptr:
+            cols = np.ctypeslib.as_array(ctypes.cast(out_ptr, ctypes.POINTER(ctypes.c_int64)),
+                                         shape=(4 * n,))
+            cols[:n], cols[n:2 * n], cols[2 * n:3 * n], cols[3 * n:] = 0, 100, 99, 0
+        return 0
+
+    @staticmethod
+    def _feeder_window(slot, n_rows, n_rpcs, key_bytes):
+        slot.out_status[:n_rows] = 0
+        slot.out_limit[:n_rows] = 100
+        slot.out_remaining[:n_rows] = 99
+        slot.out_reset[:n_rows] = 0
+        slot.rpc_status[:n_rpcs] = 0
+        return 0
+
+    def stop(self) -> dict:
+        """Read the stats, then tear down in the front's order (net/h2_fast.py
+        close): detach the plane and the feeder, stop the feeder, detach the
+        ring, stop the server, free the feeder, the plane, the ring."""
+        import numpy as np
+
+        out = np.zeros(16, dtype=np.int64)
+        self.lib.h2s_stats(self.handle, out.ctypes.data)
+        stats = {"rpcs": int(out[0]), "windows": int(out[1]), "errors": int(out[2]),
+                 "native_rpcs": int(out[3]), "feeder_front_rpcs": int(out[5])}
+        stats.update(self.feeder.stats())
+        self.lib.h2s_attach_plane(self.handle, None)
+        self.lib.h2s_attach_feeder(self.handle, None)
+        self.feeder.stop()
+        if self.ring is not None:
+            self.lib.h2s_attach_ring(self.handle, None)
+        self.lib.h2s_stop(self.handle)
+        self.feeder.close()
+        self.plane.close()
+        if self.ring is not None:
+            self.lib.evr_free(self.ring)
+        return stats
+
+
+def san_decoded(dec) -> dict | None:
+    """A decode's columns as JSON values (None: declined)."""
+    if dec is None:
+        return None
+    out = {"n": int(dec.n)}
+    for field in dec._fields[1:]:
+        a = getattr(dec, field)
+        out[field] = a.tobytes().hex() if field == "key_buf" else [int(v) for v in a]
+    return out
+
+
+def malformed_bodies(seed: int) -> list:
+    """Request bodies a front must survive, from a seed: every prefix of a
+    valid two-item body (truncated varints and lengths), length fields past
+    the end, counts far larger than the body (a key length of 2^40, 1001
+    items), empty and huge keys (64 KiB and 1 MiB), wire types 1, 3, 4, 5
+    and 7, overlong and 10-byte varints, garbage inside a well-framed item,
+    and random bytes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    good = encode_get_rate_limits([san_item("api", "u1", hits=3), san_item("api", "u2")])
+    item = good[2 : 2 + good[1]]
+    bodies = [good[:k] for k in range(1, len(good))]
+    bodies += [
+        b"\x0a" + pb_varint(1000) + b"abc",
+        b"\x0a" + pb_varint(len(item) + 1) + item,
+        b"\x0a" + pb_varint(12) + b"\x0a" + pb_varint(1 << 40) + b"api",
+        b"\x0a" + pb_varint(1 << 62),
+        b"\x0a\x00" * 1001,
+        b"\x0a\x00" * 1000,
+        encode_get_rate_limits([san_item("", "k")]),
+        encode_get_rate_limits([san_item("api", "")]),
+        encode_get_rate_limits([san_item("api", "k" * (1 << 16))]),
+        encode_get_rate_limits([san_item("api", "k" * (1 << 20))]),
+        encode_get_rate_limits([san_item("api" * 5000, "k", hits=-1, limit=-1)]),
+        b"\x09" + bytes(8) + good,
+        b"\x0d" + bytes(4) + good,
+        b"\x0b" + good,
+        b"\x0c" + good,
+        b"\x0f" + good,
+        b"\x18" + b"\xff" * 10 + b"\x01" + good,
+        b"\x18" + b"\x80" * 11 + b"\x00",
+        b"\x0a" + pb_varint(6) + b"\x18" + b"\xff" * 4 + b"\x7f" + good,
+        b"\x0a" + pb_varint(4) + b"\x12\x05ab",
+        b"\x0a" + pb_varint(3) + b"\x38\x80\x80",
+        good + b"\x0a",
+        good * 40,
+    ]
+    for n in (1, 2, 7, 64, 513, 4096):
+        for _ in range(6):
+            bodies.append(rng.integers(0, 256, n, dtype=np.uint8).tobytes())
+    for _ in range(40):  # a valid body with one byte changed
+        b = bytearray(good)
+        b[int(rng.integers(0, len(b)))] = int(rng.integers(0, 256))
+        bodies.append(bytes(b))
+    return bodies
+
+
+def san_front_answers(address: str, bodies) -> list:
+    """(grpc-status, response bytes) of each body sent as one RPC, in order,
+    on one connection (`H2Unary`)."""
+    client = H2Unary(address)
+    try:
+        return [client.call(b) for b in bodies]
+    finally:
+        client.close()
+
+
+def san_front_load(address: str, seconds: float) -> dict:
+    """Load on a stress's front from this process through the port's native
+    client (core/h2_client.py), for `seconds`: for each of `san_payloads`
+    a thread of closed loops of 0.5 s, each on new connections (4 or 8,
+    so connections churn), and one `connscale` run of 64 connections, 8 of
+    them busy.  Returns RPCs and errors by load."""
+    import threading
+
+    from gubernator_tpu_torch.core import h2_client
+
+    payloads = san_payloads()
+    got = {tag: [0, 0] for tag in (*payloads, "connscale")}
+    t_end = time.monotonic() + seconds
+
+    def churn(tag: str, n_conns: int) -> None:
+        while time.monotonic() < t_end:
+            r = h2_client.bench_unary(address, H2_PATH, payloads[tag], 0.5, n_conns,
+                                      max_lats=10_000)
+            got[tag][0] += r[0] if r else 0
+            got[tag][1] += r[1] if r else 1
+
+    def scale() -> None:
+        r = h2_client.connscale(address, H2_PATH, payloads["feeder"], seconds, 64, 8, threads=2,
+                                ramp_budget_s=60.0, max_lats=10_000)
+        got["connscale"] = [r["rpcs"], r["errors"]] if r else [0, 1]
+
+    threads = [threading.Thread(target=churn, args=(tag, 4 + 4 * (k % 2)))
+               for k, tag in enumerate(payloads)] + [threading.Thread(target=scale)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return got
+
+
+def san_host_stress(mode: str, stress: str, seconds: float, *, bodies=None,
+                    timeout: float = 600.0) -> dict:
+    """One host stress in a child with the `mode` sanitizer ("thread" or
+    "address") preloaded; the libraries are built here first.  For a
+    front stress (h2-threaded, h2-reactor, malformed) this process drives
+    the child's front (`san_front_load`) and, given `bodies`, sends each
+    as an RPC and has the child decode each (`malformed`).  Returns the
+    child's rc, its "ok" line's values, its stderr, the sanitizer's report
+    (None when it wrote none), the load's RPCs and errors, the front's
+    answers to `bodies` and the child's decodes of them."""
+    from gubernator_tpu_torch.ops import native_build
+
+    preload = native_build.sanitizer_preload(mode)
+    check(preload is not None, f"[san] no {mode} sanitizer runtime in this toolchain")
+    native_build.build_all(SAN_HOST_LIBS, san=mode)
+    front = stress in ("h2-threaded", "h2-reactor", "malformed")
+    res = {"mode": mode, "stress": stress, "rc": None, "ok": None, "report": None, "load": {},
+           "answers": None, "decoded": None}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        if bodies is not None:
+            (tmp / "bodies.json").write_text(json.dumps([b.hex() for b in bodies]))
+        err_path = tmp / "stderr.txt"
+        with open(err_path, "w") as err:
+            child = subprocess.Popen(
+                [sys.executable, str(SAN_SCRIPT), "--san-host", stress, "--san-seconds",
+                 str(seconds), "--san-dir", str(tmp)],
+                cwd=san_port_root(), env=san_child_env(mode, preload), stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=err, text=True)
+            try:
+                if front:
+                    line = child.stdout.readline()
+                    if line.startswith("PORT "):
+                        address = f"127.0.0.1:{int(line.split()[1])}"
+                        if bodies is not None:
+                            res["answers"] = san_front_answers(address, bodies)
+                        res["load"] = san_front_load(address, seconds)
+                out, _ = child.communicate(input="", timeout=timeout)
+            except BaseException:
+                child.kill()
+                child.wait()
+                raise
+        res["rc"] = child.returncode
+        res["stderr"] = err_path.read_text(errors="replace")
+        for line in out.splitlines():
+            if line.startswith("[san-host] ok "):
+                res["ok"] = json.loads(line[len("[san-host] ok "):])
+        if (tmp / "decoded.json").exists():
+            res["decoded"] = json.loads((tmp / "decoded.json").read_text())
+    if SAN_REPORT[mode] in res["stderr"]:
+        res["report"] = res["stderr"]
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def san_expected(bodies, lib, plane_mod, callback_type, disqualify: int, decode) -> tuple:
+    """What a front and a decode must answer to `bodies`: a `SanFront`
+    over `lib` (an unsanitized h2 server library: the port's here, the
+    reference's in the tests) answers each as an RPC, and `decode(body)`
+    (a codec's decode at 1000 items and `disqualify`) and the front's
+    empty plane decode each.  Returns (answers, decodes) in
+    `san_host_stress`'s form."""
+    front = SanFront(lib, plane_mod, callback_type, disqualify, event_front=True, ring=False)
+    try:
+        decoded = [{"codec": san_decoded(decode(b)),
+                    "plane": None if (r := front.plane.try_serve(b)) is None else r.hex()}
+                   for b in bodies]
+        answers = san_front_answers(f"127.0.0.1:{front.port}", bodies)
+    finally:
+        front.stop()
+    return answers, decoded
+
+
+def san_malformed_failures(res: dict, answers, decoded) -> list:
+    """The bodies whose answer through the child's front, or whose decode
+    in the child, differs from the expected (`san_expected`)."""
+    out = []
+    if res["answers"] is None or res["decoded"] is None:
+        return ["malformed: the child answered or decoded nothing"]
+    for i, (got, want) in enumerate(zip(res["answers"], answers)):
+        if tuple(got) != tuple(want):
+            out.append(f"malformed body {i}: the front answered {got[0]} {got[1][:40]!r}, "
+                       f"expected {want[0]} {want[1][:40]!r}")
+    for i, (got, want) in enumerate(zip(res["decoded"], decoded)):
+        if got != want:
+            out.append(f"malformed body {i}: decoded {str(got)[:200]}, expected {str(want)[:200]}")
+    if len(res["answers"]) != len(answers) or len(res["decoded"]) != len(decoded):
+        out.append("malformed: not every body was answered and decoded")
+    return out
+
+
+def san_host_failures(res: dict) -> list:
+    """What fails a host stress: a sanitizer report, a non-zero rc, no "ok"
+    line, a failed RPC of the load, or a load that reached nothing."""
+    tag = f"{res['stress']} under {SAN_REPORT[res['mode']]}"
+    out = []
+    if res["report"] is not None:
+        out.append(f"{tag}: report\n{res['report'][-6000:]}")
+    if res["rc"] != 0 or res["ok"] is None:
+        out.append(f"{tag}: rc {res['rc']}, ok line {res['ok']}\n{res['stderr'][-4000:]}")
+    for what, (rpcs, errors) in res["load"].items():
+        if errors or not rpcs:
+            out.append(f"{tag}: {what} load answered {rpcs} RPCs with {errors} errors")
+    return out
+
+
+# -- the children (each runs with a sanitizer's runtime preloaded) ------------
+
+
+def san_child_front(stress: str, seconds: float, io_dir: Path) -> None:
+    """An h2 front (`SanFront`) over the sanitized library, its event ring
+    drained by a Python thread throughout (the collector's one consumer)
+    and the plane's lease on the hot key pulled and re-granted by another
+    (the ledger's settle thread); prints PORT, serves until its parent
+    closes stdin.  For `malformed` it first decodes every body of
+    bodies.json through the codec and the plane into decoded.json."""
+    import threading
+
+    import numpy as np
+
+    from gubernator_tpu_torch.core import native_plane
+    from gubernator_tpu_torch.net import h2_fast, wire_codec
+    from gubernator_tpu_torch.ops import native_build
+    from gubernator_tpu_torch.service import COLUMNAR_DISQUALIFIERS
+
+    lib = h2_fast.load()
+    front = SanFront(lib, native_plane, native_build.WINDOW_CALLBACK, COLUMNAR_DISQUALIFIERS,
+                     event_front=stress != "h2-threaded", ring=True)
+    if stress == "malformed":
+        bodies = [bytes.fromhex(b) for b in json.loads((io_dir / "bodies.json").read_text())]
+        decoded = [{"codec": san_decoded(wire_codec.decode_reqs(b, 1000, COLUMNAR_DISQUALIFIERS)),
+                    "plane": None if (r := front.plane.try_serve(b)) is None else r.hex()}
+                   for b in bodies]
+        (io_dir / "decoded.json").write_text(json.dumps(decoded))
+    stop = threading.Event()
+    drained, grants = [0], [0]
+
+    def drain() -> None:
+        out = np.zeros(4 * 256, dtype=np.int64)
+        while not stop.is_set():
+            drained[0] += int(lib.evr_drain(front.ring, out.ctypes.data, 256))
+            time.sleep(0.0002)
+
+    def settle() -> None:
+        while not stop.is_set():
+            now = int(time.time() * 1000)
+            front.plane.pull(SAN_HOT_KEY)
+            front.plane.install_lease(SAN_HOT_KEY, 1 << 40, 60_000, now + 60_000, 1 << 40,
+                                      1 << 30, 0, now + 60_000)
+            grants[0] += 1
+            time.sleep(0.005)
+
+    workers = [threading.Thread(target=drain)]
+    if stress != "malformed":  # the malformed run's plane holds nothing
+        workers.append(threading.Thread(target=settle))
+    for t in workers:
+        t.start()
+    print("PORT", front.port, flush=True)
+    sys.stdin.read()
+    stop.set()
+    for t in workers:
+        t.join()
+    # The load has ended: every row the feeder packed is served within a
+    # window or two, with no flush (a stranded row waits for the stop).
+    deadline = time.monotonic() + 2.0
+    while time.monotonic() < deadline:
+        st = front.feeder.stats()
+        if st["feeder_served_rows"] == st["feeder_rows"]:
+            break
+        time.sleep(0.01)
+    stats = front.stop()
+    stats.update(drained=drained[0], grants=grants[0])
+    check(stats["rpcs"] > 0 and stats["feeder_front_rpcs"] > 0 and stats["windows"] > 0,
+          f"[san] the load must reach the feeder and the byte window: {stats}")
+    check(stats["feeder_served_rows"] == stats["feeder_rows"],
+          f"[san] rows the feeder packed and never served: {stats}")
+    if stress != "malformed":
+        check(stats["native_rpcs"] > 0 and drained[0] > 0,
+              f"[san] the plane must answer and the ring must drain: {stats}")
+    print("[san-host] ok " + json.dumps(stats), flush=True)
+
+
+def san_child_feeder(seconds: float) -> None:
+    """The feeder alone (reference tests/test_h2_server_san.py:375): C
+    producer threads (`bench_pack`) and Python threads packing and flushing
+    race the serve thread's seal, rotate and recycle of windows of 8 rows
+    and its Python handler, the ring drained throughout; every packed row
+    is served exactly once."""
+    import threading
+
+    import numpy as np
+
+    from gubernator_tpu_torch.core import native_plane
+
+    body = encode_get_rate_limits([san_item("san", f"hot{i}xyz") for i in range(4)])
+    served = [0]
+
+    def handler(slot, n_rows, n_rpcs, key_bytes):
+        served[0] += n_rows
+        return SanFront._feeder_window(slot, n_rows, n_rpcs, key_bytes)
+
+    feeder = native_plane.NativeColumnarFeeder(n_slots=3, max_rows=256, max_rpcs=64,
+                                               flush_rows=8, window_s=0.0005,
+                                               window_handler=handler)
+    lib = native_plane.load()
+    ring = lib.evr_create(1024)
+    feeder.attach_ring(ring)
+    stop = threading.Event()
+
+    def drain() -> None:
+        out = np.zeros(4 * 256, dtype=np.int64)
+        while not stop.is_set():
+            lib.evr_drain(ring, out.ctypes.data, 256)
+            time.sleep(0.0002)
+
+    py_packed = [0] * 4
+    lanes_done = [threading.Event() for _ in range(4)]
+    park = threading.Event()  # never set
+
+    def lane(t: int) -> None:
+        i = 0
+        while not stop.is_set():
+            rc = feeder.pack(body)
+            if rc > 0:
+                py_packed[t] += rc
+            if i % 25 == 0:
+                feeder.flush()
+            i += 1
+        lanes_done[t].set()
+        park.wait()
+
+    # The Python producers never exit (daemon threads, parked once done):
+    # Python detaches its threads, and when one that ran cf_pack exits, its
+    # TLS (csrc/columnar_feeder.cpp tls_scratch, destroyed at thread exit)
+    # is freed by ld.so in another thread, which ThreadSanitizer cannot
+    # order after the exited thread's TLS destructor.  The front's own
+    # producers are its joined C++ threads.
+    drainer = threading.Thread(target=drain)
+    drainer.start()
+    for t in range(4):
+        threading.Thread(target=lane, args=(t,), daemon=True).start()
+    packed, rounds = 0, 0
+    t_end = time.monotonic() + seconds
+    while rounds < 4 or time.monotonic() < t_end:
+        packed += feeder.bench_pack(body, 4, 500, 4)
+        feeder.flush()
+        rounds += 1
+    stop.set()
+    drainer.join()
+    for done in lanes_done:
+        done.wait()
+    feeder.flush()
+    packed += sum(py_packed)
+    st = feeder.stats()
+    check(st["feeder_rows"] == packed == st["feeder_served_rows"] == served[0],
+          f"[san] feeder rows packed {packed}, served {served[0]}: {st}")
+    feeder.attach_ring(None)
+    feeder.close()
+    lib.evr_free(ring)
+    print("[san-host] ok " + json.dumps({"rows": packed, "windows": st["feeder_windows"],
+                                         "rounds": rounds}), flush=True)
+
+
+def san_child_plane(seconds: float) -> None:
+    """The decision plane (reference tests/test_h2_server_san.py:426):
+    six threads serve an RPC on a leased hot key (`dp_try_serve`, as the
+    connection threads do) while another pulls and re-grants the lease and
+    installs and pulls an over-limit record (`dp_install_*`, `dp_pull`,
+    as the ledger's settle thread does) and a third peeks, probes and
+    reads the stats; every admission is counted once: the lanes' total
+    equals the pulled consumption plus the final pull."""
+    import threading
+
+    from gubernator_tpu_torch.core import native_plane
+
+    plane = native_plane.NativeDecisionPlane(disqualify_mask=0)
+    now = NOW0
+    body = encode_get_rate_limits([san_item("san", "hot", limit=1 << 40)])
+    over_key = b"san_over"
+
+    def grant() -> None:
+        plane.install_lease(SAN_HOT_KEY, 1 << 40, 60_000, now + 60_000, 1 << 40, 1 << 30, 0,
+                            now + 60_000)
+
+    grant()
+    stop = threading.Event()
+    admitted = [0] * 6
+
+    def lane(t: int) -> None:
+        while not stop.is_set():
+            if plane.try_serve(body, max_items=1, now_ms=now) is not None:
+                admitted[t] += 1
+
+    def reader() -> None:
+        while not stop.is_set():
+            plane.peek(SAN_HOT_KEY)
+            plane.probe(over_key, 0, 0, 1, 100, 60_000, now)
+            plane.stats()
+
+    workers = [threading.Thread(target=lane, args=(t,)) for t in range(6)]
+    workers.append(threading.Thread(target=reader))
+    for t in workers:
+        t.start()
+    pulled, cycles = 0, 0
+    t_end = time.monotonic() + seconds
+    while cycles < 400 or time.monotonic() < t_end:
+        res = plane.pull(SAN_HOT_KEY)
+        if res is not None:
+            pulled += res[1]
+        grant()
+        plane.install_over(over_key, 100, 60_000, now + 60_000)
+        plane.pull(over_key)
+        cycles += 1
+    stop.set()
+    for t in workers:
+        t.join()
+    res = plane.pull(SAN_HOT_KEY)
+    final = res[1] if res is not None else 0
+    check(sum(admitted) == pulled + final, f"[san] the plane admitted {sum(admitted)}, "
+          f"pulled {pulled} + {final}")
+    plane.close()
+    print("[san-host] ok " + json.dumps({"admitted": sum(admitted), "cycles": cycles}),
+          flush=True)
+
+
+def san_child_multi_schedule(seconds: float) -> None:
+    """`git_multi_schedule`'s pool (reference tests/test_multi_schedule.py:137):
+    8 tables of 16 slots, one set scheduled with 1 thread and one with 4
+    (then 8), on batches where 30 % of the keys are 4 hot keys (they
+    collapse into rounds) and the rest 400 keys (they evict), with expiries
+    in the past and the future, hashes given or computed in C: every step's
+    rounds, slots, order and counts equal, evictions equal as a multiset."""
+    import numpy as np
+
+    from gubernator_tpu_torch.core.native import NativeInternTable, multi_schedule
+    from gubernator_tpu_torch.hashing import fnv1a_64_batch, pack_keys
+
+    rng = np.random.default_rng(SEED + 20)
+    serial = [NativeInternTable(16) for _ in range(8)]
+    threaded = [NativeInternTable(16) for _ in range(8)]
+    now, steps = NOW0, 0
+    t_end = time.monotonic() + seconds
+    while steps < 24 or time.monotonic() < t_end:
+        n = int(rng.integers(1, 512))
+        ids = np.where(rng.random(n) < 0.3, rng.integers(0, 4, n), 4 + rng.integers(0, 400, n))
+        keys = [b"san_%d" % i for i in ids.tolist()]
+        lens = np.array([len(k) for k in keys], np.int64)
+        off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        buf = np.frombuffer(b"".join(keys), dtype=np.uint8)
+        hashes = fnv1a_64_batch(*pack_keys(keys)) if steps % 2 else None
+        exp = now + rng.integers(-1_000, 60_000, n)
+        a = multi_schedule(serial, buf, off, hashes, now, exp, threads=1)
+        b = multi_schedule(threaded, buf, off, hashes, now, exp, threads=4 + 4 * (steps % 2))
+        check(a[0] == b[0], f"[san] multi_schedule step {steps}: max_round {a[0]} vs {b[0]}")
+        for x, y, what in zip(a[1:6], b[1:6], ("shard", "slots", "rounds", "order", "counts")):
+            check(np.array_equal(x, y), f"[san] multi_schedule step {steps}: {what} differ")
+        check(sorted(zip(a[7].tolist(), a[6].tolist(), a[8].tolist()))
+              == sorted(zip(b[7].tolist(), b[6].tolist(), b[8].tolist())),
+              f"[san] multi_schedule step {steps}: evictions differ")
+        now += int(rng.integers(0, 1_000))
+        steps += 1
+    evicted = sum(t.evictions for t in serial)
+    check(evicted > 0, "[san] the multi_schedule stream must evict")
+    print("[san-host] ok " + json.dumps({"steps": steps, "evictions": evicted}), flush=True)
+
+
+def san_host_child(stress: str, seconds: float, io_dir: Path) -> int:
+    """`--san-host STRESS`: run one stress in this (sanitized) process."""
+    if stress in ("h2-threaded", "h2-reactor", "malformed"):
+        san_child_front(stress, seconds, io_dir)
+    elif stress == "feeder":
+        san_child_feeder(seconds)
+    elif stress == "plane":
+        san_child_plane(seconds)
+    elif stress == "multi-schedule":
+        san_child_multi_schedule(seconds)
+    else:
+        raise SystemExit(f"unknown stress {stress!r}")
+    return 0
+
+
+
+# -- (b) compute-sanitizer over every kernel ----------------------------------
+
+SAN_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
+# launch-count name → the kernel's number (PERF.md §6)
+SAN_KERNELS = {
+    "fused_step": "K1", "clear_occupied": "K2", "collapsed_step": "K3", "uniform_step": "K4",
+    "load_slots": "K5", "sweep_window": "K6", "sketch_step": "K7", "sketch_rotate": "K8",
+    "gather_pages": "K9", "load_pages": "K10", "shard_step": "K11", "shard_collapsed": "K12",
+    "shard_sweep": "K13", "packed_compute": "K14", "scatter_store": "K15",
+    "collapsed_compute": "K16", "apply_batch": "K17",
+}
+SAN_CAP = 1 << 14  # slots of the dense states the sanitizer child holds
+SAN_MARK = "[san-kernel] "
+
+
+def san_child_kernels(marks: bool = True) -> int:
+    """`--san-kernels` (run under compute-sanitizer): K1-K17 at small shapes
+    that still reach every branch, each held bit-equal to its plain
+    version.  With `marks`, each launch is bracketed by marker lines, with
+    the device synchronised on both sides, so that the tool's reports
+    between two markers are that kernel's; inputs are made and plain
+    versions run outside them.  The last line gives the launches inside
+    the brackets."""
+    import numpy as np
+    import torch
+
+    from gubernator_tpu_torch.ops import BatchInput, apply_batch
+    from gubernator_tpu_torch.ops import bucket_kernel as tk
+    from gubernator_tpu_torch.ops import fused_step as fs
+    from gubernator_tpu_torch.ops import sketch as ps
+    from gubernator_tpu_torch.ops import split_step as ss
+    from gubernator_tpu_torch.ops.collapsed_step import collapsed_step
+    from gubernator_tpu_torch.ops.page_words import gather_pages, load_pages
+    from gubernator_tpu_torch.ops.sharded_step import shard_collapsed_step
+
+    rng = np.random.default_rng(SEED + 21)
+    counts = {k: 0 for k in SAN_KERNELS}
+
+    def all_launches() -> dict:
+        return {**fs.launches, **fs.split_launches}
+
+    def run(name: str, fn):
+        torch.cuda.synchronize()
+        before = all_launches()[name]
+        if marks:
+            print(f"{SAN_MARK}begin {name}", flush=True)
+        out = fn()
+        torch.cuda.synchronize()
+        if marks:
+            print(f"{SAN_MARK}end {name}", flush=True)
+        counts[name] += all_launches()[name] - before
+        return out
+
+    def diff(a, b) -> int:
+        return 0 if torch.equal(a, b) else int((a.long() - b.long()).abs().max().item())
+
+    def held(name: str, err: int, what: str) -> None:
+        check(err == 0, f"[san] {SAN_KERNELS[name]} ({name}) differs from its plain version: "
+              f"{what}, err {err}")
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    cap, now = SAN_CAP, NOW0
+    kern = random_state(torch, cap, now, int(rng.integers(2**31)))
+    plain = copy_state(kern)
+    # K1: one round of 1000 lanes in 1024, then a 5-round batch of up to
+    # 1024 lanes a round with clears (even rounds), padding lanes at
+    # cap + lane.
+    pin = cuda(random_pin(np, rng, cap, 1024, BATCH, now))
+    got = run("fused_step", lambda: fs.fused_step(kern, pin))
+    held("fused_step", max(diff(got, tk.fused_step_reference(plain, pin)),
+                           compare_states(torch, kern, plain)), "one round")
+    packed = ragged_rounds(np, rng, cap, 5, now + 7, max_lanes=1024)
+    dev = on_device(torch, packed)
+    got = run("fused_step", lambda: fs.multi_fused_step(kern, *dev, widest=packed.widest))
+    held("fused_step", max(diff(got, tk.multi_fused_step_reference(plain, *dev)),
+                           compare_states(torch, kern, plain)), "5 rounds")
+    # K2 then K5: a restoring round, 40 clears (half on restored slots) and
+    # 1000 records padded to 1024 (a partial last block).
+    clears, rec = clear_restore_case(np, rng, cap, 40, 1000, now)
+    c = np.arange(cap, cap + tk.pad_size(len(clears), floor=16), dtype=np.int64)
+    c[: len(clears)] = clears
+    cd, rd = cuda(c.astype(np.int32)), cuda(rec)
+    run("clear_occupied", lambda: fs.clear_occupied(kern.meta, cd))
+    run("load_slots", lambda: fs.load_slots(kern, rd))
+    clear_restore_plain(torch, np, plain, clears, rec)
+    held("load_slots", compare_states(torch, kern, plain), "a restoring round")
+    # K3: zipf chunks of 8192 lanes, with clears, mostly padding, one key.
+    for kind in ("zipf", "clears", "padding", "one"):
+        now += 11
+        host, clears = collapsed_case(np, rng, cap, kind, now)
+        dpin, dcl = cuda(host), cuda(clears)
+        got = run("collapsed_step", lambda: collapsed_step(kern, dpin, dcl))
+        tk.clear_occupied_reference(plain.meta, dcl)
+        held("collapsed_step", max(diff(got, tk.collapsed_step_reference(plain, dpin)),
+                                   compare_states(torch, kern, plain)), f"{kind} chunk")
+    # K4: 5 ragged uniform rounds with clears, and a skewed launch.
+    for case in (5, "skewed"):
+        now += 13
+        if case == "skewed":
+            upin, ro, co, cs_, widest = skewed_uniform_rounds(np, rng, cap, now)
+        else:
+            upin, ro, co, cs_, widest = uniform_rounds(np, rng, cap, case, now)
+        args = [cuda(a) for a in (upin, ro, co, cs_)]
+        got = run("uniform_step", lambda: fs.multi_uniform_step(kern, *args, widest=widest))
+        held("uniform_step", max(diff(got, tk.multi_uniform_step_reference(plain, *args)),
+                                 compare_states(torch, kern, plain)), f"uniform {case}")
+    # K14 then K15 on a batch of 1000 lanes; K16 then K15 on a zipf chunk.
+    for kind in ("k14", "k16"):
+        now += 17
+        if kind == "k14":
+            host = random_pin(np, rng, cap, 1024, BATCH, now)
+            name, fn, ref = "packed_compute", ss.packed_compute, tk.packed_compute_reference
+        else:
+            host, _ = collapsed_case(np, rng, cap, "zipf", now)
+            name, fn, ref = ("collapsed_compute", ss.collapsed_compute,
+                             tk.collapsed_compute_reference)
+        dpin = cuda(host)
+        slot, words, pout = run(name, lambda: fn(kern, dpin))
+        pslot, pwords, ppout = ref(plain, dpin)
+        live = cuda((host[1] >= 0) & (host[1].astype(np.int64) < cap))
+        held(name, max(diff(pout, ppout), diff(words[:, live], pwords[:, live]),
+                       compare_states(torch, kern, plain)), "pout, live words, state untouched")
+        run("scatter_store", lambda: ss.scatter_store(kern, slot, words))
+        tk.scatter_store_reference(plain, pslot, pwords)
+        held("scatter_store", compare_states(torch, kern, plain), f"after {name}")
+    # K17: 1000 lanes padded to 1024, unsorted, with clears; then the
+    # extreme values.
+    for extreme in (False, True):
+        now += 19
+        cols, clears = apply_batch_case(np, rng, cap, 1024, BATCH, now, extreme=extreme)
+        batch = BatchInput(*(cuda(x) for x in cols))
+        dcl = cuda(clears)
+        got = run("apply_batch", lambda: apply_batch(kern, batch, dcl, now))
+        want = tk.apply_batch_reference(plain, batch, dcl, now)
+        held("apply_batch", max(max(diff(a, b) for a, b in zip(got, want)),
+                                compare_states(torch, kern, plain)), f"extreme {extreme}")
+    del kern, plain
+    # K6: a group of 16 windows of 1024 over 16,084 slots, the last window
+    # clamped (it overlaps the one before); K13: 16 windows of 256 over 4
+    # shards of 3,996 slots.
+    for name, n_sh, window in (("sweep_window", 0, 1024), ("shard_sweep", 4, 256)):
+        rows = 16 * window - 300
+        st = random_state(torch, max(n_sh, 1) * rows, NOW0, int(rng.integers(2**31)))
+        arm_expiries(torch, st, NOW0, int(rng.integers(2**31)))
+        pl = copy_state(st)
+        starts = [min(i * window, rows - window) for i in range(16)]
+        got = run(name, lambda: sweep_group(st.meta, st.hi2, st.expire_lo, NOW0, starts, window,
+                                            n_sh))
+        want = sweep_group_plain(pl.meta, pl.hi2, pl.expire_lo, NOW0, starts, window, n_sh)
+        held(name, max(same_sweep(torch, got, want),
+                       compare_states(torch, (st.meta,), (pl.meta,))), "a group of 16 windows")
+    # K7 in both forms at depth 4: 48 keys (the block form, and the pair
+    # form on the same pin) and 1000 keys (the pair form); K8 on one plane.
+    width = 1 << 14
+    base = random_planes(torch, width, int(rng.integers(2**31)))
+    for n in (48, BATCH):
+        keys = [b"sk_hot"] * 4 + sketch_keys(np, rng, n - 4)
+        hits = np.concatenate([[2**30] * 4, rng.choice([-7, -1, 0, 1, 2, 5], n - 4)])
+        spin = cuda(sketch_pin(np, rng, width, keys, hits, NOW0 + 300))
+        cur = int(rng.integers(0, 2))
+        for plan in k7_plans(ps, SKETCH_DEPTH, spin.shape[1]):
+            k_planes, p_planes = base.clone(), base.clone()
+            got = run("sketch_step", lambda: ps.launch_step(k_planes, spin, cur, plan))
+            want = ps.sketch_step_reference(p_planes, spin, cur)
+            held("sketch_step", max(diff(got, want), diff(k_planes, p_planes)),
+                 f"{n} keys, {plan}")
+    k_planes, p_planes = base.clone(), base.clone()
+    c_k = run("sketch_rotate", lambda: ps.sketch_rotate(k_planes, 0, 1))
+    c_p = ps.rotate_reference(p_planes, 0, 1)
+    held("sketch_rotate", max(abs(c_k - c_p), diff(k_planes, p_planes)), "one plane")
+    del base, k_planes, p_planes
+    # K9 and K10: 16 pages of 512 (the last frame among them) of a state
+    # with bit 31 set in the *_lo words.
+    page, frames = 512, 64
+    st = extreme_page_state(torch, np, rng, frames * page)
+    pl = copy_state(st)
+    starts = np.sort(rng.choice(frames - 1, 15, replace=False)) * page
+    ds = cuda(np.append(starts, (frames - 1) * page).astype(np.int32))
+    got = run("gather_pages", lambda: gather_pages(st, ds, page))
+    held("gather_pages", diff(got, tk.gather_page_words_reference(pl, ds, page)), "16 pages")
+    words = cuda(rng.integers(-(2**31), 2**31, (16, 12, page), dtype=np.int64).astype(np.int32))
+    run("load_pages", lambda: load_pages(st, ds, words))
+    tk.load_page_words_reference(pl, ds, words)
+    held("load_pages", compare_states(torch, st, pl), "16 pages")
+    # K11: 4 shards of 4096, batches of 1 and 8 rounds of 128 lanes with
+    # clears in every round; K12: chunks of 256 lanes a shard, a hot key,
+    # padding and an empty shard.
+    n_sh, scap = 4, 4096
+    st = random_state(torch, n_sh * scap, NOW0, int(rng.integers(2**31)))
+    pl = copy_state(st)
+    for n_rounds in (1, 8):
+        pieces = shard_round_pieces(np, rng, n_sh, scap, n_rounds, 128, NOW0 + n_rounds,
+                                    later_clears=True)
+        runner = k11_batch_runner(torch, np, pieces, scap)
+        got = run("shard_step", lambda: runner(st))
+        want = k11_batch_plain(torch, pl, pieces, scap)
+        held("shard_step", max(diff(got, want), compare_states(torch, st, pl)),
+             f"{n_rounds} rounds")
+    pin_np, slots_of = sharded_pin(np, rng, n_sh, scap, 256, NOW0 + 5, collapsed=True)
+    spin, srows = cuda(pin_np), cuda(shard_clears(np, rng, scap, slots_of))
+    got = run("shard_collapsed", lambda: shard_collapsed_step(st, spin, scap, srows))
+    tk.shard_clears_reference(pl, srows, scap)
+    want = tk.sharded_collapsed_step_reference(pl, spin, scap)
+    held("shard_collapsed", max(diff(got, want), compare_states(torch, st, pl)), "256 lanes")
+    missing = [SAN_KERNELS[k] for k, n in counts.items() if n == 0]
+    check(not missing, f"[san] kernels never launched: {missing}")
+    print(f"{SAN_MARK}done " + json.dumps(counts), flush=True)
+    return 0
+
+
+def compute_sanitizer_path() -> str | None:
+    """compute-sanitizer, looked up as `native_build.nvcc_path` looks up
+    nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then PATH."""
+    import shutil
+
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.isfile(os.path.join(home, "bin", "compute-sanitizer")):
+            return os.path.join(home, "bin", "compute-sanitizer")
+    return shutil.which("compute-sanitizer")
+
+
+# Lines of compute-sanitizer's own that are no error record.
+SAN_TOOL_INFO = ("COMPUTE-SANITIZER", "ERROR SUMMARY", "RACECHECK SUMMARY", "LEAK SUMMARY",
+                 "Target application returned an error")
+
+
+def san_kernel_tool(tool: str, timeout: float = 600.0) -> dict:
+    """One compute-sanitizer run of `--san-kernels` under `tool`, each
+    allocation a cudaMalloc of its own (PYTORCH_NO_CUDA_MEMORY_CACHING, so
+    memcheck sees a read past a tensor's end) and modules loaded lazily.
+    Returns the tool's rc, its ERROR SUMMARY count, the error records
+    between each kernel's markers (by launch-count name) and outside any,
+    their first lines, the child's launches and the wall time."""
+    import re
+
+    exe = compute_sanitizer_path()
+    check(exe is not None, "[san] compute-sanitizer not found")
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1", CUDA_MODULE_LOADING="LAZY")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as out:
+        rc = subprocess.run([exe, "--tool", tool, "--error-exitcode", "99", sys.executable,
+                             str(SAN_SCRIPT), "--san-kernels"], cwd=san_port_root(), env=env,
+                            stdout=out, stderr=subprocess.STDOUT, timeout=timeout).returncode
+        out.seek(0)
+        text = out.read()
+    res = {"tool": tool, "rc": rc, "summary": None, "errors": {k: 0 for k in SAN_KERNELS},
+           "outside": 0, "records": [], "launches": None, "seconds": time.perf_counter() - t0,
+           "tail": text[-3000:]}
+    current = None
+    for line in text.splitlines():
+        if line.startswith(SAN_MARK):
+            word, _, rest = line[len(SAN_MARK):].partition(" ")
+            current = rest if word == "begin" else None
+            if word == "done":
+                res["launches"] = json.loads(rest)
+            continue
+        m = re.match(r"=+ ERROR SUMMARY: (\d+) error", line)
+        if m:
+            res["summary"] = int(m.group(1))
+        if re.match(r"=+ \S", line) and not any(w in line for w in SAN_TOOL_INFO):
+            if current is None:
+                res["outside"] += 1
+            else:
+                res["errors"][current] += 1
+            if len(res["records"]) < 40:
+                res["records"].append(f"{current or 'outside'}: {line}")
+    return res
+
+
+def san_kernel_failures(res: dict) -> list:
+    """What fails a tool's run: an rc but 0, an ERROR SUMMARY above 0 (or
+    none), an error record anywhere, or a child that did not finish."""
+    out = []
+    if res["rc"] != 0 or res["summary"] != 0 or res["outside"] or any(res["errors"].values()):
+        out.append(f"{res['tool']}: rc {res['rc']}, ERROR SUMMARY {res['summary']}, by kernel "
+                   f"{ {SAN_KERNELS[k]: n for k, n in res['errors'].items() if n} }, outside "
+                   f"{res['outside']}\n" + "\n".join(res["records"]) + "\n" + res["tail"])
+    elif res["launches"] is None:
+        out.append(f"{res['tool']}: the child did not finish\n{res['tail']}")
+    return out
+
+
+def san_host_phase(card: str) -> float:
+    """(a): the five stresses under ThreadSanitizer and the malformed bodies
+    under AddressSanitizer, all at once, SAN_HOST_SECONDS of load each; the
+    malformed bodies' answers and decodes held to this process's plain
+    front and codec.  Returns the wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gubernator_tpu_torch.core import native_plane
+    from gubernator_tpu_torch.net import h2_fast, wire_codec
+    from gubernator_tpu_torch.ops import native_build
+    from gubernator_tpu_torch.service import COLUMNAR_DISQUALIFIERS
+
+    t0 = time.perf_counter()
+    for mode in SAN_REPORT:
+        check(native_build.sanitizer_preload(mode) is not None,
+              f"[san] g++ -print-file-name finds no {SAN_REPORT[mode]} runtime")
+    # Built here, once: the stresses below start together in this process,
+    # and two builds of one library at once would share a temporary file.
+    native_build.build_all(SAN_HOST_LIBS, san="thread")
+    native_build.build_all(SAN_HOST_LIBS, san="address")
+    bodies = malformed_bodies(SEED)
+    answers, decoded = san_expected(
+        bodies, h2_fast.load(), native_plane, native_build.WINDOW_CALLBACK, COLUMNAR_DISQUALIFIERS,
+        lambda b: wire_codec.decode_reqs(b, 1000, COLUMNAR_DISQUALIFIERS))
+    runs = [("thread", s, None) for s in SAN_STRESSES] + [("address", "malformed", bodies)]
+    with ThreadPoolExecutor(len(runs)) as pool:
+        results = list(pool.map(lambda r: san_host_stress(r[0], r[1], SAN_HOST_SECONDS,
+                                                          bodies=r[2]), runs))
+    failures = []
+    for res in results:
+        failures += san_host_failures(res)
+        if res["stress"] == "malformed":
+            failures += san_malformed_failures(res, answers, decoded)
+        load = "; ".join(f"{k} {r} RPCs" for k, (r, _e) in res["load"].items())
+        log(f"[san host] {res['stress']} under {SAN_REPORT[res['mode']]}: rc {res['rc']}, "
+            f"report {'yes' if res['report'] else 'none'}, {res['seconds']:.1f} s; "
+            f"{json.dumps(res['ok'])}{'; load ' + load if load else ''}")
+    check(not failures, "[san] host stresses failed:\n" + "\n".join(failures))
+    log(f"[san host] 5 stresses under ThreadSanitizer and {len(bodies)} malformed bodies under "
+        f"AddressSanitizer (answers and decodes equal to the plain front's and codec's): no "
+        f"report, in {time.perf_counter() - t0:.1f} s | {card}")
+    return time.perf_counter() - t0
+
+
+def san_kernel_phase(card: str) -> float:
+    """(b): the four tools over the kernel child, all at once.  Returns the
+    wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    exe = compute_sanitizer_path()
+    check(exe is not None, "[san] compute-sanitizer not found ($CUDA_HOME/bin, "
+          "/usr/local/cuda/bin, PATH)")
+    version = subprocess.run([exe, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.strip().splitlines()
+    log(f"[san kernels] {exe}: {' '.join(version[-2:])}")
+    with ThreadPoolExecutor(len(SAN_TOOLS)) as pool:
+        results = list(pool.map(san_kernel_tool, SAN_TOOLS))
+    failures = []
+    for res in results:
+        failures += san_kernel_failures(res)
+        log(f"[san kernels] {res['tool']}: rc {res['rc']}, ERROR SUMMARY {res['summary']}, "
+            "errors by kernel " + json.dumps({SAN_KERNELS[k]: n for k, n in res["errors"].items()})
+            + f", outside any kernel {res['outside']}, launches {json.dumps(res['launches'])}, "
+            f"{res['seconds']:.1f} s | {card}")
+    check(not failures, "[san] compute-sanitizer reports:\n" + "\n".join(failures))
+    return time.perf_counter() - t0
+
+
+def has_san() -> bool:
+    """The driven port builds sanitized host libraries (a --tree checkout
+    from before does not)."""
+    from gubernator_tpu_torch.ops import native_build
+
+    return hasattr(native_build, "sanitizer_preload")
+
+
+def phase_san(torch, card: str) -> None:
+    """The san phase: (a) the host stresses; then the kernel cases that (b)
+    runs under compute-sanitizer (`--san kernels`), here without the tool,
+    which refuses the card's machine ("Error: Device not supported"), so
+    that they stay ready for a machine where it runs."""
+    t0 = time.perf_counter()
+    t_host = san_host_phase(card)
+    t1 = time.perf_counter()
+    san_child_kernels(marks=False)
+    torch.cuda.empty_cache()
+    log(f"[san kernels] K1-K17 at the compute-sanitizer child's small shapes, each bit-equal to "
+        f"its plain version, in {time.perf_counter() - t1:.1f} s (the tools themselves: "
+        f"--san kernels)")
+    log(f"[san] host stresses {t_host:.1f} s: the san phase took {time.perf_counter() - t0:.1f} s "
+        f"| {card}")
+
+
 def main() -> int:
     global TREE
     ap = argparse.ArgumentParser(description="Smoke run of gubernator_tpu_torch on one GPU.")
@@ -5990,7 +7042,18 @@ def main() -> int:
                     "restores at every reading, times K1 and K3, and the restore streams' "
                     "walls; k11 holds and times K11 over 1-8 rounds and K12 at four widths, "
                     "and sharded path (b)'s dataclass route")
+    ap.add_argument("--san", nargs="?", const="host", choices=("host", "kernels"),
+                    help="only the build and one half of the san phase, and no result lines: "
+                    "host (the default) runs the host C++'s stresses under ThreadSanitizer and "
+                    "AddressSanitizer; kernels runs compute-sanitizer's memcheck, racecheck, "
+                    "synccheck and initcheck over K1-K17")
+    ap.add_argument("--san-host", metavar="STRESS", help=argparse.SUPPRESS)
+    ap.add_argument("--san-seconds", type=float, default=3.0, help=argparse.SUPPRESS)
+    ap.add_argument("--san-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--san-kernels", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.san_host:
+        return san_host_child(args.san_host, args.san_seconds, Path(args.san_dir))
     if args.tree:
         TREE = Path(args.tree).resolve()
         sys.path.insert(0, str(TREE))
@@ -6026,8 +7089,14 @@ def main() -> int:
     split_rng = np.random.default_rng(SEED + 11)
     ab_rng = np.random.default_rng(SEED + 12)
     obs_rng = np.random.default_rng(SEED + 13)
+    if args.san_kernels:
+        return san_child_kernels()
     card = phase_device(torch)
     phase_build()
+    if args.san:
+        check(has_san(), "the port has no sanitizer builds")
+        (san_host_phase if args.san == "host" else san_kernel_phase)(card)
+        return 0
     errs = {k: 0 for k in (*fs.launches, *getattr(fs, "split_launches", {}))}
     if args.readings == "k2k5":
         return readings_k2k5(torch, np, rng, card, errs)
@@ -6357,6 +7426,12 @@ def main() -> int:
         times["ab_k17"] = time_apply_batch(torch, np, ab_rng, card)
     log(f"[time] HTTP GetRateLimits on the card: {http_rate:.0f} decisions/s | {card}")
     phase_rates(torch, np, rng, card)
+    # ---- the san phase: sanitizer runs of the port's own native code.
+    if has_san():
+        phase_san(torch, card)
+    else:
+        check(TREE is not None, "the port has no sanitizer builds")
+        log(f"[san] {TREE} has no sanitizer builds: the san phase is skipped")
 
     # K1's row: one launch over a real 5-round batch (the engine's typical
     # launch); the R = 1 figures are in the [done] line.

@@ -610,8 +610,15 @@ int64_t cf_pack(void* handle, const uint8_t* body, int64_t len,
         const bool first = rows == 0;
         const bool full = rows + n >= f->flush_rows;
         w.committed_rows.fetch_add(n);
-        if (full) w.cursor.fetch_or(kClosedBit);
-        if (first || full) wake_serve(f);
+        // A window the serve thread rotated past, served and recycled
+        // between this producer's load of `open` and its claim takes
+        // the claim, but is no longer the open slot: nothing would
+        // seal it, and the rotation skips a slot with rows, so its RPCs
+        // would wait for the next flush or the stop.  Seal it here, as a
+        // full one, and the serve loop's sweep serves it.
+        const bool stray = f->open.load() != idx;
+        if (full || stray) w.cursor.fetch_or(kClosedBit);
+        if (first || full || stray) wake_serve(f);
         if (ring) {
           const int64_t t1 = evr_now_ns();
           evr_record(ring, kEvFeederPack, t1, t1 - t0, n);

@@ -310,15 +310,25 @@ struct Server {
   std::atomic<int64_t> native_rpcs{0}, native_items{0};
   std::atomic<int64_t> feeder_rpcs{0}, feeder_items{0};
   std::atomic<int64_t> conns_open{0}, idle_reaped{0};
-  // Threaded plane only: connection threads are DETACHED (a long-
-  // lived daemon must not accumulate unjoined thread handles across
-  // connection churn); shutdown coordinates through the live-conn
-  // registry + an active counter instead of joins.  Event-plane conns
-  // are owned (and torn down) by their reactor's joinable thread.
+  // Threaded plane only: shutdown coordinates through the live-conn
+  // registry + an active counter (a bounded wait), then joins the
+  // connection threads.  They are joinable, not detached: a thread still
+  // runs this library's code after its loop ends (the feeder's
+  // thread-local scratch is destroyed at thread exit), so only a join
+  // orders that exit before h2s_stop returns and before the thread's
+  // stack and TLS are reused.  The accept loop joins finished threads
+  // before it starts the next one, so a long-lived daemon keeps no
+  // unjoined handles across connection churn.  Event-plane conns are
+  // owned (and torn down) by their reactor's joinable thread.
   std::atomic<int64_t> active_conns{0};
   std::mutex conns_mu;
   std::condition_variable conns_cv;
   std::vector<std::weak_ptr<Conn>> conns;
+  struct ConnThread {
+    std::thread thread;
+    std::shared_ptr<std::atomic<bool>> done;  // set under conns_mu
+  };
+  std::vector<ConnThread> conn_threads;  // guarded by conns_mu
 };
 
 // One response whose DATA is (partially) blocked on the peer's
@@ -1139,13 +1149,30 @@ void accept_loop(Server* srv, int listen_fd) {
     }
     srv->active_conns.fetch_add(1);
     srv->conns_open.fetch_add(1);
-    std::thread([srv, conn]() {
+    auto done = std::make_shared<std::atomic<bool>>(false);
+    std::thread t([srv, conn, done]() {
       conn_loop(srv, conn);
       srv->conns_open.fetch_sub(1);
       srv->active_conns.fetch_sub(1);
       std::lock_guard<std::mutex> lock(srv->conns_mu);
+      done->store(true);
       srv->conns_cv.notify_all();
-    }).detach();
+    });
+    std::vector<std::thread> finished;
+    {
+      std::lock_guard<std::mutex> lock(srv->conns_mu);
+      auto& threads = srv->conn_threads;
+      for (auto& ct : threads)
+        if (ct.done->load()) finished.push_back(std::move(ct.thread));
+      threads.erase(std::remove_if(threads.begin(), threads.end(),
+                                   [](const Server::ConnThread& ct) {
+                                     return !ct.thread.joinable();
+                                   }),
+                    threads.end());
+      threads.push_back({std::move(t), std::move(done)});
+    }
+    // Their loops have ended: each join waits only for the thread's exit.
+    for (auto& f : finished) f.join();
   }
 }
 
@@ -1736,9 +1763,10 @@ void h2s_stop(void* handle) {
   for (auto& t : srv->accept_threads)
     if (t.joinable()) t.join();
   if (srv->dispatch_thread.joinable()) srv->dispatch_thread.join();
+  std::vector<Server::ConnThread> conn_threads;
   {
     // Threaded-plane conn threads block in recv(); shut their sockets
-    // down, then wait (bounded) for the detached threads to drain.
+    // down, then wait (bounded) for their loops to end.
     std::unique_lock<std::mutex> lock(srv->conns_mu);
     for (auto& w : srv->conns)
       if (auto c = w.lock()) {
@@ -1748,8 +1776,15 @@ void h2s_stop(void* handle) {
     srv->conns_cv.wait_for(lock, std::chrono::seconds(5), [&] {
       return srv->active_conns.load() == 0;
     });
+    // The accept threads are joined: nothing adds to the list now.
+    if (srv->active_conns.load() != 0) {
+      // Leak over use-after-free: the stragglers keep the server.
+      for (auto& ct : srv->conn_threads) ct.thread.detach();
+      return;
+    }
+    conn_threads.swap(srv->conn_threads);
   }
-  if (srv->active_conns.load() != 0) return;  // leak over use-after-free
+  for (auto& ct : conn_threads) ct.thread.join();
   delete srv;
 }
 

@@ -24,17 +24,34 @@ Nothing here runs at import: the CPU tests import every module.  `nvcc`
 runs only when a kernel is first launched on a CUDA tensor, or when a
 caller builds ahead of time; `g++` when the first engine makes its
 intern table.
+
+Sanitizer builds (reference `gubernator_tpu/core/native_build.py`
+`san_mode`, `sanitizer_preload`): GUBER_NATIVE_SAN=thread (or 1, tsan)
+or address (asan) builds the `g++` libraries with `-O1 -g
+-fno-omit-frame-pointer -fsanitize=<mode>` in place of `-O2`, under a
+name of their own (the flags are hashed, and the name ends in `-tsan` or
+`-asan`), so a sanitized library never replaces a plain one; the `.cu`
+libraries build as always.  A sanitizer runtime cannot start inside a
+Python that is already running uninstrumented, so a sanitized library is
+loaded only in a child process that has the runtime in LD_PRELOAD
+(`sanitizer_preload` finds it); `load` refuses it anywhere else.  A
+parent builds for such a child with `build_all(names, san=mode)`, which
+leaves its own environment as it is.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
+
+_log = logging.getLogger("gubernator_tpu_torch.native")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -76,6 +93,12 @@ NVCC_FLAGS = (
 )
 # -pthread: the h2 server and client run threads of their own.
 GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread")
+# A sanitized build keeps frames and symbols and optimises less, so that
+# its reports carry usable stacks.
+SAN_FLAGS = ("-O1", "-g", "-fno-omit-frame-pointer")
+# mode → (the runtime's library, a symbol that only the runtime defines)
+_SAN_RUNTIMES = {"thread": ("libtsan.so", "__tsan_init"),
+                 "address": ("libasan.so", "__asan_init")}
 
 # The h2 front's window callback (csrc/h2_server.cpp WindowCallback):
 # (concat bodies, len, item_counts [n_rpcs], body_lens [n_rpcs], n_rpcs,
@@ -94,7 +117,7 @@ FEEDER_CALLBACK = ctypes.CFUNCTYPE(
 )
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 # ptxas report (registers, spills) of each library built in this process.
 build_logs: dict[str, str] = {}
 
@@ -111,8 +134,48 @@ def nvcc_path() -> str:
     return found
 
 
+def san_mode() -> str:
+    """'' (off), 'thread' or 'address', from GUBER_NATIVE_SAN."""
+    v = os.environ.get("GUBER_NATIVE_SAN", "").strip().lower()
+    if v in ("", "0", "off", "none"):
+        return ""
+    if v in ("1", "thread", "tsan"):
+        return "thread"
+    if v in ("address", "asan"):
+        return "address"
+    _log.warning("GUBER_NATIVE_SAN=%r not recognized; sanitizer off", v)
+    return ""
+
+
+def sanitizer_preload(mode: Optional[str] = None) -> Optional[str]:
+    """Path of the sanitizer runtime to LD_PRELOAD into a child process
+    that loads a sanitized library (`g++ -print-file-name`), or None when
+    the toolchain has none.  `mode` None reads GUBER_NATIVE_SAN."""
+    mode = san_mode() if mode is None else mode
+    if not mode:
+        return None
+    lib = _SAN_RUNTIMES[mode][0]
+    try:
+        out = subprocess.run(["g++", f"-print-file-name={lib}"], capture_output=True, text=True,
+                             timeout=10, check=True).stdout.strip()
+    except (subprocess.CalledProcessError, subprocess.TimeoutExpired, OSError):
+        return None
+    return out if out and os.path.sep in out and Path(out).exists() else None
+
+
 def _is_cuda(name: str) -> bool:
     return SOURCES[name][0].endswith(".cu")
+
+
+def _lib_san(name: str, san: str) -> str:
+    """The sanitizer a build of `name` takes: none for a `.cu` library."""
+    return "" if _is_cuda(name) else san
+
+
+def _gxx_flags(san: str) -> tuple:
+    if not san:
+        return GXX_FLAGS
+    return (*(f for f in GXX_FLAGS if f != "-O2"), *SAN_FLAGS, f"-fsanitize={san}")
 
 
 def _compiler(name: str) -> tuple:
@@ -125,32 +188,39 @@ def _compiler(name: str) -> tuple:
     return (gxx, *GXX_FLAGS)
 
 
-def _target(name: str) -> Path:
+def _target(name: str, san: str = "") -> Path:
+    san = _lib_san(name, san)
     data = "\0".join(SOURCES[name]).encode()
     data += b"".join((CSRC / src).read_bytes() for src in SOURCES[name])
     if _is_cuda(name):
         data += b"".join((CSRC / h).read_bytes() for h in HEADERS)
         data += "\0".join(NVCC_FLAGS).encode()
     else:
-        data += "\0".join(GXX_FLAGS).encode()
+        data += "\0".join(_gxx_flags(san)).encode()
     h = hashlib.sha256(data).hexdigest()
-    return BUILD_DIR / f"lib{name}-{h[:16]}.so"
+    return BUILD_DIR / f"lib{name}-{h[:16]}{f'-{san[0]}san' if san else ''}.so"
 
 
-def build_all(names=None) -> dict[str, Path]:
+def build_all(names=None, san: Optional[str] = None) -> dict[str, Path]:
     """Compile every listed library that is missing, one compiler
     process per library, all started together.  Returns name → library
-    path; raises with the compiler's output if any build fails."""
+    path; raises with the compiler's output if any build fails.  `san`
+    ('', 'thread' or 'address') builds the `g++` libraries sanitized;
+    None reads GUBER_NATIVE_SAN."""
     names = list(SOURCES) if names is None else list(names)
+    san = san_mode() if san is None else san
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {n: _target(n) for n in names}
+    out = {n: _target(n, san) for n in names}
     todo = [n for n in names if not out[n].exists()]
     if not todo:
         return out
     procs = {}
     for n in todo:
         tmp = out[n].with_suffix(f".tmp{os.getpid()}")
-        cmd = [*_compiler(n), "-o", str(tmp), *(str(CSRC / src) for src in SOURCES[n])]
+        cmd = _compiler(n)
+        if _lib_san(n, san):
+            cmd = (cmd[0], *_gxx_flags(san))
+        cmd = [*cmd, "-o", str(tmp), *(str(CSRC / src) for src in SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     errors = []
     for n, (tmp, p) in procs.items():
@@ -166,14 +236,27 @@ def build_all(names=None) -> dict[str, Path]:
     return out
 
 
+def _runtime_loaded(san: str) -> bool:
+    """Whether this process runs the sanitizer's runtime (preloaded: its
+    symbols are in the global scope)."""
+    return hasattr(ctypes.CDLL(None), _SAN_RUNTIMES[san][1])
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library `name`, building it on first use."""
+    """The loaded library `name`, building it on first use; sanitized
+    when GUBER_NATIVE_SAN asks for it, which only a process with the
+    sanitizer's runtime preloaded may do."""
+    san = _lib_san(name, san_mode())
+    if san and not _runtime_loaded(san):
+        raise RuntimeError(
+            f"GUBER_NATIVE_SAN={san}: the sanitized {name} library loads only in a process "
+            f"started with LD_PRELOAD={sanitizer_preload(san) or _SAN_RUNTIMES[san][0]}")
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, san))
         if lib is None:
-            lib = ctypes.CDLL(str(build_all([name])[name]))
+            lib = ctypes.CDLL(str(build_all([name], san)[name]))
             _declare(name, lib)
-            _libs[name] = lib
+            _libs[(name, san)] = lib
         return lib
 
 
