@@ -205,6 +205,22 @@ K4.  After the count, the card daemon's h2 decisions/s on the mixed
 stream with each of GUBER_TRACING, GUBER_NATIVE_EVENTS, GUBER_HOTKEYS and
 GUBER_OBS off and on (turns off, on, on, off) are printed.
 
+An eleventh path, the metrics path, counts its launches from 0 too: a
+card daemon and its CPU twin, each with its status listener
+(GUBER_STATUS_HTTP_ADDRESS), GUBER_METRIC_FLAGS=all, GUBER_OBS and the h2
+front, answer the mixed stream (2^20 slots, batches of 1000) and the zipf
+stream (2^24 slots, batches of 8192 in RPCs of 1000) over h2 and HTTP,
+answers equal; then /metrics, /metrics?exemplars=1 (OpenMetrics) and
+/metrics?fleet=1 are scraped on both listeners of both: the card's text
+equals the twin's in every family, HELP, TYPE, label set and counted
+value (the time-valued samples, named in METRICS_TIME_VALUED, by presence
+only), the listeners give the same families, and no scrape launches a
+kernel.  Every launch is K1, K3 or K4.  The line `[metrics]` gives the
+families, the samples and the p50 / p99 of 100 scrapes.  The daemon
+binary is started with `-config FILE`, GUBER_DEBUG=true in the file: the
+file's status listener answers with its metric flag's families, and the
+log shows DEBUG.
+
 After the paths, the san phase runs the port's own native code under
 sanitizers.  (a) The host C++ (csrc/*.cpp), built with GUBER_NATIVE_SAN's
 flags, in child processes that have the sanitizer's runtime in
@@ -1155,20 +1171,41 @@ def phase_server(torch, np, rng, card_engines):
 def phase_daemon_binary(has_h2: bool):
     """`python -m gubernator_tpu_torch.cmd.daemon` on the card: it binds,
     answers (a sketch item too, with GUBER_SKETCH_* set; one RPC on its h2
-    front too, with GUBER_H2_FAST_ADDRESS set), and exits 0 on SIGTERM."""
+    front too, with GUBER_H2_FAST_ADDRESS set), and exits 0 on SIGTERM.
+    On a port with `-config`, its settings come from a KEY=VALUE file
+    with GUBER_DEBUG=true: the file's status listener answers health and
+    /metrics with GUBER_METRIC_FLAGS=os's families, and the log shows a
+    DEBUG record."""
     import signal
 
+    from gubernator_tpu_torch import config as port_config
     from gubernator_tpu_torch.ops import fused_step as fs
 
-    env = dict(os.environ, GUBER_HTTP_ADDRESS="127.0.0.1:0", GUBER_CACHE_SIZE=str(CAP_SERVE),
-               GUBER_SKETCH_WINDOW="1m", GUBER_SKETCH_WIDTH=str(1 << 16))
+    settings = dict(GUBER_HTTP_ADDRESS="127.0.0.1:0", GUBER_CACHE_SIZE=str(CAP_SERVE),
+                    GUBER_SKETCH_WINDOW="1m", GUBER_SKETCH_WIDTH=str(1 << 16))
     if has_h2:
-        env["GUBER_H2_FAST_ADDRESS"] = "127.0.0.1:0"
+        settings["GUBER_H2_FAST_ADDRESS"] = "127.0.0.1:0"
+    with_file = hasattr(port_config, "load_env_file")
+    tmp = Path(tempfile.mkdtemp(prefix="guber-daemon-"))
+    argv = [sys.executable, "-m", "gubernator_tpu_torch.cmd.daemon"]
+    env = dict(os.environ)
+    if with_file:
+        settings.update(GUBER_DEBUG="true", GUBER_STATUS_HTTP_ADDRESS="127.0.0.1:0",
+                        GUBER_METRIC_FLAGS="os")
+        conf = tmp / "guber.env"
+        conf.write_text("# the daemon's settings\n\n"
+                        + "".join(f"{k}={v}\n" for k, v in settings.items()))
+        argv += ["-config", str(conf)]
+        for k in settings:
+            env.pop(k, None)
+    else:
+        env.update(settings)
     import gubernator_tpu_torch
 
     root = Path(gubernator_tpu_torch.__file__).resolve().parent.parent  # the port driven
-    proc = subprocess.Popen([sys.executable, "-m", "gubernator_tpu_torch.cmd.daemon"],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+    err_path = tmp / "stderr.log"
+    err = open(err_path, "w")
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=err, text=True, env=env,
                             cwd=root)
     try:
         line = proc.stdout.readline().strip()
@@ -1195,17 +1232,40 @@ def phase_daemon_binary(has_h2: bool):
         if len(resps) > 1:  # the sketch item: window 1m from GUBER_SKETCH_WINDOW
             check(resps[1]["remaining"] == "1" and int(resps[1]["reset_time"]) % 60_000 == 0,
                   f"[daemon] sketch answer: {resps}")
+        if with_file:
+            check("status" in fields, f"[daemon] no status listener in {line!r}")
+            health = json.loads(http_json(f"http://{fields['status']}/healthz"))
+            text = http_json(f"http://{fields['status']}/metrics").decode()
+            check(health.get("status") == "healthy"
+                  and "# TYPE process_resident_memory_bytes gauge" in text
+                  and "\ngubernator_check_counter_total 0.0\n" not in text
+                  and "\ngubernator_check_counter_total " in text
+                  and "python_info" not in text,
+                  f"[daemon] the -config file's status listener: {health}, "
+                  f"{text[:200]!r}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
-        check(rc == 0, f"[daemon] exit code {rc} after SIGTERM: {proc.stderr.read()}")
-        log("[daemon] python -m gubernator_tpu_torch.cmd.daemon answered on the card"
+        err.flush()
+        log_text = err_path.read_text()
+        check(rc == 0, f"[daemon] exit code {rc} after SIGTERM: {log_text[-2000:]}")
+        if with_file:
+            check(f"DEBUG gubernator_tpu_torch config file {conf} loaded" in log_text,
+                  f"[daemon] GUBER_DEBUG=true in the -config file logged no DEBUG record: "
+                  f"{log_text[-2000:]}")
+        log("[daemon] python -m gubernator_tpu_torch.cmd.daemon"
+            + (" -config FILE (GUBER_DEBUG=true: DEBUG records logged; its status listener "
+               "served /metrics with the os flag's families)" if with_file else "")
+            + " answered on the card"
             + (" over HTTP and its h2 front" if has_h2 else "") + ", exited 0 on SIGTERM")
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
         proc.stdout.close()
-        proc.stderr.close()
+        err.close()
+        for f in tmp.iterdir():
+            f.unlink()
+        tmp.rmdir()
 
 
 def device_ms(torch, launch, n: int, windows: int = 7, before=None) -> float:
@@ -6024,6 +6084,214 @@ def obs_rates(torch, np, rng, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The metrics path: /metrics and the status listener, card against its CPU
+# twin.
+
+METRICS_MIXED_RPCS = 8  # the mixed stream's RPCs of 1000, each way
+METRICS_ZIPF_RPCS = 2  # the zipf stream's batches of 8192, in RPCs of 1000
+METRICS_SCRAPES = 100  # timed scrapes of /metrics on the card daemon
+METRICS_PATHS = ("/metrics", "/metrics?exemplars=1", "/metrics?fleet=1")
+
+# Samples compared by presence only between the card and its twin, each
+# by name: what holds a time, or counts observations of a timed stage
+# whose grouping follows the host's timing.
+#  - every `_sum` (the summaries and the stage histogram sum seconds);
+#  - gubernator_stage_quantile_seconds, gubernator_stage_seconds_bucket,
+#    gubernator_stage_duration_count, gubernator_stage_seconds_count: the
+#    stage timers (the card's pump groups launches, the CPU twin's does
+#    not queue; the h2 window's serve count follows arrivals);
+#  - gubernator_engine_round_duration_count: device.step's count;
+#  - gubernator_native_*, and the rollup's event count
+#    (gubernator_fleet_counter_total{counter="native_events"}): the event
+#    ring, whose reactor and feeder events follow the host's timing;
+#  - gubernator_slo_burn_rate: sampled by the watchdog's own ticks;
+#  - gubernator_fleet_stage_quantile_seconds: the merged stage quantiles;
+#  - process_* and python_gc_*: the process's own values.
+METRICS_TIME_VALUED = (
+    "gubernator_stage_quantile_seconds", "gubernator_stage_seconds_bucket",
+    "gubernator_stage_duration_count", "gubernator_stage_seconds_count",
+    "gubernator_engine_round_duration_count", "gubernator_native_",
+    "gubernator_slo_burn_rate", "gubernator_fleet_stage_quantile_seconds", "process_",
+    "python_gc_")
+
+
+def has_metrics() -> bool:
+    """The driven port serves /metrics (a --tree checkout from before its
+    slice does not)."""
+    return importlib.util.find_spec("gubernator_tpu_torch.utils.exposition") is not None
+
+
+def parse_exposition(text: str) -> list:
+    """Prometheus text 0.0.4 or OpenMetrics: [(family, HELP, TYPE,
+    [(sample, labels, value, has exemplar)])] in order."""
+    import re
+
+    sample_re = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*?)\})? (\S+)( # \{.*)?$')
+    label_re = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    fams = []
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            name, _, doc = line[7:].partition(" ")
+            fams.append([name, doc, None, []])
+        elif line.startswith("# TYPE "):
+            fams[-1][2] = line.split()[3]
+        elif line and not line.startswith("#"):
+            m = sample_re.match(line)
+            check(m is not None and fams, f"[metrics] unparsable line {line!r}")
+            fams[-1][3].append((m.group(1), tuple(sorted(label_re.findall(m.group(2) or ""))),
+                                m.group(3), m.group(4) is not None))
+    return fams
+
+
+def metrics_daemon(cap: int, device: str):
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.config import DaemonConfig
+    from gubernator_tpu_torch.daemon import spawn_daemon
+
+    return spawn_daemon(DaemonConfig(http_listen_address="127.0.0.1:0", cache_size=cap,
+                                     sweep_interval=0.0, h2_fast_address="127.0.0.1:0",
+                                     http_status_listen_address="127.0.0.1:0",
+                                     metric_flags=["all"], ledger_settle_interval=0.0),
+                        clock=Clock().freeze_at(NOW0 * 1_000_000), device=device)
+
+
+def scrape(fs, address: str, path: str) -> str:
+    """One scrape; the kernel launch counts must read the same after it."""
+    before = (dict(fs.launches), dict(getattr(fs, "split_launches", {})))
+    body = http_json(f"http://{address}{path}").decode()
+    check((dict(fs.launches), dict(getattr(fs, "split_launches", {}))) == before,
+          f"[metrics] a scrape of {path} on {address} launched a kernel")
+    return body
+
+
+def same_scrape(card_text: str, twin_text: str, tag: str, addrs) -> int:
+    """The card's scrape against its twin's: every family, HELP, TYPE and
+    label set equal, and every value but those of METRICS_TIME_VALUED
+    (and the node's own address in a peer label).  Returns the samples
+    compared by value."""
+    got, want = parse_exposition(card_text), parse_exposition(twin_text)
+    check([f[:3] for f in got] == [f[:3] for f in want],
+          f"[metrics {tag}] families differ: card {[f[0] for f in got]}, "
+          f"twin {[f[0] for f in want]}")
+    own = {addrs[0]: "self", addrs[1]: "self"}
+    compared = 0
+    for (name, _, _, g), (_, _, _, w) in zip(got, want):
+        g = [(s, tuple((k, own.get(v, v)) for k, v in lab), v, e) for s, lab, v, e in g]
+        w = [(s, tuple((k, own.get(v, v)) for k, v in lab), v, e) for s, lab, v, e in w]
+        check([x[:2] for x in g] == [x[:2] for x in w],
+              f"[metrics {tag}] {name}: label sets differ: card {[x[:2] for x in g]}, "
+              f"twin {[x[:2] for x in w]}")
+        for (sname, lab, gv, _), (_, _, wv, _) in zip(g, w):
+            if sname.endswith("_sum") or sname.startswith(METRICS_TIME_VALUED) \
+                    or ("counter", "native_events") in lab:
+                continue
+            compared += 1
+            check(gv == wv, f"[metrics {tag}] {sname}{dict(lab)}: card {gv}, twin {wv}")
+    return compared
+
+
+def phase_metrics(torch, np, rng, card):
+    """The metrics path: a card daemon and its CPU twin (status listener
+    on 127.0.0.1:0, GUBER_METRIC_FLAGS=all, GUBER_OBS on, the h2 front,
+    frozen clocks) answer the mixed stream (2^20 slots, batches of 1000)
+    and the zipf stream (2^24 slots, batches of 8192 in RPCs of 1000) over
+    HTTP and h2, answers equal; then /metrics, ?exemplars=1 and ?fleet=1
+    are scraped on both listeners of both daemons, launching no kernel:
+    the card's text equals the twin's (`same_scrape`), both listeners give
+    the same families, and the OpenMetrics text ends in one # EOF.  Then
+    METRICS_SCRAPES timed scrapes of the card's /metrics.  Returns the
+    card engines."""
+    from gubernator_tpu_torch.ops import fused_step as fs
+
+    engines, lat = [], []
+    families = samples = compared = 0
+    t_phase = time.perf_counter()
+    with engine_env(GUBER_OBS="1", GUBER_HOTKEYS="1", GUBER_NATIVE_EVENTS="1"):
+        for tag, cap, n, width in (("mixed", CAP_SERVE, METRICS_MIXED_RPCS, BATCH),
+                                   ("zipf", ZIPF_CAP, METRICS_ZIPF_RPCS, ZIPF_BATCH)):
+            d, twin = metrics_daemon(cap, "cuda"), metrics_daemon(cap, "cpu")
+            try:
+                clients = [H2Unary(d.h2_fast_address), H2Unary(twin.h2_fast_address)]
+                try:
+                    for r in range(n):
+                        items = obs_items(np, rng, tag, width)
+                        for lo in range(0, width, BATCH):
+                            part = items[lo : lo + BATCH]
+                            body = encode_get_rate_limits(part)
+                            outs = [c.call(body) for c in clients]
+                            check(outs[0] == outs[1] and outs[0][0] == 0,
+                                  f"[metrics {tag}] batch {r}, items {lo}- over h2: the card's "
+                                  "answer differs from the CPU twin's, or is not OK")
+                            outs = [http_json(f"http://{x.http_address}/v1/GetRateLimits", part)
+                                    for x in (d, twin)]
+                            check(outs[0] == outs[1], f"[metrics {tag}] batch {r}, items {lo}- "
+                                  "over HTTP: the card's answer differs from the CPU twin's")
+                        step = int(rng.choice([0, 250, 1000]))
+                        for x in (d, twin):
+                            x.clock.advance(ms=step)
+                finally:
+                    for c in clients:
+                        c.close()
+                for x in (d, twin):
+                    if x.instance.ledger is not None:
+                        x.instance.ledger.flush_settles()
+                    # The closed clients' connections leave the open count
+                    # (gubernator_h2_conns) before the scrapes.
+                    deadline = time.perf_counter() + 10
+                    while x.h2_fast.conn_stats()["conns_open"] and \
+                            time.perf_counter() < deadline:
+                        time.sleep(0.01)
+                addrs = (d.http_address, twin.http_address)
+                for path in METRICS_PATHS:
+                    texts = {}
+                    for name, x in (("card", d), ("twin", twin)):
+                        for listener, address in (("main", x.http_address),
+                                                  ("status", x.status_gateway.address)):
+                            texts[name, listener] = scrape(fs, address, path)
+                    fams = {k: [f[:3] for f in parse_exposition(v)] for k, v in texts.items()}
+                    check(fams["card", "main"] == fams["card", "status"]
+                          == fams["twin", "status"], f"[metrics {tag}] {path}: the listeners "
+                          "give different families")
+                    compared += same_scrape(texts["card", "main"], texts["twin", "main"],
+                                            f"{tag} {path}", addrs)
+                    if "exemplars" in path:
+                        check(texts["card", "main"].endswith("# EOF\n")
+                              and texts["card", "main"].count("# EOF") == 1,
+                              f"[metrics {tag}] {path}: not one # EOF at the end")
+                    if "fleet" in path:
+                        check("gubernator_fleet_scrape" in texts["card", "main"],
+                              f"[metrics {tag}] {path}: no fleet families")
+                    if path == "/metrics":
+                        got = parse_exposition(texts["card", "main"])
+                        families, samples = len(got), sum(len(f[3]) for f in got)
+                        have = {f[0] for f in got}
+                        for fam in ("gubernator_check_counter_total", "gubernator_h2_conns",
+                                    "gubernator_native_events_total", "gubernator_slo_burn_rate",
+                                    "process_resident_memory_bytes", "python_info",
+                                    "gubernator_grpc_request_duration"):
+                            check(fam in have, f"[metrics {tag}] /metrics lacks {fam}")
+                        checks = [s for f in got if f[0] == "gubernator_check_counter_total"
+                                  for s in f[3]]
+                        check(float(checks[0][2]) > 0,
+                              f"[metrics {tag}] gubernator_check_counter_total {checks}")
+                if tag == "mixed":
+                    for _ in range(METRICS_SCRAPES):
+                        t = time.perf_counter()
+                        scrape(fs, d.http_address, "/metrics")
+                        lat.append(time.perf_counter() - t)
+                engines.append(d.instance.engine)
+            finally:
+                d.close()
+                twin.close()
+    p50, p99 = latency_stats(np, lat)[:2]
+    log(f"[metrics] families {families}, samples {samples} (zipf daemon's /metrics), "
+        f"{compared} samples equal card vs CPU twin over {len(METRICS_PATHS)} paths x 2 streams, "
+        f"scrape p50 / p99 {p50:.3f} / {p99:.3f} ms ({METRICS_SCRAPES} scrapes of the mixed "
+        f"daemon's /metrics), phase wall {time.perf_counter() - t_phase:.1f} s | {card}")
+    return engines
+
+
+# ---------------------------------------------------------------------------
 # The san phase: sanitizer runs of the port's own native code.
 #
 # (a) The host C++ (csrc/*.cpp) built with GUBER_NATIVE_SAN's flags and
@@ -7089,6 +7357,7 @@ def main() -> int:
     split_rng = np.random.default_rng(SEED + 11)
     ab_rng = np.random.default_rng(SEED + 12)
     obs_rng = np.random.default_rng(SEED + 13)
+    metrics_rng = np.random.default_rng(SEED + 14)
     if args.san_kernels:
         return san_child_kernels()
     card = phase_device(torch)
@@ -7407,6 +7676,28 @@ def main() -> int:
         torch.cuda.empty_cache()
         obs_rates(torch, np, obs_rng, card)
 
+    # ---- the metrics path (/metrics, ?exemplars=1, ?fleet=1 on the gateway
+    # and the status listener, after the mixed and the zipf streams over
+    # HTTP and h2): counts from 0 just before, read just after; the scrapes
+    # themselves launch nothing (checked scrape by scrape).
+    metrics_path = {k: 0 for k in fs.launches}
+    if has_metrics():
+        fs.reset_launches()
+        m_engines = phase_metrics(torch, np, metrics_rng, card)
+        metrics_path = dict(fs.launches)
+        m_disp = sum(e.dispatches_total for e in m_engines)
+        log(f"[metrics] launches {metrics_path}; engine launches {m_disp} | {card}")
+        check(metrics_path["fused_step"] + metrics_path["collapsed_step"]
+              + metrics_path["uniform_step"] == m_disp == sum(metrics_path.values()),
+              "every engine launch of the metrics path must be a K1, K3 or K4 launch")
+        for name in ("fused_step", "collapsed_step"):
+            check(metrics_path[name] > 0, f"the metrics path must launch {name}")
+        del m_engines
+        torch.cuda.empty_cache()
+    else:
+        check(TREE is not None, "the port has no /metrics")
+        log(f"[metrics] {TREE} has no /metrics: the metrics phase is skipped")
+
     phase_daemon_binary(has_h2)
     times = phase_timing(torch, np, rng, card, k3_calls, k4_calls)
     if has_persist:
@@ -7504,7 +7795,8 @@ def main() -> int:
         rows.append(("apply_batch", "apply_batch.cu", "gubernator_tpu/ops/bucket_kernel.py:356",
                      times["ab_k17"] + (None,)))
     paths = (main_launches, persist_launches, sketch_launches, h2_launches, ledger_launches,
-             paged_launches, shard_launches, split_path, split_counts, ab_path, obs_path)
+             paged_launches, shard_launches, split_path, split_counts, ab_path, obs_path,
+             metrics_path)
 
     # launches: the main path's run plus the persistence path's, the
     # sketch path's, the h2 path's, the ledger path's, the paged path's,
@@ -7512,8 +7804,8 @@ def main() -> int:
     # K5 on the persistence, the paged, the sharded and the split paths,
     # K6 on the second and the paged, K7 and K8 on the third only, K9 and
     # K10 on the paged and the split, K11-K13 on the sharded only, K14-K16
-    # on the split only, K17 on the apply_batch path only; the obs path
-    # launches K1, K3 and K4).
+    # on the split only, K17 on the apply_batch path only; the obs and the
+    # metrics paths launch K1, K3 and K4).
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": f"gubernator_tpu_torch/csrc/{src}",
          "replaces": replaces,

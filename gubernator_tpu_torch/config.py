@@ -36,13 +36,54 @@ CPU).  The hot-key sketch reads GUBER_HOTKEYS, GUBER_HOTKEYS_K and
 GUBER_HOTKEYS_WINDOW itself (utils/hotkeys.py `from_env`).  The h2 front
 reads its other knobs itself (net/h2_fast.py), GUBER_RETRY_HINTS among
 them.  The ledger's defaults live here and in `DecisionLedger`.
+
+The daemon binary's `-config FILE` is a KEY=VALUE file (`load_env_file`,
+reference config.py:374) whose keys win over `env` and the process
+environment; GUBER_DEBUG (1 / true / yes) turns on debug logging as
+`-debug` does.  The status listener GUBER_STATUS_HTTP_ADDRESS serves
+health and /metrics over plain HTTP, and GUBER_METRIC_FLAGS (os, python
+or golang, all) adds the process, GC and platform families to /metrics
+(reference config.py:745, utils/metrics.py:1080).
+
+The peer planes' settings are read here with the reference's names,
+defaults and errors (reference config.py:591-690), for the modules of
+`cluster/` and `discovery/`: the behaviors GUBER_ADAPTIVE_WINDOWS,
+GUBER_CIRCUIT_FAILURES / _BACKOFF / _BACKOFF_CAP and
+GUBER_FORWARD_BACKOFF / _CAP; the ring GUBER_PEER_PICKER,
+GUBER_PEER_PICKER_HASH (fnv1, or fnv1a when GUBER_PEER_PICKER is set)
+and GUBER_REPLICATED_HASH_REPLICAS; discovery GUBER_PEER_DISCOVERY_TYPE,
+GUBER_STATIC_PEERS, GUBER_DATA_CENTER, GUBER_MEMBERLIST_*, GUBER_DNS_*
+and GUBER_ETCD_* (the k8s backend reads GUBER_K8S_* itself).  The daemon
+serves one node: it refuses a discovery type other than "none" and
+static peers other than itself (daemon.py `check_single_node`).
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Mapping, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Mapping, Optional
+
+
+@dataclass
+class BehaviorConfig:
+    """The reference's BehaviorConfig fields that the peer planes' ported
+    modules read (reference config.py:23-123): load-adaptive batching
+    windows (cluster/batch_loop.py AdaptiveWait), the per-peer circuit
+    breaker and the forward retry backoff (cluster/health.py)."""
+
+    # Every batching window's wait is a cap that grows with fill
+    # (GUBER_ADAPTIVE_WINDOWS, default on).
+    adaptive_windows: bool = True
+    # Consecutive failures before a peer's circuit opens, and its open
+    # period, doubled a re-open up to the cap (GUBER_CIRCUIT_*).
+    circuit_failures: int = 3
+    circuit_backoff: float = 0.5
+    circuit_backoff_cap: float = 30.0
+    # Capped exponential backoff with full jitter between owner re-picks
+    # (GUBER_FORWARD_BACKOFF / _CAP).
+    forward_backoff: float = 0.01
+    forward_backoff_cap: float = 0.25
 
 
 @dataclass
@@ -78,6 +119,40 @@ class DaemonConfig:
     # The ledger's C twin in the h2 front's connection threads
     # (core/native_plane.py); only on the live system clock.
     native_ledger: bool = True
+    # Debug logging (GUBER_DEBUG; the binary's -debug does the same).
+    debug: bool = False
+    # Plain-HTTP status listener serving health and /metrics ("" = off).
+    http_status_listen_address: str = ""
+    # Extra /metrics families: "os" (process_*), "python" / "golang"
+    # (python_gc_*, python_info), "all" (both).
+    metric_flags: List[str] = field(default_factory=list)
+    behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
+    # The peer ring: picker, its hash and its virtual points a peer.
+    peer_picker: str = "replicated-hash"
+    hash_algorithm: str = "fnv1"
+    picker_replicas: int = 512
+    # Discovery: "none" | "member-list" | "etcd" | "dns" | "k8s".
+    peer_discovery_type: str = "none"
+    # Fixed membership for discovery "none": peer addresses, this
+    # node's own included.
+    static_peers: List[str] = field(default_factory=list)
+    data_center: str = ""
+    member_list_address: str = ""
+    known_hosts: List[str] = field(default_factory=list)
+    advertise_port: int = 7946
+    dns_fqdn: str = ""
+    dns_poll_interval: float = 300.0
+    etcd_endpoints: List[str] = field(default_factory=list)
+    etcd_key_prefix: str = "/gubernator/peers/"
+    etcd_dial_timeout: float = 5.0
+    etcd_user: str = ""
+    etcd_password: str = ""
+    etcd_advertise_address: str = ""
+    etcd_data_center: str = ""
+    etcd_tls_ca: str = ""
+    etcd_tls_cert: str = ""
+    etcd_tls_key: str = ""
+    etcd_tls_skip_verify: bool = False
 
     def ledger_opts(self) -> dict:
         """The ledger's settings as `DecisionLedger` keywords."""
@@ -98,6 +173,11 @@ def _env_on(d: Mapping[str, str], key: str) -> bool:
 def _env_int(d: Mapping[str, str], key: str, default: int) -> int:
     v = _env(d, key)
     return int(v) if v else default
+
+
+def _env_list(d: Mapping[str, str], key: str) -> List[str]:
+    """A comma-separated list, blanks dropped."""
+    return [h.strip() for h in _env(d, key).split(",") if h.strip()]
 
 
 _DURATION_UNITS = [
@@ -151,9 +231,59 @@ def _env_seconds(d: Mapping[str, str], key: str, default: float) -> float:
     return parse_duration(v) if v else default
 
 
-def setup_daemon_config(env: Optional[Mapping[str, str]] = None) -> DaemonConfig:
-    """Read the config; `env` entries win over os.environ."""
-    d = env or {}
+def load_env_file(path: str) -> Dict[str, str]:
+    """Read a KEY=VALUE config file (reference config.py:374, after
+    config.go:556-584): blank lines and lines starting with # are
+    skipped, a line without "=" raises ValueError naming path:lineno,
+    and the values are exported into os.environ as well as returned."""
+    out: Dict[str, str] = {}
+    with open(path) as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            if "=" not in line:
+                raise ValueError(f"{path}:{lineno}: expected KEY=VALUE")
+            k, _, v = line.partition("=")
+            out[k.strip()] = v.strip()
+    os.environ.update(out)
+    return out
+
+
+DISCOVERY_TYPES = ("none", "member-list", "etcd", "dns", "k8s")
+
+
+def setup_daemon_config(env: Optional[Mapping[str, str]] = None, *,
+                        config_file: Optional[str] = None) -> DaemonConfig:
+    """Read the config: `config_file`'s keys win over `env`'s, which win
+    over os.environ (reference config.py:554)."""
+    d: Dict[str, str] = dict(env or {})
+    if config_file:
+        d.update(load_env_file(config_file))
+    behaviors = BehaviorConfig(
+        adaptive_windows=_env_on(d, "GUBER_ADAPTIVE_WINDOWS"),
+        circuit_failures=_env_int(d, "GUBER_CIRCUIT_FAILURES", 3),
+        circuit_backoff=_env_seconds(d, "GUBER_CIRCUIT_BACKOFF", 0.5),
+        circuit_backoff_cap=_env_seconds(d, "GUBER_CIRCUIT_BACKOFF_CAP", 30.0),
+        forward_backoff=_env_seconds(d, "GUBER_FORWARD_BACKOFF", 0.01),
+        forward_backoff_cap=_env_seconds(d, "GUBER_FORWARD_BACKOFF_CAP", 0.25),
+    )
+    peer_picker = _env(d, "GUBER_PEER_PICKER", "replicated-hash")
+    from gubernator_tpu_torch.cluster.hash_ring import make_picker
+
+    make_picker(peer_picker, "fnv1")  # raises on an unknown picker
+    # An explicit picker defaults its hash to fnv1a (reference
+    # config.py:619, after config.go:403); otherwise fnv1.
+    hash_default = "fnv1a" if _env(d, "GUBER_PEER_PICKER") else "fnv1"
+    hash_algorithm = _env(d, "GUBER_PEER_PICKER_HASH", hash_default)
+    if hash_algorithm not in ("fnv1", "fnv1a"):
+        raise ValueError(f"GUBER_PEER_PICKER_HASH={hash_algorithm!r}: want fnv1 or fnv1a")
+    discovery = _env(d, "GUBER_PEER_DISCOVERY_TYPE", "none")
+    if discovery not in DISCOVERY_TYPES:
+        raise ValueError(
+            f"GUBER_PEER_DISCOVERY_TYPE={discovery!r}: want none, member-list, etcd, dns or k8s"
+        )
+    dc = _env(d, "GUBER_DATA_CENTER")
     return DaemonConfig(
         http_listen_address=_env(d, "GUBER_HTTP_ADDRESS", "localhost:80"),
         cache_size=_env_int(d, "GUBER_CACHE_SIZE", 50_000),
@@ -174,6 +304,32 @@ def setup_daemon_config(env: Optional[Mapping[str, str]] = None) -> DaemonConfig
         ledger_settle_interval=_env_seconds(d, "GUBER_LEDGER_SETTLE_INTERVAL",
                                             DaemonConfig.ledger_settle_interval),
         native_ledger=_env_on(d, "GUBER_NATIVE_LEDGER"),
+        debug=_env(d, "GUBER_DEBUG") in ("1", "true", "yes"),
+        http_status_listen_address=_env(d, "GUBER_STATUS_HTTP_ADDRESS", ""),
+        metric_flags=_env_list(d, "GUBER_METRIC_FLAGS"),
+        behaviors=behaviors,
+        peer_picker=peer_picker,
+        hash_algorithm=hash_algorithm,
+        picker_replicas=_env_int(d, "GUBER_REPLICATED_HASH_REPLICAS", 512),
+        peer_discovery_type=discovery,
+        static_peers=_env_list(d, "GUBER_STATIC_PEERS"),
+        data_center=dc,
+        member_list_address=_env(d, "GUBER_MEMBERLIST_ADDRESS", ""),
+        known_hosts=_env_list(d, "GUBER_MEMBERLIST_KNOWN_NODES"),
+        advertise_port=_env_int(d, "GUBER_MEMBERLIST_ADVERTISE_PORT", 7946),
+        dns_fqdn=_env(d, "GUBER_DNS_FQDN", ""),
+        dns_poll_interval=_env_seconds(d, "GUBER_DNS_POLL_INTERVAL", 300.0),
+        etcd_endpoints=_env_list(d, "GUBER_ETCD_ENDPOINTS"),
+        etcd_key_prefix=_env(d, "GUBER_ETCD_KEY_PREFIX", "/gubernator/peers/"),
+        etcd_dial_timeout=_env_seconds(d, "GUBER_ETCD_DIAL_TIMEOUT", 5.0),
+        etcd_user=_env(d, "GUBER_ETCD_USER"),
+        etcd_password=_env(d, "GUBER_ETCD_PASSWORD"),
+        etcd_advertise_address=_env(d, "GUBER_ETCD_ADVERTISE_ADDRESS"),
+        etcd_data_center=_env(d, "GUBER_ETCD_DATA_CENTER", dc),
+        etcd_tls_ca=_env(d, "GUBER_ETCD_TLS_CA"),
+        etcd_tls_cert=_env(d, "GUBER_ETCD_TLS_CERT"),
+        etcd_tls_key=_env(d, "GUBER_ETCD_TLS_KEY"),
+        etcd_tls_skip_verify=_env(d, "GUBER_ETCD_TLS_SKIP_VERIFY") in ("1", "true", "yes"),
     )
 
 

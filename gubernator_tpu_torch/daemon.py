@@ -37,8 +37,20 @@ whose stages /debug/vars serves; and unless GUBER_OBS=0 the local rollup
 GUBER_SLO_FLEET, GUBER_SLO_FAST_WINDOWS / _SLOW_WINDOWS,
 GUBER_SLO_WATCH_KEYS) run, behind /debug/slo.  `close` stops the watchdog
 and the collector (whose thread must end before the ring is freed)
-before the front.  The gRPC front, peer discovery and the cluster
-planes, /debug/fleet among them, are not in this slice.
+before the front.
+
+Metrics (reference daemon.py:249-256, :379-388): the registry
+(utils/metrics.py `build_registry`, with `conf.metric_flags`,
+GUBER_METRIC_FLAGS) is served at /metrics on the gateway and, when
+`conf.http_status_listen_address` (GUBER_STATUS_HTTP_ADDRESS) is set, on
+a plain-HTTP status listener with health and /metrics, started after the
+rollup and closed with the gateway.
+
+One node only: the gRPC front, peer discovery and the cluster planes
+(/debug/fleet among them) are not ported yet, so `check_single_node`
+refuses a config that names a discovery type other than "none" or static
+peers other than this node's own addresses (ROADMAP A entries 3-4)
+rather than answer every key as its own.
 """
 
 from __future__ import annotations
@@ -52,8 +64,27 @@ from gubernator_tpu_torch.config import DaemonConfig
 from gubernator_tpu_torch.core.engine import DecisionEngine
 from gubernator_tpu_torch.net.gateway import Gateway
 from gubernator_tpu_torch.service import V1Instance
+from gubernator_tpu_torch.utils.metrics import build_registry
 
 log = logging.getLogger("gubernator_tpu_torch.daemon")
+
+
+def check_single_node(conf: DaemonConfig) -> None:
+    """Refuse a config that makes this node one of several: the port
+    would answer every key as its own where the reference forwards it to
+    its owner.  Raises ValueError."""
+    if conf.peer_discovery_type != "none":
+        raise ValueError(
+            f"GUBER_PEER_DISCOVERY_TYPE={conf.peer_discovery_type!r}: this daemon serves one "
+            "node; peer discovery and the peer planes come with ROADMAP A entries 3-4"
+        )
+    own = {conf.http_listen_address, conf.h2_fast_address, conf.http_status_listen_address}
+    others = [a for a in conf.static_peers if a not in own]
+    if others:
+        raise ValueError(
+            f"GUBER_STATIC_PEERS names {others}: this daemon serves one node; the peer "
+            "planes come with ROADMAP A entries 3-4"
+        )
 
 
 class Daemon:
@@ -74,6 +105,8 @@ class Daemon:
         self._loader = loader
         self.instance: V1Instance | None = None
         self.gateway: Gateway | None = None
+        self.status_gateway: Gateway | None = None
+        self.registry = None
         self.http_address = conf.http_listen_address
         self.h2_fast = None
         self.h2_fast_address = ""
@@ -85,6 +118,7 @@ class Daemon:
         self._closed = False
 
     def start(self) -> None:
+        check_single_node(self.conf)
         engine = self._build_engine()
         self.instance = V1Instance(engine, sketch_window_ms=self.conf.sketch_window_ms,
                                    sketch_depth=self.conf.sketch_depth,
@@ -99,6 +133,9 @@ class Daemon:
         self._attach_flight_recorder()
         self.gateway = Gateway(self.instance, self.conf.http_listen_address)
         self.http_address = self.gateway.address
+        self.registry = build_registry(self.instance, self.conf.metric_flags,
+                                       address=self.http_address)
+        self.gateway.registry = self.registry
         self.gateway.start()
         if self.conf.h2_fast_address:
             # One-method native serving with no per-RPC Python; a front
@@ -119,6 +156,10 @@ class Daemon:
 
                 self.instance.native_events = NativeEventCollector.from_env(self.h2_fast)
         self._start_obs()
+        if self.conf.http_status_listen_address:
+            self.status_gateway = Gateway(self.instance, self.conf.http_status_listen_address,
+                                          self.registry)
+            self.status_gateway.start()
         if self.conf.sweep_interval > 0:
             self._sweep_stop = threading.Event()
             self._sweeper = threading.Thread(target=self._sweep_loop, name="guber-sweep",
@@ -155,7 +196,8 @@ class Daemon:
         from gubernator_tpu_torch.obs.fleet import FleetCollector
         from gubernator_tpu_torch.obs.slo import SLOWatchdog, watch_keys_from_env
 
-        self.obs = FleetCollector(self.instance, addr=self.http_address)
+        self.obs = FleetCollector(self.instance, addr=self.http_address,
+                                  region=self.conf.data_center)
         self.instance.obs = self.obs
         watch_keys_from_env(self.instance.admission_watch)
         self.slo = SLOWatchdog.from_env(self.obs, self.instance.admission_watch)
@@ -205,6 +247,8 @@ class Daemon:
                 self.h2_fast.abandon_ring()
         if self.h2_fast is not None:
             self.h2_fast.close()
+        if self.status_gateway is not None:
+            self.status_gateway.close()
         if self.gateway is not None:
             self.gateway.close()
         if self.instance is not None:

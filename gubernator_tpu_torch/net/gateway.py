@@ -1,7 +1,7 @@
 """HTTP/JSON gateway over the port's V1Instance, stdlib only.
 
 Port of `gubernator_tpu/net/gateway.py`: `POST /v1/GetRateLimits`,
-`GET /v1/HealthCheck` and `GET /healthz`.  The JAX package marshals
+`GET /v1/HealthCheck`, `GET /healthz` and `GET /metrics`.  The JAX package marshals
 with protobuf's `json_format`; the port writes the same JSON with the
 `json` module, byte for byte what
 `json_format.MessageToJson(msg, preserving_proto_field_name=True,
@@ -33,8 +33,16 @@ reference's shape, live and disabled:
 * `GET /debug/slo` — the SLO watchdog's status (obs/slo.py; GUBER_OBS),
   else `{"enabled": false}`.
 
-`/metrics` stays with the gRPC front (prometheus_client), and
-`/debug/fleet` with the peer planes.
+`GET /metrics` (reference net/gateway.py:84-125) serves the daemon's
+registry (utils/metrics.py `build_registry`, written with
+utils/exposition.py, no prometheus_client) as Prometheus text 0.0.4, or
+with `?exemplars=1` as OpenMetrics 1.0.0 with the stage histograms'
+trace exemplars; `?fleet=1` appends the gubernator_fleet_* families of
+the local rollup (obs/fleet.py; nothing without GUBER_OBS), keeping one
+`# EOF` when both are asked.  A Gateway built without a registry answers
+/metrics 404.  The daemon's plain-HTTP status listener
+(GUBER_STATUS_HTTP_ADDRESS) is another Gateway on the same registry.
+`/debug/fleet` comes with the peer planes.
 """
 
 from __future__ import annotations
@@ -43,9 +51,11 @@ import json
 import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs
 
 from gubernator_tpu_torch.service import ServiceError, V1Instance
-from gubernator_tpu_torch.utils.metrics import DurationStat
+from gubernator_tpu_torch.utils import exposition
+from gubernator_tpu_torch.utils.metrics import DurationStat, build_fleet_registry
 from gubernator_tpu_torch.types import (
     Algorithm,
     Behavior,
@@ -293,6 +303,30 @@ def debug_slo(inst: V1Instance) -> dict:
     return wd.status()
 
 
+def metrics_body(inst: V1Instance, registry, query: str = "") -> tuple[bytes, str]:
+    """/metrics: (body, content type) of one scrape (reference
+    net/gateway.py:84-125).  `?exemplars=1` picks OpenMetrics, `?fleet=1`
+    appends the local rollup's families (GUBER_OBS)."""
+    qs = parse_qs(query)
+
+    def flag(name: str) -> bool:
+        return (qs.get(name, ["0"])[0] or "0") not in ("0", "false")
+
+    want_exemplars = flag("exemplars")
+    if want_exemplars:
+        gen, ctype = exposition.generate_openmetrics, exposition.CONTENT_TYPE_OPENMETRICS
+    else:
+        gen, ctype = exposition.generate_latest, exposition.CONTENT_TYPE_LATEST
+    body = gen(registry)
+    if flag("fleet") and inst.obs is not None:
+        extra = gen(build_fleet_registry(inst.obs.collect()))
+        if want_exemplars and body.endswith(b"# EOF\n"):
+            # Each OpenMetrics text ends in "# EOF": the joined one keeps one.
+            body = body[: -len(b"# EOF\n")]
+        body += extra
+    return body, ctype
+
+
 _DEBUG_ROUTES = {
     "/debug/trace": debug_trace,
     "/debug/hotkeys": debug_hotkeys,
@@ -303,14 +337,15 @@ _DEBUG_ROUTES = {
 
 class _Handler(BaseHTTPRequestHandler):
     instance: V1Instance  # set by Gateway
+    registry = None  # set by Gateway: /metrics is 404 without one
     protocol_version = "HTTP/1.1"
 
     def log_message(self, fmt, *args):  # quiet by default
         pass
 
-    def _reply(self, code: int, body: bytes) -> None:
+    def _reply(self, code: int, body: bytes, content_type: str = "application/json") -> None:
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
@@ -319,9 +354,11 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(http_code, json.dumps({"code": grpc_code, "message": message}).encode())
 
     def do_GET(self):  # noqa: N802 (stdlib naming)
-        path = self.path.split("?", 1)[0]
+        path, _, query = self.path.partition("?")
         if path in ("/v1/HealthCheck", "/healthz"):
             self._reply(200, health_check_resp_json(self.instance.health_check()))
+        elif path == "/metrics" and self.registry is not None:
+            self._reply(200, *metrics_body(self.instance, self.registry, query))
         elif path in _DEBUG_ROUTES:
             self._reply(200, json.dumps(_DEBUG_ROUTES[path](self.instance)).encode())
         else:
@@ -346,16 +383,27 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class Gateway:
-    """The HTTP listener; `address` is host:port (port 0 picks one)."""
+    """The HTTP listener; `address` is host:port (port 0 picks one);
+    `registry` serves /metrics."""
 
-    def __init__(self, instance: V1Instance, address: str):
+    def __init__(self, instance: V1Instance, address: str, registry=None):
         host, _, port = address.rpartition(":")
-        handler = type("BoundHandler", (_Handler,), {"instance": instance})
+        handler = type("BoundHandler", (_Handler,), {"instance": instance,
+                                                     "registry": registry})
         self._server = ThreadingHTTPServer((host or "0.0.0.0", int(port)), handler)
         self._server.daemon_threads = True
         self._thread = threading.Thread(
             target=self._server.serve_forever, name=f"guber-gateway-{address}", daemon=True
         )
+
+    @property
+    def registry(self):
+        """The registry /metrics serves (None: /metrics is 404)."""
+        return self._server.RequestHandlerClass.registry
+
+    @registry.setter
+    def registry(self, registry) -> None:
+        self._server.RequestHandlerClass.registry = registry
 
     @property
     def port(self) -> int:

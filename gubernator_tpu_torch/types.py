@@ -3,8 +3,9 @@
 The port's own copy of `gubernator_tpu/types.py` (the port imports
 nothing of the JAX package).  They mirror the reference proto contract
 (reference: proto/gubernator.proto:48-192), so the JSON the gateway
-prints is the JAX package's gateway JSON.  The cluster-tier types
-(UpdatePeerGlobal, PeerInfo) come with the cluster planes.
+prints is the JAX package's gateway JSON.  `PeerInfo` names a peer for
+the rings and the discovery backends; UpdatePeerGlobal comes with the
+GLOBAL plane.
 """
 
 from __future__ import annotations
@@ -92,6 +93,21 @@ class HealthCheckResp:
     status: str = ""
     message: str = ""
     peer_count: int = 0
+
+
+@dataclass
+class PeerInfo:
+    """Identity of one cluster peer (reference: config.go PeerInfo):
+    `grpc_address` is the identity the consistent-hash ring hashes
+    (reference: replicated_hash.go:78-91)."""
+
+    grpc_address: str = ""
+    http_address: str = ""
+    datacenter: str = ""
+    is_owner: bool = False
+
+    def hash_key(self) -> str:
+        return self.grpc_address
 
 
 # Max number of requests in one GetRateLimits / GetPeerRateLimits batch.
