@@ -221,6 +221,20 @@ binary is started with `-config FILE`, GUBER_DEBUG=true in the file: the
 file's status listener answers with its metric flag's families, and the
 log shows DEBUG.
 
+A twelfth path, the cluster path, counts its launches from 0 too: two
+card daemons with static peers (cluster/harness.py, 2^20 slots each, the
+gRPC listener) and a CPU twin cluster take one seeded stream of
+1000-item RPCs (mixed, zipf, and one config over distinct keys) sent
+alternately to both nodes through the port's unary client, and three
+through the HTTP gateways.  Each key's owner answers it; the other node
+forwards it as PeersV1/GetPeerRateLimits.  The card's answers equal the
+twin's, `metadata.owner` names the node the cluster's ring names, both
+nodes forward items and receive GetPeerRateLimits RPCs, and each card
+node launches K1, K3 and K4.  `[cluster readings]` times forwarded
+1000-item RPCs; `[cluster down]` stops node 1 and sends one of its keys
+to node 0: a degraded answer, then the reference's error with degraded
+mode off.
+
 After the paths, the san phase runs the port's own native code under
 sanitizers.  (a) The host C++ (csrc/*.cpp), built with GUBER_NATIVE_SAN's
 flags, in child processes that have the sanitizer's runtime in
@@ -311,6 +325,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 from pathlib import Path
@@ -2483,8 +2498,11 @@ def phase_sketch_http(torch, np, rng):
     from gubernator_tpu_torch.service import V1Instance
 
     ns = NOW0 * 1_000_000
+    # GUBER_GRPC_ADDRESS: the config's default is the reference's
+    # localhost:81, which only one daemon of a host can bind.
     conf = setup_daemon_config({
-        "GUBER_HTTP_ADDRESS": "127.0.0.1:0", "GUBER_CACHE_SIZE": str(CAP_SERVE),
+        "GUBER_HTTP_ADDRESS": "127.0.0.1:0", "GUBER_GRPC_ADDRESS": "127.0.0.1:0",
+        "GUBER_CACHE_SIZE": str(CAP_SERVE),
         "GUBER_SWEEP_INTERVAL": "0", "GUBER_SKETCH_WINDOW": "500ms",
         "GUBER_SKETCH_DEPTH": str(SKETCH_DEPTH), "GUBER_SKETCH_WIDTH": str(SKETCH_WIDTH)})
     check((conf.sketch_window_ms, conf.sketch_depth, conf.sketch_width)
@@ -4648,8 +4666,11 @@ def phase_sharded_daemon(torch, np, rng):
     from gubernator_tpu_torch.config import setup_daemon_config
     from gubernator_tpu_torch.daemon import spawn_daemon
 
+    # GUBER_GRPC_ADDRESS: the config's default is the reference's
+    # localhost:81, which only one of the two daemons could bind.
     conf = setup_daemon_config({"GUBER_DEVICE_COUNT": "4", "GUBER_CACHE_SIZE": str(CAP_SERVE),
                                 "GUBER_HTTP_ADDRESS": "127.0.0.1:0",
+                                "GUBER_GRPC_ADDRESS": "127.0.0.1:0",
                                 "GUBER_H2_FAST_ADDRESS": "127.0.0.1:0",
                                 "GUBER_SWEEP_INTERVAL": "0", "GUBER_LEDGER_SETTLE_INTERVAL": "0"})
     ns = NOW0 * 10**6
@@ -6292,6 +6313,266 @@ def phase_metrics(torch, np, rng, card):
 
 
 # ---------------------------------------------------------------------------
+# The cluster path: two port daemons with static peers (cluster/harness.py),
+# each key's owner answering it and the other node forwarding to it over the
+# port's own gRPC wire (the routing listener and the unary client).
+
+CLUSTER_RPCS = (("mixed", 12), ("zipf", 12), ("uniform", 6))  # RPCs of 1000 a stream
+CLUSTER_HTTP_RPCS = 3  # mixed RPCs of 1000 through each cluster's HTTP gateway
+CLUSTER_TIMED_RPCS = 60  # timed forwarded RPCs of 1000 (every key the other node's)
+
+
+def has_cluster() -> bool:
+    """The driven port has the cluster harness and the gRPC listener (a
+    --tree checkout from before their slice has not)."""
+    return importlib.util.find_spec("gubernator_tpu_torch.cluster.harness") is not None
+
+
+def cluster_items(np, rng, tag: str, n: int = BATCH) -> list:
+    """One RPC's items (name, key, hits, limit, duration, algorithm,
+    behavior, burst): the mixed stream with its Gregorian items (the
+    listener's full decode takes them), the zipf stream, or n distinct
+    keys sharing one config (the uniform format, on the owner that a
+    forwarded half reaches as one GetPeerRateLimits)."""
+    if tag == "zipf":
+        keys, cols = zipf_columns(np, rng, n)
+    elif tag == "uniform":
+        keys, cols = uniform_columns(np, rng, [b"api_u%d" % i for i in range(200_000)], n)
+    else:
+        pool = [b"api_k%d" % i for i in range(0, 200_000, 7)]
+        hot = [b"api_hot%d" % i for i in range(50)]
+        keys, cols = stream_columns(np, rng, pool, hot, n)
+    algo, beh, hits, limit, dur, burst = cols
+    out = []
+    for j, k in enumerate(keys):
+        name, _, uk = k.decode().partition("_")
+        # Three constant bytes after the key's varying digits: the ring's
+        # FNV-1 moves little for a change in the last bytes, so keys that
+        # differ only there (bench_k0, bench_k1, ...) would share an owner.
+        out.append((name, uk + "_cl", int(hits[j]), int(limit[j]), int(dur[j]), int(algo[j]),
+                    int(beh[j]), int(burst[j])))
+    return out
+
+
+def count_by_engine(engines):
+    """Count the K1 / K3 / K4 calls of each engine (the engine module's
+    entry points wrapped: each call of them is one launch on a card
+    state).  Returns the counts, one dict an engine, and the undo."""
+    import gubernator_tpu_torch.core.engine as em
+
+    counts = [{"fused_step": 0, "collapsed_step": 0, "uniform_step": 0} for _ in engines]
+    lock = threading.Lock()
+
+    def wrap(fn, name):
+        def call(state, *a, **kw):
+            out = fn(state, *a, **kw)
+            with lock:
+                for i, e in enumerate(engines):
+                    if e._state is state:
+                        counts[i][name] += 1
+            return out
+        return call
+
+    saved = {n: getattr(em, n) for n in ("collapsed_step", "multi_fused_step",
+                                         "multi_uniform_step")}
+    em.collapsed_step = wrap(saved["collapsed_step"], "collapsed_step")
+    em.multi_fused_step = wrap(saved["multi_fused_step"], "fused_step")
+    em.multi_uniform_step = wrap(saved["multi_uniform_step"], "uniform_step")
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(em, n, fn)
+
+    return counts, undo
+
+
+def cluster_answers(resps, owners, receiver: int) -> list:
+    """Each answer as (status, limit, remaining, reset, error, metadata
+    with the owner's address as its node index)."""
+    out = []
+    for r in resps:
+        md = dict(r.metadata)
+        if "owner" in md:
+            md["owner"] = owners.index(md["owner"]) if md["owner"] in owners else md["owner"]
+        out.append((int(r.status), r.limit, r.remaining, r.reset_time, r.error, md))
+    return out
+
+
+def ring_owner_md(inst, reqs, addrs, receiver: int) -> list:
+    """The metadata each answer must carry: the owner's node index where
+    the cluster's own ring names another node than the receiver."""
+    out = []
+    for r in reqs:
+        if not (r.name and r.unique_key):
+            out.append({})
+            continue
+        o = addrs.index(inst.get_peer(r.hash_key()).info.grpc_address)
+        out.append({} if o == receiver else {"owner": o})
+    return out
+
+
+def phase_cluster(torch, np, rng, card):
+    """The cluster path: two card daemons (2^20 slots each, the routing
+    listener, frozen clocks) and a CPU twin cluster built the same way
+    take one seeded stream of 1000-item RPCs (mixed, zipf, uniform) sent
+    alternately to node 0 and node 1 through the port's unary client, and
+    a few through each node's HTTP gateway.  The card's answers equal the
+    twin's item for item; `metadata.owner` is the node the cluster's own
+    ring names.  Forwarded items and GetPeerRateLimits RPCs must be > 0
+    on both nodes, and so must K1 / K3 / K4 launches on each card node.
+    Then CLUSTER_TIMED_RPCS forwarded RPCs are timed; last, node 1 is
+    stopped in both clusters and one of its keys sent to node 0 is
+    answered degraded, and with the reference's error once degraded mode
+    is off.  Returns the card engines, each node's K1 / K3 / K4 counts
+    and the readings."""
+    from dataclasses import replace as dc_replace
+
+    from gubernator_tpu_torch.clock import Clock
+    from gubernator_tpu_torch.cluster.harness import ClusterHarness
+    from gubernator_tpu_torch.core.h2_client import UnaryChannel
+    from gubernator_tpu_torch.net import proto_codec as pc
+    from gubernator_tpu_torch.types import RateLimitReq
+
+    t_phase = time.perf_counter()
+    clusters = {}
+    counts = undo = None
+    try:
+        for dev in ("cuda", "cpu"):
+            clusters[dev] = ClusterHarness().start(
+                2, clock=Clock().freeze_at(NOW0 * 1_000_000), cache_size=CAP_SERVE,
+                device=dev, sweep_interval=0.0, **ledger_kw(ledger_settle_interval=0.0))
+        card_c, twin_c = clusters["cuda"], clusters["cpu"]
+        engines = [d.instance.engine for d in card_c.daemons]
+        counts, undo = count_by_engine(engines)
+        addrs = {dev: [d.grpc_address for d in h.daemons] for dev, h in clusters.items()}
+        chans = {dev: [UnaryChannel(a) for a in addrs[dev]] for dev in clusters}
+        n_items = 0
+        try:
+            stream = [(tag, i) for tag, n in CLUSTER_RPCS for i in range(n)]
+            for r, (tag, i) in enumerate(stream):
+                items = cluster_items(np, rng, tag)
+                reqs = [RateLimitReq(*it) for it in items]
+                body = pc.encode_get_rate_limits_req(reqs)
+                node = r % 2
+                got = {}
+                for dev, h in clusters.items():
+                    code, msg, out = chans[dev][node].call(pc.GET_RATE_LIMITS, body, 60.0)
+                    check(code == 0, f"[cluster {tag}] RPC {i} to node {node} on {dev}: "
+                          f"grpc-status {code} {msg!r}")
+                    resps = pc.decode_get_rate_limits_resp(out)
+                    got[dev] = cluster_answers(resps, addrs[dev], node)
+                    want_md = ring_owner_md(h.daemons[node].instance, reqs, addrs[dev], node)
+                    bad = [j for j, (a, m) in enumerate(zip(got[dev], want_md)) if a[5] != m]
+                    check(not bad, f"[cluster {tag}] RPC {i} on {dev}: metadata of items "
+                          f"{bad[:5]} is not the ring's owner: "
+                          f"{[(got[dev][j][5], want_md[j]) for j in bad[:5]]}")
+                bad = [j for j, (a, b) in enumerate(zip(got["cuda"], got["cpu"]))
+                       if a[:5] != b[:5]]
+                check(len(got["cuda"]) == len(reqs) and not bad,
+                      f"[cluster {tag}] RPC {i} to node {node}: items {bad[:5]} differ card / "
+                      f"CPU twin: {[(got['cuda'][j], got['cpu'][j]) for j in bad[:5]]}")
+                n_items += len(reqs)
+                step = int(rng.choice([0, 250, 1000]))
+                for h in clusters.values():
+                    h.daemons[0].clock.advance(ms=step)
+            for r in range(CLUSTER_HTTP_RPCS):
+                items = cluster_items(np, rng, "mixed")
+                node = r % 2
+                outs = [json.loads(http_json(
+                    f"http://{h.daemons[node].http_address}/v1/GetRateLimits", items))["responses"]
+                    for h in clusters.values()]
+                for resps in outs:
+                    for a in resps:
+                        # The owner's address is each cluster's own.
+                        check(set(a.pop("metadata", None) or {}) <= {"owner"},
+                              f"[cluster http] RPC {r}: unexpected metadata in {a}")
+                check(outs[0] == outs[1], f"[cluster http] RPC {r} to node {node}: the card's "
+                      "answers differ from the CPU twin's")
+                n_items += len(items)
+        finally:
+            undo()
+        launches = [dict(c) for c in counts]
+        fwd = [d.instance.counters["forward"] for d in card_c.daemons]
+        peer_rpcs = [d.grpc.stats()["calls"][pc.GET_PEER_RATE_LIMITS] for d in card_c.daemons]
+        log(f"[cluster] {n_items} items card vs CPU twin equal ({len(stream)} RPCs of 1000 over "
+            f"the port's unary client, {CLUSTER_HTTP_RPCS} over HTTP); forwarded items by node "
+            f"{fwd}, GetPeerRateLimits RPCs received by node {peer_rpcs}, K1 / K3 / K4 by node "
+            f"{launches} | {card}")
+        for n in range(2):
+            check(fwd[n] > 0 and peer_rpcs[n] > 0,
+                  f"[cluster] node {n} must forward items and receive GetPeerRateLimits RPCs")
+            for name, v in launches[n].items():
+                check(v > 0, f"[cluster] node {n} must launch {name}")
+
+        # Forwarded 1000-item RPCs: every key owned by node 1, sent to node 0.
+        inst0 = card_c.daemons[0].instance
+        remote = [it for it in cluster_items(np, rng, "mixed", 4 * BATCH)
+                  if not inst0.get_peer(f"{it[0]}_{it[1]}").info.is_owner][:BATCH]
+        check(len(remote) == BATCH, f"[cluster] only {len(remote)} node-1 keys for the timing")
+        body = pc.encode_get_rate_limits_req([RateLimitReq(*it) for it in remote])
+        fwd0 = inst0.counters["forward"]
+        lats = []
+        for _ in range(CLUSTER_TIMED_RPCS + 5):
+            t = time.perf_counter()
+            code, msg, _ = chans["cuda"][0].call(pc.GET_RATE_LIMITS, body, 60.0)
+            lats.append(time.perf_counter() - t)
+            check(code == 0, f"[cluster timing] grpc-status {code} {msg!r}")
+        lats = lats[5:]
+        check(inst0.counters["forward"] - fwd0 == BATCH * (CLUSTER_TIMED_RPCS + 5),
+              "[cluster timing] every item of the timed RPCs must be forwarded")
+        p50, p99 = latency_stats(np, lats)
+        read = {"rps": len(lats) / sum(lats), "p50": p50, "p99": p99}
+        log(f"[cluster readings] forwarded 1000-item RPCs (node 0 -> node 1, one client, "
+            f"{CLUSTER_TIMED_RPCS} timed): {read['rps']:.1f} RPCs/s, p50 {p50:.3f} ms, p99 "
+            f"{p99:.3f} ms | {card}")
+
+        # Owner down: node 1 stopped in both clusters; a key node 1 owns on
+        # both rings (each cluster's ring is its own: its nodes' ports
+        # differ) sent to node 0.
+        key = next(f"{i}_down" for i in range(10_000)
+                   if not any(h.daemons[0].instance.get_peer(f"cl_{i}_down").info.is_owner
+                              for h in clusters.values()))
+        req = pc.encode_get_rate_limits_req([RateLimitReq("cl", key, 1, 5, 60_000)])
+        for h in clusters.values():
+            h.kill(1)
+        down = {}
+        for mode in ("degraded", "error"):
+            if mode == "error":
+                for h in clusters.values():
+                    inst = h.daemons[0].instance
+                    inst.behaviors = dc_replace(inst.behaviors, degraded_local=False)
+            for dev, h in clusters.items():
+                code, msg, out = chans[dev][0].call(pc.GET_RATE_LIMITS, req, 60.0)
+                check(code == 0, f"[cluster down] {mode} on {dev}: grpc-status {code} {msg!r}")
+                down[mode, dev] = pc.decode_get_rate_limits_resp(out)[0]
+        want_err = f"GetPeer() keeps returning peers that are not connected for 'cl_{key}'"
+        for dev in clusters:
+            deg, err = down["degraded", dev], down["error", dev]
+            check(deg.error == "" and deg.remaining == 4
+                  and deg.metadata == {"degraded": "true", "owner": addrs[dev][1]},
+                  f"[cluster down] GUBER_DEGRADED_LOCAL on, {dev}: want a degraded answer "
+                  f"from node 0, got {deg}")
+            check(err.error == want_err and not err.metadata,
+                  f"[cluster down] GUBER_DEGRADED_LOCAL off, {dev}: want {want_err!r}, got {err}")
+        for mode in ("degraded", "error"):
+            a, b = down[mode, "cuda"], down[mode, "cpu"]
+            check((a.status, a.remaining, a.reset_time, a.error) == (
+                b.status, b.remaining, b.reset_time, b.error),
+                f"[cluster down] {mode}: card {a}, CPU twin {b}")
+        deg, err = down["degraded", "cuda"], down["error", "cuda"]
+        log(f"[cluster down] node 1 stopped: its key answered degraded by node 0 "
+            f"(remaining {deg.remaining}), then {err.error!r} with degraded mode off; "
+            f"the CPU twin alike; phase wall {time.perf_counter() - t_phase:.1f} s | {card}")
+        for cs in chans.values():
+            for c in cs:
+                c.close()
+        return engines, launches, read
+    finally:
+        for h in clusters.values():
+            h.stop()
+
+
+# ---------------------------------------------------------------------------
 # The san phase: sanitizer runs of the port's own native code.
 #
 # (a) The host C++ (csrc/*.cpp) built with GUBER_NATIVE_SAN's flags and
@@ -7358,6 +7639,7 @@ def main() -> int:
     ab_rng = np.random.default_rng(SEED + 12)
     obs_rng = np.random.default_rng(SEED + 13)
     metrics_rng = np.random.default_rng(SEED + 14)
+    cluster_rng = np.random.default_rng(SEED + 15)
     if args.san_kernels:
         return san_child_kernels()
     card = phase_device(torch)
@@ -7698,6 +7980,28 @@ def main() -> int:
         check(TREE is not None, "the port has no /metrics")
         log(f"[metrics] {TREE} has no /metrics: the metrics phase is skipped")
 
+    # ---- the cluster path (two daemons with static peers: owners answer,
+    # the other node forwards over the port's gRPC wire): counts from 0
+    # just before, read just after; each node's K1 / K3 / K4 counted apart.
+    cluster_path = {k: 0 for k in fs.launches}
+    if has_cluster():
+        fs.reset_launches()
+        c_engines, c_by_node, c_read = phase_cluster(torch, np, cluster_rng, card)
+        cluster_path = dict(fs.launches)
+        c_disp = sum(e.dispatches_total for e in c_engines)
+        log(f"[cluster] launches {cluster_path}; engine launches {c_disp} | {card}")
+        check(cluster_path["fused_step"] + cluster_path["collapsed_step"]
+              + cluster_path["uniform_step"] == c_disp == sum(cluster_path.values()),
+              "every engine launch of the cluster path must be a K1, K3 or K4 launch")
+        for name in ("fused_step", "collapsed_step", "uniform_step"):
+            check(0 < sum(n[name] for n in c_by_node) <= cluster_path[name],
+                  f"the cluster path's per-node {name} counts must be within its launches")
+        del c_engines
+        torch.cuda.empty_cache()
+    else:
+        check(TREE is not None, "the port has no cluster path")
+        log(f"[cluster] {TREE} has no gRPC listener: the cluster phase is skipped")
+
     phase_daemon_binary(has_h2)
     times = phase_timing(torch, np, rng, card, k3_calls, k4_calls)
     if has_persist:
@@ -7796,7 +8100,7 @@ def main() -> int:
                      times["ab_k17"] + (None,)))
     paths = (main_launches, persist_launches, sketch_launches, h2_launches, ledger_launches,
              paged_launches, shard_launches, split_path, split_counts, ab_path, obs_path,
-             metrics_path)
+             metrics_path, cluster_path)
 
     # launches: the main path's run plus the persistence path's, the
     # sketch path's, the h2 path's, the ledger path's, the paged path's,
@@ -7804,8 +8108,8 @@ def main() -> int:
     # K5 on the persistence, the paged, the sharded and the split paths,
     # K6 on the second and the paged, K7 and K8 on the third only, K9 and
     # K10 on the paged and the split, K11-K13 on the sharded only, K14-K16
-    # on the split only, K17 on the apply_batch path only; the obs and the
-    # metrics paths launch K1, K3 and K4).
+    # on the split only, K17 on the apply_batch path only; the obs, the
+    # metrics and the cluster paths launch K1, K3 and K4).
     kernels = {"kernels": [
         {"name": name, "route": "cuda", "source": f"gubernator_tpu_torch/csrc/{src}",
          "replaces": replaces,

@@ -28,18 +28,30 @@ Env:  GUBER_DEBUG (1 / true / yes: debug logging, as -debug),
       (on), GUBER_NATIVE_EVENTS_CAP (65536), GUBER_NATIVE_EVENTS_INTERVAL
       (50ms), GUBER_OBS (on), GUBER_SLO_INTERVAL (5s), GUBER_SLO_FLEET,
       GUBER_SLO_FAST_WINDOWS / GUBER_SLO_SLOW_WINDOWS, GUBER_SLO_WATCH_KEYS,
-      and the peer planes' keys (config.py), of which the daemon accepts only
-      GUBER_PEER_DISCOVERY_TYPE=none and static peers naming itself.
+      GUBER_GRPC_ADDRESS (the gRPC listener; the config's default is the
+      reference's localhost:81, which the binary binds only when
+      GUBER_STATIC_PEERS is set: a node with no peers serves gRPC only
+      where the key is given),
+      GUBER_ADVERTISE_ADDRESS, GUBER_GRPC_WORKERS (32), GUBER_STATIC_PEERS
+      (the cluster's gRPC addresses, this node's included),
+      GUBER_BATCH_TIMEOUT / _WAIT / _LIMIT, GUBER_DEGRADED_LOCAL (on), and
+      the other peer planes' keys (config.py); the daemon refuses a
+      GUBER_PEER_DISCOVERY_TYPE other than none.
 
-Serves GetRateLimits over HTTP/JSON with /metrics beside it, and over cleartext HTTP/2 gRPC at
-/pb.gubernator.V1/GetRateLimits when the h2 front is on, until SIGINT or
-SIGTERM, then closes the listeners and the engine and exits 0.
+Serves GetRateLimits over HTTP/JSON with /metrics beside it; V1
+(GetRateLimits, HealthCheck) and PeersV1/GetPeerRateLimits over cleartext
+HTTP/2 gRPC at the gRPC listener; and /pb.gubernator.V1/GetRateLimits on
+the h2 front when it is on; until SIGINT or SIGTERM, then closes the
+listeners and the engine and exits 0.  The readiness line names every
+bound address: `listening http=A [h2=B] [status=C] [grpc=D]`.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
+import os
 import signal
 import sys
 import threading
@@ -66,6 +78,11 @@ def main(argv=None) -> int:
 
     init_tracing()
     conf = setup_daemon_config(config_file=args.config or None)
+    if not (os.environ.get("GUBER_GRPC_ADDRESS") or os.environ.get("GUBER_STATIC_PEERS")):
+        # The config keeps the reference's default (localhost:81); the
+        # binary binds it only on a cluster node, and otherwise where
+        # GUBER_GRPC_ADDRESS names an address.
+        conf = dataclasses.replace(conf, grpc_listen_address="")
     if conf.debug and not args.debug:
         configure_logging(debug=True)  # GUBER_DEBUG=true is -debug
     log = logging.getLogger("gubernator_tpu_torch")
@@ -87,6 +104,8 @@ def main(argv=None) -> int:
         line += f" h2={daemon.h2_fast_address}"
     if daemon.status_gateway is not None:
         line += f" status={daemon.status_gateway.address}"
+    if daemon.grpc_address:
+        line += f" grpc={daemon.grpc_address}"
     print(line, flush=True)
     try:
         stop.wait()

@@ -46,21 +46,24 @@ or golang, all) adds the process, GC and platform families to /metrics
 (reference config.py:745, utils/metrics.py:1080).
 
 The peer planes' settings are read here with the reference's names,
-defaults and errors (reference config.py:591-690), for the modules of
-`cluster/` and `discovery/`: the behaviors GUBER_ADAPTIVE_WINDOWS,
-GUBER_CIRCUIT_FAILURES / _BACKOFF / _BACKOFF_CAP and
-GUBER_FORWARD_BACKOFF / _CAP; the ring GUBER_PEER_PICKER,
+defaults and errors (reference config.py:591-695, :751), for the modules
+of `cluster/` and `discovery/`: the gRPC listener GUBER_GRPC_ADDRESS
+(default "localhost:81"), GUBER_ADVERTISE_ADDRESS and GUBER_GRPC_WORKERS
+(32); the behaviors GUBER_BATCH_TIMEOUT / _WAIT / _LIMIT,
+GUBER_ADAPTIVE_WINDOWS, GUBER_CIRCUIT_FAILURES / _BACKOFF / _BACKOFF_CAP,
+GUBER_FORWARD_BACKOFF / _CAP and GUBER_DEGRADED_LOCAL; the ring GUBER_PEER_PICKER,
 GUBER_PEER_PICKER_HASH (fnv1, or fnv1a when GUBER_PEER_PICKER is set)
 and GUBER_REPLICATED_HASH_REPLICAS; discovery GUBER_PEER_DISCOVERY_TYPE,
 GUBER_STATIC_PEERS, GUBER_DATA_CENTER, GUBER_MEMBERLIST_*, GUBER_DNS_*
 and GUBER_ETCD_* (the k8s backend reads GUBER_K8S_* itself).  The daemon
-serves one node: it refuses a discovery type other than "none" and
-static peers other than itself (daemon.py `check_single_node`).
+takes static peers (GUBER_STATIC_PEERS) and refuses a discovery type
+other than "none" (daemon.py `check_single_node`, ROADMAP A entry 4).
 """
 
 from __future__ import annotations
 
 import os
+import socket
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional
 
@@ -68,10 +71,18 @@ from typing import Dict, List, Mapping, Optional
 @dataclass
 class BehaviorConfig:
     """The reference's BehaviorConfig fields that the peer planes' ported
-    modules read (reference config.py:23-123): load-adaptive batching
-    windows (cluster/batch_loop.py AdaptiveWait), the per-peer circuit
-    breaker and the forward retry backoff (cluster/health.py)."""
+    modules read (reference config.py:23-123): peer-forward batching
+    (cluster/peer_client.py), load-adaptive batching windows
+    (cluster/batch_loop.py AdaptiveWait), the per-peer circuit breaker,
+    the forward retry backoff (cluster/health.py) and degraded-mode
+    local answers (service.py)."""
 
+    # Peer-forward batching (GUBER_BATCH_TIMEOUT / _WAIT / _LIMIT;
+    # reference peer_client.go:380-453): the RPC deadline, the batching
+    # window's cap and the items a batch.
+    batch_timeout: float = 0.5
+    batch_wait: float = 500 * 1e-6
+    batch_limit: int = 1000
     # Every batching window's wait is a cap that grows with fill
     # (GUBER_ADAPTIVE_WINDOWS, default on).
     adaptive_windows: bool = True
@@ -84,10 +95,24 @@ class BehaviorConfig:
     # (GUBER_FORWARD_BACKOFF / _CAP).
     forward_backoff: float = 0.01
     forward_backoff_cap: float = 0.25
+    # Answer from this node's engine, marked metadata.degraded, when a
+    # key's owner cannot be reached; off gives the reference's error
+    # strings (GUBER_DEGRADED_LOCAL).
+    degraded_local: bool = True
 
 
 @dataclass
 class DaemonConfig:
+    # The gRPC listener (net/grpc_listener.py): V1 and
+    # PeersV1/GetPeerRateLimits.  GUBER_GRPC_ADDRESS defaults to
+    # "localhost:81" as the reference's; a config built in code has none
+    # unless it names one ("" = no listener, a node with no peers only).
+    grpc_listen_address: str = ""
+    # The address peers reach this node at (GUBER_ADVERTISE_ADDRESS; ""
+    # = the listener's, with 0.0.0.0 resolved: resolve_advertise_address).
+    advertise_address: str = ""
+    # The listener's handler threads (GUBER_GRPC_WORKERS).
+    grpc_workers: int = 32
     http_listen_address: str = "localhost:80"
     cache_size: int = 50_000
     # Shards of the bucket state (GUBER_DEVICE_COUNT; reference
@@ -261,12 +286,16 @@ def setup_daemon_config(env: Optional[Mapping[str, str]] = None, *,
     if config_file:
         d.update(load_env_file(config_file))
     behaviors = BehaviorConfig(
+        batch_timeout=_env_seconds(d, "GUBER_BATCH_TIMEOUT", 0.5),
+        batch_wait=_env_seconds(d, "GUBER_BATCH_WAIT", 500 * 1e-6),
+        batch_limit=_env_int(d, "GUBER_BATCH_LIMIT", 1000),
         adaptive_windows=_env_on(d, "GUBER_ADAPTIVE_WINDOWS"),
         circuit_failures=_env_int(d, "GUBER_CIRCUIT_FAILURES", 3),
         circuit_backoff=_env_seconds(d, "GUBER_CIRCUIT_BACKOFF", 0.5),
         circuit_backoff_cap=_env_seconds(d, "GUBER_CIRCUIT_BACKOFF_CAP", 30.0),
         forward_backoff=_env_seconds(d, "GUBER_FORWARD_BACKOFF", 0.01),
         forward_backoff_cap=_env_seconds(d, "GUBER_FORWARD_BACKOFF_CAP", 0.25),
+        degraded_local=_env_on(d, "GUBER_DEGRADED_LOCAL"),
     )
     peer_picker = _env(d, "GUBER_PEER_PICKER", "replicated-hash")
     from gubernator_tpu_torch.cluster.hash_ring import make_picker
@@ -285,6 +314,9 @@ def setup_daemon_config(env: Optional[Mapping[str, str]] = None, *,
         )
     dc = _env(d, "GUBER_DATA_CENTER")
     return DaemonConfig(
+        grpc_listen_address=_env(d, "GUBER_GRPC_ADDRESS", "localhost:81"),
+        advertise_address=_env(d, "GUBER_ADVERTISE_ADDRESS", ""),
+        grpc_workers=_env_int(d, "GUBER_GRPC_WORKERS", 32),
         http_listen_address=_env(d, "GUBER_HTTP_ADDRESS", "localhost:80"),
         cache_size=_env_int(d, "GUBER_CACHE_SIZE", 50_000),
         device_count=_env_int(d, "GUBER_DEVICE_COUNT", 0) or None,
@@ -331,6 +363,18 @@ def setup_daemon_config(env: Optional[Mapping[str, str]] = None, *,
         etcd_tls_key=_env(d, "GUBER_ETCD_TLS_KEY"),
         etcd_tls_skip_verify=_env(d, "GUBER_ETCD_TLS_SKIP_VERIFY") in ("1", "true", "yes"),
     )
+
+
+def resolve_advertise_address(listen: str, advertise: str = "") -> str:
+    """The address peers dial: `advertise` when set, else the listen
+    address with a 0.0.0.0 / :: / empty host replaced by this host's
+    address (reference config.py:751, net.go:28-49)."""
+    if advertise:
+        return advertise
+    host, _, port = listen.rpartition(":")
+    if host in ("0.0.0.0", "::", ""):
+        host = socket.gethostbyname(socket.gethostname())
+    return f"{host}:{port}"
 
 
 def env_pump(device_type: str) -> bool:

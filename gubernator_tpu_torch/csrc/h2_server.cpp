@@ -96,6 +96,8 @@
 #include <unordered_map>
 #include <vector>
 
+#include "hpack.h"
+
 // Native decision plane (decision_plane.cpp, same library): whole-RPC
 // hot-key serve inside the connection thread — no interpreter lock, no
 // Python frame, no device launch.
@@ -256,6 +258,21 @@ struct PendingRpc {
   int64_t t_enq_ns;       // event-ring window-wait anchor (0 = no ring)
 };
 
+// Routing mode (h2s_start_routed): one RPC's handler call.  The handler
+// answers through h2s_route_reply(token, ...) before it returns; `route`
+// is the index of the RPC's :path in the server's route table and
+// timeout_ms what is left of its grpc-timeout (0 = none).
+typedef void (*RouteCallback)(int64_t route, const uint8_t* body,
+                              int64_t len, int64_t timeout_ms, void* token);
+
+struct RoutedRpc {
+  std::shared_ptr<Conn> conn;
+  uint32_t stream;
+  int route;
+  std::string body;     // grpc-deframed protobuf payload
+  int64_t deadline_ns;  // steady clock; 0 = no grpc-timeout
+};
+
 struct Reactor;
 
 // Hand a write-side-killed event-plane conn back to its reactor (a
@@ -329,6 +346,18 @@ struct Server {
     std::shared_ptr<std::atomic<bool>> done;  // set under conns_mu
   };
   std::vector<ConnThread> conn_threads;  // guarded by conns_mu
+  // Routing mode: request headers are decoded (hpack.h), `:path` picks a
+  // route, and `route_threads` call the route's handler once per RPC; a
+  // path not in `routes` is answered UNIMPLEMENTED here.  The window
+  // path (dispatch thread, plane, feeder) is not used in this mode.
+  // guberlint: guard rq by rq_mu
+  bool routing = false;
+  RouteCallback route_cb = nullptr;
+  std::vector<std::string> routes;
+  std::mutex rq_mu;
+  std::condition_variable rq_cv;
+  std::deque<RoutedRpc> rq;
+  std::vector<std::thread> route_threads;
 };
 
 // One response whose DATA is (partially) blocked on the peer's
@@ -354,6 +383,21 @@ struct ReadState {
   size_t preface_seen = 0;
   // Stream table as a flat vector — ids are few and short-lived.
   std::vector<std::pair<uint32_t, std::string>> streams;  // id → body
+  // Routing mode only: the connection's HPACK decoder (its dynamic table
+  // follows every header block in order), the header block being
+  // assembled from HEADERS + CONTINUATION, and each open stream's route
+  // (-1 = no such path) and deadline.
+  hpack::Decoder hpack;
+  std::string hblock;
+  uint32_t hstream = 0;
+  bool hend_stream = false;
+  struct Route {
+    uint32_t id;
+    int route;
+    int64_t deadline_ns;
+    std::string path;
+  };
+  std::vector<Route> routes;
 };
 
 struct Conn : std::enable_shared_from_this<Conn> {
@@ -740,6 +784,159 @@ void drop_stream(ReadState& rs, uint32_t id) {
     }
 }
 
+int64_t steady_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+// Routing mode's reply: a success is HEADERS, the message in DATA under
+// the peer's flow-control windows, then trailers with grpc-status 0; an
+// error is one trailers-only HEADERS frame with grpc-status and
+// grpc-message (percent-encoded, cut to 4 KiB so the block fits a frame).
+void send_routed(const std::shared_ptr<Conn>& conn, uint32_t stream,
+                 int status, const std::string& msg, const uint8_t* body,
+                 size_t len) {
+  static const std::string kHdr = resp_headers_block();
+  std::string tb;
+  hpack::encode_header(tb, "grpc-status", std::to_string(status));
+  if (!msg.empty())
+    hpack::encode_header(tb, "grpc-message",
+                         hpack::percent_encode(msg.substr(0, 4096)));
+  if (status != 0) {
+    const std::string block = kHdr + tb;
+    std::string f;
+    frame_header(f, static_cast<uint32_t>(block.size()), kHeaders,
+                 kFlagEndHeaders | kFlagEndStream, stream);
+    f += block;
+    conn->send_all(std::move(f));
+    return;
+  }
+  std::string hdr;
+  frame_header(hdr, static_cast<uint32_t>(kHdr.size()), kHeaders,
+               kFlagEndHeaders, stream);
+  hdr += kHdr;
+  std::string tr;
+  frame_header(tr, static_cast<uint32_t>(tb.size()), kHeaders,
+               kFlagEndHeaders | kFlagEndStream, stream);
+  tr += tb;
+  std::string data;
+  data.push_back(0);  // uncompressed
+  uint8_t len4[4];
+  put_u32(len4, static_cast<uint32_t>(len));
+  data.append(reinterpret_cast<char*>(len4), 4);
+  data.append(reinterpret_cast<const char*>(body), len);
+  conn->send_response(stream, hdr, std::move(data), tr);
+}
+
+ReadState::Route* find_route(ReadState& rs, uint32_t id) {
+  for (auto& r : rs.routes)
+    if (r.id == id) return &r;
+  return nullptr;
+}
+
+void drop_route(ReadState& rs, uint32_t id) {
+  for (size_t i = 0; i < rs.routes.size(); ++i)
+    if (rs.routes[i].id == id) {
+      rs.routes.erase(rs.routes.begin() + i);
+      return;
+    }
+}
+
+// A complete header block of stream `id` (routing mode): the first one
+// names the route and the deadline; a later one (request trailers) is
+// decoded only to keep the dynamic table in step.  false is a
+// COMPRESSION_ERROR.
+bool on_request_headers(Server* srv, ReadState& rs, uint32_t id) {
+  std::vector<hpack::Header> hs;
+  if (!rs.hpack.decode(reinterpret_cast<const uint8_t*>(rs.hblock.data()),
+                       rs.hblock.size(), &hs))
+    return false;
+  if (find_route(rs, id) != nullptr) return true;
+  ReadState::Route r{id, -1, 0, std::string()};
+  for (const auto& h : hs) {
+    if (h.name == ":path") {
+      r.path = h.value;
+    } else if (h.name == "grpc-timeout") {
+      const int64_t ns = hpack::parse_grpc_timeout(h.value);
+      if (ns > 0) r.deadline_ns = steady_ns() + ns;
+    }
+  }
+  for (size_t i = 0; i < srv->routes.size(); ++i)
+    if (srv->routes[i] == r.path) r.route = static_cast<int>(i);
+  rs.routes.push_back(std::move(r));
+  return true;
+}
+
+// A request's end (routing mode): queue it for its handler, or answer it
+// here — UNIMPLEMENTED for a path with no route, INTERNAL for a body
+// that is not one uncompressed grpc message.
+// guberlint: gil-free
+void route_rpc(Server* srv, const std::shared_ptr<Conn>& conn,
+               uint32_t stream, const std::string& body) {
+  ReadState& rs = conn->rs;
+  ReadState::Route* r = find_route(rs, stream);
+  if (r == nullptr || r->route < 0) {
+    send_routed(conn, stream, 12,
+                "Method not found: " + (r ? r->path : std::string()),
+                nullptr, 0);
+    srv->errors.fetch_add(1);
+  } else if (body.size() < 5 || body[0] != 0 ||
+             5 + static_cast<size_t>(get_u32(
+                     reinterpret_cast<const uint8_t*>(body.data()) + 1)) !=
+                 body.size()) {
+    send_routed(conn, stream, 13, "malformed grpc message frame", nullptr,
+                0);
+    srv->errors.fetch_add(1);
+  } else {
+    std::lock_guard<std::mutex> lock(srv->rq_mu);
+    srv->rq.push_back(
+        RoutedRpc{conn, stream, r->route, body.substr(5), r->deadline_ns});
+    srv->rq_cv.notify_one();
+  }
+  drop_route(rs, stream);
+}
+
+// HEADERS / CONTINUATION in routing mode: assemble the block, decode it
+// at END_HEADERS, and end the request when the block carries END_STREAM.
+// false is a connection error.
+bool route_header_frame(Server* srv, const std::shared_ptr<Conn>& conn,
+                        uint8_t type, uint8_t flags, uint32_t stream,
+                        const uint8_t* p, uint32_t len) {
+  ReadState& rs = conn->rs;
+  if (type == kHeaders) {
+    if (rs.hstream != 0 || stream == 0) return false;
+    uint32_t off = 0, pad = 0;
+    if (flags & kFlagPadded) {
+      if (len < 1) return false;
+      pad = p[0];
+      off = 1;
+    }
+    if (flags & 0x20) off += 5;  // PRIORITY
+    if (off + pad > len) return false;
+    rs.hblock.assign(reinterpret_cast<const char*>(p + off), len - off - pad);
+    rs.hstream = stream;
+    rs.hend_stream = (flags & kFlagEndStream) != 0;
+  } else {
+    if (rs.hstream == 0 || stream != rs.hstream ||
+        rs.hblock.size() + len > (1u << 20))
+      return false;
+    rs.hblock.append(reinterpret_cast<const char*>(p), len);
+  }
+  if (!(flags & kFlagEndHeaders)) return true;
+  const uint32_t id = rs.hstream;
+  rs.hstream = 0;
+  const bool ok = on_request_headers(srv, rs, id);
+  rs.hblock.clear();
+  if (!ok) return false;
+  std::string& body = stream_body(rs, id);
+  if (rs.hend_stream) {
+    route_rpc(srv, conn, id, body);
+    drop_stream(rs, id);
+  }
+  return true;
+}
+
 // Opaque per-RPC handle the columnar feeder carries from pack to
 // response scatter: keeps the Conn alive (shared_ptr) and remembers the
 // server for stats.  Allocated here on a successful pack, consumed by
@@ -851,6 +1048,10 @@ void process_input(Server* srv, const std::shared_ptr<Conn>& conn) {
     const uint8_t type = f[3], flags = f[4];
     const uint32_t stream = get_u32(f + 5) & 0x7fffffff;
     const uint8_t* payload = f + 9;
+    if (srv->routing && rs.hstream != 0 && type != kContinuation) {
+      conn->dead.store(true);  // a header block must not be interleaved
+      break;
+    }
     switch (type) {
       case kSettings:
         if (!(flags & kFlagAck)) {
@@ -885,6 +1086,12 @@ void process_input(Server* srv, const std::shared_ptr<Conn>& conn) {
         break;
       case kHeaders:
       case kContinuation: {
+        if (srv->routing) {
+          if (!route_header_frame(srv, conn, type, flags, stream, payload,
+                                  flen))
+            conn->dead.store(true);
+          break;
+        }
         // Single-method port: header CONTENT is irrelevant (the
         // port is the route); only END_STREAM matters (a request
         // with no body ends here — answer UNIMPLEMENTED).
@@ -924,7 +1131,10 @@ void process_input(Server* srv, const std::shared_ptr<Conn>& conn) {
         }
         st_body.append(reinterpret_cast<const char*>(dp), dlen);
         conn->recv_since_update += flen;  // flow control counts raw
-        if (flags & kFlagEndStream) {
+        if ((flags & kFlagEndStream) && srv->routing) {
+          route_rpc(srv, conn, stream, st_body);
+          drop_stream(rs, stream);
+        } else if (flags & kFlagEndStream) {
           // grpc frame: 1-byte compressed flag + u32 length + body.
           if (st_body.size() < 5 || st_body[0] != 0) {
             send_rpc_response(conn, stream, nullptr, 0, 0, 0, 13);
@@ -962,6 +1172,7 @@ void process_input(Server* srv, const std::shared_ptr<Conn>& conn) {
       }
       case kRst:
         drop_stream(rs, stream);
+        if (srv->routing) drop_route(rs, stream);
         conn->drop_stream_sends(stream);
         break;
       case kGoaway:
@@ -1236,13 +1447,14 @@ void reactor_drop(Server* srv, Reactor* rx, int fd) {
   if (it == rx->owned.end()) return;
   it->second->dead.store(true);
   epoll_ctl(rx->epfd, EPOLL_CTL_DEL, fd, nullptr);
+  // Off the open count before the peer can see the close.
+  srv->conns_open.fetch_sub(1);
   // shutdown (not close): the fd must stay allocated until the last
   // shared_ptr drops — the dispatch/feeder threads may still hold
   // this conn, and a recycled fd number under a late EPOLLOUT arm
   // would hit a stranger's socket.  ~Conn closes it.
   ::shutdown(fd, SHUT_RDWR);
   rx->owned.erase(it);
-  srv->conns_open.fetch_sub(1);
 }
 
 // Accept every pending connection on this reactor's lane (edge-
@@ -1393,12 +1605,14 @@ void reactor_sweep_idle(Server* srv, Reactor* rx, int64_t now_ns) {
   for (int fd : doomed) {
     auto it = rx->owned.find(fd);
     if (it == rx->owned.end()) continue;
+    // Counted before the GOAWAY goes out: a client that reads it and
+    // the close finds the reap (and the open count) already booked.
+    srv->idle_reaped.fetch_add(1);
     std::string g;
     frame_header(g, 8, kGoaway, 0, 0);
     g.append(8, '\0');  // last-stream-id 0, NO_ERROR
     it->second->send_all(g);
     reactor_drop(srv, rx, fd);
-    srv->idle_reaped.fetch_add(1);
   }
 }
 
@@ -1495,6 +1709,157 @@ void reactor_loop(Server* srv, Reactor* rx) {
   for (int fd : fds) reactor_drop(srv, rx, fd);
 }
 
+// Routing mode's handler pool: each thread takes one queued RPC at a
+// time and calls its route's handler, which replies through
+// h2s_route_reply; an RPC whose grpc-timeout passed while it queued is
+// answered DEADLINE_EXCEEDED without a call, and a handler that returns
+// without replying gets INTERNAL.
+struct RouteToken {
+  std::shared_ptr<Conn> conn;
+  uint32_t stream;
+  Server* srv;
+  bool replied;
+};
+
+void route_loop(Server* srv) {
+  for (;;) {
+    RoutedRpc rpc;
+    {
+      std::unique_lock<std::mutex> lock(srv->rq_mu);
+      srv->rq_cv.wait(lock, [&] {
+        return srv->closing.load() || !srv->rq.empty();
+      });
+      if (srv->closing.load()) return;
+      rpc = std::move(srv->rq.front());
+      srv->rq.pop_front();
+    }
+    if (rpc.conn->dead.load()) continue;
+    int64_t timeout_ms = 0;
+    if (rpc.deadline_ns != 0) {
+      const int64_t left = rpc.deadline_ns - steady_ns();
+      if (left <= 0) {
+        send_routed(rpc.conn, rpc.stream, 4, "Deadline Exceeded", nullptr, 0);
+        srv->errors.fetch_add(1);
+        continue;
+      }
+      timeout_ms = std::max<int64_t>(1, left / 1000000);
+    }
+    RouteToken token{rpc.conn, rpc.stream, srv, false};
+    srv->route_cb(rpc.route, reinterpret_cast<const uint8_t*>(rpc.body.data()),
+                  static_cast<int64_t>(rpc.body.size()), timeout_ms, &token);
+    if (!token.replied) {
+      send_routed(rpc.conn, rpc.stream, 13, "handler sent no reply", nullptr,
+                  0);
+      srv->errors.fetch_add(1);
+    }
+  }
+}
+
+// Bind `lanes` listeners on host:port (0 = ephemeral) and start the
+// connection plane: reactors (event_front) or accept threads.  false
+// when nothing could be bound; the caller deletes the server then.
+bool start_listeners(Server* srv, in_addr host, int32_t port, int32_t lanes,
+                     int32_t reactors) {
+  const long ncpu = sysconf(_SC_NPROCESSORS_ONLN);
+  if (srv->event_front) {
+    if (reactors <= 0)
+      reactors = static_cast<int32_t>(std::max(1L, ncpu - 1));
+    lanes = reactors;
+  }
+  if (lanes < 1) lanes = 1;
+  int bind_port = port;
+  if (lanes > 1 && port != 0) {
+    // SO_REUSEPORT lets ANOTHER daemon of the same uid silently share
+    // a fixed port (the kernel would split traffic across two
+    // independent engines — over-admission with no error anywhere).
+    // Probe-bind without it first so a foreign listener still fails
+    // loudly with EADDRINUSE; ephemeral binds can't collide.
+    int probe = ::socket(AF_INET, SOCK_STREAM, 0);
+    if (probe < 0) return false;
+    int one = 1;
+    setsockopt(probe, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
+    sockaddr_in addr{};
+    addr.sin_family = AF_INET;
+    addr.sin_port = htons(static_cast<uint16_t>(port));
+    addr.sin_addr = host;
+    const bool free_port =
+        ::bind(probe, reinterpret_cast<sockaddr*>(&addr), sizeof(addr)) == 0;
+    ::close(probe);
+    if (!free_port) return false;
+  }
+  for (int32_t lane = 0; lane < lanes; ++lane) {
+    int fd = ::socket(AF_INET, SOCK_STREAM, 0);
+    if (fd < 0) break;
+    int one = 1;
+    setsockopt(fd, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
+    if (lanes > 1)
+      setsockopt(fd, SOL_SOCKET, SO_REUSEPORT, &one, sizeof(one));
+    sockaddr_in addr{};
+    addr.sin_family = AF_INET;
+    addr.sin_port = htons(static_cast<uint16_t>(bind_port));
+    addr.sin_addr = host;
+    if (::bind(fd, reinterpret_cast<sockaddr*>(&addr), sizeof(addr)) != 0 ||
+        ::listen(fd, 1024) != 0) {
+      ::close(fd);
+      break;
+    }
+    if (lane == 0) {
+      // Ephemeral binds learn the port from lane 0; the remaining
+      // lanes bind it explicitly.
+      socklen_t alen = sizeof(addr);
+      getsockname(fd, reinterpret_cast<sockaddr*>(&addr), &alen);
+      srv->port = ntohs(addr.sin_port);
+      bind_port = srv->port;
+    }
+    srv->listen_fds.push_back(fd);
+  }
+  if (srv->listen_fds.empty()) return false;
+  if (srv->event_front) {
+    for (int fd : srv->listen_fds) {
+      // The reactors accept-until-EAGAIN; the listen fds must be
+      // nonblocking or a spurious wake parks the whole lane.
+      const int fl = fcntl(fd, F_GETFL, 0);
+      fcntl(fd, F_SETFL, fl | O_NONBLOCK);
+      auto rx = std::make_unique<Reactor>();
+      rx->listen_fd = fd;
+      rx->epfd = epoll_create1(0);
+      rx->wake_fd = eventfd(0, EFD_NONBLOCK);
+      if (rx->epfd < 0 || rx->wake_fd < 0) {
+        // ~Reactor releases rx's and every earlier lane's epfd/
+        // wake_fd (delete srv destroys srv->reactors).
+        for (int lf : srv->listen_fds) ::close(lf);
+        return false;
+      }
+      epoll_event ev{};
+      ev.events = EPOLLIN;
+      ev.data.fd = fd;
+      epoll_ctl(rx->epfd, EPOLL_CTL_ADD, fd, &ev);
+      ev.events = EPOLLIN;
+      ev.data.fd = rx->wake_fd;
+      epoll_ctl(rx->epfd, EPOLL_CTL_ADD, rx->wake_fd, &ev);
+      srv->reactors.push_back(std::move(rx));
+    }
+    for (auto& rx : srv->reactors)
+      srv->reactor_threads.emplace_back(reactor_loop, srv, rx.get());
+    if (ncpu > 1 &&
+        static_cast<long>(srv->reactor_threads.size()) <= ncpu - 1) {
+      // Reserved serve core (best-effort — gVisor/containers may
+      // refuse affinity): reactors live on cpus 1..n−1, leaving cpu0
+      // for the dispatch/Python serve plane so conn-side load cannot
+      // starve the window path (the §25 tail).
+      cpu_set_t set;
+      CPU_ZERO(&set);
+      for (long c = 1; c < ncpu; ++c) CPU_SET(c, &set);
+      for (auto& t : srv->reactor_threads)
+        pthread_setaffinity_np(t.native_handle(), sizeof(set), &set);
+    }
+  } else {
+    for (int fd : srv->listen_fds)
+      srv->accept_threads.emplace_back(accept_loop, srv, fd);
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1525,115 +1890,64 @@ void* h2s_start(int32_t port, int64_t window_us, int64_t max_batch,
   if (flush_items > 0) srv->flush_items = flush_items;
   srv->event_front = event_front != 0;
   if (idle_timeout_ms > 0) srv->idle_timeout_ms = idle_timeout_ms;
-  const long ncpu = sysconf(_SC_NPROCESSORS_ONLN);
-  if (srv->event_front) {
-    if (reactors <= 0)
-      reactors = static_cast<int32_t>(std::max(1L, ncpu - 1));
-    lanes = reactors;
-  }
-  if (lanes < 1) lanes = 1;
-  int bind_port = port;
-  if (lanes > 1 && port != 0) {
-    // SO_REUSEPORT lets ANOTHER daemon of the same uid silently share
-    // a fixed port (the kernel would split traffic across two
-    // independent engines — over-admission with no error anywhere).
-    // Probe-bind without it first so a foreign listener still fails
-    // loudly with EADDRINUSE; ephemeral binds can't collide.
-    int probe = ::socket(AF_INET, SOCK_STREAM, 0);
-    if (probe < 0) {
-      delete srv;
-      return nullptr;
-    }
-    int one = 1;
-    setsockopt(probe, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
-    sockaddr_in addr{};
-    addr.sin_family = AF_INET;
-    addr.sin_port = htons(static_cast<uint16_t>(port));
-    inet_pton(AF_INET, "127.0.0.1", &addr.sin_addr);
-    const bool free_port =
-        ::bind(probe, reinterpret_cast<sockaddr*>(&addr), sizeof(addr)) == 0;
-    ::close(probe);
-    if (!free_port) {
-      delete srv;
-      return nullptr;
-    }
-  }
-  for (int32_t lane = 0; lane < lanes; ++lane) {
-    int fd = ::socket(AF_INET, SOCK_STREAM, 0);
-    if (fd < 0) break;
-    int one = 1;
-    setsockopt(fd, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
-    if (lanes > 1)
-      setsockopt(fd, SOL_SOCKET, SO_REUSEPORT, &one, sizeof(one));
-    sockaddr_in addr{};
-    addr.sin_family = AF_INET;
-    addr.sin_port = htons(static_cast<uint16_t>(bind_port));
-    inet_pton(AF_INET, "127.0.0.1", &addr.sin_addr);
-    if (::bind(fd, reinterpret_cast<sockaddr*>(&addr), sizeof(addr)) != 0 ||
-        ::listen(fd, 1024) != 0) {
-      ::close(fd);
-      break;
-    }
-    if (lane == 0) {
-      // Ephemeral binds learn the port from lane 0; the remaining
-      // lanes bind it explicitly.
-      socklen_t alen = sizeof(addr);
-      getsockname(fd, reinterpret_cast<sockaddr*>(&addr), &alen);
-      srv->port = ntohs(addr.sin_port);
-      bind_port = srv->port;
-    }
-    srv->listen_fds.push_back(fd);
-  }
-  if (srv->listen_fds.empty()) {
+  in_addr loopback{};
+  inet_pton(AF_INET, "127.0.0.1", &loopback);
+  if (!start_listeners(srv, loopback, port, lanes, reactors)) {
     delete srv;
     return nullptr;
   }
-  if (srv->event_front) {
-    for (int fd : srv->listen_fds) {
-      // The reactors accept-until-EAGAIN; the listen fds must be
-      // nonblocking or a spurious wake parks the whole lane.
-      const int fl = fcntl(fd, F_GETFL, 0);
-      fcntl(fd, F_SETFL, fl | O_NONBLOCK);
-      auto rx = std::make_unique<Reactor>();
-      rx->listen_fd = fd;
-      rx->epfd = epoll_create1(0);
-      rx->wake_fd = eventfd(0, EFD_NONBLOCK);
-      if (rx->epfd < 0 || rx->wake_fd < 0) {
-        // ~Reactor releases rx's and every earlier lane's epfd/
-        // wake_fd (delete srv destroys srv->reactors).
-        for (int lf : srv->listen_fds) ::close(lf);
-        delete srv;
-        return nullptr;
-      }
-      epoll_event ev{};
-      ev.events = EPOLLIN;
-      ev.data.fd = fd;
-      epoll_ctl(rx->epfd, EPOLL_CTL_ADD, fd, &ev);
-      ev.events = EPOLLIN;
-      ev.data.fd = rx->wake_fd;
-      epoll_ctl(rx->epfd, EPOLL_CTL_ADD, rx->wake_fd, &ev);
-      srv->reactors.push_back(std::move(rx));
-    }
-    for (auto& rx : srv->reactors)
-      srv->reactor_threads.emplace_back(reactor_loop, srv, rx.get());
-    if (ncpu > 1 &&
-        static_cast<long>(srv->reactor_threads.size()) <= ncpu - 1) {
-      // Reserved serve core (best-effort — gVisor/containers may
-      // refuse affinity): reactors live on cpus 1..n−1, leaving cpu0
-      // for the dispatch/Python serve plane so conn-side load cannot
-      // starve the window path (the §25 tail).
-      cpu_set_t set;
-      CPU_ZERO(&set);
-      for (long c = 1; c < ncpu; ++c) CPU_SET(c, &set);
-      for (auto& t : srv->reactor_threads)
-        pthread_setaffinity_np(t.native_handle(), sizeof(set), &set);
-    }
-  } else {
-    for (int fd : srv->listen_fds)
-      srv->accept_threads.emplace_back(accept_loop, srv, fd);
-  }
   srv->dispatch_thread = std::thread(dispatch_loop, srv);
   return srv;
+}
+
+// Start the routing mode on host:port (0 = ephemeral; host an IPv4
+// address, "" or "0.0.0.0" every interface).  `routes` is the
+// newline-separated route table: an RPC whose :path is line i goes to
+// `callback` with route i on one of `workers` handler threads.  The
+// connections take h2s_start's threaded plane, one accept lane (a node's
+// peers and clients hold few, long-lived connections).  Returns nullptr
+// on a bind failure.
+void* h2s_start_routed(const char* host, int32_t port, const char* routes,
+                       int32_t workers, RouteCallback callback) {
+  in_addr addr{};
+  const std::string h = host;
+  if (h.empty()) {
+    addr.s_addr = htonl(INADDR_ANY);
+  } else if (inet_pton(AF_INET, h.c_str(), &addr) != 1) {
+    return nullptr;
+  }
+  auto* srv = new Server();
+  srv->routing = true;
+  srv->route_cb = callback;
+  const std::string table = routes;
+  for (size_t pos = 0; pos <= table.size();) {
+    const size_t nl = std::min(table.find('\n', pos), table.size());
+    if (nl > pos) srv->routes.push_back(table.substr(pos, nl - pos));
+    pos = nl + 1;
+  }
+  srv->event_front = false;
+  if (!start_listeners(srv, addr, port, 1, 0)) {
+    delete srv;
+    return nullptr;
+  }
+  for (int32_t i = 0; i < std::max<int32_t>(1, workers); ++i)
+    srv->route_threads.emplace_back(route_loop, srv);
+  return srv;
+}
+
+// A handler's reply (routing mode), once per RPC from inside the
+// handler call: grpc status 0 sends `body` as the response message, any
+// other status the trailers-only error with `msg` as grpc-message.
+void h2s_route_reply(void* token, int32_t status, const char* msg,
+                     int64_t msg_len, const uint8_t* body, int64_t len) {
+  auto* t = static_cast<RouteToken*>(token);
+  if (t->replied) return;
+  t->replied = true;
+  if (t->conn->dead.load()) return;
+  send_routed(t->conn, t->stream, status,
+              std::string(msg, static_cast<size_t>(msg_len)), body,
+              static_cast<size_t>(len));
+  (status == 0 ? t->srv->rpcs : t->srv->errors).fetch_add(1);
 }
 
 int32_t h2s_lanes(void* handle) {
@@ -1760,6 +2074,12 @@ void h2s_stop(void* handle) {
     std::lock_guard<std::mutex> lock(srv->q_mu);
     srv->q_cv.notify_all();
   }
+  {
+    std::lock_guard<std::mutex> lock(srv->rq_mu);
+    srv->rq_cv.notify_all();
+  }
+  for (auto& t : srv->route_threads)
+    if (t.joinable()) t.join();
   for (auto& t : srv->accept_threads)
     if (t.joinable()) t.join();
   if (srv->dispatch_thread.joinable()) srv->dispatch_thread.join();

@@ -46,11 +46,20 @@ GUBER_METRIC_FLAGS) is served at /metrics on the gateway and, when
 a plain-HTTP status listener with health and /metrics, started after the
 rollup and closed with the gateway.
 
-One node only: the gRPC front, peer discovery and the cluster planes
-(/debug/fleet among them) are not ported yet, so `check_single_node`
-refuses a config that names a discovery type other than "none" or static
-peers other than this node's own addresses (ROADMAP A entries 3-4)
-rather than answer every key as its own.
+The gRPC listener and static peers (reference daemon.py:282-288,
+:442-478): when `conf.grpc_listen_address` (GUBER_GRPC_ADDRESS) is set,
+the daemon serves V1 and PeersV1/GetPeerRateLimits there
+(net/grpc_listener.py, `conf.grpc_workers` handler threads), and
+`peer_info()` advertises it (GUBER_ADVERTISE_ADDRESS, or the listener's
+address with 0.0.0.0 resolved).  With GUBER_STATIC_PEERS the full peer
+list goes to the service's ring (`set_peers`, which marks this node and
+adds it when the list leaves it out), and keys other nodes own are
+forwarded to them; with none the ring stays empty and every key is this
+node's.  Discovery and the other cluster planes (GLOBAL, MULTI_REGION,
+membership, replication, /debug/fleet) are not ported yet:
+`check_single_node` refuses a discovery type other than "none" (ROADMAP
+A entry 4), and static peers that name another node with no gRPC
+listener to be reached at.
 """
 
 from __future__ import annotations
@@ -59,31 +68,35 @@ import logging
 import os
 import threading
 
+from typing import List, Sequence
+
 from gubernator_tpu_torch.clock import SYSTEM_CLOCK, Clock
-from gubernator_tpu_torch.config import DaemonConfig
+from gubernator_tpu_torch.config import DaemonConfig, resolve_advertise_address
 from gubernator_tpu_torch.core.engine import DecisionEngine
 from gubernator_tpu_torch.net.gateway import Gateway
 from gubernator_tpu_torch.service import V1Instance
+from gubernator_tpu_torch.types import PeerInfo
 from gubernator_tpu_torch.utils.metrics import build_registry
 
 log = logging.getLogger("gubernator_tpu_torch.daemon")
 
 
 def check_single_node(conf: DaemonConfig) -> None:
-    """Refuse a config that makes this node one of several: the port
-    would answer every key as its own where the reference forwards it to
-    its owner.  Raises ValueError."""
+    """Refuse a membership the port cannot keep: peer discovery (ROADMAP
+    A entry 4), and static peers naming another node when this node has
+    no gRPC listener for them to forward to.  Raises ValueError."""
     if conf.peer_discovery_type != "none":
         raise ValueError(
-            f"GUBER_PEER_DISCOVERY_TYPE={conf.peer_discovery_type!r}: this daemon serves one "
-            "node; peer discovery and the peer planes come with ROADMAP A entries 3-4"
+            f"GUBER_PEER_DISCOVERY_TYPE={conf.peer_discovery_type!r}: peer discovery is not "
+            "ported yet (ROADMAP A entry 4); use GUBER_STATIC_PEERS"
         )
-    own = {conf.http_listen_address, conf.h2_fast_address, conf.http_status_listen_address}
+    own = {conf.grpc_listen_address, conf.http_listen_address, conf.h2_fast_address,
+           conf.http_status_listen_address}
     others = [a for a in conf.static_peers if a not in own]
-    if others:
+    if others and not conf.grpc_listen_address:
         raise ValueError(
-            f"GUBER_STATIC_PEERS names {others}: this daemon serves one node; the peer "
-            "planes come with ROADMAP A entries 3-4"
+            f"GUBER_STATIC_PEERS names {others}, but this node has no gRPC listener "
+            "(GUBER_GRPC_ADDRESS) for its peers to reach it at"
         )
 
 
@@ -110,6 +123,8 @@ class Daemon:
         self.http_address = conf.http_listen_address
         self.h2_fast = None
         self.h2_fast_address = ""
+        self.grpc = None
+        self.grpc_address = ""
         self.obs = None
         self.slo = None
         self._sweep_stop: threading.Event | None = None
@@ -120,11 +135,16 @@ class Daemon:
     def start(self) -> None:
         check_single_node(self.conf)
         engine = self._build_engine()
-        self.instance = V1Instance(engine, sketch_window_ms=self.conf.sketch_window_ms,
-                                   sketch_depth=self.conf.sketch_depth,
-                                   sketch_width=self.conf.sketch_width,
-                                   ledger=self.conf.ledger,
-                                   ledger_opts=self.conf.ledger_opts())
+        conf = self.conf
+        self.instance = V1Instance(engine, sketch_window_ms=conf.sketch_window_ms,
+                                   sketch_depth=conf.sketch_depth,
+                                   sketch_width=conf.sketch_width,
+                                   ledger=conf.ledger,
+                                   ledger_opts=conf.ledger_opts(),
+                                   behaviors=conf.behaviors, peer_picker=conf.peer_picker,
+                                   hash_algorithm=conf.hash_algorithm,
+                                   picker_replicas=conf.picker_replicas,
+                                   data_center=conf.data_center)
         if self._loader is not None:
             # Restore persisted buckets before serving (reference:
             # gubernator.go:146-152).
@@ -155,6 +175,12 @@ class Daemon:
                 from gubernator_tpu_torch.utils.native_events import NativeEventCollector
 
                 self.instance.native_events = NativeEventCollector.from_env(self.h2_fast)
+        if conf.grpc_listen_address:
+            from gubernator_tpu_torch.net.grpc_listener import GrpcListener
+
+            self.grpc = GrpcListener(self.instance, conf.grpc_listen_address,
+                                     workers=conf.grpc_workers)
+            self.grpc_address = self.grpc.address
         self._start_obs()
         if self.conf.http_status_listen_address:
             self.status_gateway = Gateway(self.instance, self.conf.http_status_listen_address,
@@ -165,12 +191,46 @@ class Daemon:
             self._sweeper = threading.Thread(target=self._sweep_loop, name="guber-sweep",
                                              daemon=True)
             self._sweeper.start()
+        self._start_discovery()
         self._serving = True
         log.info(
-            "gubernator_tpu_torch listening: http=%s h2=%s device=%s slots=%d keys=%d",
-            self.http_address, self.h2_fast_address or "off", engine.device, engine.capacity,
-            engine.logical_capacity,
+            "gubernator_tpu_torch listening: grpc=%s http=%s h2=%s device=%s slots=%d keys=%d",
+            self.grpc_address or "off", self.http_address, self.h2_fast_address or "off",
+            engine.device, engine.capacity, engine.logical_capacity,
         )
+
+    def _start_discovery(self) -> None:
+        """Static membership (reference daemon.py:442-466): the full list
+        of GUBER_STATIC_PEERS goes to the ring; with no other node named
+        the ring stays empty.  Discovery was refused at start."""
+        conf = self.conf
+        own = {conf.grpc_listen_address, self.grpc_address, conf.http_listen_address,
+               self.http_address, conf.h2_fast_address, conf.http_status_listen_address}
+        if any(a not in own for a in conf.static_peers):
+            self.set_peers([PeerInfo(grpc_address=a, datacenter=conf.data_center)
+                            for a in conf.static_peers])
+
+    def peer_info(self) -> PeerInfo:
+        """This node as its peers see it (reference daemon.py:468)."""
+        return PeerInfo(
+            grpc_address=resolve_advertise_address(self.grpc_address,
+                                                   self.conf.advertise_address),
+            http_address=self.http_address, datacenter=self.conf.data_center)
+
+    def set_peers(self, peers: Sequence[PeerInfo]) -> None:
+        """Mark this node in the list (adding it when it is left out),
+        then hand the list to the service (reference daemon.py:478,
+        daemon.go:370-380)."""
+        me = self.peer_info()
+        marked: List[PeerInfo] = [
+            PeerInfo(grpc_address=p.grpc_address, http_address=p.http_address,
+                     datacenter=p.datacenter, is_owner=p.grpc_address == me.grpc_address)
+            for p in peers
+        ]
+        if not any(p.is_owner for p in marked):
+            me.is_owner = True
+            marked.append(me)
+        self.instance.set_peers(marked)
 
     def _attach_flight_recorder(self) -> None:
         """Hook the tail flight recorder to the in-memory tracer, if one
@@ -247,6 +307,10 @@ class Daemon:
                 self.h2_fast.abandon_ring()
         if self.h2_fast is not None:
             self.h2_fast.close()
+        if self.grpc is not None:
+            # Its handler threads call into the service: stop them before
+            # the service closes.
+            self.grpc.close()
         if self.status_gateway is not None:
             self.status_gateway.close()
         if self.gateway is not None:

@@ -4,9 +4,8 @@ The port's copy of `gubernator_tpu/discovery/` less the etcd wire client
 (it needs gRPC): each backend watches a membership source and pushes the
 full peer list to `daemon.set_peers` (reference: config.go:165,
 daemon.go:185-220).  The port's daemon does not start one yet: it
-refuses a config that names a discovery type other than "none"
-(daemon.py `check_single_node`) until the peer planes land (ROADMAP A
-entries 3-4).
+takes static peers and refuses a config that names a discovery type
+other than "none" (daemon.py `check_single_node`, ROADMAP A entry 4).
 """
 
 from __future__ import annotations

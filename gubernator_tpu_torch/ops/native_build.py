@@ -54,6 +54,7 @@ from typing import Optional
 _log = logging.getLogger("gubernator_tpu_torch.native")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+CPP_INCLUDE = CSRC
 BUILD_DIR = CSRC / "build"
 
 # library name → its source files under csrc/
@@ -77,10 +78,18 @@ SOURCES = {
     # stages' latencies into the ring.
     "h2_server": ("h2_server.cpp", "wire_codec.cpp", "decision_plane.cpp",
                   "columnar_feeder.cpp", "event_ring.cpp"),
-    "h2_client": ("h2_client.cpp",),
+    # The bench loops and the unary client (h2_unary.cpp, the peer
+    # planes' transport).
+    "h2_client": ("h2_client.cpp", "h2_unary.cpp"),
 }
 # Sources a .cu includes: an edit to one rebuilds every kernel.
 HEADERS = ("coop_launch.cuh", "lane_math.cuh", "general_lane.cuh", "collapsed_tile.cuh")
+# Headers the g++ libraries include (hpack.h: the h2 server's routing mode
+# and the unary client), hashed into their names like their sources.  They
+# are read from the package's own source directory, which every g++ build
+# also takes as an include path, so that a build of sources copied
+# elsewhere (CSRC pointed at the copy) finds them.
+CPP_HEADERS = ("hpack.h",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -107,6 +116,13 @@ _SAN_RUNTIMES = {"thread": ("libtsan.so", "__tsan_init"),
 WINDOW_CALLBACK = ctypes.CFUNCTYPE(
     ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+)
+
+# The routing mode's per-RPC handler (csrc/h2_server.cpp RouteCallback):
+# (route, body, len, timeout_ms, token); it answers through
+# h2s_route_reply(token, ...).
+ROUTE_CALLBACK = ctypes.CFUNCTYPE(
+    None, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
 )
 
 # The columnar feeder's window callback (csrc/columnar_feeder.cpp
@@ -196,6 +212,7 @@ def _target(name: str, san: str = "") -> Path:
         data += b"".join((CSRC / h).read_bytes() for h in HEADERS)
         data += "\0".join(NVCC_FLAGS).encode()
     else:
+        data += b"".join((CPP_INCLUDE / h).read_bytes() for h in CPP_HEADERS)
         data += "\0".join(_gxx_flags(san)).encode()
     h = hashlib.sha256(data).hexdigest()
     return BUILD_DIR / f"lib{name}-{h[:16]}{f'-{san[0]}san' if san else ''}.so"
@@ -220,6 +237,8 @@ def build_all(names=None, san: Optional[str] = None) -> dict[str, Path]:
         cmd = _compiler(n)
         if _lib_san(n, san):
             cmd = (cmd[0], *_gxx_flags(san))
+        if not _is_cuda(n):
+            cmd = [*cmd, "-I", str(CPP_INCLUDE)]
         cmd = [*cmd, "-o", str(tmp), *(str(CSRC / src) for src in SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     errors = []
@@ -391,6 +410,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.h2s_stats.argtypes = [p, p]
         lib.h2s_stop.restype = None
         lib.h2s_stop.argtypes = [p]
+        # host, port, routes ("\n"-separated paths), workers, callback
+        lib.h2s_start_routed.restype = p
+        lib.h2s_start_routed.argtypes = [ctypes.c_char_p, i32, ctypes.c_char_p, i32,
+                                         ROUTE_CALLBACK]
+        # token, grpc status, message, message length, body, body length
+        lib.h2s_route_reply.restype = None
+        lib.h2s_route_reply.argtypes = [p, i32, ctypes.c_char_p, i64, ctypes.c_char_p, i64]
         lib.h2s_attach_plane.restype = None
         lib.h2s_attach_plane.argtypes = [p, p]
         # The native decision plane (csrc/decision_plane.cpp).
@@ -482,3 +508,36 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # out_stats
         lib.h2_connscale_run.restype = i64
         lib.h2_connscale_run.argtypes = [s, i32, s, s, p, i64, f64, i64, i64, i32, f64, p, i64, p]
+        # The unary client (csrc/h2_unary.cpp).
+        lib.h2c_channel_new.restype = p
+        lib.h2c_channel_new.argtypes = [s, i32]
+        lib.h2c_channel_free.restype = None
+        lib.h2c_channel_free.argtypes = [p]
+        lib.h2c_channel_stats.restype = None  # channel, out3
+        lib.h2c_channel_stats.argtypes = [p, p]
+        # channel, path, body, len, timeout_ms → result
+        lib.h2c_call.restype = p
+        lib.h2c_call.argtypes = [p, s, s, i64, i64]
+        lib.h2c_result_status.restype = i32
+        lib.h2c_result_status.argtypes = [p]
+        lib.h2c_result_len.restype = i64
+        lib.h2c_result_len.argtypes = [p, i32]
+        lib.h2c_result_ptr.restype = p
+        lib.h2c_result_ptr.argtypes = [p, i32]
+        lib.h2c_result_free.restype = None
+        lib.h2c_result_free.argtypes = [p]
+        # HPACK, for the tests: header lists cross as (u32 length, bytes)
+        # pairs.
+        lib.hpack_decoder_new.restype = p
+        lib.hpack_decoder_new.argtypes = [i64]
+        lib.hpack_decoder_free.restype = None
+        lib.hpack_decoder_free.argtypes = [p]
+        lib.hpack_decoder_set_limit.restype = None
+        lib.hpack_decoder_set_limit.argtypes = [p, i64]
+        lib.hpack_decoder_decode.restype = i64  # decoder, block, len, out, cap
+        lib.hpack_decoder_decode.argtypes = [p, s, i64, p, i64]
+        lib.hpack_decoder_table.restype = i64  # decoder, out, cap, size_out
+        lib.hpack_decoder_table.argtypes = [p, p, i64, p]
+        for fn in (lib.hpack_encode, lib.hpack_huffman_encode, lib.hpack_huffman_decode):
+            fn.restype = i64  # in, len, out, cap
+            fn.argtypes = [s, i64, p, i64]

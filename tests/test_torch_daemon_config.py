@@ -7,8 +7,9 @@ a stub that keeps the config and stops); every field of the port's
 reference's field of the same name, and the root logger's level must be
 the same.  `setup_daemon_config` is held to the reference's precedence
 (file over `env` over os.environ) and validation errors, `load_env_file`
-to its grammar and its bad-line error.  A config that makes the node one
-of several is refused at start, naming ROADMAP A entries 3-4.  Last, the
+to its grammar and its bad-line error.  Peer discovery is refused at
+start, naming ROADMAP A entry 4, and so are static peers on a node with
+no gRPC listener; static peers with one start.  Last, the
 port binary runs as a process with `-config` on the CPU, serving its
 status listener.  The port's modules load no grpc and no
 prometheus_client.
@@ -46,6 +47,9 @@ ROOT = Path(__file__).resolve().parent.parent
 ENV_FILE = """\
 # the daemon's settings
 GUBER_HTTP_ADDRESS=127.0.0.1:9080
+GUBER_GRPC_ADDRESS=127.0.0.1:9083
+GUBER_ADVERTISE_ADDRESS=10.0.0.3:9083
+GUBER_GRPC_WORKERS=7
 
 GUBER_CACHE_SIZE=12345
 GUBER_SWEEP_INTERVAL=1m30s
@@ -71,6 +75,10 @@ GUBER_CIRCUIT_BACKOFF=250ms
 GUBER_CIRCUIT_BACKOFF_CAP=10s
 GUBER_FORWARD_BACKOFF=5ms
 GUBER_FORWARD_BACKOFF_CAP=1s
+GUBER_BATCH_TIMEOUT=2s
+GUBER_BATCH_WAIT=1ms
+GUBER_BATCH_LIMIT=500
+GUBER_DEGRADED_LOCAL=false
 GUBER_PEER_PICKER=consistent-hash
 GUBER_REPLICATED_HASH_REPLICAS=64
 GUBER_STATIC_PEERS=127.0.0.1:9080, 127.0.0.1:9081
@@ -225,21 +233,52 @@ def test_env_file_grammar_and_bad_line(clean_env, tmp_path, load):
         load(str(path))
 
 
-@pytest.mark.parametrize("conf", [
-    DaemonConfig(peer_discovery_type="member-list"),
-    DaemonConfig(peer_discovery_type="dns", dns_fqdn="x.local"),
-    DaemonConfig(peer_discovery_type="etcd"),
-    DaemonConfig(peer_discovery_type="k8s"),
-    DaemonConfig(http_listen_address="127.0.0.1:0", static_peers=["10.0.0.2:81"]),
-    DaemonConfig(http_listen_address="127.0.0.1:0",
-                 static_peers=["127.0.0.1:0", "127.0.0.1:9999"]),
+@pytest.mark.parametrize("conf,match", [
+    (DaemonConfig(peer_discovery_type="member-list"), "ROADMAP A entry 4"),
+    (DaemonConfig(peer_discovery_type="dns", dns_fqdn="x.local"), "ROADMAP A entry 4"),
+    (DaemonConfig(peer_discovery_type="etcd"), "ROADMAP A entry 4"),
+    (DaemonConfig(peer_discovery_type="k8s"), "ROADMAP A entry 4"),
+    (DaemonConfig(http_listen_address="127.0.0.1:0", static_peers=["10.0.0.2:81"]),
+     "no gRPC listener"),
+    (DaemonConfig(http_listen_address="127.0.0.1:0",
+                  static_peers=["127.0.0.1:0", "127.0.0.1:9999"]), "no gRPC listener"),
 ])
-def test_multi_node_config_is_refused_at_start(conf):
-    with pytest.raises(ValueError, match="ROADMAP A entries 3-4"):
+def test_multi_node_config_is_refused_at_start(conf, match):
+    """Discovery is refused (ROADMAP A entry 4), and so are static peers
+    naming another node when this node has no gRPC listener for them to
+    forward to; static peers with a listener start (test_torch_cluster.py)."""
+    with pytest.raises(ValueError, match=match):
         check_single_node(conf)
-    with pytest.raises(ValueError, match="ROADMAP A entries 3-4"):
+    with pytest.raises(ValueError, match=match):
         spawn_daemon(dataclasses.replace(conf, cache_size=64, sweep_interval=0.0),
                      device="cpu")
+
+
+def test_static_peers_with_a_listener_start_and_forward():
+    """GUBER_STATIC_PEERS with GUBER_GRPC_ADDRESS: the ring holds every
+    named node, this one marked as itself, and a key another node owns
+    is forwarded to it (the other node is not running, so the answer is
+    the degraded local one, marked with the owner)."""
+    conf = DaemonConfig(grpc_listen_address="127.0.0.1:0", http_listen_address="127.0.0.1:0",
+                        cache_size=64, sweep_interval=0.0,
+                        static_peers=["127.0.0.1:1", "127.0.0.1:2"])
+    check_single_node(conf)
+    d = spawn_daemon(conf, device="cpu")
+    try:
+        ring = [(p.info.grpc_address, p.info.is_owner) for p in d.instance.get_peer_list()]
+        assert sorted(ring) == sorted([("127.0.0.1:1", False), ("127.0.0.1:2", False),
+                                       (d.grpc_address, True)])
+        key = next(f"{i}_k" for i in range(1000)
+                   if not d.instance.get_peer(f"n_{i}_k").info.is_owner)
+        from gubernator_tpu_torch.types import RateLimitReq
+
+        r = d.instance.get_rate_limits([RateLimitReq(name="n", unique_key=key, hits=1,
+                                                     limit=5, duration=60_000)])[0]
+        owner = d.instance.get_peer(f"n_{key}").info.grpc_address
+        assert (r.error, r.remaining, r.metadata) == (
+            "", 4, {"degraded": "true", "owner": owner})
+    finally:
+        d.close()
 
 
 def test_static_peers_naming_only_itself_start():
